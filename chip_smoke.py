@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""Smoke test of repro_torch on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. report the card (name, power limit) and build the CUDA kernels from
+   ``src/repro_torch/kernels/csrc``;
+2. run each of the four conv kernels at every ResNet-74 batch-128 conv
+   geometry the training path gives it, hold it against its plain PyTorch
+   version (kernels 3 and 4 bit for bit; kernels 1 and 2 within
+   ``FP32_REL`` of the reference's largest magnitude) and time it with CUDA
+   events next to the plain version, a PyTorch library call and its bound;
+3. train one step of a small ResNet on the card and on the CPU from the same
+   parameters and batch, and compare;
+4. train ResNet-74 (width 16, batch 128, synthetic CIFAR) with SMD, SLU and
+   PSG through ``repro_torch.launch.train``'s trainer until at least three
+   steps have executed, with every kernel's launch counter zeroed just
+   before and read just after, and print the energy report;
+5. profile one more executed step (device time by kernel, idle share).
+
+The second line from the end is a JSON object ``{"kernels": [...]}``, the
+line before it the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  Details also go to
+``chiprun_out/chip_smoke.json``.  Without a card, or without the rest of the
+repository beside it, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
+REPLACES = {   # the wrapper in the JAX package that reaches pl.pallas_call
+    "conv_fwd": "src/repro/kernels/conv.py:245",
+    "conv_grad_x": "src/repro/kernels/conv.py:274",
+    "conv_grad_w_predictor": "src/repro/kernels/conv.py:308",
+    "conv_grad_w": "src/repro/kernels/conv.py:337",
+}
+# H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12        # the fastest integer rate of the card
+# kernels 1 and 2 sum in fp32 in another order than the plain tap loop; the
+# reductions are at most 576 terms (9 taps x 64 channels), whose rounding
+# stays within a few 1e-7 of the largest magnitude
+FP32_REL = 1e-5
+DEPTH, WIDTH, BATCH = 74, 16, 128
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int = 10) -> float:
+    """Mean time of ``fn`` on the card, by CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def site(s):
+    """(B, Hp, C, dout, k, stride, Ho) of a conv as the PSG conv runs it:
+    SAME-padded, with ``k < stride`` pre-subsampled to stride 1."""
+    hw, k, stride = s.hw, s.k, s.stride
+    if k < stride:
+        hw, stride = -(-hw // stride), 1
+    hp = hw + 2 * (k // 2)
+    return s.batch, hp, s.cin, s.cout, k, stride, (hp - k) // stride + 1
+
+
+def check_kernels(torch, K, shapes_all, shapes):
+    """Phase 2: every kernel against its plain version, with times."""
+    import torch.nn.functional as F
+    from repro_torch.core.quant import codes, quantize
+
+    mult = {s: shapes_all.count(s) for s in shapes}
+    names = list(REPLACES)
+    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops_s=0.0,
+                   max_abs_err=0.0) for n in names}
+    details = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for s in shapes:
+        B, hp, C, dout, k, st, ho = site(s)
+        p = k // 2
+        x = torch.zeros(B, hp, hp, C, device="cuda")
+        x[:, p:hp - p, p:hp - p] = torch.randn(B, hp - 2 * p, hp - 2 * p, C,
+                                               device="cuda", generator=g)
+        w = torch.randn(k * k * C, dout, device="cuda", generator=g) * 0.1
+        gy = torch.randn(B, ho, ho, dout, device="cuda", generator=g) * 0.01
+        xq, wq, gq = quantize(x, 8), quantize(w, 8), quantize(gy, 16)
+        xm, _ = codes(x, 4)
+        gm, _ = codes(gy, 10)
+        xc, _ = codes(x, 8)
+        gc, _ = codes(gy, 16)
+        w_oihw = wq.reshape(C, k, k, dout).permute(3, 0, 1, 2).contiguous()
+        x_nchw = xq.permute(0, 3, 1, 2)          # channels-last views
+        g_nchw = gq.permute(0, 3, 1, 2)
+        xm_f = xm.float().permute(0, 3, 1, 2)
+        gm_f = gm.float().permute(0, 3, 1, 2)
+        n_pos, rows = B * ho * ho, k * k * C
+        macs = n_pos * rows * dout
+        row = {"geometry": [B, hp, C, dout, k, st], "kind": s.kind,
+               "sites_per_step": mult[s]}
+
+        # kernel 1: forward
+        y = K.conv_fwd(xq, wq, k, st)
+        ref = K.conv_fwd_plain(xq, wq, k, st)
+        err = float((y - ref).abs().max())
+        if not err <= FP32_REL * float(ref.abs().max()):
+            fail(f"conv_fwd at {row['geometry']}: max abs err {err}")
+        cases = [("conv_fwd", err,
+                  lambda: K.conv_fwd(xq, wq, k, st),
+                  lambda: K.conv_fwd_plain(xq, wq, k, st),
+                  lambda: F.conv2d(x_nchw, w_oihw, stride=st),
+                  4 * (xq.numel() + wq.numel() + y.numel()), 2 * macs,
+                  FP32_OPS_PER_S, mult[s])]
+
+        # kernel 2: input gradient (the stem's image needs none)
+        dx = K.conv_grad_x(gq, wq, k, st, hp, hp)
+        ref = K.conv_grad_x_plain(gq, wq, k, st, hp, hp)
+        err = float((dx - ref).abs().max())
+        if not err <= FP32_REL * float(ref.abs().max()):
+            fail(f"conv_grad_x at {row['geometry']}: max abs err {err}")
+        cases.append(("conv_grad_x", err,
+                      lambda: K.conv_grad_x(gq, wq, k, st, hp, hp),
+                      lambda: K.conv_grad_x_plain(gq, wq, k, st, hp, hp),
+                      lambda: torch.nn.grad.conv2d_input(
+                          (B, C, hp, hp), w_oihw, g_nchw, stride=st),
+                      4 * (gq.numel() + wq.numel() + dx.numel()), 2 * macs,
+                      FP32_OPS_PER_S, 0 if C == 3 else mult[s]))
+
+        # kernel 3: PSG predictor product, exact
+        pred = K.conv_grad_w_predictor(xm, gm, k, st)
+        if not torch.equal(pred, K.conv_grad_w_predictor_plain(xm, gm, k, st)):
+            fail(f"conv_grad_w_predictor at {row['geometry']}: not identical")
+        cases.append(("conv_grad_w_predictor", 0.0,
+                      lambda: K.conv_grad_w_predictor(xm, gm, k, st),
+                      lambda: K.conv_grad_w_predictor_plain(xm, gm, k, st),
+                      lambda: torch.nn.grad.conv2d_weight(
+                          xm_f, (dout, C, k, k), gm_f, stride=st),
+                      xm.numel() + 2 * gm.numel() + 4 * pred.numel(),
+                      2 * macs, INT8_OPS_PER_S, mult[s]))
+
+        # kernel 4: PSG select, exact
+        tau = 0.05 * pred.float().abs().amax()
+        sign, stats = K.conv_grad_w(pred, xc, gc, tau, k, st)
+        psign, pstats = K.conv_grad_w_plain(pred, xc, gc, tau, k, st)
+        if not (torch.equal(sign, psign) and torch.equal(stats, pstats)):
+            fail(f"conv_grad_w at {row['geometry']}: not identical")
+        row["fallback_flags"] = float(stats.float().mean())
+        cases.append(("conv_grad_w", 0.0,
+                      lambda: K.conv_grad_w(pred, xc, gc, tau, k, st),
+                      lambda: K.conv_grad_w_plain(pred, xc, gc, tau, k, st),
+                      None,
+                      4 * pred.numel() + xc.numel() + 2 * gc.numel() + 4
+                      + sign.numel() + 4 * stats.numel(),
+                      2 * macs, INT8_OPS_PER_S, mult[s]))
+
+        for name, err, kern, plain, lib, nbytes, ops, peak, m in cases:
+            r = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                 "library_ms": time_ms(torch, lib) if lib else None,
+                 "bytes": nbytes, "ops": ops, "max_abs_err": err,
+                 "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)}
+            row[name] = r
+            t = tot[name]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            for key in ("ms", "plain_ms", "bytes"):
+                t[key] += m * r[key]
+            if lib is None:
+                t["library_ms"] = None
+            else:
+                t["library_ms"] += m * r["library_ms"]
+            t["ops_s"] += m * ops / peak
+        details.append(row)
+        torch.cuda.synchronize()
+    return tot, details
+
+
+def reference_check(torch):
+    """Phase 3: one train step of a small ResNet on the card and on the CPU
+    from the same parameters, batch and SLU decisions."""
+    from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
+    from repro_torch.launch.train import experiment
+    from repro_torch.training.train_step import init_train_state, make_train_step
+
+    exp = experiment(depth=14, width=8, batch=8, steps=4)
+    batch = make_image_batch(GaussianImageTask(snr=2.0), 0, 0, 0, 8, "cpu")
+    keep = [True] * 6
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(exp, seed=0, device=dev)
+        state, met = make_train_step(exp)(
+            state, {k: v.to(dev) for k, v in batch.items()}, keep=keep)
+        out[dev] = ({k: float(v) for k, v in met.items()},
+                    {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    # 8-bit activation codes can flip at a rounding boundary between the two
+    # summation orders; see tests/test_torch_resnet.py for these bounds
+    if not abs(mc["loss"] - mg["loss"]) <= 1e-2 * max(1.0, abs(mc["loss"])):
+        fail(f"card loss {mg['loss']} vs CPU {mc['loss']}")
+    same = sum(int((pc[k] - pg[k]).abs().le(1e-6).sum()) for k in pc)
+    agree = same / sum(p.numel() for p in pc.values())
+    if agree < 0.9:
+        fail(f"updated parameters agree on only {agree:.3f} of elements")
+    return {"loss_cpu": mc["loss"], "loss_cuda": mg["loss"],
+            "fallback_cpu": mc["psg_fallback_ratio"],
+            "fallback_cuda": mg["psg_fallback_ratio"],
+            "param_agreement": agree}
+
+
+def main_path(torch, K):
+    """Phase 4: the training CLI's trainer at ResNet-74 width, batch 128."""
+    from repro_torch.core.smd import smd_keep_host
+    from repro_torch.launch.train import build_trainer
+
+    steps, kept = 0, 0
+    while kept < 4:                      # 4 executed: one warm-up + 3 timed
+        kept += smd_keep_host(0, steps, 0.5)
+        steps += 1
+    trainer = build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if trainer.executed_steps < 3:
+        fail(f"only {trainer.executed_steps} steps executed")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    for h in hist:
+        if not all(math.isfinite(h[k]) for k in ("loss", "total_loss")):
+            fail(f"non-finite loss at step {h['step']}: {h}")
+    fb = trainer.measured_psg_fallback()
+    if fb is None or not 0.0 <= fb <= 1.0:
+        fail(f"psg_fallback_ratio {fb} outside [0, 1]")
+    timed = [h["wall_s"] for h in hist[1:]]
+    return trainer, {
+        "nominal_steps": steps, "executed": trainer.executed_steps,
+        "dropped": trainer.dropped_steps, "launches": launches,
+        "ms_per_executed_step_first": 1e3 * hist[0]["wall_s"],
+        "ms_per_executed_step": 1e3 * sum(timed) / len(timed),
+        "run_wall_s": wall, "losses": [h["loss"] for h in hist],
+        "slu_exec_ratio": [h["slu_exec_ratio"] for h in hist],
+        "psg_fallback_ratio": fb,
+        "launches_per_executed_step": {
+            n: c / trainer.executed_steps for n, c in launches.items()}}
+
+
+def profile_step(torch, trainer):
+    """Phase 5: one more executed step of the main path under
+    torch.profiler: device time by kernel and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 1
+    while not trainer.keeps(trainer.state.step + steps - 1):
+        steps += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(steps)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+
+    # device-side events only (kernels, memsets, copies); busy time is the
+    # union of their intervals, so overlapping work is not counted twice
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name, calls = defaultdict(float), defaultdict(int)
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        t0, t1 = e.time_range.start, e.time_range.end
+        by_name[e.name] += t1 - t0
+        calls[e.name] += 1
+        busy_us += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {"step_wall_ms": wall_ms,
+            "device_busy_ms": busy_us / 1e3 if dev else None,
+            "device_idle_share": 1 - busy_us / 1e3 / wall_ms if dev else None,
+            "top": [{"ms": us / 1e3, "calls": calls[n], "name": n[:80]}
+                    for n, us in top]}
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no card to run on")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail("src/repro_torch is not beside chip_smoke.py")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    from repro_torch.configs.paper_cnns import resnet_conv_shapes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import conv as K
+    t0 = time.perf_counter()
+    build.build(["conv"], verbose=True)
+    build_s = time.perf_counter() - t0
+    print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
+
+    shapes_all = resnet_conv_shapes(DEPTH, WIDTH, BATCH, unique=False)
+    tot, details = check_kernels(torch, K, shapes_all,
+                                 resnet_conv_shapes(DEPTH, WIDTH, BATCH))
+    for row in details:
+        print(json.dumps(row), flush=True)
+    ref = reference_check(torch)
+    print(json.dumps({"phase": "reference", **ref}), flush=True)
+    trainer, main = main_path(torch, K)
+    print(json.dumps({"phase": "main_path", **main}), flush=True)
+    print(trainer.energy_report(steps=main["nominal_steps"]).summary(),
+          flush=True)
+    prof = profile_step(torch, trainer)
+    print(json.dumps({"phase": "profile", **prof}), flush=True)
+
+    kernels = []
+    for name in REPLACES:
+        t = tot[name]
+        bytes_ms = 1e3 * t["bytes"] / HBM_BYTES_PER_S
+        ops_ms = 1e3 * t["ops_s"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": main["launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": t["library_ms"]})
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "build_s": build_s, "geometries": details,
+         "reference": ref, "main_path": main, "profile": prof,
+         "kernels": kernels,
+         "note": "kernel times are summed over the conv sites of one "
+                 "ResNet-74 batch-128 step with every block executed",
+         "total_s": time.perf_counter() - t_start}, indent=1))
+    print(f"{card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,145 @@
+"""Per-layer cost model of the CIFAR ResNets, the bottom layer of the energy
+accounting (a copy of the CNN half of the JAX package's ``core/cost.py``).
+
+* :class:`LayerCost` — one layer's forward MACs / parameters / activation
+  elements, plus whether SLU can gate it (identity-shortcut residual blocks
+  only, as in ``models/resnet.py``).
+* :class:`TableCostModel` — an immutable table of layers with the derived
+  totals every consumer needs (``fwd_macs``, ``param_count``,
+  ``train_macs``, gated fractions, moved words).
+* Builder: :func:`resnet_cost` (:func:`cnn_cost` dispatches to it).
+
+The tables are pinned against the JAX package's in the tests.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+from repro_torch.core.config import ModelConfig
+
+@dataclass(frozen=True)
+class LayerCost:
+    """Forward cost of one layer for one example (one image / one sequence).
+
+    ``macs``       multiply-accumulates of the forward pass;
+    ``params``     trainable parameters (bias/affine included);
+    ``out_elems``  activation elements written (drives movement energy);
+    ``gated``      True when the layer lives inside an SLU-gatable block
+                   (identity-shortcut residual blocks; the paper never gates
+                   projection-shortcut transitions — ``models/resnet.py``).
+    """
+
+    name: str
+    kind: str            # conv | bn | fc | embed | block | head | dw
+    macs: float
+    params: int
+    out_elems: float
+    gated: bool = False
+
+
+@dataclass(frozen=True)
+class TableCostModel:
+    """A resolved per-layer cost table with the derived totals."""
+
+    name: str
+    layers: Tuple[LayerCost, ...]
+
+    # ----- totals -----
+    def fwd_macs(self) -> float:
+        """Forward MACs per example."""
+        return sum(l.macs for l in self.layers)
+
+    def param_count(self) -> int:
+        return sum(l.params for l in self.layers)
+
+    def act_elems(self) -> float:
+        """Activation elements written per example per forward."""
+        return sum(l.out_elems for l in self.layers)
+
+    # ----- SLU structure -----
+    def gated_macs(self) -> float:
+        return sum(l.macs for l in self.layers if l.gated)
+
+    def gated_fraction(self) -> float:
+        """Fraction of forward MACs that SLU gates can skip."""
+        total = self.fwd_macs()
+        return self.gated_macs() / total if total else 0.0
+
+    def gated_act_elems(self) -> float:
+        return sum(l.out_elems for l in self.layers if l.gated)
+
+    # ----- training-step costs -----
+    def train_macs(self, batch: int, slu_exec: float = 1.0) -> float:
+        """MACs of one training step: fwd + bwd-x + bwd-w ≈ 3 × fwd.
+
+        ``slu_exec``: fraction of gated-block compute that executed (1.0 =
+        no skipping).  Skipped blocks cost neither forward nor backward.
+        """
+        per_ex = self.fwd_macs() - (1.0 - slu_exec) * self.gated_macs()
+        return 3.0 * batch * per_ex
+
+    def moved_words(self, batch: int, slu_exec: float = 1.0) -> float:
+        """Words streamed through SRAM per training step: parameters plus
+        the executed activations, each touched ~once per pass (×3 passes) —
+        the same movement model ``core/energy.training_energy_pj`` uses."""
+        acts = self.act_elems() - (1.0 - slu_exec) * self.gated_act_elems()
+        return 3.0 * (self.param_count() + batch * acts)
+
+
+# ---------------------------------------------------------------------------
+# CIFAR ResNet (6n+2) — mirrors models/resnet.py layer by layer
+# ---------------------------------------------------------------------------
+
+
+def _conv(name: str, hw: int, k: int, cin: int, cout: int,
+          gated: bool = False) -> LayerCost:
+    return LayerCost(name, "conv", float(hw * hw * k * k * cin * cout),
+                     k * k * cin * cout, float(hw * hw * cout), gated)
+
+
+def _bn(name: str, hw: int, c: int, gated: bool = False) -> LayerCost:
+    # one multiply-add per element (scale + shift); affine params only —
+    # running stats are non-trainable state, not parameters
+    return LayerCost(name, "bn", float(hw * hw * c), 2 * c,
+                     float(hw * hw * c), gated)
+
+
+def resnet_cost(cfg: ModelConfig, image: int = 32) -> TableCostModel:
+    """Per-layer cost of the CIFAR ResNet encoded by a ``family="cnn"``
+    config (``num_layers`` = depth 6n+2, ``d_model`` = stage-0 width,
+    ``vocab_size`` = classes) — ``configs/paper_cnns.cnn_model``."""
+    depth, width, classes = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    assert (depth - 2) % 6 == 0, "CIFAR ResNet depth must be 6n+2"
+    n = (depth - 2) // 6
+    layers: List[LayerCost] = [
+        _conv("stem", image, 3, 3, width), _bn("stem_bn", image, width)]
+    hw, cin = image, width
+    for stage, cout in enumerate((width, 2 * width, 4 * width)):
+        for b in range(n):
+            stride = 2 if (stage > 0 and b == 0) else 1
+            hw_in, hw = hw, hw // stride
+            # identity-shortcut blocks gate; the projection transition
+            # (channel change, owns `down`) never does — models/resnet.py
+            gated = not (b == 0 and cin != cout)
+            tag = f"s{stage}b{b}"
+            layers += [
+                _conv(f"{tag}.conv1", hw, 3, cin, cout, gated),
+                _bn(f"{tag}.bn1", hw, cout, gated),
+                _conv(f"{tag}.conv2", hw, 3, cout, cout, gated),
+                _bn(f"{tag}.bn2", hw, cout, gated)]
+            if b == 0 and cin != cout:
+                layers.append(_conv(f"{tag}.down", hw, 1, cin, cout))
+            cin = cout
+    layers.append(LayerCost("fc", "fc", float(4 * width * classes),
+                            4 * width * classes + classes, float(classes)))
+    return TableCostModel(cfg.name, tuple(layers))
+
+
+def cnn_cost(cfg: ModelConfig, image: int = 32) -> TableCostModel:
+    """Dispatch on the ``family="cnn"`` encoding's model name."""
+    if cfg.family != "cnn":
+        raise ValueError(f"cnn_cost: {cfg.name!r} has family={cfg.family!r}")
+    if cfg.name == "mobilenetv2":
+        raise NotImplementedError("MobileNetV2 is not ported yet")
+    return resnet_cost(cfg, image)

@@ -1,0 +1,128 @@
+"""Predictive Sign Gradient (PSG, paper §3.3) for convolutions.
+
+The weight gradient leaves the backward as a sign: ``sign(g_msb)`` from a
+4-bit x 10-bit predictor product where ``|g_msb| >= beta * max|g_msb|``, and
+the sign of the full 8-bit x 16-bit product elsewhere (Eq. 2).  The forward
+runs on the 8-bit grid and the input gradient on the 16-bit output-gradient
+grid.  All three directions run through the kernels of ``kernels/conv.py``.
+
+The backward also reports how often the full product was needed, through
+the gradient of a *probe*: a ``zeros(2)`` tensor that requires grad and is
+an input of every PSG conv.  Each conv's backward returns ``[fallback *
+macs, macs]`` as the probe's gradient, autograd sums them, and
+:func:`probe_fallback_ratio` turns the sum into the MAC-weighted fallback
+ratio of the step.  A block that SLU skips runs no conv and adds nothing.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.config import PSGConfig
+from repro_torch.core.quant import quantize
+from repro_torch.kernels import ops
+
+PROBE_SIZE = 2
+
+
+def zero_probe(device=None) -> torch.Tensor:
+    """A fresh probe; differentiate the loss with respect to it."""
+    return torch.zeros(PROBE_SIZE, device=device, requires_grad=True)
+
+
+def probe_fallback_ratio(probe_grad: torch.Tensor) -> torch.Tensor:
+    """MAC-weighted measured fallback ratio from a probe gradient."""
+    return probe_grad[0] / torch.clamp_min(probe_grad[1], 1.0)
+
+
+class PSGConv2d(torch.autograd.Function):
+    """NHWC conv ``(B, Hp, Wp, C) x (k*k*C, dout)`` with PSG backward on a
+    pre-padded input (padding and the ``k < stride`` subsample stay outside,
+    in :func:`conv2d`, so autograd crops ``dx`` and the quantization grids
+    are those of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, xp, w, probe, k: int, stride: int, cfg: PSGConfig):
+        ctx.save_for_backward(xp, w)
+        ctx.k, ctx.stride, ctx.cfg = k, stride, cfg
+        xq = quantize(xp, cfg.bits_x)
+        wq = quantize(w, cfg.bits_x).to(xq.dtype)
+        return ops.conv_fwd(xq, wq, k, stride)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xp, w = ctx.saved_tensors
+        k, stride, cfg = ctx.k, ctx.stride, ctx.cfg
+        B, Hp, Wp, C = xp.shape
+        dout = w.shape[-1]
+        ho, wo = gy.shape[1], gy.shape[2]
+        dxp = None
+        if ctx.needs_input_grad[0]:
+            gq = quantize(gy, cfg.bits_g)
+            wq = quantize(w, cfg.bits_x)
+            dxp = ops.conv_grad_x(gq, wq, k, stride, Hp, Wp).to(xp.dtype)
+        sign, fallback = ops.conv_grad_w(xp, gy, cfg, k, stride)
+        # fp32 like the JAX package: float32(B*Ho*Wo) * (k*k*C) * dout
+        macs = torch.tensor(float(B * ho * wo), dtype=torch.float32,
+                            device=gy.device) * (k * k * C) * dout
+        dprobe = torch.stack([fallback * macs, macs])
+        return dxp, sign.to(w.dtype), dprobe, None, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, k: int = 3,
+           stride: int = 1) -> torch.Tensor:
+    """NHWC ``x`` with a patch-major ``(k*k*C, dout)`` weight and SAME
+    padding ``k // 2``.
+
+    Runs :class:`PSGConv2d` under the active PSG config; without one it
+    raises (training without PSG needs the materialized im2col path, which
+    this package does not have).
+
+    ``k < stride`` (the 1x1 stride-2 shortcut) is a pre-subsampled stride-1
+    conv, so the quantization grid is that of the subsample.
+    """
+    cfg = active_config()
+    if cfg is None:
+        raise NotImplementedError("conv2d needs an active PSG config "
+                                  "(psg.enable); the non-PSG conv path is "
+                                  "not ported")
+    if k < stride:
+        x = x[:, ::stride, ::stride, :]
+        stride = 1
+    pad = k // 2
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
+    return PSGConv2d.apply(xp, w, _current_probe(xp.device), k, stride, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the active config, per thread
+# ---------------------------------------------------------------------------
+
+_state = threading.local()
+
+
+def active_config() -> Optional[PSGConfig]:
+    cfg = getattr(_state, "cfg", None)
+    return cfg if (cfg is not None and cfg.enabled) else None
+
+
+def _current_probe(device) -> torch.Tensor:
+    probe = getattr(_state, "probe", None)
+    return probe if probe is not None else torch.zeros(PROBE_SIZE,
+                                                       device=device)
+
+
+@contextlib.contextmanager
+def enable(cfg: Optional[PSGConfig], probe: Optional[torch.Tensor] = None):
+    """Route convs through PSG inside this context, threading ``probe``
+    (see :func:`zero_probe`) into each of them."""
+    prev = getattr(_state, "cfg", None), getattr(_state, "probe", None)
+    _state.cfg, _state.probe = cfg, probe
+    try:
+        yield
+    finally:
+        _state.cfg, _state.probe = prev

@@ -1,0 +1,27 @@
+"""``cifar_cnn`` task: the paper's CIFAR ResNets (ResNet branch only; a
+model named ``"mobilenetv2"`` is not ported yet)."""
+from __future__ import annotations
+
+from repro_torch.core.config import Experiment
+from repro_torch.core.cost import cnn_cost
+from repro_torch.models import resnet as R
+from repro_torch.tasks import Task, register
+
+
+def _init(exp: Experiment, seed: int = 0) -> R.ResNet:
+    m = exp.model
+    if m.name == "mobilenetv2":
+        raise NotImplementedError("MobileNetV2 is not ported yet")
+    return R.ResNet(m.num_layers, num_classes=m.vocab_size, e2=exp.e2,
+                    width=m.d_model, seed=seed)
+
+
+def _make_loss(exp: Experiment):
+    def loss(model, batch, key, keep=None):
+        return R.resnet_loss(model, batch, key, keep=keep)
+    return loss
+
+
+CIFAR_CNN_TASK = register(Task(name="cifar_cnn", init=_init,
+                               make_loss=_make_loss,
+                               cost=lambda exp: cnn_cost(exp.model)))
