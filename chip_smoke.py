@@ -6,19 +6,24 @@
 Phases, each fatal on failure:
 
 1. report the card (name, power limit) and build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc``;
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once);
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
    version (kernels 3 and 4 bit for bit; kernels 1 and 2 within
    ``FP32_REL`` of the reference's largest magnitude) and time it with CUDA
    events next to the plain version, a PyTorch library call and its bound;
-3. train one step of a small ResNet on the card and on the CPU from the same
-   parameters and batch, and compare;
-4. train ResNet-74 (width 16, batch 128, synthetic CIFAR) with SMD, SLU and
+3. the same for the two PSG matmul kernels (bit for bit, signs and flags
+   included) at every qwen2.5-3b weight-matmul geometry with N = 8192
+   tokens, plus a padded one;
+4. train one step of a small ResNet on the card and on the CPU from the same
+   parameters and batch, and compare; the same for the reduced qwen2.5-3b;
+5. train ResNet-74 (width 16, batch 128, synthetic CIFAR) with SMD, SLU and
    PSG through ``repro_torch.launch.train``'s trainer until at least three
    steps have executed, with every kernel's launch counter zeroed just
-   before and read just after, and print the energy report;
-5. profile one more executed step (device time by kernel, idle share).
+   before and read just after, print the energy report and profile one more
+   executed step (device time by kernel, idle share);
+6. the same for qwen2.5-3b at full width, 8 of its 36 layers, batch 2 x
+   sequence 4096 (``build_lm_trainer``).
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -36,13 +41,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
+CONV_SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
+PSG_SOURCE = "src/repro_torch/kernels/csrc/psg_matmul.cu"
 REPLACES = {   # the wrapper in the JAX package that reaches pl.pallas_call
     "conv_fwd": "src/repro/kernels/conv.py:245",
     "conv_grad_x": "src/repro/kernels/conv.py:274",
     "conv_grad_w_predictor": "src/repro/kernels/conv.py:308",
     "conv_grad_w": "src/repro/kernels/conv.py:337",
+    "predictor_matmul": "src/repro/kernels/psg_matmul.py:162",
+    "psg_grad_w": "src/repro/kernels/psg_matmul.py:110",
 }
+SOURCES = {n: CONV_SOURCE for n in list(REPLACES)[:4]}
+SOURCES.update(predictor_matmul=PSG_SOURCE, psg_grad_w=PSG_SOURCE)
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
@@ -52,6 +62,7 @@ INT8_OPS_PER_S = 1979e12        # the fastest integer rate of the card
 # stays within a few 1e-7 of the largest magnitude
 FP32_REL = 1e-5
 DEPTH, WIDTH, BATCH = 74, 16, 128
+LM_ARCH, LM_LAYERS, LM_BATCH, LM_SEQ = "qwen2_5_3b", 8, 2, 4096
 
 
 def fail(msg: str) -> None:
@@ -96,9 +107,7 @@ def check_kernels(torch, K, shapes_all, shapes):
     from repro_torch.core.quant import codes, quantize
 
     mult = {s: shapes_all.count(s) for s in shapes}
-    names = list(REPLACES)
-    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops_s=0.0,
-                   max_abs_err=0.0) for n in names}
+    tot = {n: _zero_total() for n in list(REPLACES)[:4]}
     details = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for s in shapes:
@@ -178,28 +187,97 @@ def check_kernels(torch, K, shapes_all, shapes):
                       + sign.numel() + 4 * stats.numel(),
                       2 * macs, INT8_OPS_PER_S, mult[s]))
 
-        for name, err, kern, plain, lib, nbytes, ops, peak, m in cases:
-            r = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-                 "library_ms": time_ms(torch, lib) if lib else None,
-                 "bytes": nbytes, "ops": ops, "max_abs_err": err,
-                 "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)}
-            row[name] = r
-            t = tot[name]
-            t["max_abs_err"] = max(t["max_abs_err"], err)
-            for key in ("ms", "plain_ms", "bytes"):
-                t[key] += m * r[key]
-            if lib is None:
-                t["library_ms"] = None
-            else:
-                t["library_ms"] += m * r["library_ms"]
-            t["ops_s"] += m * ops / peak
+        time_cases(torch, cases, row, tot)
         details.append(row)
         torch.cuda.synchronize()
     return tot, details
 
 
+def _zero_total():
+    return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops_s=0.0,
+                max_abs_err=0.0)
+
+
+def time_cases(torch, cases, row, tot):
+    """Time each (kernel, plain, library) triple and add it, weighted by
+    its sites per step, to the kernel's totals."""
+    for name, err, kern, plain, lib, nbytes, ops, peak, m in cases:
+        r = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+             "library_ms": time_ms(torch, lib) if lib else None,
+             "bytes": nbytes, "ops": ops, "max_abs_err": err,
+             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)}
+        row[name] = r
+        t = tot[name]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        for key in ("ms", "plain_ms", "bytes"):
+            t[key] += m * r[key]
+        if lib is None:
+            t["library_ms"] = None
+        else:
+            t["library_ms"] += m * r["library_ms"]
+        t["ops_s"] += m * ops / peak
+
+
+def lm_matmul_sites(d, heads, kv_heads, head_dim, d_ff, layers):
+    """{(din, dout): PSG weight-matmul sites per step} of a dense qwen-style
+    stack: q and o (d x d), k and v (d x kv), up and gate (d x d_ff),
+    down (d_ff x d), per layer."""
+    kv = kv_heads * head_dim
+    sites = {}
+    for geo in [(d, heads * head_dim), (heads * head_dim, d), (d, kv),
+                (d, kv), (d, d_ff), (d, d_ff), (d_ff, d)]:
+        sites[geo] = sites.get(geo, 0) + layers
+    return sites
+
+
+def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens):
+    """Phase 3: kernels 5 and 6 against their plain versions at each weight
+    matmul geometry, timed; the padded geometry is checked, not counted."""
+    from repro_torch.core.quant import codes
+
+    tot = {n: _zero_total() for n in ("predictor_matmul", "psg_grad_w")}
+    details = []
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for (din, dout), m in list(sites.items()) + [(padded, 0)]:
+        x = torch.randn(n_tokens, din, device="cuda", generator=g)
+        gy = torch.randn(n_tokens, dout, device="cuda", generator=g) * 0.01
+        xm, gm = codes(x, 4)[0], codes(gy, 10)[0]
+        xq, gq = codes(x, 8)[0], codes(gy, 16)[0]
+        del x, gy
+        row = {"geometry": [n_tokens, din, dout], "sites_per_step": m}
+        pred = PM.predictor_matmul(xm, gm)
+        if not torch.equal(pred, PM.predictor_matmul_plain(xm, gm)):
+            fail(f"predictor_matmul at {row['geometry']}: not identical")
+        tau = 0.05 * pred.float().abs().amax()
+        sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
+        psign, pstats = PM.psg_grad_w_plain(pred, xq, gq, tau)
+        if not (torch.equal(sign, psign) and torch.equal(stats, pstats)):
+            fail(f"psg_grad_w at {row['geometry']}: not identical")
+        row["fallback_flags"] = float(stats.float().mean())
+        ops = 2 * n_tokens * din * dout
+        xm_f, gm_f = xm.float(), gm.float()
+        cases = [
+            ("predictor_matmul", 0.0,
+             lambda: PM.predictor_matmul(xm, gm),
+             lambda: PM.predictor_matmul_plain(xm, gm),
+             lambda: torch.matmul(xm_f.T, gm_f),
+             xm.numel() + 2 * gm.numel() + 4 * pred.numel(), ops,
+             INT8_OPS_PER_S, m),
+            ("psg_grad_w", 0.0,
+             lambda: PM.psg_grad_w(pred, xq, gq, tau),
+             lambda: PM.psg_grad_w_plain(pred, xq, gq, tau),
+             None,
+             4 * pred.numel() + xq.numel() + 2 * gq.numel() + 4
+             + sign.numel() + 4 * stats.numel(), ops, INT8_OPS_PER_S, m)]
+        time_cases(torch, cases, row, tot)
+        details.append(row)
+        del xm_f, gm_f
+        torch.cuda.synchronize()
+    return tot, details
+
+
 def reference_check(torch):
-    """Phase 3: one train step of a small ResNet on the card and on the CPU
+    """Phase 4: one train step of a small ResNet on the card and on the CPU
     from the same parameters, batch and SLU decisions."""
     from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
     from repro_torch.launch.train import experiment
@@ -216,6 +294,12 @@ def reference_check(torch):
         out[dev] = ({k: float(v) for k, v in met.items()},
                     {k: p.detach().cpu() for k, p in state.model.named_parameters()})
     (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    return compare_steps(mc, pc, mg, pg)
+
+
+def compare_steps(mc, pc, mg, pg):
+    """Card step vs CPU step: loss within 1e-2 and at least 90% of the
+    updated parameter elements equal."""
     # 8-bit activation codes can flip at a rounding boundary between the two
     # summation orders; see tests/test_torch_resnet.py for these bounds
     if not abs(mc["loss"] - mg["loss"]) <= 1e-2 * max(1.0, abs(mc["loss"])):
@@ -230,27 +314,66 @@ def reference_check(torch):
             "param_agreement": agree}
 
 
-def main_path(torch, K):
-    """Phase 4: the training CLI's trainer at ResNet-74 width, batch 128."""
+def lm_reference_check(torch):
+    """Phase 4: one train step of the reduced qwen2.5-3b on the card and on
+    the CPU from the same parameters and batch; SLU decisions come from the
+    same step key on both."""
+    import copy
+
+    from repro_torch.data.synthetic import MarkovLMTask, make_lm_batch
+    from repro_torch.launch.train import lm_experiment
+    from repro_torch.tasks import get_task
+    from repro_torch.training.train_step import make_train_step, train_state_for
+
+    exp = lm_experiment(LM_ARCH, smoke=True, steps=4)
+    tc = exp.train
+    batch = make_lm_batch(MarkovLMTask(vocab=exp.model.vocab_size), tc.seed,
+                          0, 0, tc.global_batch, tc.seq_len, "cpu")
+    model = get_task("lm").init(exp, 0, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = train_state_for(exp, copy.deepcopy(model).to(dev))
+        state, met = make_train_step(exp)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = ({k: float(v) for k, v in met.items()},
+                    {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    return compare_steps(mc, pc, mg, pg)
+
+
+def reset_all(mods):
+    for mod in mods:
+        mod.reset_launches()
+
+
+def main_path(torch, build, mods, kernels):
+    """Phases 5-6: build the trainer for the nominal steps that execute four
+    (one warm-up + three timed; SMD seed 0, p = 0.5) and run them, with
+    every launch counter zeroed just before and read just after; fail
+    unless each of ``kernels`` ran."""
     from repro_torch.core.smd import smd_keep_host
-    from repro_torch.launch.train import build_trainer
 
     steps, kept = 0, 0
-    while kept < 4:                      # 4 executed: one warm-up + 3 timed
+    while kept < 4:
         kept += smd_keep_host(0, steps, 0.5)
         steps += 1
-    trainer = build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda")
+    trainer = build(steps)
+    # host cost of one batch: the threefry draws in numpy plus the copy
+    t0 = time.perf_counter()
+    for step in range(3):
+        trainer.make_batch(step, 0)
     torch.cuda.synchronize()
-    K.reset_launches()
+    batch_ms = 1e3 * (time.perf_counter() - t0) / 3
+    reset_all(mods)
     t0 = time.perf_counter()
     hist = trainer.run(steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
     if trainer.executed_steps < 3:
         fail(f"only {trainer.executed_steps} steps executed")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in kernels:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     for h in hist:
         if not all(math.isfinite(h[k]) for k in ("loss", "total_loss")):
@@ -264,16 +387,18 @@ def main_path(torch, K):
         "dropped": trainer.dropped_steps, "launches": launches,
         "ms_per_executed_step_first": 1e3 * hist[0]["wall_s"],
         "ms_per_executed_step": 1e3 * sum(timed) / len(timed),
+        "host_batch_ms": batch_ms,
         "run_wall_s": wall, "losses": [h["loss"] for h in hist],
         "slu_exec_ratio": [h["slu_exec_ratio"] for h in hist],
         "psg_fallback_ratio": fb,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_per_executed_step": {
             n: c / trainer.executed_steps for n, c in launches.items()}}
 
 
 def profile_step(torch, trainer):
-    """Phase 5: one more executed step of the main path under
-    torch.profiler: device time by kernel and the device's busy share."""
+    """One more executed step of a main path under torch.profiler: device
+    time by kernel and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = 1
@@ -308,6 +433,19 @@ def profile_step(torch, trainer):
                     for n, us in top]}
 
 
+def run_path(torch, name, build, mods, kernels):
+    """A main path, its energy report and its profile."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, main = main_path(torch, build, mods, kernels)
+    print(json.dumps({"phase": name, **main}), flush=True)
+    print(trainer.energy_report(steps=main["nominal_steps"]).summary(),
+          flush=True)
+    prof = profile_step(torch, trainer)
+    print(json.dumps({"phase": f"{name}_profile", **prof}), flush=True)
+    return main, prof
+
+
 def main() -> None:
     try:
         import torch
@@ -324,11 +462,14 @@ def main() -> None:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    from repro_torch.configs import get_experiment
     from repro_torch.configs.paper_cnns import resnet_conv_shapes
     from repro_torch.kernels import build
     from repro_torch.kernels import conv as K
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch.train import build_lm_trainer, build_trainer
     t0 = time.perf_counter()
-    build.build(["conv"], verbose=True)
+    build.build(["conv", "psg_matmul"], verbose=True)
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
 
@@ -337,23 +478,40 @@ def main() -> None:
                                  resnet_conv_shapes(DEPTH, WIDTH, BATCH))
     for row in details:
         print(json.dumps(row), flush=True)
+    m = get_experiment(LM_ARCH).model
+    sites = lm_matmul_sites(m.d_model, m.num_heads, m.num_kv_heads,
+                            m.resolved_head_dim, m.d_ff, LM_LAYERS)
+    ptot, pdetails = check_psg_matmul_kernels(torch, PM, sites, (200, 328),
+                                              LM_BATCH * LM_SEQ)
+    tot.update(ptot)
+    for row in pdetails:
+        print(json.dumps(row), flush=True)
     ref = reference_check(torch)
     print(json.dumps({"phase": "reference", **ref}), flush=True)
-    trainer, main = main_path(torch, K)
-    print(json.dumps({"phase": "main_path", **main}), flush=True)
-    print(trainer.energy_report(steps=main["nominal_steps"]).summary(),
-          flush=True)
-    prof = profile_step(torch, trainer)
-    print(json.dumps({"phase": "profile", **prof}), flush=True)
+    lm_ref = lm_reference_check(torch)
+    print(json.dumps({"phase": "lm_reference", **lm_ref}), flush=True)
+
+    mods = (K, PM)
+    main, prof = run_path(
+        torch, "main_path",
+        lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda"),
+        mods, list(K.LAUNCHES))
+    lm_main, lm_prof = run_path(
+        torch, "lm_main_path",
+        lambda steps: build_lm_trainer(LM_ARCH, num_layers=LM_LAYERS,
+                                       batch=LM_BATCH, seq=LM_SEQ,
+                                       steps=steps, device="cuda"),
+        mods, list(PM.LAUNCHES))
 
     kernels = []
     for name in REPLACES:
         t = tot[name]
         bytes_ms = 1e3 * t["bytes"] / HBM_BYTES_PER_S
         ops_ms = 1e3 * t["ops_s"]
+        path = main if name in K.LAUNCHES else lm_main
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": main["launches"][name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": path["launches"][name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -362,10 +520,13 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "geometries": details,
-         "reference": ref, "main_path": main, "profile": prof,
-         "kernels": kernels,
-         "note": "kernel times are summed over the conv sites of one "
-                 "ResNet-74 batch-128 step with every block executed",
+         "lm_geometries": pdetails, "reference": ref,
+         "lm_reference": lm_ref, "main_path": main, "profile": prof,
+         "lm_main_path": lm_main, "lm_profile": lm_prof, "kernels": kernels,
+         "note": "conv kernel times are summed over the conv sites of one "
+                 "ResNet-74 batch-128 step, PSG matmul kernel times over the "
+                 "weight-matmul sites of one qwen2.5-3b 8-layer step at "
+                 "N = 8192 tokens, with every block executed",
          "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

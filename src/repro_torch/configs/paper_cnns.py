@@ -11,7 +11,8 @@ def cnn_model(name: str, depth: int, num_classes: int = 10,
     """``num_layers`` is the CIFAR ResNet depth (6n+2), ``d_model`` the
     stage-0 width, ``vocab_size`` the class count."""
     return ModelConfig(name=name, family="cnn", num_layers=depth,
-                       d_model=width, vocab_size=num_classes)
+                       d_model=width, num_heads=1, num_kv_heads=1, d_ff=0,
+                       vocab_size=num_classes, glu=False, dtype="float32")
 
 
 def _cnn_train(lr: float) -> TrainConfig:

@@ -1,11 +1,16 @@
-"""Carry the JAX package's ResNet trees over to this package.
+"""Carry the JAX package's parameter trees over to this package.
 
-``state_dict_from_jax(params, model_state)`` takes the JAX package's
-``(params, model_state)`` as nested dicts/lists of numpy arrays (what
-``jax.tree.map(np.asarray, ...)`` gives) and returns a ``state_dict`` for
-:class:`repro_torch.models.resnet.ResNet`: the stacked ``rest`` blocks of
-each stage are unstacked into per-block modules, and conv weights stay
-patch-major ``(k*k*C, Cout)``.  Needs no JAX.
+Both functions take the JAX package's trees as nested dicts/lists of numpy
+arrays (what ``jax.tree.map(np.asarray, ...)`` gives) and need no JAX.
+
+* ``state_dict_from_jax(params, model_state)``: a ``state_dict`` for
+  :class:`repro_torch.models.resnet.ResNet`; the stacked ``rest`` blocks of
+  each stage are unstacked into per-block modules, and conv weights stay
+  patch-major ``(k*k*C, Cout)``.
+* ``lm_state_dict_from_jax(params)``: a ``state_dict`` for
+  :class:`repro_torch.models.transformer.TransformerLM`; the stacked
+  ``units`` are unstacked into per-layer modules, and the attention weights
+  keep their ``(d, n, h)`` / ``(n, h, d)`` layouts.
 """
 from __future__ import annotations
 
@@ -36,6 +41,19 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def _flatten(out: Dict[str, np.ndarray], prefix: str, tree: Any) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(out, f"{prefix}{k}.", v)
+        else:
+            out[f"{prefix}{k}"] = v
+
+
 def state_dict_from_jax(params: Dict[str, Any], model_state: Dict[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {
@@ -54,5 +72,22 @@ def state_dict_from_jax(params: Dict[str, Any], model_state: Dict[str, Any]
     if "slu_gate" in params:
         for k in GATE_KEYS:
             out[f"slu_gate.{k}"] = params["slu_gate"][k]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in out.items()}
+    return _tensors(out)
+
+
+def lm_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Only ``attn`` units of one block each (what the port builds)."""
+    units = params["units"]
+    if list(units) != ["b0_attn"]:
+        raise NotImplementedError(f"units {sorted(units)}: only one-block "
+                                  "'attn' units are ported")
+    out: Dict[str, np.ndarray] = {"embed": params["embed"]}
+    if "head" in params:
+        out["head"] = params["head"]
+    _flatten(out, "final_norm.", params["final_norm"])
+    stacked = units["b0_attn"]
+    for i in range(len(stacked["ln1"]["scale"])):
+        _flatten(out, f"layers.{i}.", _index(stacked, i))
+    if "slu_gate" in params:
+        _flatten(out, "slu_gate.", params["slu_gate"])
+    return _tensors(out)

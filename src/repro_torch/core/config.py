@@ -1,30 +1,125 @@
-"""Configuration of the CIFAR CNN training path, as frozen dataclasses.
+"""Configuration of the port's training paths, as frozen dataclasses.
 
 The field names and defaults are those of the JAX package's
 ``repro.core.config`` so that one experiment reads the same in both
-packages.  Only the CNN fields of :class:`ModelConfig` are kept, and only
-the options this package implements: ``PSGConfig.fused_conv`` may be
-``None`` (auto) or ``True``; ``False`` selects the materialized
-im2col + PSG-matmul path, which this package does not have.
+packages.  :class:`ModelConfig` keeps the CNN encoding (``family="cnn"``)
+and the dense-transformer fields; the MoE and SSM fields are not ported.
+Options this package does not implement raise ``NotImplementedError`` where
+they are set, never a quiet substitute:
+
+* ``PSGConfig.fused_conv=False`` (the materialized im2col + PSG-matmul conv
+  path);
+* ``PSGConfig.fused_attention=True`` (the flash-attention kernels);
+* ``TrainConfig.remat="full"``;
+* block kinds other than ``"attn"``, sliding-window attention and the
+  encoder/cross-attention/frontend fields (raised by
+  ``models/transformer.py`` when such a model is built).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+BLOCK_ATTN = "attn"              # self-attention + dense MLP
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """``family="cnn"`` encoding (``configs/paper_cnns.cnn_model``):
-    ``num_layers`` is the CIFAR ResNet depth (6n+2), ``d_model`` the
-    stage-0 width and ``vocab_size`` the class count.  CNNs train in
-    fp32."""
+    """Architecture definition.
+
+    ``family="cnn"`` (``configs/paper_cnns.cnn_model``): ``num_layers`` is
+    the CIFAR ResNet depth (6n+2), ``d_model`` the stage-0 width and
+    ``vocab_size`` the class count; CNNs train in fp32.  Otherwise a
+    transformer LM of ``num_layers`` blocks (``models/transformer.py``).
+    """
 
     name: str
-    family: str
+    family: str                      # dense | cnn (moe/ssm/hybrid not ported)
     num_layers: int
     d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
     vocab_size: int
+
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    mlp_bias: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0          # 0 -> full (causal) attention
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "silu"                # silu | gelu | relu
+    glu: bool = True                 # gated MLP (SwiGLU-style) if True
+    tie_embeddings: bool = False
+    router_aux_coef: float = 0.01    # MoE load-balance weight (no MoE here)
+
+    # repeating unit of block kinds, tiled to num_layers; empty -> "attn"
+    # for the dense family
+    block_unit: Tuple[str, ...] = ()
+
+    # encoder/decoder and multimodal frontends: not ported (must stay off)
+    encoder_layers: int = 0
+    cross_attention: bool = False
+    frontend: str = ""
+    frontend_tokens: int = 0
+
+    dtype: str = "bfloat16"          # activation dtype
+    param_dtype: str = "float32"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    @property
+    def blocks(self) -> Tuple[str, ...]:
+        """Full per-layer block-kind tuple of length num_layers."""
+        unit = self.block_unit
+        if not unit:
+            unit = {"moe": ("moe",), "ssm": ("mlstm",)}.get(self.family,
+                                                           (BLOCK_ATTN,))
+        reps = -(-self.num_layers // len(unit))
+        return (unit * reps)[: self.num_layers]
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding/head rows: the vocab rounded up to a multiple of 128
+        (vocabs under 1024 stay unpadded); the pad ids' logits are masked."""
+        if self.vocab_size < 1024:
+            return self.vocab_size
+        return -(-self.vocab_size // 128) * 128
+
+    def param_count(self) -> int:
+        """Analytic parameter count (``attn`` blocks; a CNN config asks its
+        per-layer cost table)."""
+        if self.family == "cnn":
+            from repro_torch.core.cost import cnn_cost
+            return cnn_cost(self).param_count()
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        n += sum(self._block_params(kind, d, hd) for kind in self.blocks)
+        return n + d                                  # final norm
+
+    def _attn_params(self, d: int, hd: int) -> int:
+        q = d * self.num_heads * hd
+        kv = 2 * d * self.num_kv_heads * hd
+        o = self.num_heads * hd * d
+        b = (self.num_heads * hd + 2 * self.num_kv_heads * hd) \
+            if self.qkv_bias else 0
+        return q + kv + o + b + 2 * d   # + norms
+
+    def _mlp_params(self, d: int, dff: int) -> int:
+        return (3 if self.glu else 2) * d * dff
+
+    def _block_params(self, kind: str, d: int, hd: int) -> int:
+        if kind == BLOCK_ATTN:
+            return self._attn_params(d, hd) + self._mlp_params(d, self.d_ff)
+        raise NotImplementedError(f"block kind {kind!r} is not ported "
+                                  "(only dense 'attn' blocks)")
 
 
 @dataclass(frozen=True)
@@ -62,12 +157,22 @@ class PSGConfig:
     # every direction.  None = auto = on; False (materialized im2col) is
     # not implemented in this package.
     fused_conv: Optional[bool] = None
+    # transformer self-attention: None = auto = the materialized softmax
+    # path (models/layers.py), whose weight matmuls run the PSG matmul
+    # kernels.  This differs from the JAX package's auto on its CPU
+    # backends, which picks the flash kernels; it is what the JAX package
+    # resolves to on the TPU.  True (the flash kernels) is not ported yet.
+    fused_attention: Optional[bool] = None
 
     def __post_init__(self):
         if self.fused_conv is False:
             raise NotImplementedError(
                 "fused_conv=False selects the materialized im2col + "
                 "psg_matmul path, which repro_torch does not implement")
+        if self.fused_attention is True:
+            raise NotImplementedError(
+                "fused_attention=True selects the flash-attention kernels, "
+                "which repro_torch does not implement yet")
 
 
 @dataclass(frozen=True)
@@ -80,6 +185,7 @@ class E2TrainConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     global_batch: int = 256
+    seq_len: int = 4096
     microbatches: int = 1             # only 1 is implemented
     lr: float = 0.1
     schedule: str = "step"            # step | cosine | constant
@@ -91,7 +197,15 @@ class TrainConfig:
     weight_decay: float = 1e-4
     optimizer: str = "sgdm"           # sgdm | signsgd | psg
     grad_clip: float = 0.0
+    remat: str = "block"              # none | block (full is not ported)
     seed: int = 0
+
+    def __post_init__(self):
+        if self.remat == "full":
+            raise NotImplementedError("remat='full' is not ported; use "
+                                      "'block' or 'none'")
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"unknown remat {self.remat!r}")
 
 
 @dataclass(frozen=True)
@@ -99,4 +213,9 @@ class Experiment:
     model: ModelConfig
     e2: E2TrainConfig = field(default_factory=E2TrainConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
-    task: str = "cifar_cnn"
+    # the ``repro_torch.tasks`` entry that builds and trains the model:
+    # "lm" (models/transformer.py) or "cifar_cnn" (models/resnet.py)
+    task: str = "lm"
+
+    def replace(self, **kw) -> "Experiment":
+        return dataclasses.replace(self, **kw)

@@ -1,5 +1,5 @@
-"""Per-layer cost model of the CIFAR ResNets, the bottom layer of the energy
-accounting (a copy of the CNN half of the JAX package's ``core/cost.py``).
+"""Per-layer cost model, the bottom layer of the energy accounting (a copy
+of the ResNet and transformer parts of the JAX package's ``core/cost.py``).
 
 * :class:`LayerCost` — one layer's forward MACs / parameters / activation
   elements, plus whether SLU can gate it (identity-shortcut residual blocks
@@ -7,7 +7,8 @@ accounting (a copy of the CNN half of the JAX package's ``core/cost.py``).
 * :class:`TableCostModel` — an immutable table of layers with the derived
   totals every consumer needs (``fwd_macs``, ``param_count``,
   ``train_macs``, gated fractions, moved words).
-* Builder: :func:`resnet_cost` (:func:`cnn_cost` dispatches to it).
+* Builders: :func:`resnet_cost` (:func:`cnn_cost` dispatches to it) and
+  :func:`lm_cost` for the transformer stack.
 
 The tables are pinned against the JAX package's in the tests.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Tuple
 
+from repro_torch.core import energy
 from repro_torch.core.config import ModelConfig
 
 @dataclass(frozen=True)
@@ -143,3 +145,33 @@ def cnn_cost(cfg: ModelConfig, image: int = 32) -> TableCostModel:
     if cfg.name == "mobilenetv2":
         raise NotImplementedError("MobileNetV2 is not ported yet")
     return resnet_cost(cfg, image)
+
+
+# ---------------------------------------------------------------------------
+# Transformer LM — wraps the analytic model in core/energy.py
+# ---------------------------------------------------------------------------
+
+
+def lm_cost(cfg: ModelConfig, seq_len: int) -> TableCostModel:
+    """Per-block cost table for the transformer stack at ``seq_len``.
+
+    MACs = analytic FLOPs / 2 (``core/energy.block_fwd_flops``), per batch
+    element.  Every block is SLU-gatable; embedding and head are not.
+    """
+    if cfg.family == "cnn":
+        raise ValueError("lm_cost cannot price a CNN config; use cnn_cost")
+    d = cfg.d_model
+    layers: List[LayerCost] = [
+        LayerCost("embed", "embed", 0.0, cfg.padded_vocab * d,
+                  float(seq_len * d))]
+    for i, kind in enumerate(cfg.blocks):
+        layers.append(LayerCost(
+            f"block{i}.{kind}", "block",
+            energy.block_fwd_flops(cfg, kind, seq_len) / 2.0,
+            cfg._block_params(kind, d, cfg.resolved_head_dim),
+            float(seq_len * d), gated=True))
+    head_params = 0 if cfg.tie_embeddings else cfg.padded_vocab * d
+    layers.append(LayerCost(
+        "head", "head", seq_len * d * cfg.vocab_size, head_params + d,
+        float(seq_len * cfg.vocab_size)))
+    return TableCostModel(cfg.name, tuple(layers))

@@ -1,14 +1,15 @@
 """Energy primitives of the paper's accounting: per-op energies of a 45nm
-process (Horowitz, ISSCC'14, the paper's ref [59]) and the composition law
-of Tables 3/4.  A copy of the parts of the JAX package's ``core/energy.py``
-that the ledger uses; the numbers are the paper's model, not measurements
+process (Horowitz, ISSCC'14, the paper's ref [59]), the composition law of
+Tables 3/4, and the analytic forward FLOPs of a transformer block.  A copy
+of the parts of the JAX package's ``core/energy.py`` that the ledger and
+the LM cost table use; the numbers are the paper's model, not measurements
 of any device.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Tuple
 
-from repro_torch.core.config import E2TrainConfig
+from repro_torch.core.config import BLOCK_ATTN, E2TrainConfig, ModelConfig
 
 # Horowitz ISSCC'14 45nm, picojoules.
 ENERGY_45NM: Mapping[str, float] = {
@@ -85,3 +86,34 @@ def psg_mac_pj(psg, fallback_rate: float) -> float:
     bwd_w = mac_energy_pj(psg.bits_x_msb, psg.bits_g_msb) \
         + fallback_rate * mac_energy_pj(psg.bits_x, psg.bits_g)
     return (fwd + bwd_x + bwd_w) / 3.0
+
+
+# ---------------------------------------------------------------------------
+# analytic FLOPs of a transformer block
+# ---------------------------------------------------------------------------
+
+
+def _attn_flops(cfg: ModelConfig, S: int, kv_len: int) -> Tuple[float, float]:
+    """(projection flops, score/value flops) for S queries."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    proj = 2 * S * d * (nh * hd + 2 * nkv * hd) + 2 * S * nh * hd * d
+    eff_kv = min(kv_len, cfg.sliding_window) if cfg.sliding_window else kv_len
+    qk = 2 * S * eff_kv * nh * hd * 2            # scores + weighted values
+    return float(proj), float(qk)
+
+
+def _mlp_flops(cfg: ModelConfig, S: int, d_ff: int) -> float:
+    return float(2 * S * cfg.d_model * d_ff * (3 if cfg.glu else 2))
+
+
+def block_fwd_flops(cfg: ModelConfig, kind: str, S: int,
+                    kv_len: int = 0) -> float:
+    """Forward FLOPs of one block for S tokens (per batch element)."""
+    if cfg.family == "cnn":
+        raise ValueError(f"{cfg.name!r} is a CNN config: it has no "
+                         "transformer blocks (use core/cost.cnn_cost)")
+    if kind != BLOCK_ATTN:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    p, a = _attn_flops(cfg, S, kv_len or S)
+    return p + a + _mlp_flops(cfg, S, cfg.d_ff)

@@ -1,23 +1,28 @@
-"""Predictive Sign Gradient (PSG, paper §3.3) for convolutions.
+"""Predictive Sign Gradient (PSG, paper §3.3) for convolutions and dense
+matmuls.
 
 The weight gradient leaves the backward as a sign: ``sign(g_msb)`` from a
 4-bit x 10-bit predictor product where ``|g_msb| >= beta * max|g_msb|``, and
 the sign of the full 8-bit x 16-bit product elsewhere (Eq. 2).  The forward
 runs on the 8-bit grid and the input gradient on the 16-bit output-gradient
-grid.  All three directions run through the kernels of ``kernels/conv.py``.
+grid.  Convolutions run all three directions through the kernels of
+``kernels/conv.py``; a dense matmul (:class:`PSGMatmul`) runs its forward
+and input gradient as plain matmuls of the quantized operands, as the JAX
+package leaves them to XLA, and its weight-gradient sign through the
+kernels of ``kernels/psg_matmul.py``.
 
 The backward also reports how often the full product was needed, through
 the gradient of a *probe*: a ``zeros(2)`` tensor that requires grad and is
-an input of every PSG conv.  Each conv's backward returns ``[fallback *
-macs, macs]`` as the probe's gradient, autograd sums them, and
+an input of every PSG op.  Each op's backward returns ``[fallback * macs,
+macs]`` as the probe's gradient, autograd sums them, and
 :func:`probe_fallback_ratio` turns the sum into the MAC-weighted fallback
-ratio of the step.  A block that SLU skips runs no conv and adds nothing.
+ratio of the step.  A block that SLU skips runs no op and adds nothing.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +78,73 @@ class PSGConv2d(torch.autograd.Function):
         return dxp, sign.to(w.dtype), dprobe, None, None, None
 
 
+class PSGMatmul(torch.autograd.Function):
+    """``(N, din) @ (din, dout)`` with PSG semantics (the JAX package's
+    ``_psg_matmul``): forward ``quantize(x) @ quantize(w)`` on the 8-bit
+    grid in ``x.dtype``; backward ``dx = quantize(gy, 16) @ wq^T``, ``dw``
+    the kernels' sign, and the probe's ``[fallback * macs, macs]``."""
+
+    @staticmethod
+    def forward(ctx, x2, w, probe, cfg: PSGConfig):
+        ctx.save_for_backward(x2, w)
+        ctx.cfg = cfg
+        xq = quantize(x2, cfg.bits_x)
+        return xq @ quantize(w, cfg.bits_x).to(xq.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        dx = None
+        if ctx.needs_input_grad[0]:
+            gq = quantize(gy, cfg.bits_g)
+            dx = (gq @ quantize(w, cfg.bits_x).T.to(gq.dtype)).to(x2.dtype)
+        sign, fallback = ops.psg_grad_w(x2, gy, cfg)
+        # fp32 like the JAX package: float32(N) * din * dout
+        macs = torch.tensor(float(x2.shape[0]), dtype=torch.float32,
+                            device=gy.device) * x2.shape[1] * gy.shape[1]
+        dprobe = torch.stack([fallback * macs, macs])
+        return dx, sign.to(w.dtype), dprobe, None
+
+
+def psg_matmul(x2: torch.Tensor, w: torch.Tensor, cfg: PSGConfig
+               ) -> torch.Tensor:
+    """:class:`PSGMatmul` with the active probe threaded in."""
+    return PSGMatmul.apply(x2, w, _current_probe(x2.device), cfg)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., din) @ w (din, dout)``, through PSG when a config is
+    active."""
+    cfg = active_config()
+    if cfg is None:
+        return x @ w.to(x.dtype)
+    y2 = psg_matmul(x.reshape(-1, x.shape[-1]), w, cfg)
+    return y2.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def einsum(pattern: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The dense attention projections, through PSG when a config is
+    active: ``bsd,dnh->bsnh`` (q/k/v) and ``bsnh,nhd->bsd`` (output).
+    Other patterns raise (the JAX package's grouped MoE patterns are not
+    ported)."""
+    if pattern not in ("bsd,dnh->bsnh", "bsnh,nhd->bsd"):
+        raise NotImplementedError(f"psg.einsum pattern {pattern!r} is not "
+                                  "ported")
+    cfg = active_config()
+    if cfg is None:
+        return torch.einsum(pattern, x, w.to(x.dtype))
+    if pattern == "bsd,dnh->bsnh":
+        B, S, d = x.shape
+        _, n, h = w.shape
+        return psg_matmul(x.reshape(B * S, d), w.reshape(d, n * h),
+                          cfg).reshape(B, S, n, h)
+    B, S, n, h = x.shape
+    d = w.shape[-1]
+    return psg_matmul(x.reshape(B * S, n * h), w.reshape(n * h, d),
+                      cfg).reshape(B, S, d)
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, k: int = 3,
            stride: int = 1) -> torch.Tensor:
     """NHWC ``x`` with a patch-major ``(k*k*C, dout)`` weight and SAME
@@ -116,10 +188,17 @@ def _current_probe(device) -> torch.Tensor:
                                                        device=device)
 
 
+def snapshot() -> Tuple[Optional[PSGConfig], Optional[torch.Tensor]]:
+    """The ``(cfg, probe)`` of the current context, to re-enter it with
+    :func:`enable` where the context is gone: the recompute of a
+    checkpointed block runs in the backward, outside it."""
+    return getattr(_state, "cfg", None), getattr(_state, "probe", None)
+
+
 @contextlib.contextmanager
 def enable(cfg: Optional[PSGConfig], probe: Optional[torch.Tensor] = None):
-    """Route convs through PSG inside this context, threading ``probe``
-    (see :func:`zero_probe`) into each of them."""
+    """Route convs and model matmuls through PSG inside this context,
+    threading ``probe`` (see :func:`zero_probe`) into each of them."""
     prev = getattr(_state, "cfg", None), getattr(_state, "probe", None)
     _state.cfg, _state.probe = cfg, probe
     try:

@@ -1,32 +1,29 @@
-"""Selective Layer Update (SLU, paper §3.2): the weight-shared LSTM gate.
+"""Selective Layer Update (SLU, paper §3.2): the weight-shared LSTM gate,
+the gated residual and the FLOPs regularizer.
 
-The gate pools a block's input over batch and space, zero-pads it to the
-widest stage, projects it to ``gate_proj`` features and steps an LSTM of
-``gate_hidden`` units; a linear head gives the keep probability of the
-block, floored at ``min_keep_prob``.  One gate serves every block, and its
-LSTM state runs through the blocks in order.
+The gate pools a block's input over every axis but the channels (batch and
+space, or batch and sequence), zero-pads it to the gate's width, projects
+it to ``gate_proj`` features and steps an LSTM of ``gate_hidden`` units; a
+linear head gives the keep probability of the block, floored at
+``min_keep_prob``.  One gate serves every block, and its LSTM state runs
+through the blocks in order.
+
+:func:`gated_residual` draws the keep decision on the host with the JAX
+package's key (``core/rng.py``), so the decisions are the JAX package's;
+each draw reads the keep probability back from the device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.core import rng
 from repro_torch.core.config import SLUConfig
+from repro_torch.models.layers import dense_init
 
 GateState = Tuple[torch.Tensor, torch.Tensor]
-
-
-def dense_init(shape, generator: torch.Generator, scale: float = 1.0
-               ) -> torch.Tensor:
-    """Fan-in truncated-normal init at +-2 sigma (the JAX package's
-    ``models/layers.dense_init``)."""
-    std = scale / max(shape[0], 1) ** 0.5
-    t = torch.empty(shape)
-    nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
-                          generator=generator)
-    return t
 
 
 class Gate(nn.Module):
@@ -37,9 +34,10 @@ class Gate(nn.Module):
         self.proj = nn.Parameter(dense_init((d_in, pj), generator))
         self.lstm_wx = nn.Parameter(dense_init((pj, 4 * h), generator))
         self.lstm_wh = nn.Parameter(dense_init((h, 4 * h), generator))
-        self.lstm_b = nn.Parameter(torch.zeros(4 * h))
+        dev = generator.device
+        self.lstm_b = nn.Parameter(torch.zeros(4 * h, device=dev))
         self.head_w = nn.Parameter(dense_init((h, 1), generator))
-        self.head_b = nn.Parameter(torch.zeros(1))
+        self.head_b = nn.Parameter(torch.zeros(1, device=dev))
 
     def init_state(self) -> GateState:
         z = torch.zeros(self.slu.gate_hidden, device=self.proj.device)
@@ -47,7 +45,8 @@ class Gate(nn.Module):
 
     def forward(self, x: torch.Tensor, state: GateState
                 ) -> Tuple[torch.Tensor, GateState]:
-        """x: (B, H, W, C) block input -> (keep probability, new state)."""
+        """x: block input, channels last -> (keep probability, new
+        state)."""
         pooled = x.float().mean(dim=tuple(range(x.dim() - 1)))
         d_in = self.proj.shape[0]
         if pooled.shape[0] < d_in:
@@ -62,3 +61,28 @@ class Gate(nn.Module):
         logit = (h @ self.head_w + self.head_b)[0]
         p = torch.clamp(torch.sigmoid(logit), self.slu.min_keep_prob, 1.0)
         return p, (h, c)
+
+
+def gated_residual(block_fn: Callable[[torch.Tensor], torch.Tensor],
+                   x: torch.Tensor, keep_prob: torch.Tensor, key: rng.Key,
+                   force_keep: bool) -> Tuple[torch.Tensor, float]:
+    """``x + block(x)`` with probability ``keep_prob``, else ``x``; returns
+    ``(output, executed in {0., 1.})``.
+
+    ``keep = bernoulli(key, keep_prob) | force_keep``; a forced block skips
+    the draw and the host read.  An executed branch is scaled by the
+    straight-through factor ``1 + p - p.detach()`` (cast to ``x.dtype``),
+    so the task loss reaches the gate.
+    """
+    keep = force_keep or bool(rng.bernoulli(key, float(keep_prob.detach())))
+    if not keep:
+        return x, 0.0
+    g_st = (1.0 + keep_prob - keep_prob.detach()).to(x.dtype)
+    return x + g_st * block_fn(x), 1.0
+
+
+def flops_regularizer(keep_probs: torch.Tensor,
+                      block_flops: torch.Tensor) -> torch.Tensor:
+    """C(W, G) of Eq. 1: expected executed FLOPs, normalized to [0, 1]."""
+    return torch.sum(keep_probs * block_flops) / torch.clamp_min(
+        torch.sum(block_flops), 1.0)

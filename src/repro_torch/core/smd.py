@@ -1,8 +1,10 @@
 """Stochastic Mini-batch Dropping (SMD, paper §3.1).
 
-Each step is dropped with probability ``drop_prob``.  The decision is a
-counter-based function of ``(seed, step)`` (``core/rng.py``), so every host
-computes it alone and a dropped step costs neither compute nor a data fetch.
+Each step is dropped with probability ``drop_prob``.  The decision is the
+JAX package's threefry draw ``uniform(fold_in(PRNGKey(seed), step)) >=
+drop_prob`` (``core/rng.py``), so every host computes it alone, a dropped
+step costs neither compute nor a data fetch, and the schedule is the JAX
+package's step for step.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from repro_torch.core.config import SMDConfig
 
 def smd_keep_host(seed: int, step: int, drop_prob: float) -> bool:
     """Whether step ``step`` runs (decided on the host, before any fetch)."""
-    return rng.uniform(rng.SMD, seed, step) >= drop_prob
+    u = rng.uniform(rng.fold_in(rng.PRNGKey(seed), step))
+    return bool(u >= np.float32(drop_prob))
 
 
 def smd_schedule(cfg: SMDConfig, seed: int, total_steps: int) -> np.ndarray:

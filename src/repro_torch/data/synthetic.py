@@ -1,13 +1,22 @@
-"""Deterministic synthetic CIFAR-shaped data (no dataset download).
+"""Deterministic synthetic data (no dataset download), the JAX package's
+batches exactly.
 
-``GaussianImageTask``: class-conditional Gaussian images, 32x32x3, K
-classes.  The class means come from numpy's ``RandomState`` exactly as in
-the JAX package; labels and noise come from a ``torch.Generator`` keyed on
-``(seed, step, shard)`` (``core/rng.py``) on the target device, so every
-batch is a pure function of its key and a dropped step costs nothing.
+* ``GaussianImageTask``: class-conditional Gaussian images, 32x32x3, K
+  classes.  The class means come from numpy's ``RandomState``; labels and
+  noise from the threefry stream keyed on ``(seed, step, shard)``.
+* ``MarkovLMTask``: tokens of a fixed random first-order Markov chain (the
+  designated successor with probability ``peak``, a uniform token
+  otherwise), so the Bayes-optimal cross-entropy is known.
+
+Every batch is a pure function of ``(seed, step, shard)`` drawn with
+``core/rng.py``, which reproduces ``jax.random``: labels and tokens equal
+the JAX package's, and image noise equals it within a few ulp
+(``rng.normal``).  Batches are drawn on the host and moved to ``device``;
+a dropped step draws nothing.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict
 
@@ -15,6 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import rng
+
+
+def _batch_key(seed: int, step: int, shard: int) -> rng.Key:
+    return rng.fold_in(rng.fold_in(rng.PRNGKey(seed), step), shard)
 
 
 @dataclass(frozen=True)
@@ -32,10 +45,57 @@ class GaussianImageTask:
 def make_image_batch(task: GaussianImageTask, seed: int, step: int, shard: int,
                      batch: int, device) -> Dict[str, torch.Tensor]:
     """``{"image": (batch, hw, hw, 3) fp32, "label": (batch,) int64}``."""
-    g = rng.generator(rng.DATA, seed, step, shard, device=device)
-    labels = torch.randint(0, task.num_classes, (batch,), generator=g,
-                           device=device)
-    noise = torch.randn((batch, task.hw, task.hw, 3), generator=g,
-                        device=device)
-    means = torch.from_numpy(task.means()).to(device)
-    return {"image": task.snr * means[labels] + noise, "label": labels}
+    k0, k1 = rng.split(_batch_key(seed, step, shard))
+    labels = rng.randint(k0, (batch,), 0, task.num_classes)
+    noise = rng.normal(k1, (batch, task.hw, task.hw, 3))
+    images = np.float32(task.snr) * task.means()[labels] + noise
+    return {"image": torch.from_numpy(images).to(device),
+            "label": torch.from_numpy(labels.astype(np.int64)).to(device)}
+
+
+@dataclass(frozen=True)
+class MarkovLMTask:
+    vocab: int = 256
+    peak: float = 0.9           # probability of the designated next token
+    seed: int = 1234
+
+    def transition(self) -> np.ndarray:
+        """The designated successor of each token (read-only, computed once
+        per task)."""
+        return _transition(self.vocab, self.seed)
+
+    def bayes_xent(self) -> float:
+        p, v = self.peak, self.vocab
+        q = (1 - p) / (v - 1)
+        return float(-(p * np.log(p) + (v - 1) * q * np.log(q)))
+
+
+@functools.lru_cache(maxsize=None)
+def _transition(vocab: int, seed: int) -> np.ndarray:
+    perm = np.random.RandomState(seed).permutation(vocab)
+    perm.flags.writeable = False
+    return perm
+
+
+def make_lm_batch(task: MarkovLMTask, seed: int, step: int, shard: int,
+                  batch: int, seq: int, device) -> Dict[str, torch.Tensor]:
+    """``{"tokens": (batch, seq), "labels": (batch, seq)}`` int64: ``seq``
+    chain steps after a random start token; tokens are steps ``0 .. seq-2``
+    padded with 0, labels steps ``1 .. seq-1`` padded with -1 (ignored by
+    the loss)."""
+    if seq < 2:
+        raise ValueError(f"an LM batch needs seq >= 2, got {seq}")
+    k0, k1, k2 = rng.split(_batch_key(seed, step, shard), 3)
+    t = rng.randint(k0, (batch,), 0, task.vocab)
+    noise = rng.uniform(k1, (batch, seq)) > np.float32(task.peak)
+    rand_next = rng.randint(k2, (batch, seq), 0, task.vocab)
+    perm = task.transition()
+    toks = np.empty((batch, seq), np.int64)
+    for i in range(seq):            # the chain is sequential in time only
+        t = np.where(noise[:, i], rand_next[:, i], perm[t])
+        toks[:, i] = t
+    tokens = np.zeros((batch, seq), np.int64)
+    labels = np.full((batch, seq), -1, np.int64)
+    tokens[:, :-1], labels[:, :-1] = toks[:, :-1], toks[:, 1:]
+    return {"tokens": torch.from_numpy(tokens).to(device),
+            "labels": torch.from_numpy(labels).to(device)}

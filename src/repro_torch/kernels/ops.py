@@ -1,10 +1,12 @@
-"""Conv ops on the kernels, as the PSG autograd function calls them.
+"""Conv and matmul ops on the kernels, as the PSG autograd functions call
+them.
 
-The counterpart of the JAX package's ``kernels/ops.py`` (conv half) and
-``kernels/dispatch.py``.  There is one backend choice and it is made by the
-tensors' device inside each wrapper of ``kernels/conv.py``: CPU tensors take
-the plain PyTorch version, CUDA tensors launch the kernel.  No environment
-variable and no fallback are involved.
+The counterpart of the JAX package's ``kernels/ops.py`` (conv and PSG
+matmul parts) and ``kernels/dispatch.py``.  There is one backend choice and
+it is made by the tensors' device inside each wrapper of ``kernels/conv.py``
+and ``kernels/psg_matmul.py``: CPU tensors take the plain PyTorch version,
+CUDA tensors launch the kernel.  No environment variable and no fallback
+are involved.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import codes
 from repro_torch.kernels import conv as K
+from repro_torch.kernels import psg_matmul as PM
 
 
 def _lim(bits: int) -> int:
@@ -56,4 +59,28 @@ def conv_grad_w(xp: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig, k: int,
                                    g_lim=_lim(cfg.bits_g_msb))
     tau = cfg.beta * pred.float().abs().amax()
     sign, stats = K.conv_grad_w(pred, xq, gq, tau, k, stride)
+    return sign.float(), stats.float().mean()
+
+
+def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PSG weight-gradient sign of ``x2 (N, din) @ w`` from the output
+    gradient ``gy2 (N, dout)``, and the measured fallback ratio.
+
+    The operands are cast to fp32 before the codes are built, as the JAX
+    package's dispatch layer does.  Pass 1 gives the predictor product,
+    ``tau = beta * max|g_msb|`` stays on the device, pass 2 selects.
+    Returns ``(sign (din, dout) fp32 in {-1, 0, 1}, mean of the per-tile
+    fallback flags as an fp32 0-d tensor)``.
+    """
+    x2, gy2 = x2.float(), gy2.float()
+    xm, _ = codes(x2, cfg.bits_x_msb)
+    gm, _ = codes(gy2, cfg.bits_g_msb)
+    xq, _ = codes(x2, cfg.bits_x)
+    gq, _ = codes(gy2, cfg.bits_g)
+    xm, gm, xq, gq = (t.contiguous() for t in (xm, gm, xq, gq))
+    pred = PM.predictor_matmul(xm, gm, x_lim=_lim(cfg.bits_x_msb),
+                               g_lim=_lim(cfg.bits_g_msb))
+    tau = cfg.beta * pred.float().abs().amax()
+    sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
     return sign.float(), stats.float().mean()

@@ -8,9 +8,10 @@ and never seen by the optimizer.  Each stage holds one transition block
 block is never gated) and ``n - 1`` identity blocks, run by a Python loop.
 
 A gated block draws ``keep ~ Bernoulli(p)`` from the gate's probability
-(``core/rng.py``, keyed on ``(seed, step, block)``), forced on for the
-first and last block.  The decision is taken on the host, so each gated
-block costs one device-to-host read of ``p``.  A skipped block passes its
+with the JAX package's key, ``fold_in(step_rng, block)`` (``core/rng.py``),
+forced on for the first and last block, so the decisions are the JAX
+package's.  The decision is taken on the host, so each gated block costs
+one device-to-host read of ``p``.  A skipped block passes its
 input and its BatchNorm state through unchanged and launches no kernel.
 """
 from __future__ import annotations
@@ -23,7 +24,8 @@ from torch import nn
 
 from repro_torch.core import psg, rng
 from repro_torch.core.config import E2TrainConfig
-from repro_torch.core.slu import Gate, GateState, dense_init
+from repro_torch.core.slu import Gate, GateState
+from repro_torch.models.layers import dense_init
 
 BN_MOMENTUM = 0.9           # running-stat EMA decay per executed train step
 BN_EPS = 1e-5
@@ -107,15 +109,18 @@ class ResNet(nn.Module):
         self.slu_gate = Gate(4 * width, self.e2.slu, g) \
             if self.e2.slu.enabled else None
 
-    def forward(self, x: torch.Tensor, key: Tuple[int, ...] = (0, 0),
+    def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None,
                 keep: Optional[Sequence[bool]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Train-mode forward, x: (B, 32, 32, 3) -> (logits, aux{slu_*}).
 
-        ``key`` = ``(seed, step)`` keys the SLU draws; ``keep`` (tests only)
-        overrides them with one decision per block, in network order.
+        ``key`` is the step's threefry key (``fold_in(PRNGKey(seed),
+        step)``, default ``PRNGKey(0)``) and keys the SLU draws; ``keep``
+        (tests only) overrides them with one decision per block, in network
+        order.
         """
         slu_cfg = self.e2.slu
+        key = rng.PRNGKey(0) if key is None else key
         slu_on = self.slu_gate is not None
         n_blocks = 3 * self.n
         one = torch.ones((), device=x.device)
@@ -142,8 +147,8 @@ class ResNet(nn.Module):
                 else:
                     force = slu_cfg.never_skip_first_last and \
                         glob in (0, n_blocks - 1)
-                    run = force or \
-                        rng.uniform(rng.SLU, *key, glob) < float(pkeep.detach())
+                    run = force or bool(rng.bernoulli(
+                        rng.fold_in(key, glob), float(pkeep.detach())))
                 if run:
                     g_st = 1.0 + pkeep - pkeep.detach()   # straight-through
                     h = h + g_st * blk.branch(h, 1)
@@ -160,7 +165,7 @@ class ResNet(nn.Module):
 
 
 def resnet_loss(model: ResNet, batch: Dict[str, torch.Tensor],
-                key: Tuple[int, ...] = (0, 0),
+                key: Optional[rng.Key] = None,
                 keep: Optional[Sequence[bool]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy + SLU FLOPs regularizer (Eq. 1); returns ``(total,

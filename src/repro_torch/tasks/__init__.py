@@ -1,10 +1,13 @@
 """Task registry: what the training stack needs to know about a model
-family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets).
+family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets) and
+``"lm"`` (the dense transformer LM).
 
-* ``init(exp, seed) -> nn.Module`` — parameters and buffers (BatchNorm
-  running statistics), on the CPU; the caller moves it to its device.
+* ``init(exp, seed, device) -> nn.Module`` — parameters and buffers
+  (BatchNorm running statistics) on ``device``.
 * ``make_loss(exp) -> loss(model, batch, key, keep=None)`` returning
-  ``(total_loss, metrics)`` with 0-d tensor metrics.
+  ``(total_loss, metrics)`` with 0-d tensor metrics; ``key`` is the step's
+  threefry key (``core/rng.py``), ``keep`` a test hook that injects SLU
+  decisions where the task takes one.
 * ``cost(exp) -> TableCostModel`` — the per-layer op counts the energy
   ledger prices.
 """
@@ -50,4 +53,4 @@ def cost_model(exp: Experiment) -> TableCostModel:
 
 
 def _ensure_builtin() -> None:
-    from repro_torch.tasks import cifar_cnn  # noqa: F401  (registers itself)
+    from repro_torch.tasks import cifar_cnn, lm  # noqa: F401  (register)

@@ -8,12 +8,12 @@ from repro_torch.models import resnet as R
 from repro_torch.tasks import Task, register
 
 
-def _init(exp: Experiment, seed: int = 0) -> R.ResNet:
+def _init(exp: Experiment, seed: int = 0, device=None) -> R.ResNet:
     m = exp.model
     if m.name == "mobilenetv2":
         raise NotImplementedError("MobileNetV2 is not ported yet")
     return R.ResNet(m.num_layers, num_classes=m.vocab_size, e2=exp.e2,
-                    width=m.d_model, seed=seed)
+                    width=m.d_model, seed=seed).to(device)
 
 
 def _make_loss(exp: Experiment):

@@ -1,0 +1,28 @@
+"""``lm`` task: the dense transformer LM (``models/transformer.py``).
+Stateless: the model holds no buffers."""
+from __future__ import annotations
+
+from repro_torch.core.config import Experiment
+from repro_torch.core.cost import lm_cost
+from repro_torch.models import transformer as T
+from repro_torch.tasks import Task, register
+
+
+def _init(exp: Experiment, seed: int = 0, device=None) -> T.TransformerLM:
+    return T.TransformerLM(exp.model, exp.e2, seed=seed, device=device)
+
+
+def _make_loss(exp: Experiment):
+    remat = exp.train.remat
+
+    def loss(model, batch, key, keep=None):
+        if keep is not None:
+            raise ValueError("the LM draws its SLU decisions from the step "
+                             "key; it takes no injected keep mask")
+        return T.lm_loss(model, batch, key, remat=remat)
+    return loss
+
+
+LM_TASK = register(Task(name="lm", init=_init, make_loss=_make_loss,
+                        cost=lambda exp: lm_cost(exp.model,
+                                                 exp.train.seq_len)))

@@ -6,11 +6,13 @@
 
 * the loss runs under ``psg.enable(cfg, probe)``; the probe's gradient is
   the step's MAC-weighted ``psg_fallback_ratio`` (``core/psg.py``);
+* the task's SLU draws are keyed on ``fold_in(PRNGKey(seed), step)``, the
+  JAX package's step key (``core/rng.py``);
 * with PSG on, every gradient is re-signed (``majority_vote_tree``):
-  BatchNorm, classifier and gate included;
+  norms, embeddings, classifier and gate included;
 * the optimizer updates the parameters in place, then SWA averages them;
-* the BatchNorm statistics are buffers of the model, updated by the
-  forward; the optimizer never sees them.
+* the BatchNorm statistics (ResNet) are buffers of the model, updated by
+  the forward; the optimizer never sees them.  The LM holds none.
 
 Only ``microbatches == 1`` is implemented.
 """
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import psg as psgmod
+from repro_torch.core import rng
 from repro_torch.core.config import Experiment
 from repro_torch.core.device import resolve_device
 from repro_torch.optim import make_optimizer, majority_vote_tree
@@ -45,7 +48,11 @@ def init_train_state(exp: Experiment, seed: int = 0,
                      device=None) -> TrainState:
     """Model from ``seed`` on ``device`` (default: the card)."""
     dev = resolve_device(device)
-    model = get_task(exp.task).init(exp, seed).to(dev)
+    return train_state_for(exp, get_task(exp.task).init(exp, seed, dev))
+
+
+def train_state_for(exp: Experiment, model: nn.Module) -> TrainState:
+    """A fresh optimizer (and SWA) state around ``model``, at step 0."""
     params = dict(model.named_parameters())
     swa = swa_init(params) if (exp.e2.psg.enabled and exp.e2.psg.swa) else None
     return TrainState(model, make_optimizer(exp.train).init(params), swa, 0)
@@ -67,8 +74,8 @@ def make_train_step(exp: Experiment):
         device = params[0].device
         probe = psgmod.zero_probe(device) if psg_cfg is not None else None
         with psgmod.enable(psg_cfg, probe=probe):
-            loss, metrics = task_loss(state.model, batch, (tc.seed, state.step),
-                                      keep)
+            key = rng.fold_in(rng.PRNGKey(tc.seed), state.step)
+            loss, metrics = task_loss(state.model, batch, key, keep)
         inputs = list(params) + ([probe] if probe is not None else [])
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g

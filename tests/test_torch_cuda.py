@@ -6,8 +6,8 @@ on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Kernels 3 and 4 must equal their exact plain versions; kernels 1 and 2 sum
-in fp32 in another order, within ``1e-5 * max|ref|``.
+Kernels 3-6 must equal their exact plain versions; kernels 1 and 2 sum in
+fp32 in another order, within ``1e-5 * max|ref|``.
 """
 import pytest
 
@@ -18,6 +18,7 @@ from repro_torch.core.config import PSGConfig  # noqa: E402
 from repro_torch.core import psg  # noqa: E402
 from repro_torch.core.quant import codes, quantize  # noqa: E402
 from repro_torch.kernels import conv as K  # noqa: E402
+from repro_torch.kernels import psg_matmul as PM  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +95,48 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         K.conv_fwd(torch.randn(1, 4, 4, 2, device=card),
                    torch.randn(18, 3), 3, 1)
+
+
+# (N, din, dout) of the PSG matmul kernels: tiles smaller than 128, a padded
+# 200 x 328 grid with N not a multiple of the 32-token stage, and two
+# qwen2.5-3b projections at a short sequence
+MATMULS = [(64, 32, 48), (1000, 200, 328), (2048, 2048, 256),
+           (1024, 11008, 128)]
+
+
+@pytest.mark.parametrize("s", MATMULS, ids=lambda s: "N{}_{}x{}".format(*s))
+def test_psg_matmul_kernels_equal_plain(card, s):
+    N, din, dout = s
+    g = torch.Generator(device=card).manual_seed(N + din + dout)
+    x = torch.randn(N, din, device=card, generator=g)
+    gy = torch.randn(N, dout, device=card, generator=g) * 0.01
+    xm, gm = codes(x, 4)[0], codes(gy, 10)[0]
+    xq, gq = codes(x, 8)[0], codes(gy, 16)[0]
+    pred = PM.predictor_matmul(xm, gm)
+    assert torch.equal(pred, PM.predictor_matmul_plain(xm, gm))
+    for tau in (0.05 * pred.float().abs().amax(), torch.zeros((), device=card)):
+        sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
+        psign, pstats = PM.psg_grad_w_plain(pred, xq, gq, tau)
+        assert torch.equal(sign, psign) and torch.equal(stats, pstats)
+
+
+def test_psg_matmul_on_the_card_counts_its_launches(card):
+    x = torch.randn(300, 96, device=card, requires_grad=True)
+    w = torch.randn(96, 160, device=card, requires_grad=True)
+    PM.reset_launches()
+    with psg.enable(PSGConfig(enabled=True), probe=psg.zero_probe(card)):
+        y = psg.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert PM.LAUNCHES == {"predictor_matmul": 1, "psg_grad_w": 1}
+    assert set(w.grad.unique().tolist()) <= {-1.0, 0.0, 1.0}
+
+
+def test_lm_trainer_runs_on_the_card(card):
+    from repro_torch.launch.train import build_lm_trainer
+    trainer = build_lm_trainer("qwen2_5_3b", smoke=True, steps=3,
+                               device="cuda")
+    PM.reset_launches()
+    hist = trainer.run(3)
+    assert hist and all(h["loss"] == h["loss"] for h in hist)
+    assert all(n > 0 for n in PM.LAUNCHES.values()), PM.LAUNCHES

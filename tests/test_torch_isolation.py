@@ -3,6 +3,7 @@ and its entry points run on the card unless told otherwise."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -64,6 +65,27 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     assert trainer.executed_steps + trainer.dropped_steps == 3
     if trainer.executed_steps:
         assert "measured PSG fallback" in out and "energy report" in out
+
+
+def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.build_lm_trainer("qwen2_5_3b", smoke=True, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
+                    "--steps", "1"])
+
+
+def test_lm_cli_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import train
+    trainer = train.main(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
+                          "--seq", "12", "--steps", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert trainer.exp.task == "lm" and trainer.exp.train.seq_len == 12
+    assert trainer.executed_steps + trainer.dropped_steps == 3
+    assert trainer.executed_steps > 0      # seed 0 keeps step 0
+    assert "measured PSG fallback" in out and "energy report" in out
+    assert all(np.isfinite(h["loss"]) for h in trainer.history)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
