@@ -15,15 +15,24 @@ Phases, each fatal on failure:
 3. the same for the two PSG matmul kernels (bit for bit, signs and flags
    included) at every qwen2.5-3b weight-matmul geometry with N = 8192
    tokens, plus a padded one;
-4. train one step of a small ResNet on the card and on the CPU from the same
-   parameters and batch, and compare; the same for the reduced qwen2.5-3b;
-5. train ResNet-74 (width 16, batch 128, synthetic CIFAR) with SMD, SLU and
+4. the same for the three flash-attention kernels at the qwen2.5-3b
+   attention geometry (batch 2, 4096 tokens, 16 heads over 2 kv heads, hd
+   128, bf16, causal), a padded one and a non-causal one (limits in
+   ``check_flash_kernels``), plus kernel 9 bit for bit on integer inputs;
+   kernel 7 is timed beside ``scaled_dot_product_attention``; then one
+   qwen2.5-3b attention sub-block forward and backward, materialized softmax
+   against flash kernels, timed in turns with its peak memory;
+5. train one step of a small ResNet on the card and on the CPU from the same
+   parameters and batch, and compare; the same for the reduced qwen2.5-3b,
+   with the materialized softmax and with the flash kernels;
+6. train ResNet-74 (width 16, batch 128, synthetic CIFAR) with SMD, SLU and
    PSG through ``repro_torch.launch.train``'s trainer until at least three
    steps have executed, with every kernel's launch counter zeroed just
    before and read just after, print the energy report and profile one more
    executed step (device time by kernel, idle share);
-6. the same for qwen2.5-3b at full width, 8 of its 36 layers, batch 2 x
-   sequence 4096 (``build_lm_trainer``).
+7. the same for qwen2.5-3b at full width, 8 of its 36 layers, batch 2 x
+   sequence 4096 (``build_lm_trainer``), once through the materialized
+   softmax and once through the flash kernels (``fused_attention=True``).
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -43,6 +52,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
 PSG_SOURCE = "src/repro_torch/kernels/csrc/psg_matmul.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
 REPLACES = {   # the wrapper in the JAX package that reaches pl.pallas_call
     "conv_fwd": "src/repro/kernels/conv.py:245",
     "conv_grad_x": "src/repro/kernels/conv.py:274",
@@ -50,12 +60,17 @@ REPLACES = {   # the wrapper in the JAX package that reaches pl.pallas_call
     "conv_grad_w": "src/repro/kernels/conv.py:337",
     "predictor_matmul": "src/repro/kernels/psg_matmul.py:162",
     "psg_grad_w": "src/repro/kernels/psg_matmul.py:110",
+    "flash_fwd": "src/repro/kernels/flash_attn.py:234",
+    "flash_bwd_dq": "src/repro/kernels/flash_attn.py:344",
+    "flash_bwd_dkv": "src/repro/kernels/flash_attn.py:464",
 }
 SOURCES = {n: CONV_SOURCE for n in list(REPLACES)[:4]}
 SOURCES.update(predictor_matmul=PSG_SOURCE, psg_grad_w=PSG_SOURCE)
+SOURCES.update({n: FLASH_SOURCE for n in list(REPLACES)[6:]})
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # bf16 tensor cores (products of bf16 inputs)
 INT8_OPS_PER_S = 1979e12        # the fastest integer rate of the card
 # kernels 1 and 2 sum in fp32 in another order than the plain tap loop; the
 # reductions are at most 576 terms (9 taps x 64 channels), whose rounding
@@ -276,8 +291,200 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens):
     return tot, details
 
 
+# kernel 9's code products: a P or dS code flips where the kernel's q k^T
+# sums in another order than the plain matmul, moving one product element by
+# one code of the other operand; at most this share of elements may differ,
+# by at most this share of the largest magnitude (tests/test_torch_cuda.py)
+DKV_MISMATCH, DKV_REL = 1e-3, 1e-3
+
+
+def bf16_one_ulp(torch, a, ref) -> bool:
+    """Within one bf16 ulp of the larger magnitude, plus 1e-6 * max|ref| for
+    the fp32 difference before both were rounded to bf16."""
+    a, ref = a.double(), ref.double()
+    big = torch.maximum(a.abs(), ref.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return bool(((a - ref).abs() <= ulp + 1e-6 * ref.abs().max()).all())
+
+
+def flash_geometries(m):
+    """(name, B, S, nh, nkv, hd, dtype, causal, sites per step of kernels
+    7, 8, 9): the qwen2.5-3b attention of the flash main path (kernel 7 runs
+    twice per layer under remat="block"), then a padded MHA geometry and a
+    non-causal one, checked and not counted."""
+    return [("qwen", LM_BATCH, LM_SEQ, m.num_heads, m.num_kv_heads,
+             m.resolved_head_dim, "bfloat16", True,
+             (2 * LM_LAYERS, LM_LAYERS, LM_LAYERS)),
+            ("padded", 2, 300, 8, 8, 32, "float32", True, (0, 0, 0)),
+            ("noncausal", 1, 1024, 8, 2, 64, "bfloat16", False, (0, 0, 0))]
+
+
+def check_flash_kernels(torch, FA, geometries):
+    """Phase 4: kernels 7-9 against their plain versions, with times; kernel
+    9 also bit for bit on small integer inputs."""
+    import torch.nn.functional as F
+
+    tot = {n: _zero_total() for n in FA.LAUNCHES}
+    details = []
+    lims = (127.0, 7.0, 32767.0, 511.0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, B, S, nh, nkv, hd, dt, causal, sites in geometries:
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, S, nh, hd, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(B, S, nkv, hd, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(B, S, nkv, hd, device="cuda", generator=gen).to(dtype)
+        do = (torch.randn(B, S, nh, hd, device="cuda", generator=gen)
+              * 0.1).to(dtype)
+        row = {"geometry": [B, S, nh, nkv, hd, dt, causal], "name": name,
+               "sites_per_step": dict(zip(FA.LAUNCHES, sites))}
+
+        # kernel 7: o within one bf16 ulp (fp32: 1e-5 of max|o|), lse 1e-5
+        o, lse = FA.flash_fwd(q, k, v, causal=causal)
+        o_p, lse_p = FA.flash_attention_plain(q, k, v, causal=causal)
+        err_o = float((o.float() - o_p.float()).abs().max())
+        err_l = float((lse - lse_p).abs().max())
+        ok = bf16_one_ulp(torch, o.float(), o_p.float()) if dt == "bfloat16" \
+            else err_o <= FP32_REL * float(o_p.float().abs().max())
+        if not (ok and err_l <= 1e-5):
+            fail(f"flash_fwd at {name}: o err {err_o}, lse err {err_l}")
+        row["flash_fwd_lse_err"] = err_l
+
+        # kernel 8: dq within 1e-5 of max|dq|, on the plain version's lse
+        delta = torch.einsum("bsnh,bsnh->bns", do.float(),
+                             o_p.float()).contiguous()
+        dq = FA.flash_bwd_dq(q, k, v, do, lse_p, delta, causal=causal)
+        dq_p = FA.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, causal=causal)
+        err_dq = float((dq - dq_p).abs().max())
+        if not err_dq <= FP32_REL * float(dq_p.abs().max()):
+            fail(f"flash_bwd_dq at {name}: max abs err {err_dq}")
+
+        # kernel 9: the four code products
+        scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8,
+                                         bits_x_msb=4, bits_g=16,
+                                         bits_g_msb=10)
+        got = FA.flash_bwd_dkv(q, k, v, do, lse_p, delta, scales, lims=lims,
+                               causal=causal)
+        want = FA.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scales,
+                                      lims=lims, causal=causal)
+        err_kv, stats = 0.0, []
+        for pname, g_, w_ in zip(("dv_msb", "dv_full", "dk_msb", "dk_full"),
+                                 got, want):
+            diff = (g_ - w_).abs().double()
+            share, top = float((diff > 0).double().mean()), float(diff.max())
+            ref_max = float(w_.abs().max())
+            stats.append({"product": pname, "mismatch_share": share,
+                          "max_abs_err": top, "max_abs_ref": ref_max})
+            if share > DKV_MISMATCH or top > DKV_REL * ref_max:
+                fail(f"flash_bwd_dkv {pname} at {name}: {share} of elements "
+                     f"differ, by up to {top} (max |ref| {ref_max})")
+            err_kv = max(err_kv, top)
+        row["flash_bwd_dkv_products"] = stats
+        del got, want
+
+        pairs = B * nh * (S * (S + 1) // 2 if causal else S * S)
+        mm = BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S
+        prod = 2 * hd * pairs           # operations of one product over pairs
+        e = q.element_size()
+        qkv = e * (q.numel() + k.numel() + v.numel())
+        rows = 4 * lse.numel()
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def rate(*parts):
+            ops = sum(n for n, _ in parts)
+            return ops, ops / sum(n / r for n, r in parts)
+
+        cases = [
+            ("flash_fwd", err_o,
+             lambda: FA.flash_fwd(q, k, v, causal=causal),
+             lambda: FA.flash_attention_plain(q, k, v, causal=causal),
+             lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=True),
+             qkv + e * o.numel() + rows,
+             *rate((prod, mm), (prod, FP32_OPS_PER_S)), sites[0]),
+            ("flash_bwd_dq", err_dq,
+             lambda: FA.flash_bwd_dq(q, k, v, do, lse_p, delta,
+                                     causal=causal),
+             lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                           causal=causal),
+             None, qkv + e * do.numel() + 2 * rows + 4 * dq.numel(),
+             *rate((2 * prod, mm), (prod, FP32_OPS_PER_S)), sites[1]),
+            ("flash_bwd_dkv", err_kv,
+             lambda: FA.flash_bwd_dkv(q, k, v, do, lse_p, delta, scales,
+                                      lims=lims, causal=causal),
+             lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scales,
+                                            lims=lims, causal=causal),
+             None, qkv + e * do.numel() + 2 * rows + 24 + 24 * k.numel(),
+             *rate((2 * prod, mm), (4 * prod, INT8_OPS_PER_S)), sites[2])]
+        time_cases(torch, cases, row, tot)
+        details.append(row)
+        del q, k, v, do, o, o_p, dq, dq_p, qt, kt, vt, cases
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # small integer q, k, v and dO: every score and dP is exact in any
+    # summation order, so kernel 9's codes and products must be identical
+    for dt in ("float32", "bfloat16"):
+        q, k, v, do = (torch.randint(-2, 3, shape, device="cuda",
+                                     generator=gen).to(getattr(torch, dt))
+                       for shape in ((1, 256, 4, 128), (1, 256, 2, 128),
+                                     (1, 256, 2, 128), (1, 256, 4, 128)))
+        o, lse = FA.flash_attention_plain(q, k, v)
+        delta = torch.einsum("bsnh,bsnh->bns", do.float(),
+                             o.float()).contiguous()
+        scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8,
+                                         bits_x_msb=4, bits_g=16,
+                                         bits_g_msb=10)
+        got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims)
+        want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales,
+                                      lims=lims)
+        if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+            fail(f"flash_bwd_dkv on integer {dt} inputs: not identical")
+        details.append({"name": f"integer_{dt}", "flash_bwd_dkv": "identical",
+                        "nonzero_products": [int((w_ != 0).sum())
+                                             for w_ in want]})
+    return tot, details
+
+
+def attention_ab(torch, m):
+    """Phase 4b: one qwen2.5-3b attention sub-block (q/k/v projections, rope,
+    attention, output projection) forward and backward at batch 2 x 4096
+    under PSG, through the materialized softmax and through the flash
+    kernels, timed in turns (materialized, flash, flash, materialized) by
+    CUDA events, with the peak memory each allocates above what it starts
+    from."""
+    from repro_torch.core import psg
+    from repro_torch.core.config import PSGConfig
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    attn = L.Attention(m, gen)
+    x = torch.randn(LM_BATCH, LM_SEQ, m.d_model, device="cuda",
+                    generator=gen).to(torch.bfloat16).requires_grad_(True)
+    gy = (torch.randn(LM_BATCH, LM_SEQ, m.d_model, device="cuda",
+                      generator=gen) * 0.01).to(torch.bfloat16)
+
+    def step(fused):
+        cfg = PSGConfig(enabled=True, fused_attention=fused)
+        with psg.enable(cfg, psg.zero_probe("cuda")):
+            y = L.attention_fwd(attn, x, m)
+        y.backward(gy)
+
+    out = {"materialized": {"ms": [], "peak_gb": []},
+           "flash": {"ms": [], "peak_gb": []}}
+    for fused in (False, True, True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r = out["flash" if fused else "materialized"]
+        r["ms"].append(time_ms(torch, lambda: step(fused), reps=3))
+        r["peak_gb"].append((torch.cuda.max_memory_allocated() - base) / 1e9)
+    del attn, x, gy
+    torch.cuda.empty_cache()
+    return out
+
+
 def reference_check(torch):
-    """Phase 4: one train step of a small ResNet on the card and on the CPU
+    """Phase 5: one train step of a small ResNet on the card and on the CPU
     from the same parameters, batch and SLU decisions."""
     from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
     from repro_torch.launch.train import experiment
@@ -314,10 +521,10 @@ def compare_steps(mc, pc, mg, pg):
             "param_agreement": agree}
 
 
-def lm_reference_check(torch):
-    """Phase 4: one train step of the reduced qwen2.5-3b on the card and on
+def lm_reference_check(torch, fused_attention=None):
+    """Phase 5: one train step of the reduced qwen2.5-3b on the card and on
     the CPU from the same parameters and batch; SLU decisions come from the
-    same step key on both."""
+    same step key on both.  ``fused_attention`` is the PSG config's."""
     import copy
 
     from repro_torch.data.synthetic import MarkovLMTask, make_lm_batch
@@ -325,7 +532,8 @@ def lm_reference_check(torch):
     from repro_torch.tasks import get_task
     from repro_torch.training.train_step import make_train_step, train_state_for
 
-    exp = lm_experiment(LM_ARCH, smoke=True, steps=4)
+    exp = lm_experiment(LM_ARCH, smoke=True, steps=4,
+                        fused_attention=fused_attention)
     tc = exp.train
     batch = make_lm_batch(MarkovLMTask(vocab=exp.model.vocab_size), tc.seed,
                           0, 0, tc.global_batch, tc.seq_len, "cpu")
@@ -347,7 +555,7 @@ def reset_all(mods):
 
 
 def main_path(torch, build, mods, kernels):
-    """Phases 5-6: build the trainer for the nominal steps that execute four
+    """Phases 6-7: build the trainer for the nominal steps that execute four
     (one warm-up + three timed; SMD seed 0, p = 0.5) and run them, with
     every launch counter zeroed just before and read just after; fail
     unless each of ``kernels`` ran."""
@@ -435,6 +643,8 @@ def profile_step(torch, trainer):
 
 def run_path(torch, name, build, mods, kernels):
     """A main path, its energy report and its profile."""
+    import gc
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     trainer, main = main_path(torch, build, mods, kernels)
@@ -466,10 +676,11 @@ def main() -> None:
     from repro_torch.configs.paper_cnns import resnet_conv_shapes
     from repro_torch.kernels import build
     from repro_torch.kernels import conv as K
+    from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import psg_matmul as PM
     from repro_torch.launch.train import build_lm_trainer, build_trainer
     t0 = time.perf_counter()
-    build.build(["conv", "psg_matmul"], verbose=True)
+    build.build(list(build.SOURCES), verbose=True)
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
 
@@ -486,12 +697,21 @@ def main() -> None:
     tot.update(ptot)
     for row in pdetails:
         print(json.dumps(row), flush=True)
+    ftot, fdetails = check_flash_kernels(torch, FA, flash_geometries(m))
+    tot.update(ftot)
+    for row in fdetails:
+        print(json.dumps(row), flush=True)
+    ab = attention_ab(torch, m)
+    print(json.dumps({"phase": "attention_ab", **ab}), flush=True)
     ref = reference_check(torch)
     print(json.dumps({"phase": "reference", **ref}), flush=True)
     lm_ref = lm_reference_check(torch)
     print(json.dumps({"phase": "lm_reference", **lm_ref}), flush=True)
+    lm_flash_ref = lm_reference_check(torch, fused_attention=True)
+    print(json.dumps({"phase": "lm_flash_reference", **lm_flash_ref}),
+          flush=True)
 
-    mods = (K, PM)
+    mods = (K, PM, FA)
     main, prof = run_path(
         torch, "main_path",
         lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda"),
@@ -502,13 +722,21 @@ def main() -> None:
                                        batch=LM_BATCH, seq=LM_SEQ,
                                        steps=steps, device="cuda"),
         mods, list(PM.LAUNCHES))
+    lm_flash_main, lm_flash_prof = run_path(
+        torch, "lm_flash_main_path",
+        lambda steps: build_lm_trainer(LM_ARCH, num_layers=LM_LAYERS,
+                                       batch=LM_BATCH, seq=LM_SEQ,
+                                       steps=steps, device="cuda",
+                                       fused_attention=True),
+        mods, list(PM.LAUNCHES) + list(FA.LAUNCHES))
 
     kernels = []
     for name in REPLACES:
         t = tot[name]
         bytes_ms = 1e3 * t["bytes"] / HBM_BYTES_PER_S
         ops_ms = 1e3 * t["ops_s"]
-        path = main if name in K.LAUNCHES else lm_main
+        path = main if name in K.LAUNCHES else \
+            lm_main if name in PM.LAUNCHES else lm_flash_main
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": path["launches"][name],
@@ -520,13 +748,18 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "geometries": details,
-         "lm_geometries": pdetails, "reference": ref,
-         "lm_reference": lm_ref, "main_path": main, "profile": prof,
-         "lm_main_path": lm_main, "lm_profile": lm_prof, "kernels": kernels,
+         "lm_geometries": pdetails, "flash_geometries": fdetails,
+         "attention_ab": ab, "reference": ref, "lm_reference": lm_ref,
+         "lm_flash_reference": lm_flash_ref, "main_path": main,
+         "profile": prof, "lm_main_path": lm_main, "lm_profile": lm_prof,
+         "lm_flash_main_path": lm_flash_main,
+         "lm_flash_profile": lm_flash_prof, "kernels": kernels,
          "note": "conv kernel times are summed over the conv sites of one "
                  "ResNet-74 batch-128 step, PSG matmul kernel times over the "
                  "weight-matmul sites of one qwen2.5-3b 8-layer step at "
-                 "N = 8192 tokens, with every block executed",
+                 "N = 8192 tokens, flash kernel times over the attention "
+                 "sites of one qwen2.5-3b 8-layer step at batch 2 x 4096 "
+                 "(kernel 7 twice per layer), with every block executed",
          "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,6 @@ they are set, never a quiet substitute:
 
 * ``PSGConfig.fused_conv=False`` (the materialized im2col + PSG-matmul conv
   path);
-* ``PSGConfig.fused_attention=True`` (the flash-attention kernels);
 * ``TrainConfig.remat="full"``;
 * block kinds other than ``"attn"``, sliding-window attention and the
   encoder/cross-attention/frontend fields (raised by
@@ -157,11 +156,12 @@ class PSGConfig:
     # every direction.  None = auto = on; False (materialized im2col) is
     # not implemented in this package.
     fused_conv: Optional[bool] = None
-    # transformer self-attention: None = auto = the materialized softmax
-    # path (models/layers.py), whose weight matmuls run the PSG matmul
-    # kernels.  This differs from the JAX package's auto on its CPU
-    # backends, which picks the flash kernels; it is what the JAX package
-    # resolves to on the TPU.  True (the flash kernels) is not ported yet.
+    # transformer self-attention (resolved by fused_attention_active):
+    # True runs the flash kernels with the PSG dk/dv backward
+    # (kernels/flash_attn.py), False the materialized softmax
+    # (models/layers.py).  None = auto = the materialized softmax, which is
+    # what the JAX package resolves to on the TPU; its auto on the CPU
+    # backends picks the flash kernels.
     fused_attention: Optional[bool] = None
 
     def __post_init__(self):
@@ -169,10 +169,15 @@ class PSGConfig:
             raise NotImplementedError(
                 "fused_conv=False selects the materialized im2col + "
                 "psg_matmul path, which repro_torch does not implement")
-        if self.fused_attention is True:
-            raise NotImplementedError(
-                "fused_attention=True selects the flash-attention kernels, "
-                "which repro_torch does not implement yet")
+
+
+def fused_attention_active(cfg: Optional[PSGConfig]) -> bool:
+    """Resolve a config's ``fused_attention``: no config (PSG off) is
+    inactive, an explicit ``True``/``False`` wins, and ``None`` means the
+    materialized softmax."""
+    if cfg is None or cfg.fused_attention is None:
+        return False
+    return cfg.fused_attention
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
-"""Predictive Sign Gradient (PSG, paper §3.3) for convolutions and dense
-matmuls.
+"""Predictive Sign Gradient (PSG, paper §3.3) for convolutions, dense
+matmuls and self-attention.
 
 The weight gradient leaves the backward as a sign: ``sign(g_msb)`` from a
 4-bit x 10-bit predictor product where ``|g_msb| >= beta * max|g_msb|``, and
@@ -9,7 +9,10 @@ grid.  Convolutions run all three directions through the kernels of
 ``kernels/conv.py``; a dense matmul (:class:`PSGMatmul`) runs its forward
 and input gradient as plain matmuls of the quantized operands, as the JAX
 package leaves them to XLA, and its weight-gradient sign through the
-kernels of ``kernels/psg_matmul.py``.
+kernels of ``kernels/psg_matmul.py``.  Self-attention (:class:`PSGAttention`,
+under ``fused_attention=True``) runs the flash kernels of
+``kernels/flash_attn.py``: an fp32 dq, and for dv and dk the Eq. (2) select
+between the predictor and the full code products, as values.
 
 The backward also reports how often the full product was needed, through
 the gradient of a *probe*: a ``zeros(2)`` tensor that requires grad and is
@@ -105,6 +108,48 @@ class PSGMatmul(torch.autograd.Function):
                             device=gy.device) * x2.shape[1] * gy.shape[1]
         dprobe = torch.stack([fallback * macs, macs])
         return dx, sign.to(w.dtype), dprobe, None
+
+
+class PSGAttention(torch.autograd.Function):
+    """Self-attention ``(B, S, nh, hd) x (B, T, nkv, hd)`` with PSG backward
+    semantics (the JAX package's ``_psg_attention``): forward the flash
+    kernel, saving only ``(q, k, v, o, lse)``; backward dq, dk and dv from
+    the recomputing kernels, cast to the input dtypes, and the probe's
+    ``[fallback * macs, macs]`` with ``macs = 2 B nh hd`` times the score
+    pairs computed (``S (S + 1) / 2`` for causal self-attention)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, probe, causal: bool, cfg: PSGConfig):
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.cfg = causal, cfg
+        return o
+
+    @staticmethod
+    def backward(ctx, gy):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv, fallback = ops.flash_attention_bwd(
+            q, k, v, o, lse, gy.to(q.dtype), ctx.cfg, causal=ctx.causal)
+        B, S, nh, hd = q.shape
+        T = k.shape[1]
+        pairs = S * (S + 1) // 2 if (ctx.causal and S == T) else S * T
+        # fp32 like the JAX package: float32(2 * B * nh * hd) * pairs
+        macs = torch.tensor(float(2 * B * nh * hd), dtype=torch.float32,
+                            device=gy.device) * pairs
+        dprobe = torch.stack([fallback * macs, macs])
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dprobe, None,
+                None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """:class:`PSGAttention` under the active config, with the active probe
+    threaded in; callers gate on ``config.fused_attention_active``."""
+    cfg = active_config()
+    if cfg is None:
+        raise ValueError("psg.attention needs an active PSG config "
+                         "(psg.enable)")
+    return PSGAttention.apply(q, k, v, _current_probe(q.device), causal, cfg)
 
 
 def psg_matmul(x2: torch.Tensor, w: torch.Tensor, cfg: PSGConfig

@@ -20,7 +20,10 @@ def _lim(bits: int) -> float:
 def qscale(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Per-tensor scale ``max|x| / (2^(b-1) - 1)`` as an fp32 0-d tensor."""
     amax = x.float().abs().amax()
-    return torch.clamp_min(amax, 1e-12) / _lim(bits)
+    # divide by a tensor: PyTorch multiplies a CUDA tensor divided by a
+    # Python number by the number's reciprocal, which is not the fp32 quotient
+    lim = torch.full((), _lim(bits), device=amax.device)
+    return torch.clamp_min(amax, 1e-12) / lim
 
 
 def _round_codes(x: torch.Tensor, bits: int

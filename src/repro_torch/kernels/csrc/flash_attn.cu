@@ -1,0 +1,779 @@
+// Flash attention with the PSG dk/dv backward, for Hopper (sm_90a).  Plain C
+// entry points, bound from Python with ctypes (kernels/flash_attn.py); every
+// entry launches on the caller's stream, allocates nothing and returns the
+// first CUDA error it meets.
+//
+// Layouts (the JAX package's): q, dO, o, dq (B, S, nh, hd); k, v (B, T, nkv,
+// hd), query head h reading kv head h / (nh / nkv); lse, delta (B, nh, S)
+// fp32.  q, k, v and dO are fp32 or bf16 and are read into fp32 shared
+// memory with 16-byte loads (every tensor 16-byte aligned, which the wrapper
+// checks); every sum is fp32 or integer.  No (S, T) tensor reaches device
+// memory: each kernel recomputes its score tiles.
+//
+//   flash_fwd      kernel 7: causal (or full) online-softmax forward, o in the
+//                  input dtype and the row logsumexp lse.
+//                  Replaces flash_attention / _flash_kernel.
+//   flash_bwd_dq   kernel 8: P = exp(s - lse), dS = (P (dP - delta)) scale,
+//                  dq = dS k in fp32.
+//                  Replaces flash_bwd_dq_pallas / _flash_bwd_dq_kernel.
+//   flash_bwd_dkv  kernel 9, the PSG kernel: P and dS quantized in-tile onto
+//                  their grids, rintf(__fdiv_rn(x, s)) clamped, and the four
+//                  code products dv_msb/full = codes(P)^T codes(dO), dk_msb/
+//                  full = codes(dS)^T codes(q), summed over the query heads of
+//                  each kv head.  The codes of q and dO come in as int8/int16.
+//                  Replaces flash_bwd_dkv_pallas / _flash_bwd_dkv_kernel.
+// (all in the JAX package's src/repro/kernels/flash_attn.py)
+//
+// The order of operations is JAX's: s * scale, then exp(s - lse) with invalid
+// entries exactly 0, then (p * (dp - delta)) * scale, lse = m + log(max(l,
+// 1e-30)), masked scores at -1e30.  The __fmul_rn/__fsub_rn intrinsics keep
+// the compiler from contracting those steps into fused multiply-adds, expf
+// and logf are the accurate ones, and the file must be built without
+// --use_fast_math: the code grids need IEEE division and rintf.
+//
+// Bound on an H100 (PERF.md's rates: 67 TFLOP/s fp32, 989 TFLOP/s bf16 tensor
+// cores, 1,979 TOP/s int8, 3.35 TB/s).  Per causal call there are pairs =
+// B nh S (S + 1) / 2 scores, and each product over them costs 2 hd pairs
+// operations; the bytes (q, k, v, dO, o, lse once) are far below the
+// operations at LM sequence lengths, so the operations bound all three:
+//   kernel 7: q k^T and P v, 4 hd pairs operations;
+//   kernel 8: q k^T, dO v^T and dS k, 6 hd pairs;
+//   kernel 9: q k^T and dO v^T (fp32), and the four code products (integer
+//             multiply-adds, 8 hd pairs operations, at the int8 rate).
+// q k^T and dO v^T of bf16 operands with an fp32 sum may take the bf16
+// tensor-core rate as their bound; P v, dS k and the code products take the
+// fp32 and int8 rates.  These first kernels run on the CUDA cores in fp32 and
+// int32: a 64 x 64 score tile per step for kernels 7 and 8 (a 4 x 4 register
+// tile per thread, q and k transposed in shared memory so that every read is
+// a float4 across a row), a 64-query x 32-kv tile for kernel 9.  Blocks run
+// the causal loop themselves: kernels 7 and 8 take one block per (batch x
+// head, 64-row query tile), longest rows first, and loop over the kv tiles up
+// to the diagonal; kernel 9 takes one block per (batch x kv head, 32-row kv
+// tile), loops over the g query heads of its kv head and over the query tiles
+// from the diagonal on, and so writes each group-summed product once, with no
+// atomics.  Every code product pairs an 8-bit with a 16-bit code, so the
+// kernel keeps the codes of query rows 2p and 2p + 1 side by side in shared
+// memory and sums two rows with one __dp2a (two 16 x 8-bit products and an
+// add).  The integer sums are exact and order-free: the predictor products
+// stay in int32 (the wrapper checks S g lim_x_msb lim_g_msb < 2^31), the full
+// ones sum in int32 over whole 64-row query tiles, at most 2^31 / (lim_x
+// lim_g) rows (512 at 8 x 16 bits), and are then added into the int64
+// output, which the block owns.  Later work: bf16 mma/wgmma for q k^T and
+// dO v^T, int8 IMMA with byte-split 16-bit codes for the code products.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;          // 16 x 16 threads (tx, ty)
+constexpr float kNegInf = -1e30f;
+constexpr int BQ = 64, BK = 64;        // kernels 7 and 8: query and kv rows
+constexpr int QP = BQ + 4, KP = BK + 4;  // padded pitch of transposed tiles
+constexpr int BQ9 = 64, BK9 = 32;      // kernel 9: query and kv rows
+constexpr int KP9 = BK9 + 4;
+
+struct Geo {
+  int B, S, T, nh, nkv, g, causal;
+  float scale;                          // float32(1 / sqrt(hd))
+};
+
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Column of element jj of a thread's HD / 16 output columns: groups of four
+// at tx * 4 + 64 * group when there are four or more (so that a quarter warp
+// reads 128 contiguous bytes), else tx * CPT + jj.
+template <int HD>
+__device__ __forceinline__ int col(int tx, int jj) {
+  constexpr int CPT = HD / 16;
+  if constexpr (CPT >= 4) return (jj / 4) * 64 + tx * 4 + jj % 4;
+  else return tx * CPT + jj;
+}
+
+template <int HD>
+__device__ __forceinline__ void lds_cols(const float* row, int tx,
+                                         float (&v)[HD / 16]) {
+  constexpr int CPT = HD / 16;
+  if constexpr (CPT >= 4) {
+#pragma unroll
+    for (int a = 0; a < CPT / 4; ++a) {
+      const float4 w = *reinterpret_cast<const float4*>(row + a * 64 + tx * 4);
+      v[4 * a] = w.x; v[4 * a + 1] = w.y; v[4 * a + 2] = w.z; v[4 * a + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < CPT; ++a) v[a] = row[tx * CPT + a];
+  }
+}
+
+__device__ __forceinline__ float max16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// 16 bytes of global memory (16-byte aligned) as fp32 values
+__device__ __forceinline__ void ldg16(const float* p, float (&x)[4]) {
+  const float4 w = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = w.x; x[1] = w.y; x[2] = w.z; x[3] = w.w;
+}
+__device__ __forceinline__ void ldg16(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // a bf16 is the high half of its fp32
+    x[2 * i] = __uint_as_float(u[i] << 16);
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// rows [row0, row0 + rows) of head `head` of a (B, L, n, HD) tensor into
+// shared memory as fp32, zero past L, in 16-byte loads: transposed
+// (dst[d * pitch + r], consecutive threads on consecutive rows so that the
+// stores do not collide) or in rows (dst[r * pitch + d])
+template <typename T, int HD, bool kTransposed>
+__device__ __forceinline__ void load_tile(float* dst, int pitch,
+                                          const T* __restrict__ src, int b,
+                                          int row0, int rows, int L, int n,
+                                          int head) {
+  constexpr int V = 16 / sizeof(T), NC = HD / V;   // vectors per row
+  for (int e = threadIdx.x; e < rows * NC; e += kThreads) {
+    const int r = kTransposed ? e % rows : e / NC;
+    const int c = kTransposed ? e / rows : e % NC;
+    const int row = row0 + r;
+    float x[V];
+    if (row < L) {
+      ldg16(src + (((size_t)b * L + row) * n + head) * HD + c * V, x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) x[i] = 0.f;
+    }
+    if constexpr (kTransposed) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) dst[(c * V + i) * pitch + r] = x[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; i += 4)
+        *reinterpret_cast<float4*>(dst + r * pitch + c * V + i) =
+            make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+    }
+  }
+}
+
+// integer codes of query rows (2p, 2p + 1) interleaved, as dp2a takes them:
+// int8 codes into one uint16 per (pair, column), byte 0 from row 2p; int16
+// codes into one uint32 per (pair, column), low half from row 2p; zero past L
+template <typename C, int HD>
+__device__ __forceinline__ void load_code_pairs(void* dst,
+                                                const C* __restrict__ src,
+                                                int b, int row0, int pairs,
+                                                int L, int n, int head) {
+  constexpr int V = 16 / sizeof(C), NC = HD / V;   // vectors per row
+  for (int e = threadIdx.x; e < pairs * NC; e += kThreads) {
+    const int p = e / NC, c = e % NC, r0 = row0 + 2 * p;
+    uint4 w[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      w[k] = r0 + k < L
+          ? __ldg(reinterpret_cast<const uint4*>(
+                src + (((size_t)b * L + r0 + k) * n + head) * HD + c * V))
+          : make_uint4(0u, 0u, 0u, 0u);
+    const unsigned a[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
+    const unsigned z[4] = {w[1].x, w[1].y, w[1].z, w[1].w};
+    // int8: (row0, row1) bytes of columns 2i, 2i + 1 of word i; int16: halves
+    constexpr unsigned kLo = sizeof(C) == 1 ? 0x5140u : 0x5410u;
+    constexpr unsigned kHi = sizeof(C) == 1 ? 0x7362u : 0x7632u;
+    unsigned o[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[2 * i] = __byte_perm(a[i], z[i], kLo);
+      o[2 * i + 1] = __byte_perm(a[i], z[i], kHi);
+    }
+    // 2 V columns of 2 sizeof(C) bytes: 32 bytes at column c * V of pair p
+    uint4* out = reinterpret_cast<uint4*>(
+        static_cast<char*>(dst) + ((size_t)p * HD + c * V) * 2 * sizeof(C));
+    out[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    out[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+// a thread's HD / 16 columns (col<HD>) of a row of 32-bit code pairs
+template <int HD>
+__device__ __forceinline__ void lds_words(const unsigned* row, int tx,
+                                          unsigned (&v)[HD / 16]) {
+  constexpr int CPT = HD / 16;
+  if constexpr (CPT >= 4) {
+#pragma unroll
+    for (int g = 0; g < CPT / 4; ++g) {
+      const uint4 w = *reinterpret_cast<const uint4*>(row + g * 64 + tx * 4);
+      v[4 * g] = w.x; v[4 * g + 1] = w.y; v[4 * g + 2] = w.z; v[4 * g + 3] = w.w;
+    }
+  } else if constexpr (CPT == 2) {
+    const uint2 w = *reinterpret_cast<const uint2*>(row + tx * 2);
+    v[0] = w.x; v[1] = w.y;
+  } else {
+    v[0] = row[tx];
+  }
+}
+
+// the same columns of a row of 16-bit code pairs, two columns to a word
+// (even column in the low half)
+template <int HD>
+__device__ __forceinline__ void lds_halves(const uint16_t* row, int tx,
+                                           unsigned (&v)[(HD / 16 + 1) / 2]) {
+  constexpr int CPT = HD / 16;
+  if constexpr (CPT >= 4) {
+#pragma unroll
+    for (int g = 0; g < CPT / 4; ++g) {
+      const uint2 w = *reinterpret_cast<const uint2*>(row + g * 64 + tx * 4);
+      v[2 * g] = w.x; v[2 * g + 1] = w.y;
+    }
+  } else if constexpr (CPT == 2) {
+    v[0] = *reinterpret_cast<const unsigned*>(row + tx * 2);
+  } else {
+    v[0] = row[tx];
+  }
+}
+
+__device__ __forceinline__ bool visible(const Geo& G, int qi, int kj) {
+  return kj < G.T && qi < G.S && (!G.causal || kj <= qi);
+}
+
+// the JAX package's codes_tile: clip(round(x / s), -lim, lim)
+__device__ __forceinline__ int code(float x, float s, float lim) {
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -lim), lim);
+}
+
+// s[i][j] = sum_d A[d][ty*4 + i] * B[d][tx*NJ + j], A pitch AP, B pitch BP
+template <int HD, int NJ, int AP, int BP>
+__device__ __forceinline__ void score_tile(const float* A, const float* Bm,
+                                           int tx, int ty, float (&s)[4][NJ]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(A + d * AP + ty * 4);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    float bv[NJ];
+    if constexpr (NJ == 4) {
+      const float4 w = *reinterpret_cast<const float4*>(Bm + d * BP + tx * 4);
+      bv[0] = w.x; bv[1] = w.y; bv[2] = w.z; bv[3] = w.w;
+    } else {
+      const float2 w = *reinterpret_cast<const float2*>(Bm + d * BP + tx * 2);
+      bv[0] = w.x; bv[1] = w.y;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 7: forward
+// ---------------------------------------------------------------------------
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Geo G) {
+  constexpr int CPT = HD / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;               // [HD][QP]
+  float* Kt = Qt + HD * QP;       // [HD][KP]
+  float* Vs = Kt + HD * KP;       // [BK][HD]
+  float* Pt = Vs + BK * HD;       // [BK][QP]
+  const int iq = gridDim.x - 1 - blockIdx.x;   // longest rows first
+  const int b = blockIdx.y / G.nh, h = blockIdx.y % G.nh, kvh = h / G.g;
+  const int q0 = iq * BQ, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile<T, HD, true>(Qt, QP, q, b, q0, BQ, G.S, G.nh, h);
+  float m[4], l[4], acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = 0.f;
+  }
+  const int t_end = G.causal ? min(G.T, q0 + BQ) : G.T;
+  for (int k0 = 0; k0 < t_end; k0 += BK) {
+    __syncthreads();   // the last step's readers of Kt, Vs and Pt are done
+    load_tile<T, HD, true>(Kt, KP, k, b, k0, BK, G.T, G.nkv, kvh);
+    load_tile<T, HD, false>(Vs, HD, v, b, k0, BK, G.T, G.nkv, kvh);
+    __syncthreads();
+    float s[4][4];
+    score_tile<HD, 4, QP, KP>(Qt, Kt, tx, ty, s);
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx * 4 + j;
+        const bool ok = kj < G.T && (!G.causal || kj <= qi);
+        s[i][j] = ok ? __fmul_rn(s[i][j], G.scale) : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], max16(mx));
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(__fsub_rn(s[i][j], m_new));
+        rs += s[i][j];
+      }
+      alpha[i] = expf(__fsub_rn(m[i], m_new));
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), sum16(rs));
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Pt[(tx * 4 + j) * QP + ty * 4 + i] = s[i][j];
+    }
+    __syncthreads();
+    float pv[4][CPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < CPT; ++jj) pv[i][jj] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < BK; ++c) {
+      const float4 p = *reinterpret_cast<const float4*>(Pt + c * QP + ty * 4);
+      const float pr[4] = {p.x, p.y, p.z, p.w};
+      float vv[CPT];
+      lds_cols<HD>(Vs + c * HD, tx, vv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < CPT; ++jj) pv[i][jj] = fmaf(pr[i], vv[jj], pv[i][jj]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < CPT; ++jj)
+        acc[i][jj] = __fadd_rn(__fmul_rn(acc[i][jj], alpha[i]), pv[i][jj]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= G.S) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    T* orow = o + (((size_t)b * G.S + qi) * G.nh + h) * HD;
+#pragma unroll
+    for (int jj = 0; jj < CPT; ++jj) st(orow + col<HD>(tx, jj), acc[i][jj] / lc);
+    if (tx == 0) lse[((size_t)b * G.nh + h) * G.S + qi] = m[i] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 8: dq
+// ---------------------------------------------------------------------------
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    Geo G) {
+  constexpr int CPT = HD / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;               // [HD][QP]
+  float* dOt = Qt + HD * QP;      // [HD][QP]
+  float* Kt = dOt + HD * QP;      // [HD][KP]
+  float* Vt = Kt + HD * KP;       // [HD][KP]
+  float* Ks = Vt + HD * KP;       // [BK][HD]
+  float* dSt = Ks + BK * HD;      // [BK][QP]
+  const int iq = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / G.nh, h = blockIdx.y % G.nh, kvh = h / G.g;
+  const int q0 = iq * BQ, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile<T, HD, true>(Qt, QP, q, b, q0, BQ, G.S, G.nh, h);
+  load_tile<T, HD, true>(dOt, QP, dout, b, q0, BQ, G.S, G.nh, h);
+  float lse_r[4], dlt_r[4], acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    const size_t r = ((size_t)b * G.nh + h) * G.S + qi;
+    lse_r[i] = qi < G.S ? lse[r] : 0.f;
+    dlt_r[i] = qi < G.S ? delta[r] : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = 0.f;
+  }
+  const int t_end = G.causal ? min(G.T, q0 + BQ) : G.T;
+  for (int k0 = 0; k0 < t_end; k0 += BK) {
+    __syncthreads();
+    load_tile<T, HD, true>(Kt, KP, k, b, k0, BK, G.T, G.nkv, kvh);
+    load_tile<T, HD, true>(Vt, KP, v, b, k0, BK, G.T, G.nkv, kvh);
+    load_tile<T, HD, false>(Ks, HD, k, b, k0, BK, G.T, G.nkv, kvh);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    score_tile<HD, 4, QP, KP>(Qt, Kt, tx, ty, s);
+    score_tile<HD, 4, QP, KP>(dOt, Vt, tx, ty, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx * 4 + j;
+        const float p = visible(G, qi, kj)
+            ? expf(__fsub_rn(__fmul_rn(s[i][j], G.scale), lse_r[i])) : 0.f;
+        dSt[(tx * 4 + j) * QP + ty * 4 + i] =
+            __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i][j], dlt_r[i])), G.scale);
+      }
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int c = 0; c < BK; ++c) {
+      const float4 w = *reinterpret_cast<const float4*>(dSt + c * QP + ty * 4);
+      const float ds[4] = {w.x, w.y, w.z, w.w};
+      float kv[CPT];
+      lds_cols<HD>(Ks + c * HD, tx, kv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = fmaf(ds[i], kv[jj], acc[i][jj]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= G.S) continue;
+    float* row = dq + (((size_t)b * G.S + qi) * G.nh + h) * HD;
+#pragma unroll
+    for (int jj = 0; jj < CPT; ++jj) row[col<HD>(tx, jj)] = acc[i][jj];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 9: dk/dv code products (PSG)
+// ---------------------------------------------------------------------------
+
+struct Grid9 {
+  float s_pm, s_pf;                 // P's grids: float32(1 / lim)
+  float lim_x, lim_xm, lim_g, lim_gm;
+  int flush_tiles;                  // query tiles per int32 partial
+};
+
+// add a thread's int32 partial full products into the block's int64 output
+// rows (kv rows ty * 2 + a) and clear them
+template <int HD>
+__device__ __forceinline__ void flush_full(long long* __restrict__ dvf,
+                                           long long* __restrict__ dkf,
+                                           int (&vf)[2][HD / 16],
+                                           int (&kf)[2][HD / 16],
+                                           const Geo& G, int b, int kvh,
+                                           int kv0, int tx, int ty) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int kj = kv0 + ty * 2 + a;
+    if (kj < G.T) {
+      const size_t base = (((size_t)b * G.T + kj) * G.nkv + kvh) * HD;
+#pragma unroll
+      for (int jj = 0; jj < HD / 16; ++jj) {
+        dvf[base + col<HD>(tx, jj)] += vf[a][jj];
+        dkf[base + col<HD>(tx, jj)] += kf[a][jj];
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < HD / 16; ++jj) vf[a][jj] = kf[a][jj] = 0;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ scales,
+                     const int8_t* __restrict__ qm,
+                     const int8_t* __restrict__ qf,
+                     const int16_t* __restrict__ dom,
+                     const int16_t* __restrict__ dof,
+                     int32_t* __restrict__ dvm, long long* __restrict__ dvf,
+                     int32_t* __restrict__ dkm, long long* __restrict__ dkf,
+                     Geo G, Grid9 Z) {
+  constexpr int CPT = HD / 16, NP = BQ9 / 2;   // NP query-row pairs a step
+  extern __shared__ __align__(16) float smem[];
+  float* Kt = smem;                         // [HD][KP9]
+  float* Vt = Kt + HD * KP9;                // [HD][KP9]
+  float* Qt = Vt + HD * KP9;                // [HD][QP]
+  float* dOt = Qt + HD * QP;                // [HD][QP]
+  float* lse_s = dOt + HD * QP;             // [BQ9]
+  float* dlt_s = lse_s + BQ9;               // [BQ9]
+  // codes of query rows (2p, 2p + 1) side by side (load_code_pairs)
+  unsigned* Pdm = reinterpret_cast<unsigned*>(dlt_s + BQ9);  // dS [NP][BK9]
+  unsigned* Pdf = Pdm + NP * BK9;
+  unsigned* dom_p = Pdf + NP * BK9;                          // dO [NP][HD]
+  unsigned* dof_p = dom_p + NP * HD;
+  uint16_t* Ppm = reinterpret_cast<uint16_t*>(dof_p + NP * HD);  // P [NP][BK9]
+  uint16_t* Ppf = Ppm + NP * BK9;
+  uint16_t* qm_p = Ppf + NP * BK9;                           // q [NP][HD]
+  uint16_t* qf_p = qm_p + NP * HD;
+
+  const int kv0 = blockIdx.x * BK9;
+  const int b = blockIdx.y / G.nkv, kvh = blockIdx.y % G.nkv;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float s_ds = scales[4], s_dsm = scales[5];
+
+  load_tile<T, HD, true>(Kt, KP9, k, b, kv0, BK9, G.T, G.nkv, kvh);
+  load_tile<T, HD, true>(Vt, KP9, v, b, kv0, BK9, G.T, G.nkv, kvh);
+  // kv rows ty * 2 + a, columns col(tx, jj)
+  int vm[2][CPT], vf[2][CPT], km[2][CPT], kf[2][CPT];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int jj = 0; jj < CPT; ++jj) vm[a][jj] = vf[a][jj] = km[a][jj] = kf[a][jj] = 0;
+
+  const int n_q = (G.S + BQ9 - 1) / BQ9;
+  const int iq_first = G.causal ? kv0 / BQ9 : 0;
+  int tiles = 0;
+  for (int hh = 0; hh < G.g; ++hh) {
+    const int h = kvh * G.g + hh;
+    for (int iq = iq_first; iq < n_q; ++iq) {
+      const int q0 = iq * BQ9;
+      __syncthreads();   // the last step's readers of every tile are done
+      load_tile<T, HD, true>(Qt, QP, q, b, q0, BQ9, G.S, G.nh, h);
+      load_tile<T, HD, true>(dOt, QP, dout, b, q0, BQ9, G.S, G.nh, h);
+      load_code_pairs<int8_t, HD>(qm_p, qm, b, q0, NP, G.S, G.nh, h);
+      load_code_pairs<int8_t, HD>(qf_p, qf, b, q0, NP, G.S, G.nh, h);
+      load_code_pairs<int16_t, HD>(dom_p, dom, b, q0, NP, G.S, G.nh, h);
+      load_code_pairs<int16_t, HD>(dof_p, dof, b, q0, NP, G.S, G.nh, h);
+      for (int r = threadIdx.x; r < BQ9; r += kThreads) {
+        const int qi = q0 + r;
+        const size_t idx = ((size_t)b * G.nh + h) * G.S + qi;
+        lse_s[r] = qi < G.S ? lse[idx] : 0.f;
+        dlt_s[r] = qi < G.S ? delta[idx] : 0.f;
+      }
+      __syncthreads();
+      // score tile: query rows ty * 4 + i, kv columns tx * 2 + j
+      float s[4][2], dp[4][2];
+      score_tile<HD, 2, QP, KP9>(Qt, Kt, tx, ty, s);
+      score_tile<HD, 2, QP, KP9>(dOt, Vt, tx, ty, dp);
+      int cpm[4][2], cpf[4][2], cdm[4][2], cdf[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i, qi = q0 + r;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = visible(G, qi, kv0 + tx * 2 + j)
+              ? expf(__fsub_rn(__fmul_rn(s[i][j], G.scale), lse_s[r])) : 0.f;
+          const float ds =
+              __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i][j], dlt_s[r])), G.scale);
+          cpm[i][j] = code(p, Z.s_pm, Z.lim_xm);
+          cpf[i][j] = code(p, Z.s_pf, Z.lim_x);
+          cdm[i][j] = code(ds, s_dsm, Z.lim_gm);
+          cdf[i][j] = code(ds, s_ds, Z.lim_g);
+        }
+      }
+      // rows ty * 4 + (2m, 2m + 1) form pair ty * 2 + m
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = (ty * 2 + m) * BK9 + tx * 2 + j;
+          Ppm[e] = (uint16_t)((cpm[2 * m][j] & 0xff) | ((cpm[2 * m + 1][j] & 0xff) << 8));
+          Ppf[e] = (uint16_t)((cpf[2 * m][j] & 0xff) | ((cpf[2 * m + 1][j] & 0xff) << 8));
+          Pdm[e] = (unsigned)(cdm[2 * m][j] & 0xffff) | ((unsigned)cdm[2 * m + 1][j] << 16);
+          Pdf[e] = (unsigned)(cdf[2 * m][j] & 0xffff) | ((unsigned)cdf[2 * m + 1][j] << 16);
+        }
+      __syncthreads();
+      // each __dp2a sums the products of two query rows: the low variant
+      // takes bytes 0-1 of its second operand, the high one bytes 2-3
+#pragma unroll 2
+      for (int pr = 0; pr < NP; ++pr) {
+        // P codes of kv rows ty * 2 (low half) and ty * 2 + 1 (high half)
+        const int pmw = *reinterpret_cast<const int*>(Ppm + pr * BK9 + ty * 2);
+        const int pfw = *reinterpret_cast<const int*>(Ppf + pr * BK9 + ty * 2);
+        const uint2 dm = *reinterpret_cast<const uint2*>(Pdm + pr * BK9 + ty * 2);
+        const uint2 df = *reinterpret_cast<const uint2*>(Pdf + pr * BK9 + ty * 2);
+        const int dmv[2] = {(int)dm.x, (int)dm.y}, dfv[2] = {(int)df.x, (int)df.y};
+        unsigned om[CPT], of[CPT], qmw[(CPT + 1) / 2], qfw[(CPT + 1) / 2];
+        lds_words<HD>(dom_p + pr * HD, tx, om);
+        lds_words<HD>(dof_p + pr * HD, tx, of);
+        lds_halves<HD>(qm_p + pr * HD, tx, qmw);
+        lds_halves<HD>(qf_p + pr * HD, tx, qfw);
+#pragma unroll
+        for (int jj = 0; jj < CPT; ++jj) {
+          vm[0][jj] = __dp2a_lo((int)om[jj], pmw, vm[0][jj]);
+          vm[1][jj] = __dp2a_hi((int)om[jj], pmw, vm[1][jj]);
+          vf[0][jj] = __dp2a_lo((int)of[jj], pfw, vf[0][jj]);
+          vf[1][jj] = __dp2a_hi((int)of[jj], pfw, vf[1][jj]);
+          const int qmj = (int)qmw[jj / 2], qfj = (int)qfw[jj / 2];
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            if (jj % 2 == 0) {
+              km[a][jj] = __dp2a_lo(dmv[a], qmj, km[a][jj]);
+              kf[a][jj] = __dp2a_lo(dfv[a], qfj, kf[a][jj]);
+            } else {
+              km[a][jj] = __dp2a_hi(dmv[a], qmj, km[a][jj]);
+              kf[a][jj] = __dp2a_hi(dfv[a], qfj, kf[a][jj]);
+            }
+          }
+        }
+      }
+      if (++tiles == Z.flush_tiles) {
+        flush_full<HD>(dvf, dkf, vf, kf, G, b, kvh, kv0, tx, ty);
+        tiles = 0;
+      }
+    }
+  }
+  flush_full<HD>(dvf, dkf, vf, kf, G, b, kvh, kv0, tx, ty);
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int kj = kv0 + ty * 2 + a;
+    if (kj >= G.T) continue;
+    const size_t base = (((size_t)b * G.T + kj) * G.nkv + kvh) * HD;
+#pragma unroll
+    for (int jj = 0; jj < CPT; ++jj) {
+      dvm[base + col<HD>(tx, jj)] = vm[a][jj];
+      dkm[base + col<HD>(tx, jj)] = km[a][jj];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+Geo make_geo(int B, int S, int T, int nh, int nkv, int hd, int causal) {
+  return Geo{B, S, T, nh, nkv, nh / nkv, causal,
+             (float)(1.0 / sqrt((double)hd))};
+}
+
+template <typename K>
+int prepare(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int HD>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, Geo G, cudaStream_t st) {
+  const size_t smem = sizeof(float) * (HD * QP + HD * KP + BK * HD + BK * QP);
+  int err = prepare(flash_fwd_kernel<T, HD>, smem);
+  if (err) return err;
+  dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
+  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, Geo G,
+              cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * (2 * HD * QP + 2 * HD * KP + BK * HD + BK * QP);
+  int err = prepare(flash_bwd_dq_kernel<T, HD>, smem);
+  if (err) return err;
+  dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
+  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* scales,
+               const void* qm, const void* qf, const void* dom,
+               const void* dof, void* dvm, void* dvf, void* dkm, void* dkf,
+               Geo G, Grid9 Z, cudaStream_t st) {
+  const size_t smem = sizeof(float) * (2 * HD * KP9 + 2 * HD * QP + 2 * BQ9)
+                      + (2 * sizeof(unsigned) + 2 * sizeof(uint16_t)) *
+                            (BQ9 / 2) * (BK9 + HD);
+  int err = prepare(flash_bwd_dkv_kernel<T, HD>, smem);
+  if (err) return err;
+  const size_t n_out = (size_t)G.B * G.T * G.nkv * HD;
+  err = (int)cudaMemsetAsync(dvf, 0, n_out * sizeof(long long), st);
+  if (err) return err;
+  err = (int)cudaMemsetAsync(dkf, 0, n_out * sizeof(long long), st);
+  if (err) return err;
+  dim3 grid((G.T + BK9 - 1) / BK9, G.B * G.nkv);
+  flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (const float*)scales,
+      (const int8_t*)qm, (const int8_t*)qf, (const int16_t*)dom,
+      (const int16_t*)dof, (int32_t*)dvm, (long long*)dvf, (int32_t*)dkm,
+      (long long*)dkf, G, Z);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// one instantiation per (dtype, head dim); other head dims are refused
+#define FLASH_DISPATCH(LAUNCH, bf16, hd, ...)                                \
+  switch (hd) {                                                              \
+    case 16:                                                                 \
+      return bf16 ? LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__)                   \
+                  : LAUNCH<float, 16>(__VA_ARGS__);                          \
+    case 32:                                                                 \
+      return bf16 ? LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__)                   \
+                  : LAUNCH<float, 32>(__VA_ARGS__);                          \
+    case 64:                                                                 \
+      return bf16 ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)                   \
+                  : LAUNCH<float, 64>(__VA_ARGS__);                          \
+    case 128:                                                                \
+      return bf16 ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)                  \
+                  : LAUNCH<float, 128>(__VA_ARGS__);                         \
+    default:                                                                 \
+      return (int)cudaErrorInvalidValue;                                     \
+  }
+
+extern "C" {
+
+int flash_fwd(const void* q, const void* k, const void* v, void* o,
+              void* lse, int B, int S, int T, int nh, int nkv, int hd,
+              int causal, int bf16, void* stream) {
+  if (B * S * nh == 0) return 0;
+  const Geo G = make_geo(B, S, T, nh, nkv, hd, causal);
+  FLASH_DISPATCH(launch_fwd, bf16, hd, q, k, v, o, lse, G,
+                 (cudaStream_t)stream)
+}
+
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, int B, int S, int T, int nh, int nkv, int hd,
+                 int causal, int bf16, void* stream) {
+  if (B * S * nh == 0) return 0;
+  const Geo G = make_geo(B, S, T, nh, nkv, hd, causal);
+  FLASH_DISPATCH(launch_dq, bf16, hd, q, k, v, dout, lse, delta, dq, G,
+                 (cudaStream_t)stream)
+}
+
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  const void* scales, const void* qm, const void* qf,
+                  const void* dom, const void* dof, void* dvm, void* dvf,
+                  void* dkm, void* dkf, int B, int S, int T, int nh, int nkv,
+                  int hd, int causal, int bf16, float s_pm, float s_pf,
+                  int lim_x, int lim_xm, int lim_g, int lim_gm,
+                  void* stream) {
+  if (B * T * nkv == 0) return 0;
+  const Geo G = make_geo(B, S, T, nh, nkv, hd, causal);
+  if (lim_x < 1 || lim_g < 1) return (int)cudaErrorInvalidValue;
+  // query tiles whose full products fit an int32 sum
+  const int flush_tiles =
+      (int)(2147483647LL / ((long long)lim_x * lim_g) / BQ9);
+  if (flush_tiles < 1) return (int)cudaErrorInvalidValue;
+  const Grid9 Z{s_pm, s_pf, (float)lim_x, (float)lim_xm, (float)lim_g,
+                (float)lim_gm, flush_tiles};
+  FLASH_DISPATCH(launch_dkv, bf16, hd, q, k, v, dout, lse, delta, scales, qm,
+                 qf, dom, dof, dvm, dvf, dkm, dkf, G, Z, (cudaStream_t)stream)
+}
+
+}  // extern "C"

@@ -1,0 +1,381 @@
+"""Flash attention with the PSG dk/dv backward: three kernels.
+
+Three CUDA kernels (``csrc/flash_attn.cu``), each behind a wrapper with a
+plain PyTorch version beside it.  A wrapper given CPU tensors computes the
+plain version; given CUDA tensors it launches its kernel or raises.  Each
+launch adds one to ``LAUNCHES[<wrapper name>]``.
+
+Layouts are the JAX package's: q and dO ``(B, S, nh, hd)``, k and v
+``(B, T, nkv, hd)`` with ``nh % nkv == 0`` (query head ``h`` reads kv head
+``h // (nh // nkv)``), lse and delta ``(B, nh, S)`` fp32.
+
+=============  =====================================================
+wrapper        replaces (JAX package, ``kernels/flash_attn.py``)
+=============  =====================================================
+flash_fwd      ``flash_attention`` / ``_flash_kernel``
+flash_bwd_dq   ``flash_bwd_dq_pallas`` / ``_flash_bwd_dq_kernel``
+flash_bwd_dkv  ``flash_bwd_dkv_pallas`` / ``_flash_bwd_dkv_kernel``
+=============  =====================================================
+
+No ``(S, T)`` tensor reaches device memory in either direction: the
+forward keeps a running row max and row sum and emits the logsumexp; the
+backward recomputes each probability tile from it.  ``flash_bwd_dkv`` is
+the PSG kernel: it quantizes P and dS in-tile onto their grids
+(:func:`codes_tile`, the JAX package's operations) and sums the four code
+products of ``dv = P^T dO`` and ``dk = dS^T q`` (predictor and full) in
+integers, which is exact.  Unlike the TPU kernel, which emits one product
+per *query* head, it loops over the query heads of each kv head and emits
+the group-summed products, as its plain version does.  The Eq. (2) select
+(:func:`psg_attention_select`) runs outside, on those products, with the
+fallback tiles at the TPU kernel's ``128``-row kv tiling whatever the CUDA
+tiling is.
+
+The plain versions materialize the ``(S, T)`` tiles one (batch, head) at a
+time; ``flash_bwd_dkv_plain`` multiplies the codes as float64, which is
+exact below 2**53, so its integer products are those of the kernel
+wherever both make the same codes.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import qscale
+from repro_torch.kernels.conv import _call, _check, _on_cuda, _stream
+
+NEG_INF = -1e30
+FALLBACK_TILE = 128     # kv rows of one fallback tile (the TPU kernel's bk)
+HEAD_DIMS = (16, 32, 64, 128)   # the head dims the CUDA kernels are built for
+INT32_MAX = 2 ** 31 - 1
+
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# tile math (copies of the JAX package's helpers)
+# ---------------------------------------------------------------------------
+
+
+def qlim(bits: int) -> float:
+    return 2.0 ** (bits - 1) - 1.0
+
+
+def softmax_scale(hd: int) -> float:
+    """``float32(1 / sqrt(hd))``, the score scale of both packages."""
+    return float(np.float32(1.0 / math.sqrt(hd)))
+
+
+def _f32(value: float, device) -> torch.Tensor:
+    """A 0-d fp32 tensor: divide by it, never by a Python number, which
+    PyTorch turns into a multiply by the reciprocal on a CUDA tensor."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def codes_tile(x: torch.Tensor, s, lim: float) -> torch.Tensor:
+    """Integer codes of ``x`` on the grid with scale ``s`` (fp32 values):
+    ``clip(round(x / s), -lim, lim)``, the division in fp32."""
+    if not torch.is_tensor(s):
+        s = _f32(s, x.device)
+    return torch.clamp(torch.round(x / s), -lim, lim)
+
+
+def attention_psg_scales(q: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                         delta: torch.Tensor, *, bits_x: int,
+                         bits_x_msb: int, bits_g: int,
+                         bits_g_msb: int) -> torch.Tensor:
+    """The six grid scales of the dk/dv kernel, ``[s_q, s_q_msb, s_do,
+    s_do_msb, s_ds, s_ds_msb]`` fp32: per-tensor grids for q and dO, and for
+    dS (never materialized) the analytic bound ``|dS| <= (max_s ||dO_s|| *
+    max_t ||v_t|| + max|delta|) / sqrt(hd)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    do32, v32 = do.float(), v.float()
+    rn_do = torch.sqrt(torch.amax(torch.sum(do32 * do32, dim=-1)))
+    rn_v = torch.sqrt(torch.amax(torch.sum(v32 * v32, dim=-1)))
+    bound = torch.clamp_min(scale * (rn_do * rn_v + delta.abs().amax()),
+                            1e-12)
+    return torch.stack([
+        qscale(q, bits_x), qscale(q, bits_x_msb),
+        qscale(do, bits_g), qscale(do, bits_g_msb),
+        bound / _f32(qlim(bits_g), q.device),
+        bound / _f32(qlim(bits_g_msb), q.device)]).float()
+
+
+def psg_attention_select(msb: torch.Tensor, full: torch.Tensor, deq_msb,
+                         deq_full, beta: float, tile_t: int = FALLBACK_TILE
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (2) on a group-summed code-product pair ``(B, T, nkv, hd)`` fp32:
+    the dequantized MSB product where ``|g_msb| >= beta * max|g_msb|``, the
+    dequantized full product elsewhere.  Returns ``(values, fraction of
+    (tile_t x hd) kv tiles holding any fallback element)``; a partial last
+    tile is padded with confident entries."""
+    tau = beta * msb.abs().amax()
+    conf = msb.abs() >= tau
+    vals = torch.where(conf, msb * deq_msb, full * deq_full)
+    B, T, nkv, hd = conf.shape
+    pad = (-T) % tile_t
+    if pad:
+        conf = torch.cat([conf, conf.new_ones((B, pad, nkv, hd))], dim=1)
+    tiles = conf.reshape(B, (T + pad) // tile_t, tile_t, nkv, hd)
+    need_full = (~tiles).any(dim=4).any(dim=2)
+    return vals, need_full.float().mean()
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _dims(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, ...]:
+    B, S, nh, hd = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    return B, S, T, nh, nkv, nh // nkv, hd
+
+
+def _valid(S: int, T: int, causal: bool, device) -> torch.Tensor:
+    """(S, T) bool: key j is visible to query i."""
+    valid = torch.ones(S, T, dtype=torch.bool, device=device)
+    return valid.tril() if causal else valid
+
+
+def _head(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    return x[b, :, h].float()
+
+
+def _p_tile(q, k, lse, valid, scale):
+    """``exp(q k^T * scale - lse)`` with invalid entries exactly zero."""
+    s = (q @ k.T) * scale
+    return torch.where(valid, torch.exp(s - lse[:, None]),
+                       torch.zeros((), device=s.device))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o in q.dtype, lse (B, nh, S) fp32)`` by a materialized softmax in
+    fp32: masked scores at -1e30, ``o = (P v) / max(l, 1e-30)``, ``lse = m +
+    log(max(l, 1e-30))``."""
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    scale = softmax_scale(hd)
+    valid = _valid(S, T, causal, q.device)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, nh, S), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for h in range(nh):
+            s = (_head(q, b, h) @ _head(k, b, h // g).T) * scale
+            s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
+            m = s.amax(dim=1, keepdim=True)
+            p = torch.exp(s - m)
+            lsum = torch.clamp_min(p.sum(dim=1, keepdim=True), 1e-30)
+            o[b, :, h] = ((p @ _head(v, b, h // g)) / lsum).to(q.dtype)
+            lse[b, h] = (m + torch.log(lsum))[:, 0]
+    return o, lse
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True
+                       ) -> torch.Tensor:
+    """dq ``(B, S, nh, hd)`` fp32: ``P = exp(s - lse)``, ``dS = P (dP -
+    delta) scale``, ``dq = dS k``."""
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    scale = softmax_scale(hd)
+    valid = _valid(S, T, causal, q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for h in range(nh):
+            kb = _head(k, b, h // g)
+            p = _p_tile(_head(q, b, h), kb, lse[b, h], valid, scale)
+            dp = _head(do, b, h) @ _head(v, b, h // g).T
+            ds = p * (dp - delta[b, h][:, None]) * scale
+            dq[b, :, h] = ds @ kb
+    return dq
+
+
+def check_lims(lims, S: int, g: int) -> None:
+    """Raise unless the codes fit the CUDA kernel's int8/int16 operands and
+    the predictor products, summed over ``S * g`` query rows, fit int32 (the
+    kernel sums the full products in int32 over at most
+    ``INT32_MAX // (lim_x * lim_g)`` rows, then in int64)."""
+    lim_x, lim_xm, lim_g, lim_gm = (int(v) for v in lims)
+    if max(lim_x, lim_xm) > 127 or max(lim_g, lim_gm) > 32767 \
+            or min(lim_x, lim_xm, lim_g, lim_gm) < 1:
+        raise ValueError(f"code limits {lims} outside 1..int8 / int16")
+    if S * g * lim_xm * lim_gm > INT32_MAX:
+        raise ValueError("predictor products could overflow int32")
+
+
+def operand_codes(q, do, scales, lims):
+    """The codes of q (int8) and dO (int16) on their predictor and full
+    grids: ``(q_msb, q_full, do_msb, do_full)``."""
+    lim_x, lim_xm, lim_g, lim_gm = lims
+    qf, dof = q.float(), do.float()
+    return (codes_tile(qf, scales[1], lim_xm).to(torch.int8),
+            codes_tile(qf, scales[0], lim_x).to(torch.int8),
+            codes_tile(dof, scales[3], lim_gm).to(torch.int16),
+            codes_tile(dof, scales[2], lim_g).to(torch.int16))
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, *, lims,
+                        causal: bool = True):
+    """The group-summed PSG code products of ``dv = P^T dO`` and ``dk =
+    dS^T q``: ``(dv_msb int32, dv_full int64, dk_msb int32, dk_full int64)``,
+    each ``(B, T, nkv, hd)`` in code units.  ``scales`` is the (6,) vector of
+    :func:`attention_psg_scales`, ``lims`` the code limits ``(lim_x,
+    lim_x_msb, lim_g, lim_g_msb)``."""
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    scale = softmax_scale(hd)
+    lim_x, lim_xm, lim_g, lim_gm = lims
+    s_pm, s_pf = _f32(1.0 / lim_xm, q.device), _f32(1.0 / lim_x, q.device)
+    s_ds, s_dsm = scales[4], scales[5]
+    qm, qf, dom, dof = operand_codes(q, do, scales, lims)
+    valid = _valid(S, T, causal, q.device)
+    outs = [torch.zeros((B, T, nkv, hd), dtype=torch.float64,
+                        device=q.device) for _ in range(4)]
+    for b in range(B):
+        for h in range(nh):
+            kv = h // g
+            p = _p_tile(_head(q, b, h), _head(k, b, kv), lse[b, h], valid,
+                        scale)
+            dp = _head(do, b, h) @ _head(v, b, kv).T
+            ds = p * (dp - delta[b, h][:, None]) * scale
+            pairs = ((codes_tile(p, s_pm, lim_xm), dom[b, :, h]),
+                     (codes_tile(p, s_pf, lim_x), dof[b, :, h]),
+                     (codes_tile(ds, s_dsm, lim_gm), qm[b, :, h]),
+                     (codes_tile(ds, s_ds, lim_g), qf[b, :, h]))
+            for out, (a, c) in zip(outs, pairs):
+                out[b, :, kv] += a.double().T @ c.double()
+    dv_m, dv_f, dk_m, dk_f = outs
+    return (dv_m.to(torch.int32), dv_f.to(torch.int64),
+            dk_m.to(torch.int32), dk_f.to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load
+    lib = load("flash_attn")
+    lib.flash_fwd.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+    lib.flash_bwd_dq.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+    lib.flash_bwd_dkv.argtypes = [_P] * 15 + [_I] * 8 + [_F] * 2 \
+        + [_I] * 4 + [_P]
+    for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_qkv(q, k, v) -> Tuple[int, ...]:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    _check(q, "q", q.dtype, 4)
+    _check(k, "k", q.dtype, 4)
+    _check(v, "v", q.dtype, 4)
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape \
+            or nh % nkv:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: not (B, S, nh, hd) and (B, T, "
+                         "nkv, hd) with nh % nkv == 0")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    _check_aligned(q=q, k=k, v=v)
+    return B, S, T, nh, nkv, g, hd
+
+
+def _check_aligned(**ts: torch.Tensor) -> None:
+    """The kernels read rows in 16-byte vectors."""
+    for name, t in ts.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def _check_rows(q, do, lse, delta) -> None:
+    B, S, nh, _ = q.shape
+    _check(do, "do", q.dtype, 4)
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
+    _check_aligned(do=do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check(t, name, torch.float32, 3)
+        if t.shape != (B, nh, S):
+            raise ValueError(f"{name} {tuple(t.shape)} != {(B, nh, S)}")
+
+
+def _geo(B, S, T, nh, nkv, hd, causal):
+    return [B, S, T, nh, nkv, hd, int(causal)]
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 7: ``(o (B, S, nh, hd) in q.dtype, lse (B, nh, S) fp32)``."""
+    if not _on_cuda(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal)
+    B, S, T, nh, nkv, g, hd = _check_qkv(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, nh, S), device=q.device, dtype=torch.float32)
+    _call(_lib().flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          o.data_ptr(), lse.data_ptr(), *_geo(B, S, T, nh, nkv, hd, causal),
+          int(q.dtype == torch.bfloat16), _stream(q))
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True
+                 ) -> torch.Tensor:
+    """Kernel 8: dq ``(B, S, nh, hd)`` fp32, recomputed from lse."""
+    if not _on_cuda(q, k, v, do, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal)
+    B, S, T, nh, nkv, g, hd = _check_qkv(q, k, v)
+    _check_rows(q, do, lse, delta)
+    dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    _call(_lib().flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+          *_geo(B, S, T, nh, nkv, hd, causal),
+          int(q.dtype == torch.bfloat16), _stream(q))
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scales, *, lims,
+                  causal: bool = True):
+    """Kernel 9: the group-summed PSG code products ``(dv_msb int32,
+    dv_full int64, dk_msb int32, dk_full int64)``, each ``(B, T, nkv, hd)``
+    (see :func:`flash_bwd_dkv_plain`).  The codes of q and dO are built here
+    in PyTorch; those of P and dS inside the kernel."""
+    if not _on_cuda(q, k, v, do, lse, delta, scales):
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales,
+                                   lims=lims, causal=causal)
+    B, S, T, nh, nkv, g, hd = _check_qkv(q, k, v)
+    _check_rows(q, do, lse, delta)
+    _check(scales, "scales", torch.float32, 1)
+    if scales.shape != (6,):
+        raise ValueError(f"scales {tuple(scales.shape)} != (6,)")
+    check_lims(lims, S, g)
+    qm, qf, dom, dof = operand_codes(q, do, scales, lims)
+    dev = q.device
+    outs = [torch.empty((B, T, nkv, hd), device=dev, dtype=dt)
+            for dt in (torch.int32, torch.int64, torch.int32, torch.int64)]
+    lim_x, lim_xm, lim_g, lim_gm = (int(x) for x in lims)
+    _call(_lib().flash_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), scales.data_ptr(),
+          qm.data_ptr(), qf.data_ptr(), dom.data_ptr(), dof.data_ptr(),
+          *(o.data_ptr() for o in outs), *_geo(B, S, T, nh, nkv, hd, causal),
+          int(q.dtype == torch.bfloat16),
+          float(np.float32(1.0 / lim_xm)), float(np.float32(1.0 / lim_x)),
+          lim_x, lim_xm, lim_g, lim_gm, _stream(q))
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return tuple(outs)

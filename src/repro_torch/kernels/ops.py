@@ -1,12 +1,12 @@
-"""Conv and matmul ops on the kernels, as the PSG autograd functions call
-them.
+"""Conv, matmul and attention ops on the kernels, as the PSG autograd
+functions call them.
 
-The counterpart of the JAX package's ``kernels/ops.py`` (conv and PSG
-matmul parts) and ``kernels/dispatch.py``.  There is one backend choice and
-it is made by the tensors' device inside each wrapper of ``kernels/conv.py``
-and ``kernels/psg_matmul.py``: CPU tensors take the plain PyTorch version,
-CUDA tensors launch the kernel.  No environment variable and no fallback
-are involved.
+The counterpart of the JAX package's ``kernels/ops.py`` and
+``kernels/dispatch.py``.  There is one backend choice and it is made by the
+tensors' device inside each wrapper of ``kernels/conv.py``,
+``kernels/psg_matmul.py`` and ``kernels/flash_attn.py``: CPU tensors take
+the plain PyTorch version, CUDA tensors launch the kernel.  No environment
+variable and no fallback are involved.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import codes
 from repro_torch.kernels import conv as K
+from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import psg_matmul as PM
 
 
@@ -84,3 +85,43 @@ def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig
     tau = cfg.beta * pred.float().abs().amax()
     sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
     return sign.float(), stats.float().mean()
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention forward and the logsumexp residual: q ``(B, S, nh,
+    hd)``, k/v ``(B, T, nkv, hd)`` -> ``(o in q.dtype, lse (B, nh, S)
+    fp32)``; no ``(S, T)`` tensor reaches device memory."""
+    return FA.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=causal)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        cfg: PSGConfig, causal: bool = True):
+    """PSG flash-attention backward: ``(dq, dk, dv, fallback ratio)``.
+
+    In order: ``delta = rowsum(dO * O)`` in fp32; dq from kernel 8; the six
+    grid scales; the group-summed code products from kernel 9; the Eq. (2)
+    select of dv and of dk (values, and the fraction of 128-row kv tiles
+    that fell back); the ratio is the mean of the two.  dq, dk and dv are
+    fp32.
+    """
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    scales = FA.attention_psg_scales(
+        q, v, do, delta, bits_x=cfg.bits_x, bits_x_msb=cfg.bits_x_msb,
+        bits_g=cfg.bits_g, bits_g_msb=cfg.bits_g_msb)
+    lims = (FA.qlim(cfg.bits_x), FA.qlim(cfg.bits_x_msb),
+            FA.qlim(cfg.bits_g), FA.qlim(cfg.bits_g_msb))
+    dv_m, dv_f, dk_m, dk_f = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales,
+                                              lims=lims, causal=causal)
+    s_q, s_qm, s_do, s_dom, s_ds, s_dsm = scales
+    dv, r_dv = FA.psg_attention_select(dv_m.float(), dv_f.float(),
+                                       (1.0 / lims[1]) * s_dom,
+                                       (1.0 / lims[0]) * s_do, cfg.beta)
+    dk, r_dk = FA.psg_attention_select(dk_m.float(), dk_f.float(),
+                                       s_dsm * s_qm, s_ds * s_q, cfg.beta)
+    return dq, dk, dv, 0.5 * (r_dv + r_dk)

@@ -6,13 +6,18 @@ the energy report.
         --steps 4 --device cpu
     python -m repro_torch.launch.train --task lm --arch qwen2_5_3b --smoke \\
         --steps 6 --device cpu
+    python -m repro_torch.launch.train --task lm --fused-attention on \\
+        --batch 2 --seq 4096 --steps 8
 
 The counterparts of ``examples/train_e2e.py --task cifar_cnn`` and of
 ``repro.launch.train --arch ... --e2train full`` in the JAX package:
 SMD p=0.5, SLU on, PSG on with the ``psg`` optimizer (signSGD, lr 0.03),
 per-step loop, synthetic data (Gaussian CIFAR images; Markov-chain tokens).
-``--smoke`` cuts the LM to toy dimensions (``configs.reduce_experiment``).
-Runs on the card unless ``--device cpu`` is given.
+``--smoke`` cuts the LM to toy dimensions (``configs.reduce_experiment``);
+``--fused-attention on`` trains the LM through the flash kernels with the
+PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` and
+``auto`` through the materialized softmax.  Runs on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.data.synthetic import (GaussianImageTask, MarkovLMTask,
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
 
+FUSED_ATTENTION = {"auto": None, "on": True, "off": False}
 FULL_E2 = E2TrainConfig(smd=SMDConfig(enabled=True, drop_prob=0.5),
                         slu=SLUConfig(enabled=True, alpha=1e-3),
                         psg=PSGConfig(enabled=True))
@@ -68,10 +74,12 @@ def build_trainer(depth: int = 74, width: int = 16, batch: int = 128,
 
 def lm_experiment(arch: str, num_layers: Optional[int] = None,
                   batch: Optional[int] = None, seq: Optional[int] = None,
-                  steps: int = 8, smoke: bool = False) -> Experiment:
+                  steps: int = 8, smoke: bool = False,
+                  fused_attention: Optional[bool] = None) -> Experiment:
     """``arch`` under ``--e2train full`` (optimizer ``psg``, lr 0.03);
     ``smoke`` reduces it to toy dimensions first, ``num_layers`` cuts the
-    depth, and ``batch``/``seq`` default to the experiment's."""
+    depth, ``batch``/``seq`` default to the experiment's, and
+    ``fused_attention`` is ``PSGConfig.fused_attention``."""
     exp = get_experiment(arch)
     if smoke:
         exp = reduce_experiment(exp)
@@ -81,19 +89,23 @@ def lm_experiment(arch: str, num_layers: Optional[int] = None,
         exp.train, optimizer="psg", lr=0.03, total_steps=steps,
         global_batch=batch or exp.train.global_batch,
         seq_len=seq or exp.train.seq_len)
-    return exp.replace(model=model, e2=FULL_E2, train=tcfg, task="lm")
+    e2 = dataclasses.replace(FULL_E2, psg=dataclasses.replace(
+        FULL_E2.psg, fused_attention=fused_attention))
+    return exp.replace(model=model, e2=e2, train=tcfg, task="lm")
 
 
 def build_lm_trainer(arch: str = "qwen2_5_3b",
                      num_layers: Optional[int] = None,
                      batch: Optional[int] = None, seq: Optional[int] = None,
                      steps: int = 8, device=None, seed: int = 0,
-                     smoke: bool = False) -> Trainer:
+                     smoke: bool = False,
+                     fused_attention: Optional[bool] = None) -> Trainer:
     """The LM trainer the CLI runs: model from ``seed`` on ``device``,
     Markov-chain tokens from the experiment's seed."""
     dev = resolve_device(device)
     _fp32_is_fp32()
-    exp = lm_experiment(arch, num_layers, batch, seq, steps, smoke)
+    exp = lm_experiment(arch, num_layers, batch, seq, steps, smoke,
+                        fused_attention)
     state = init_train_state(exp, seed=seed, device=dev)
     tc = exp.train
     task = MarkovLMTask(vocab=exp.model.vocab_size)
@@ -112,6 +124,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                     help="LM architecture (--task lm)")
     ap.add_argument("--smoke", action="store_true",
                     help="toy-sized LM (--task lm)")
+    ap.add_argument("--fused-attention", choices=list(FUSED_ATTENTION),
+                    default="auto",
+                    help="PSGConfig.fused_attention (--task lm): on = the "
+                         "flash kernels, off and auto = the materialized "
+                         "softmax")
     ap.add_argument("--depth", type=int, default=74,
                     help="CIFAR ResNet depth (6n+2)")
     ap.add_argument("--width", type=int, default=16, help="stage-0 width")
@@ -127,11 +144,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     if args.task == "lm":
         trainer = build_lm_trainer(args.arch, batch=args.batch, seq=args.seq,
                                    steps=args.steps, device=args.device,
-                                   smoke=args.smoke)
+                                   smoke=args.smoke,
+                                   fused_attention=FUSED_ATTENTION[
+                                       args.fused_attention])
         tc = trainer.exp.train
+        attn = "flash" if trainer.exp.e2.psg.fused_attention else \
+            "materialized"
         print(f"model {trainer.exp.model.name} ({trainer.exp.model.num_layers}"
               f" layers, d_model {trainer.exp.model.d_model}, batch "
-              f"{tc.global_batch} x seq {tc.seq_len}) on {trainer.device}")
+              f"{tc.global_batch} x seq {tc.seq_len}, {attn} attention) on "
+              f"{trainer.device}")
     else:
         batch = args.batch or 128
         trainer = build_trainer(args.depth, args.width, batch, args.steps,

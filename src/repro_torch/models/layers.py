@@ -1,5 +1,5 @@
-"""Transformer layers: norms, rotary embedding, GQA attention with the
-materialized low-precision softmax, and the (gated) MLP.
+"""Transformer layers: norms, rotary embedding, GQA attention, and the
+(gated) MLP.
 
 The counterpart of the JAX package's ``models/layers.py`` for dense
 training.  Parameters are fp32 ``nn.Parameter``s in the JAX layouts (``wq``
@@ -7,9 +7,13 @@ training.  Parameters are fp32 ``nn.Parameter``s in the JAX layouts (``wq``
 cast to the activation dtype inside each call, so a JAX tree loads as it
 is (``repro_torch.convert``).  Every weight matmul goes through
 ``core/psg.matmul``/``einsum``, so under an active PSG config it runs the
-PSG matmul kernels.  Attention runs the materialized path only: scores in
-fp32, probabilities in bf16 (:class:`SoftmaxLowp`); the query-chunked path
-(sequences above 8192) is not ported.
+PSG matmul kernels.  Attention takes one of two paths, chosen as the JAX
+package chooses: under a PSG config with ``fused_attention=True``, the
+flash kernels with the PSG dk/dv backward (``core/psg.attention``), which
+keep every ``(S, T)`` tile out of device memory; otherwise the
+materialized softmax, scores in fp32 and probabilities in bf16
+(:class:`SoftmaxLowp`), up to 8192 tokens (the query-chunked path above
+that is not ported).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import psg
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import ModelConfig, fused_attention_active
 
 ATTN_CHUNK_THRESHOLD = 8192     # the JAX package chunks queries above this
 
@@ -178,7 +182,9 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig
                   ) -> torch.Tensor:
     """Causal self-attention over a full sequence (training)."""
     B, S, _ = x.shape
-    if S > ATTN_CHUNK_THRESHOLD:
+    fused = cfg.sliding_window == 0 and \
+        fused_attention_active(psg.active_config())
+    if not fused and S > ATTN_CHUNK_THRESHOLD:
         raise NotImplementedError(
             f"sequence {S} > {ATTN_CHUNK_THRESHOLD} needs the query-chunked "
             "attention path, which is not ported")
@@ -186,7 +192,10 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig
     q, k, v = _qkv(p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _sdpa(q, k, v, causal_mask(S, S, x.device))
+    if fused:
+        out = psg.attention(q, k, v, causal=True)
+    else:
+        out = _sdpa(q, k, v, causal_mask(S, S, x.device))
     return psg.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype))
 
 

@@ -4,10 +4,15 @@ Every test here needs an NVIDIA card (marker ``cuda``) and skips elsewhere;
 the card is looked for inside a fixture, never at import time.  Run them
 on a machine with a card:
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
 
-Kernels 3-6 must equal their exact plain versions; kernels 1 and 2 sum in
-fp32 in another order, within ``1e-5 * max|ref|``.
+(``--noconftest``: the repository's conftest imports JAX.)  Kernels 3-6
+must equal their exact plain versions; kernels 1, 2 and 8 sum in fp32 in
+another order, within ``1e-5 * max|ref|``; kernel 7's output is within one
+bf16 ulp (fp32: ``1e-5 * max|ref|``) and its lse within 1e-5; kernel 9's
+code products equal the plain version's on integer inputs and elsewhere
+differ only where a P or dS code flips at a rounding boundary.
 """
 import pytest
 
@@ -140,3 +145,162 @@ def test_lm_trainer_runs_on_the_card(card):
     hist = trainer.run(3)
     assert hist and all(h["loss"] == h["loss"] for h in hist)
     assert all(n > 0 for n in PM.LAUNCHES.values()), PM.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernels 7-9)
+# ---------------------------------------------------------------------------
+
+# (B, S, nh, nkv, hd, causal): the reduced qwen2.5-3b head dim, MHA with S
+# padded past two 64-row tiles, GQA at the qwen2.5-3b head dim, non-causal
+FLASH = [(2, 40, 4, 2, 16, True), (2, 300, 8, 8, 32, True),
+         (1, 256, 4, 2, 128, True), (1, 200, 4, 4, 64, False)]
+FLASH_IDS = ["hd16", "mha_padded", "gqa_hd128", "noncausal"]
+
+
+def _flash_data(shape, dev, dtype, integer=False):
+    B, S, nh, nkv, hd, _ = shape
+    g = torch.Generator(device=dev).manual_seed(S + nh + hd)
+    if integer:
+        draw = lambda *s: torch.randint(-2, 3, s, device=dev,  # noqa: E731
+                                        generator=g).float()
+    else:
+        draw = lambda *s: torch.randn(*s, device=dev,  # noqa: E731
+                                      generator=g)
+    q, k, v = draw(B, S, nh, hd), draw(B, S, nkv, hd), draw(B, S, nkv, hd)
+    do = draw(B, S, nh, hd) * (1.0 if integer else 0.1)
+    return tuple(t.to(dtype) for t in (q, k, v, do))
+
+
+def _bf16_close(a, ref):
+    """Within one bf16 ulp of the larger magnitude, plus 1e-6 * max|ref|
+    for the fp32 difference before the rounding."""
+    a, ref = a.double(), ref.double()
+    big = torch.maximum(a.abs(), ref.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool(((a - ref).abs() <= ulp + 1e-6 * ref.abs().max()).all())
+
+
+def _dkv_inputs(q, k, v, do, causal):
+    from repro_torch.kernels import flash_attn as FA
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal)
+    delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
+    scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8, bits_x_msb=4,
+                                     bits_g=16, bits_g_msb=10)
+    return lse, delta, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH, ids=FLASH_IDS)
+def test_flash_fwd_and_dq_kernels_match_plain(card, shape, dtype):
+    from repro_torch.kernels import flash_attn as FA
+    causal = shape[-1]
+    q, k, v, do = _flash_data(shape, card, dtype)
+    o, lse = FA.flash_fwd(q, k, v, causal=causal)
+    o_p, lse_p = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        _bf16_close(o.float(), o_p.float())
+    else:
+        _close(o, o_p)
+    assert float((lse - lse_p).abs().max()) <= 1e-5
+    delta = torch.einsum("bsnh,bsnh->bns", do.float(), o_p.float()).contiguous()
+    _close(FA.flash_bwd_dq(q, k, v, do, lse_p, delta, causal=causal),
+           FA.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH, ids=FLASH_IDS)
+def test_flash_dkv_kernel_matches_plain(card, shape, dtype):
+    """A P or dS code may flip where the kernel's q k^T sums in another
+    order than the plain matmul: at most 0.1% of the elements differ, by at
+    most 1e-3 of the largest magnitude."""
+    from repro_torch.kernels import flash_attn as FA
+    causal = shape[-1]
+    q, k, v, do = _flash_data(shape, card, dtype)
+    lse, delta, scales = _dkv_inputs(q, k, v, do, causal)
+    lims = (127.0, 7.0, 32767.0, 511.0)
+    got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims,
+                           causal=causal)
+    want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, lims=lims,
+                                  causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        diff = (g - w).abs().double()
+        assert float((diff > 0).double().mean()) <= 1e-3
+        assert float(diff.max()) <= 1e-3 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH[:3], ids=FLASH_IDS[:3])
+def test_flash_dkv_kernel_is_bit_identical_on_integer_inputs(card, shape,
+                                                             dtype):
+    """Small integer q, k, v and dO make every score and dP exact in any
+    summation order, so the codes, and the products, must be identical."""
+    from repro_torch.kernels import flash_attn as FA
+    causal = shape[-1]
+    q, k, v, do = _flash_data(shape, card, dtype, integer=True)
+    lse, delta, scales = _dkv_inputs(q, k, v, do, causal)
+    lims = (127.0, 7.0, 32767.0, 511.0)
+    got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims,
+                           causal=causal)
+    want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, lims=lims,
+                                  causal=causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert any(bool((w != 0).any()) for w in want)
+
+
+def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels import flash_attn as FA
+    q = torch.randn(1, 8, 2, 16, device=card)
+    with pytest.raises(ValueError):
+        FA.flash_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        FA.flash_fwd(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError):
+        FA.flash_fwd(q[..., :8].contiguous(), q[..., :8].contiguous(),
+                     q[..., :8].contiguous())          # head dim 8
+    with pytest.raises(ValueError):
+        FA.flash_fwd(q, torch.randn(1, 8, 3, 16, device=card),
+                     torch.randn(1, 8, 3, 16, device=card))   # 2 % 3
+    flat = torch.randn(8 * 2 * 16 + 1, device=card)
+    with pytest.raises(ValueError):                     # 4-byte offset
+        FA.flash_fwd(*(flat[1:].view(1, 8, 2, 16),) * 3)
+    lse = torch.zeros(1, 2, 8, device=card)
+    with pytest.raises(ValueError):
+        FA.flash_bwd_dq(q, q, q, q, lse.double(), lse)
+    with pytest.raises(ValueError):
+        FA.flash_bwd_dkv(q, q, q, q, lse, lse, torch.ones(5, device=card),
+                         lims=(127.0, 7.0, 32767.0, 511.0))
+
+
+def test_psg_attention_on_the_card_counts_its_launches(card):
+    from repro_torch.kernels import flash_attn as FA
+    q, k, v, do = _flash_data(FLASH[0], card, torch.bfloat16)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    FA.reset_launches()
+    cfg = PSGConfig(enabled=True, fused_attention=True)
+    with psg.enable(cfg, probe=psg.zero_probe(card)):
+        o = psg.attention(q, k, v, causal=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+    assert all(bool(t.grad.float().isfinite().all()) for t in (q, k, v))
+
+
+def test_flash_lm_trainer_runs_on_the_card(card):
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.launch.train import build_lm_trainer
+    trainer = build_lm_trainer("qwen2_5_3b", smoke=True, steps=3,
+                               device="cuda", fused_attention=True)
+    PM.reset_launches()
+    FA.reset_launches()
+    hist = trainer.run(3)
+    assert hist and all(h["loss"] == h["loss"] for h in hist)
+    assert all(n > 0 for n in PM.LAUNCHES.values()), PM.LAUNCHES
+    assert all(n > 0 for n in FA.LAUNCHES.values()), FA.LAUNCHES

@@ -314,8 +314,6 @@ def test_lm_cost_table_equals_jax(reduced):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tc.PSGConfig(enabled=True, fused_attention=True)
-    with pytest.raises(NotImplementedError):
         tc.TrainConfig(remat="full")
     _, texp = _configs()
     for change in (dict(block_unit=("moe",)), dict(family="ssm"),
