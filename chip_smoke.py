@@ -7,6 +7,8 @@ Phases, each fatal on failure:
 
 1. report the card (name, power limit) and build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once);
+   refuse to run under a ``REPRO_TORCH_KERNEL_BACKEND`` pin other than
+   ``cuda``, which could hide the kernels;
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
    version (kernels 3 and 4 bit for bit; kernels 1 and 2 within
@@ -22,14 +24,29 @@ Phases, each fatal on failure:
    kernel 7 is timed beside ``scaled_dot_product_attention``; then one
    qwen2.5-3b attention sub-block forward and backward, materialized softmax
    against flash kernels, timed in turns with its peak memory;
+4c. the same for the quantize kernel (bit for bit) at the qwen2.5-3b
+   weight-matmul operands (N = 8192), a ResNet-74 batch-128 activation and
+   the JAX package's test shapes at 2 to 16 bits, timed beside
+   ``fake_quantize_per_tensor_affine``;
+4d. the dispatch layer: ``dispatch.psg_grad_w`` at the ResNet-74 im2col
+   geometries of the kernel microbenchmark under the ``cuda``, ``plain``
+   and ``reference`` backends (kernels launched under ``cuda`` alone; equal
+   signs and tile ratios under ``cuda`` and ``plain``; the element-level
+   ratio of ``reference`` beside them);
+4e. the kernel microbenchmark CLI (``repro_torch.launch.bench_kernels``) in
+   full mode, with every launch counter zeroed just before and read just
+   after: the main path of the quantize kernel;
 5. train one step of a small ResNet on the card and on the CPU from the same
-   parameters and batch, and compare; the same for the reduced qwen2.5-3b,
-   with the materialized softmax and with the flash kernels;
+   parameters and batch, and compare, through the fused convs, the im2col
+   convs and with PSG off; the same for the reduced qwen2.5-3b, with the
+   materialized softmax and with the flash kernels;
 6. train ResNet-74 (width 16, batch 128, synthetic CIFAR) with SMD, SLU and
    PSG through ``repro_torch.launch.train``'s trainer until at least three
    steps have executed, with every kernel's launch counter zeroed just
    before and read just after, print the energy report and profile one more
-   executed step (device time by kernel, idle share);
+   executed step (device time by kernel, idle share); then the same with
+   the im2col convs (``fused_conv=False``: the PSG matmul kernels and no
+   conv kernel) and with PSG off (``--e2train off``: no kernel at all);
 7. the same for qwen2.5-3b at full width, 8 of its 36 layers, batch 2 x
    sequence 4096 (``build_lm_trainer``), once through the materialized
    softmax and once through the flash kernels (``fused_attention=True``).
@@ -44,6 +61,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -53,6 +71,7 @@ ROOT = Path(__file__).resolve().parent
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
 PSG_SOURCE = "src/repro_torch/kernels/csrc/psg_matmul.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+QUANT_SOURCE = "src/repro_torch/kernels/csrc/quant.cu"
 REPLACES = {   # the wrapper in the JAX package that reaches pl.pallas_call
     "conv_fwd": "src/repro/kernels/conv.py:245",
     "conv_grad_x": "src/repro/kernels/conv.py:274",
@@ -63,10 +82,12 @@ REPLACES = {   # the wrapper in the JAX package that reaches pl.pallas_call
     "flash_fwd": "src/repro/kernels/flash_attn.py:234",
     "flash_bwd_dq": "src/repro/kernels/flash_attn.py:344",
     "flash_bwd_dkv": "src/repro/kernels/flash_attn.py:464",
+    "quantize": "src/repro/kernels/quant.py:32",
 }
 SOURCES = {n: CONV_SOURCE for n in list(REPLACES)[:4]}
 SOURCES.update(predictor_matmul=PSG_SOURCE, psg_grad_w=PSG_SOURCE)
-SOURCES.update({n: FLASH_SOURCE for n in list(REPLACES)[6:]})
+SOURCES.update({n: FLASH_SOURCE for n in list(REPLACES)[6:9]})
+SOURCES.update(quantize=QUANT_SOURCE)
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
@@ -483,14 +504,154 @@ def attention_ab(torch, m):
     return out
 
 
-def reference_check(torch):
+def quant_geometries(m):
+    """(name, shape, dtype, bits, calls counted): the qwen2.5-3b
+    weight-matmul operands at N = 8192 (x, w and gy of the d_ff matmuls) and
+    a ResNet-74 batch-128 activation, counted once each; then the JAX
+    package's test shapes at 2-16 bits and an input that is not 16-byte
+    aligned, checked and not counted."""
+    n = LM_BATCH * LM_SEQ
+    geos = [("qwen_x", (n, m.d_model), "bfloat16", 8, 1),
+            ("qwen_w", (m.d_model, m.d_ff), "float32", 8, 1),
+            ("qwen_gy", (n, m.d_ff), "bfloat16", 16, 1),
+            ("resnet_act", (BATCH, 32, 32, WIDTH), "float32", 8, 1)]
+    for shape in ((128, 256), (7, 300), (1000,), (4, 4, 64)):
+        for bits in (2, 4, 8, 10, 16):
+            geos.append((f"test_{'x'.join(map(str, shape))}_{bits}bit", shape,
+                         "float32", bits, 0))
+    geos.append(("unaligned", (1000,), "float32", 8, 0))
+    geos.append(("unaligned_bf16", (7, 300), "bfloat16", 8, 0))
+    return geos
+
+
+def check_quant_kernel(torch, Q, geometries):
+    """Phase 4c: kernel 10 bit for bit against its plain version, timed
+    beside it and beside ``fake_quantize_per_tensor_affine`` (which takes
+    fp32 and bf16 on the card); the times include the scale's reduction in
+    all three."""
+    from repro_torch.core.quant import qscale
+
+    tot = {"quantize": _zero_total()}
+    details = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bits_view = {"float32": torch.int32, "bfloat16": torch.int16}
+    for name, shape, dt, bits, m in geometries:
+        dtype = getattr(torch, dt)
+        n = math.prod(shape)
+        if name.startswith("unaligned"):    # a view 4 or 2 bytes in
+            x = torch.randn(n + 1, device="cuda", generator=gen).to(dtype)
+            x = x[1:].view(shape)
+        else:
+            x = (torch.randn(shape, device="cuda", generator=gen)
+                 * 3.0).to(dtype)
+        out = Q.quantize(x, bits)
+        ref = Q.quantize_plain(x, qscale(x, bits), bits)
+        iv = bits_view[dt]
+        if out.shape != x.shape or not torch.equal(out.view(iv), ref.view(iv)):
+            diff = int((out.view(iv) != ref.view(iv)).sum())
+            fail(f"quantize at {name}: {diff} of {n} elements differ")
+        lim = int(2 ** (bits - 1) - 1)
+        zp = torch.zeros(1, dtype=torch.int32, device="cuda")
+        row = {"geometry": [list(shape), dt, bits], "name": name,
+               "calls_counted": m}
+        if m:   # the elementwise pass alone, on a scale computed before
+            s = qscale(x, bits)
+            row["pass_only_ms"] = time_ms(
+                torch, lambda: Q.quantize_scaled(x, s, bits))
+            row["library_pass_only_ms"] = time_ms(
+                torch, lambda: torch.fake_quantize_per_tensor_affine(
+                    x, s.reshape(1), zp, -lim, lim))
+        # bytes: one read of x, one write of the output, the scale; about
+        # four operations an element (divide, round, clamp, multiply)
+        time_cases(torch, [("quantize", 0.0,
+                            lambda: Q.quantize(x, bits),
+                            lambda: Q.quantize_plain(x, qscale(x, bits), bits),
+                            lambda: torch.fake_quantize_per_tensor_affine(
+                                x, qscale(x, bits).reshape(1), zp, -lim, lim),
+                            2 * x.element_size() * n + 4, 4 * n,
+                            FP32_OPS_PER_S, m)], row, tot)
+        details.append(row)
+        del x, out, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return tot, details
+
+
+def dispatch_check(torch, mods):
+    """Phase 4d: ``dispatch.psg_grad_w`` at each ResNet-74 im2col geometry
+    of the full kernel microbenchmark (batch 16) under the three backends:
+    kernels launched under ``cuda`` and only there, ``cuda`` and ``plain``
+    equal in signs and tile ratio, ``reference``'s element-level ratio and
+    sign agreement recorded."""
+    from repro_torch.configs.paper_cnns import resnet_conv_shapes
+    from repro_torch.core.config import PSGConfig
+    from repro_torch.kernels import dispatch
+
+    cfg = PSGConfig(enabled=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for geo in dict.fromkeys(c.im2col for c in
+                             resnet_conv_shapes(DEPTH, WIDTH, 16)):
+        N, din, dout = geo
+        x = torch.randn(N, din, device="cuda", generator=gen)
+        gy = torch.randn(N, dout, device="cuda", generator=gen) * 0.01
+        got = {}
+        for backend in ("cuda", "plain", "reference"):
+            reset_all(mods)
+            with dispatch.override_backend(backend):
+                sign, fb = dispatch.psg_grad_w(x, gy, cfg)
+            torch.cuda.synchronize()
+            launches = sum(c for mod in mods for c in mod.LAUNCHES.values())
+            if (launches > 0) != (backend == "cuda"):
+                fail(f"dispatch under {backend} at {geo}: {launches} "
+                     "kernel launches")
+            got[backend] = (sign, float(fb), launches)
+        (s_c, r_c, _), (s_p, r_p, _), (s_r, r_r, _) = \
+            got["cuda"], got["plain"], got["reference"]
+        if not (torch.equal(s_c, s_p) and r_c == r_p):
+            fail(f"dispatch at {geo}: cuda and plain differ (ratios {r_c}, "
+                 f"{r_p})")
+        rows.append({"geometry": list(geo), "cuda_launches": got["cuda"][2],
+                     "tile_ratio": r_c, "element_ratio_reference": r_r,
+                     "sign_agreement_reference": float(
+                         (s_r == s_c).float().mean())})
+    return rows
+
+
+def cli_check(torch, mods):
+    """Phase 4e: the kernel microbenchmark CLI in full mode, as a user runs
+    it; every counter zeroed before and read after."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.kernels import quant as Q
+    from repro_torch.launch import bench_kernels
+
+    reset_all(mods)
+    t0 = time.perf_counter()
+    rows = bench_kernels.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    for name in list(Q.LAUNCHES) + list(PM.LAUNCHES) + list(FA.LAUNCHES):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the microbenchmark")
+    families = ("kernel/psg_pallas,", "kernel/quantize,",
+                "kernel/psg_resnet74_im2col/", "kernel/flash_attn,")
+    if not all(any(r.startswith(f) for r in rows) for f in families):
+        fail(f"microbenchmark rows incomplete: {rows}")
+    return {"rows": rows, "launches": launches, "wall_s": wall}
+
+
+def reference_check(torch, e2train="full", fused_conv=None):
     """Phase 5: one train step of a small ResNet on the card and on the CPU
-    from the same parameters, batch and SLU decisions."""
+    from the same parameters, batch and SLU decisions, under an
+    ``--e2train`` preset and ``fused_conv``."""
     from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
-    from repro_torch.launch.train import experiment
+    from repro_torch.launch.train import E2TRAIN, experiment
     from repro_torch.training.train_step import init_train_state, make_train_step
 
-    exp = experiment(depth=14, width=8, batch=8, steps=4)
+    exp = experiment(depth=14, width=8, batch=8, steps=4,
+                     e2=E2TRAIN[e2train], fused_conv=fused_conv)
     batch = make_image_batch(GaussianImageTask(snr=2.0), 0, 0, 0, 8, "cpu")
     keep = [True] * 6
     out = {}
@@ -516,8 +677,8 @@ def compare_steps(mc, pc, mg, pg):
     if agree < 0.9:
         fail(f"updated parameters agree on only {agree:.3f} of elements")
     return {"loss_cpu": mc["loss"], "loss_cuda": mg["loss"],
-            "fallback_cpu": mc["psg_fallback_ratio"],
-            "fallback_cuda": mg["psg_fallback_ratio"],
+            "fallback_cpu": mc.get("psg_fallback_ratio"),
+            "fallback_cuda": mg.get("psg_fallback_ratio"),
             "param_agreement": agree}
 
 
@@ -554,16 +715,17 @@ def reset_all(mods):
         mod.reset_launches()
 
 
-def main_path(torch, build, mods, kernels):
-    """Phases 6-7: build the trainer for the nominal steps that execute four
-    (one warm-up + three timed; SMD seed 0, p = 0.5) and run them, with
-    every launch counter zeroed just before and read just after; fail
-    unless each of ``kernels`` ran."""
+def main_path(torch, build, mods, kernels, absent=(), execute=4, smd=True):
+    """Phases 6-7: build the trainer for the nominal steps that execute
+    ``execute`` (one warm-up, the rest timed; SMD seed 0, p = 0.5, when
+    ``smd``) and run them, with every launch counter zeroed just before and
+    read just after; fail unless each of ``kernels`` ran and none of
+    ``absent`` did."""
     from repro_torch.core.smd import smd_keep_host
 
     steps, kept = 0, 0
-    while kept < 4:
-        kept += smd_keep_host(0, steps, 0.5)
+    while kept < execute:
+        kept += smd_keep_host(0, steps, 0.5) if smd else 1
         steps += 1
     trainer = build(steps)
     # host cost of one batch: the threefry draws in numpy plus the copy
@@ -578,17 +740,23 @@ def main_path(torch, build, mods, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
-    if trainer.executed_steps < 3:
+    if trainer.executed_steps < execute:
         fail(f"only {trainer.executed_steps} steps executed")
     for name in kernels:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    for name in absent:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched {launches[name]} times on a "
+                 "path that should not run it")
     for h in hist:
         if not all(math.isfinite(h[k]) for k in ("loss", "total_loss")):
             fail(f"non-finite loss at step {h['step']}: {h}")
     fb = trainer.measured_psg_fallback()
-    if fb is None or not 0.0 <= fb <= 1.0:
+    if trainer.exp.e2.psg.enabled and (fb is None or not 0.0 <= fb <= 1.0):
         fail(f"psg_fallback_ratio {fb} outside [0, 1]")
+    if not trainer.exp.e2.psg.enabled and fb is not None:
+        fail(f"psg_fallback_ratio {fb} measured with PSG off")
     timed = [h["wall_s"] for h in hist[1:]]
     return trainer, {
         "nominal_steps": steps, "executed": trainer.executed_steps,
@@ -641,13 +809,13 @@ def profile_step(torch, trainer):
                     for n, us in top]}
 
 
-def run_path(torch, name, build, mods, kernels):
+def run_path(torch, name, build, mods, kernels, **kw):
     """A main path, its energy report and its profile."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    trainer, main = main_path(torch, build, mods, kernels)
+    trainer, main = main_path(torch, build, mods, kernels, **kw)
     print(json.dumps({"phase": name, **main}), flush=True)
     print(trainer.energy_report(steps=main["nominal_steps"]).summary(),
           flush=True)
@@ -665,6 +833,10 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: no card to run on")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py")
+    pin = os.environ.get("REPRO_TORCH_KERNEL_BACKEND", "").strip().lower()
+    if pin not in ("", "cuda"):
+        fail(f"REPRO_TORCH_KERNEL_BACKEND={pin!r} would run the plain "
+             "versions or the oracles in place of the kernels")
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -674,11 +846,15 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     from repro_torch.configs import get_experiment
     from repro_torch.configs.paper_cnns import resnet_conv_shapes
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, dispatch
     from repro_torch.kernels import conv as K
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import psg_matmul as PM
-    from repro_torch.launch.train import build_lm_trainer, build_trainer
+    from repro_torch.kernels import quant as Q
+    from repro_torch.launch.train import E2TRAIN, build_lm_trainer, build_trainer
+    # a cuda pin is auto on the card; auto also lets the CPU halves of the
+    # phase-5 comparisons run
+    dispatch.set_default_backend("auto")
     t0 = time.perf_counter()
     build.build(list(build.SOURCES), verbose=True)
     build_s = time.perf_counter() - t0
@@ -703,19 +879,42 @@ def main() -> None:
         print(json.dumps(row), flush=True)
     ab = attention_ab(torch, m)
     print(json.dumps({"phase": "attention_ab", **ab}), flush=True)
+    mods = (K, PM, FA, Q)
+    qtot, qdetails = check_quant_kernel(torch, Q, quant_geometries(m))
+    tot.update(qtot)
+    for row in qdetails:
+        print(json.dumps(row), flush=True)
+    disp = dispatch_check(torch, mods)
+    print(json.dumps({"phase": "dispatch", "rows": disp}), flush=True)
+    cli = cli_check(torch, mods)
+    print(json.dumps({"phase": "bench_kernels", **cli}), flush=True)
     ref = reference_check(torch)
     print(json.dumps({"phase": "reference", **ref}), flush=True)
+    ref_im2col = reference_check(torch, fused_conv=False)
+    print(json.dumps({"phase": "reference_im2col", **ref_im2col}), flush=True)
+    ref_off = reference_check(torch, e2train="off")
+    print(json.dumps({"phase": "reference_psg_off", **ref_off}), flush=True)
     lm_ref = lm_reference_check(torch)
     print(json.dumps({"phase": "lm_reference", **lm_ref}), flush=True)
     lm_flash_ref = lm_reference_check(torch, fused_attention=True)
     print(json.dumps({"phase": "lm_flash_reference", **lm_flash_ref}),
           flush=True)
 
-    mods = (K, PM, FA)
     main, prof = run_path(
         torch, "main_path",
         lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda"),
         mods, list(K.LAUNCHES))
+    im2col_main, im2col_prof = run_path(
+        torch, "im2col_main_path",
+        lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda",
+                                    fused_conv=False),
+        mods, list(PM.LAUNCHES), absent=list(K.LAUNCHES), execute=3)
+    off_main, off_prof = run_path(
+        torch, "psg_off_main_path",
+        lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda",
+                                    e2=E2TRAIN["off"]),
+        mods, [], absent=[n for mod in mods for n in mod.LAUNCHES],
+        execute=3, smd=False)
     lm_main, lm_prof = run_path(
         torch, "lm_main_path",
         lambda steps: build_lm_trainer(LM_ARCH, num_layers=LM_LAYERS,
@@ -736,7 +935,8 @@ def main() -> None:
         bytes_ms = 1e3 * t["bytes"] / HBM_BYTES_PER_S
         ops_ms = 1e3 * t["ops_s"]
         path = main if name in K.LAUNCHES else \
-            lm_main if name in PM.LAUNCHES else lm_flash_main
+            lm_main if name in PM.LAUNCHES else \
+            lm_flash_main if name in FA.LAUNCHES else cli
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": path["launches"][name],
@@ -749,9 +949,15 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "geometries": details,
          "lm_geometries": pdetails, "flash_geometries": fdetails,
-         "attention_ab": ab, "reference": ref, "lm_reference": lm_ref,
+         "attention_ab": ab, "quant_geometries": qdetails,
+         "dispatch": disp, "bench_kernels": cli, "reference": ref,
+         "reference_im2col": ref_im2col, "reference_psg_off": ref_off,
+         "lm_reference": lm_ref,
          "lm_flash_reference": lm_flash_ref, "main_path": main,
-         "profile": prof, "lm_main_path": lm_main, "lm_profile": lm_prof,
+         "profile": prof, "im2col_main_path": im2col_main,
+         "im2col_profile": im2col_prof, "psg_off_main_path": off_main,
+         "psg_off_profile": off_prof,
+         "lm_main_path": lm_main, "lm_profile": lm_prof,
          "lm_flash_main_path": lm_flash_main,
          "lm_flash_profile": lm_flash_prof, "kernels": kernels,
          "note": "conv kernel times are summed over the conv sites of one "
@@ -759,7 +965,11 @@ def main() -> None:
                  "weight-matmul sites of one qwen2.5-3b 8-layer step at "
                  "N = 8192 tokens, flash kernel times over the attention "
                  "sites of one qwen2.5-3b 8-layer step at batch 2 x 4096 "
-                 "(kernel 7 twice per layer), with every block executed",
+                 "(kernel 7 twice per layer), with every block executed; "
+                 "quantize times over one call at each of four geometries "
+                 "(the qwen2.5-3b x, w and gy operands at N = 8192 and a "
+                 "ResNet-74 batch-128 activation), the scale's reduction "
+                 "included; its launches are the microbenchmark CLI's",
          "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

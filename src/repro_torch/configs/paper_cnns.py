@@ -1,6 +1,6 @@
 """The paper's own backbones: ResNet-74 and ResNet-110 on CIFAR (§4.1),
 and the convolution geometries they run."""
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 from repro_torch.core.config import (E2TrainConfig, Experiment, ModelConfig,
                                      TrainConfig)
@@ -15,7 +15,9 @@ def cnn_model(name: str, depth: int, num_classes: int = 10,
                        vocab_size=num_classes, glu=False, dtype="float32")
 
 
-def _cnn_train(lr: float) -> TrainConfig:
+def cnn_train(lr: float = 0.1) -> TrainConfig:
+    """The paper's CIFAR training config: batch 128, 64k iterations, SGD
+    with momentum."""
     return TrainConfig(global_batch=128, lr=lr, total_steps=64000,
                        optimizer="sgdm", weight_decay=1e-4)
 
@@ -23,14 +25,14 @@ def _cnn_train(lr: float) -> TrainConfig:
 def resnet74(num_classes: int = 10,
              e2: Optional[E2TrainConfig] = None) -> Experiment:
     return Experiment(model=cnn_model("resnet74", 74, num_classes),
-                      e2=e2 or E2TrainConfig(), train=_cnn_train(0.1),
+                      e2=e2 or E2TrainConfig(), train=cnn_train(0.1),
                       task="cifar_cnn")
 
 
 def resnet110(num_classes: int = 10,
               e2: Optional[E2TrainConfig] = None) -> Experiment:
     return Experiment(model=cnn_model("resnet110", 110, num_classes),
-                      e2=e2 or E2TrainConfig(), train=_cnn_train(0.1),
+                      e2=e2 or E2TrainConfig(), train=cnn_train(0.1),
                       task="cifar_cnn")
 
 
@@ -57,6 +59,13 @@ class ConvShape(NamedTuple):
         if self.k == 1:
             return "down" if self.stride > 1 else "point"
         return "strided" if self.stride > 1 else "body"
+
+    @property
+    def im2col(self) -> Tuple[int, int, int]:
+        """``(N, din, dout)`` of the matmul this conv is on the im2col path:
+        ``N = B*H'*W'``, ``din = k*k*Cin``, ``dout = Cout``."""
+        return (self.batch * self.hw_out * self.hw_out,
+                self.k * self.k * self.cin, self.cout)
 
 
 def resnet_conv_shapes(depth: int = 74, width: int = 16, batch: int = 128,

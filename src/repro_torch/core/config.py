@@ -7,8 +7,6 @@ and the dense-transformer fields; the MoE and SSM fields are not ported.
 Options this package does not implement raise ``NotImplementedError`` where
 they are set, never a quiet substitute:
 
-* ``PSGConfig.fused_conv=False`` (the materialized im2col + PSG-matmul conv
-  path);
 * ``TrainConfig.remat="full"``;
 * block kinds other than ``"attn"``, sliding-window attention and the
   encoder/cross-attention/frontend fields (raised by
@@ -21,6 +19,23 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 BLOCK_ATTN = "attn"              # self-attention + dense MLP
+
+# kernel backends of ``PSGConfig.backend`` (``kernels/dispatch.py``)
+KERNEL_BACKENDS = ("auto", "reference", "plain", "cuda")
+# the JAX package's names, refused with their counterparts named
+JAX_BACKEND_NAMES = {"interpret": "plain", "mosaic": "cuda"}
+
+
+def validate_backend(name: str) -> str:
+    """``name`` if it is one of :data:`KERNEL_BACKENDS`; else a
+    ``ValueError`` naming the valid backends (and, for a JAX package name,
+    its counterpart here)."""
+    if name in KERNEL_BACKENDS:
+        return name
+    hint = f"; the JAX package's {name!r} is {JAX_BACKEND_NAMES[name]!r} " \
+        "here" if name in JAX_BACKEND_NAMES else ""
+    raise ValueError(f"unknown kernel backend {name!r}; expected one of "
+                     f"{KERNEL_BACKENDS}{hint}")
 
 
 @dataclass(frozen=True)
@@ -152,9 +167,14 @@ class PSGConfig:
     beta: float = 0.05                # adaptive threshold ratio (paper: 0.05)
     swa: bool = True                  # stochastic weight averaging (paper uses SWA)
     swa_start_frac: float = 0.5
-    # convs run through the implicit-GEMM kernels (kernels/conv.py) in
-    # every direction.  None = auto = on; False (materialized im2col) is
-    # not implemented in this package.
+    # kernel backend of the PSG ops (kernels/dispatch.py): "auto" defers to
+    # the dispatch layer (an override, the REPRO_TORCH_KERNEL_BACKEND pin,
+    # else the tensors' device); "reference" | "plain" | "cuda" pin it.
+    backend: str = "auto"
+    # CNN convs (resolved by core/psg.fused_conv_active): True runs the
+    # implicit-GEMM kernels (kernels/conv.py) in every direction, False the
+    # materialized im2col + PSG matmul (models/resnet.py).  None = auto =
+    # fused.
     fused_conv: Optional[bool] = None
     # transformer self-attention (resolved by fused_attention_active):
     # True runs the flash kernels with the PSG dk/dv backward
@@ -165,10 +185,7 @@ class PSGConfig:
     fused_attention: Optional[bool] = None
 
     def __post_init__(self):
-        if self.fused_conv is False:
-            raise NotImplementedError(
-                "fused_conv=False selects the materialized im2col + "
-                "psg_matmul path, which repro_torch does not implement")
+        validate_backend(self.backend)
 
 
 def fused_attention_active(cfg: Optional[PSGConfig]) -> bool:

@@ -12,7 +12,10 @@ package leaves them to XLA, and its weight-gradient sign through the
 kernels of ``kernels/psg_matmul.py``.  Self-attention (:class:`PSGAttention`,
 under ``fused_attention=True``) runs the flash kernels of
 ``kernels/flash_attn.py``: an fp32 dq, and for dv and dk the Eq. (2) select
-between the predictor and the full code products, as values.
+between the predictor and the full code products, as values.  Each op goes
+through ``kernels/dispatch.py``, which may instead run the plain versions
+or the element-level oracles (``PSGConfig.backend``); the backend is
+resolved in the forward and kept for the backward.
 
 The backward also reports how often the full product was needed, through
 the gradient of a *probe*: a ``zeros(2)`` tensor that requires grad and is
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import quantize
-from repro_torch.kernels import ops
+from repro_torch.kernels import dispatch, ref
 
 PROBE_SIZE = 2
 
@@ -55,11 +58,12 @@ class PSGConv2d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, w, probe, k: int, stride: int, cfg: PSGConfig):
+        cfg = dispatch.pinned(cfg)
         ctx.save_for_backward(xp, w)
         ctx.k, ctx.stride, ctx.cfg = k, stride, cfg
         xq = quantize(xp, cfg.bits_x)
         wq = quantize(w, cfg.bits_x).to(xq.dtype)
-        return ops.conv_fwd(xq, wq, k, stride)
+        return dispatch.conv_fwd(xq, wq, cfg, k=k, stride=stride)
 
     @staticmethod
     def backward(ctx, gy):
@@ -72,8 +76,9 @@ class PSGConv2d(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gq = quantize(gy, cfg.bits_g)
             wq = quantize(w, cfg.bits_x)
-            dxp = ops.conv_grad_x(gq, wq, k, stride, Hp, Wp).to(xp.dtype)
-        sign, fallback = ops.conv_grad_w(xp, gy, cfg, k, stride)
+            dxp = dispatch.conv_grad_x(gq, wq, cfg, k=k, stride=stride,
+                                       hp=Hp, wp=Wp).to(xp.dtype)
+        sign, fallback = dispatch.conv_grad_w(xp, gy, cfg, k=k, stride=stride)
         # fp32 like the JAX package: float32(B*Ho*Wo) * (k*k*C) * dout
         macs = torch.tensor(float(B * ho * wo), dtype=torch.float32,
                             device=gy.device) * (k * k * C) * dout
@@ -90,7 +95,7 @@ class PSGMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, w, probe, cfg: PSGConfig):
         ctx.save_for_backward(x2, w)
-        ctx.cfg = cfg
+        ctx.cfg = dispatch.pinned(cfg)
         xq = quantize(x2, cfg.bits_x)
         return xq @ quantize(w, cfg.bits_x).to(xq.dtype)
 
@@ -102,7 +107,7 @@ class PSGMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gq = quantize(gy, cfg.bits_g)
             dx = (gq @ quantize(w, cfg.bits_x).T.to(gq.dtype)).to(x2.dtype)
-        sign, fallback = ops.psg_grad_w(x2, gy, cfg)
+        sign, fallback = dispatch.psg_grad_w(x2, gy, cfg)
         # fp32 like the JAX package: float32(N) * din * dout
         macs = torch.tensor(float(x2.shape[0]), dtype=torch.float32,
                             device=gy.device) * x2.shape[1] * gy.shape[1]
@@ -120,7 +125,8 @@ class PSGAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, probe, causal: bool, cfg: PSGConfig):
-        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        cfg = dispatch.pinned(cfg)
+        o, lse = dispatch.attention_fwd(q, k, v, cfg, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.cfg = causal, cfg
         return o
@@ -128,7 +134,7 @@ class PSGAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv, fallback = ops.flash_attention_bwd(
+        dq, dk, dv, fallback = dispatch.attention_bwd(
             q, k, v, o, lse, gy.to(q.dtype), ctx.cfg, causal=ctx.causal)
         B, S, nh, hd = q.shape
         T = k.shape[1]
@@ -190,28 +196,36 @@ def einsum(pattern: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                       cfg).reshape(B, S, d)
 
 
+def fused_conv_active(cfg: Optional[PSGConfig]) -> bool:
+    """Resolve a config's ``fused_conv``: no config (PSG off) is inactive,
+    an explicit ``True``/``False`` wins, and ``None`` means fused (the
+    port's auto since it began; the JAX package's auto picks the im2col
+    path on the TPU and the fused kernels elsewhere)."""
+    if cfg is None:
+        return False
+    return True if cfg.fused_conv is None else cfg.fused_conv
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, k: int = 3,
            stride: int = 1) -> torch.Tensor:
     """NHWC ``x`` with a patch-major ``(k*k*C, dout)`` weight and SAME
     padding ``k // 2``.
 
-    Runs :class:`PSGConv2d` under the active PSG config; without one it
-    raises (training without PSG needs the materialized im2col path, which
-    this package does not have).
+    Runs :class:`PSGConv2d` under the active PSG config; without one, the
+    materialized im2col + plain matmul (``kernels/ref.conv_fwd_ref``), as
+    the JAX package does.
 
     ``k < stride`` (the 1x1 stride-2 shortcut) is a pre-subsampled stride-1
     conv, so the quantization grid is that of the subsample.
     """
     cfg = active_config()
-    if cfg is None:
-        raise NotImplementedError("conv2d needs an active PSG config "
-                                  "(psg.enable); the non-PSG conv path is "
-                                  "not ported")
     if k < stride:
         x = x[:, ::stride, ::stride, :]
         stride = 1
     pad = k // 2
     xp = F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
+    if cfg is None:
+        return ref.conv_fwd_ref(xp, w, k, stride)
     return PSGConv2d.apply(xp, w, _current_probe(xp.device), k, stride, cfg)
 
 

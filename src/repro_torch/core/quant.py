@@ -3,8 +3,10 @@
 The grids must equal the JAX package's bit for bit: the scale is
 ``max(max|x|, 1e-12) / (2^(b-1) - 1)`` in fp32, and codes are
 ``round(x / s)`` in fp32 with round-half-to-even (``torch.round``, like
-``jnp.round``).  The division stays here, in PyTorch, and never moves into a
-kernel.
+``jnp.round``).  The division is a correctly rounded fp32 quotient wherever
+it runs: here by a 0-d tensor, in the kernels by ``__fdiv_rn``
+(``kernels/quant.py`` is the elementwise pass of :func:`quantize` as a
+kernel).
 """
 from __future__ import annotations
 
@@ -26,11 +28,17 @@ def qscale(x: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.clamp_min(amax, 1e-12) / lim
 
 
+def round_codes(x: torch.Tensor, s: torch.Tensor, bits: int) -> torch.Tensor:
+    """Codes of ``x`` on the ``bits``-bit grid of scale ``s`` (a 0-d fp32
+    tensor), as fp32: ``clip(round(x / s), -lim, lim)``."""
+    lim = _lim(bits)
+    return torch.clamp(torch.round(x.float() / s), -lim, lim)
+
+
 def _round_codes(x: torch.Tensor, bits: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     s = qscale(x, bits)
-    lim = _lim(bits)
-    return torch.clamp(torch.round(x.float() / s), -lim, lim), s
+    return round_codes(x, s, bits), s
 
 
 def quantize(x: torch.Tensor, bits: int) -> torch.Tensor:

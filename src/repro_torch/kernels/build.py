@@ -19,7 +19,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("conv", "psg_matmul", "flash_attn")   # every csrc/<name>.cu
+SOURCES = ("conv", "psg_matmul", "flash_attn", "quant")   # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

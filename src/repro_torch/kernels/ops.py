@@ -1,12 +1,14 @@
-"""Conv, matmul and attention ops on the kernels, as the PSG autograd
-functions call them.
+"""Quantize, conv, matmul and attention ops on the kernels: the
+tile-level ops of the ``plain`` and ``cuda`` backends.
 
-The counterpart of the JAX package's ``kernels/ops.py`` and
-``kernels/dispatch.py``.  There is one backend choice and it is made by the
-tensors' device inside each wrapper of ``kernels/conv.py``,
-``kernels/psg_matmul.py`` and ``kernels/flash_attn.py``: CPU tensors take
-the plain PyTorch version, CUDA tensors launch the kernel.  No environment
-variable and no fallback are involved.
+The counterpart of the JAX package's ``kernels/ops.py``.  Which backend runs
+is decided by ``kernels/dispatch.py``, which the PSG autograd functions
+call; the element-level ``reference`` backend is ``kernels/ref.py``.  Each
+op here calls the wrappers of ``kernels/{quant,conv,psg_matmul,
+flash_attn}.py``, which launch their kernels on CUDA tensors and compute the
+plain PyTorch versions on CPU tensors; ``plain=True`` calls the plain
+versions directly, on either device.  No environment variable and no
+fallback are involved.
 """
 from __future__ import annotations
 
@@ -15,33 +17,43 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.config import PSGConfig
-from repro_torch.core.quant import codes
+from repro_torch.core.quant import codes, qscale
 from repro_torch.kernels import conv as K
 from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import psg_matmul as PM
+from repro_torch.kernels import quant as Q
 
 
 def _lim(bits: int) -> int:
     return 2 ** (bits - 1) - 1
 
 
-def conv_fwd(xq: torch.Tensor, wq: torch.Tensor, k: int,
-             stride: int) -> torch.Tensor:
+def quantize(x: torch.Tensor, bits: int, plain: bool = False) -> torch.Tensor:
+    """Fake-quantize ``x`` (fp32 or bf16) on its per-tensor grid."""
+    if plain:
+        return Q.quantize_plain(x, qscale(x, bits), bits)
+    return Q.quantize(x, bits)
+
+
+def conv_fwd(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
+             plain: bool = False) -> torch.Tensor:
     """Conv forward on pre-quantized, pre-padded NHWC input and a
     patch-major weight."""
-    return K.conv_fwd(xq.float().contiguous(), wq.float().contiguous(), k,
-                      stride)
+    fn = K.conv_fwd_plain if plain else K.conv_fwd
+    return fn(xq.float().contiguous(), wq.float().contiguous(), k, stride)
 
 
 def conv_grad_x(gq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
-                hp: int, wp: int) -> torch.Tensor:
+                hp: int, wp: int, plain: bool = False) -> torch.Tensor:
     """Input gradient on pre-quantized operands, ``(B, hp, wp, C)`` fp32."""
-    return K.conv_grad_x(gq.float().contiguous(), wq.float().contiguous(), k,
-                         stride, hp, wp)
+    fn = K.conv_grad_x_plain if plain else K.conv_grad_x
+    return fn(gq.float().contiguous(), wq.float().contiguous(), k, stride,
+              hp, wp)
 
 
 def conv_grad_w(xp: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig, k: int,
-                stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                stride: int, plain: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PSG weight-gradient sign and the measured fallback ratio.
 
     Codes are built here with the same ops as the plain versions; pass 1
@@ -55,16 +67,20 @@ def conv_grad_w(xp: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig, k: int,
     xq, _ = codes(xp, cfg.bits_x)
     gq, _ = codes(gy, cfg.bits_g)
     xm, gm, xq, gq = (t.contiguous() for t in (xm, gm, xq, gq))
-    pred = K.conv_grad_w_predictor(xm, gm, k, stride,
-                                   x_lim=_lim(cfg.bits_x_msb),
-                                   g_lim=_lim(cfg.bits_g_msb))
+    if plain:
+        pred = K.conv_grad_w_predictor_plain(xm, gm, k, stride)
+    else:
+        pred = K.conv_grad_w_predictor(xm, gm, k, stride,
+                                       x_lim=_lim(cfg.bits_x_msb),
+                                       g_lim=_lim(cfg.bits_g_msb))
     tau = cfg.beta * pred.float().abs().amax()
-    sign, stats = K.conv_grad_w(pred, xq, gq, tau, k, stride)
+    select = K.conv_grad_w_plain if plain else K.conv_grad_w
+    sign, stats = select(pred, xq, gq, tau, k, stride)
     return sign.float(), stats.float().mean()
 
 
-def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig,
+               plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """PSG weight-gradient sign of ``x2 (N, din) @ w`` from the output
     gradient ``gy2 (N, dout)``, and the measured fallback ratio.
 
@@ -80,26 +96,31 @@ def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig
     xq, _ = codes(x2, cfg.bits_x)
     gq, _ = codes(gy2, cfg.bits_g)
     xm, gm, xq, gq = (t.contiguous() for t in (xm, gm, xq, gq))
-    pred = PM.predictor_matmul(xm, gm, x_lim=_lim(cfg.bits_x_msb),
-                               g_lim=_lim(cfg.bits_g_msb))
+    if plain:
+        pred = PM.predictor_matmul_plain(xm, gm)
+    else:
+        pred = PM.predictor_matmul(xm, gm, x_lim=_lim(cfg.bits_x_msb),
+                                   g_lim=_lim(cfg.bits_g_msb))
     tau = cfg.beta * pred.float().abs().amax()
-    sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
+    select = PM.psg_grad_w_plain if plain else PM.psg_grad_w
+    sign, stats = select(pred, xq, gq, tau)
     return sign.float(), stats.float().mean()
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True
+                        causal: bool = True, plain: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward and the logsumexp residual: q ``(B, S, nh,
     hd)``, k/v ``(B, T, nkv, hd)`` -> ``(o in q.dtype, lse (B, nh, S)
-    fp32)``; no ``(S, T)`` tensor reaches device memory."""
-    return FA.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=causal)
+    fp32)``; the kernel writes no ``(S, T)`` tensor to device memory."""
+    fn = FA.flash_attention_plain if plain else FA.flash_fwd
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        cfg: PSGConfig, causal: bool = True):
+                        cfg: PSGConfig, causal: bool = True,
+                        plain: bool = False):
     """PSG flash-attention backward: ``(dq, dk, dv, fallback ratio)``.
 
     In order: ``delta = rowsum(dO * O)`` in fp32; dq from kernel 8; the six
@@ -110,14 +131,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
-    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    bwd_dq = FA.flash_bwd_dq_plain if plain else FA.flash_bwd_dq
+    bwd_dkv = FA.flash_bwd_dkv_plain if plain else FA.flash_bwd_dkv
+    dq = bwd_dq(q, k, v, do, lse, delta, causal=causal)
     scales = FA.attention_psg_scales(
         q, v, do, delta, bits_x=cfg.bits_x, bits_x_msb=cfg.bits_x_msb,
         bits_g=cfg.bits_g, bits_g_msb=cfg.bits_g_msb)
     lims = (FA.qlim(cfg.bits_x), FA.qlim(cfg.bits_x_msb),
             FA.qlim(cfg.bits_g), FA.qlim(cfg.bits_g_msb))
-    dv_m, dv_f, dk_m, dk_f = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales,
-                                              lims=lims, causal=causal)
+    dv_m, dv_f, dk_m, dk_f = bwd_dkv(q, k, v, do, lse, delta, scales,
+                                     lims=lims, causal=causal)
     s_q, s_qm, s_do, s_dom, s_ds, s_dsm = scales
     dv, r_dv = FA.psg_attention_select(dv_m.float(), dv_f.float(),
                                        (1.0 / lims[1]) * s_dom,

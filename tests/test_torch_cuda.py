@@ -8,7 +8,7 @@ on a machine with a card:
         tests/test_torch_cuda.py
 
 (``--noconftest``: the repository's conftest imports JAX.)  Kernels 3-6
-must equal their exact plain versions; kernels 1, 2 and 8 sum in fp32 in
+and 10 must equal their exact plain versions; kernels 1, 2 and 8 sum in fp32 in
 another order, within ``1e-5 * max|ref|``; kernel 7's output is within one
 bf16 ulp (fp32: ``1e-5 * max|ref|``) and its lse within 1e-5; kernel 9's
 code products equal the plain version's on integer inputs and elsewhere
@@ -304,3 +304,68 @@ def test_flash_lm_trainer_runs_on_the_card(card):
     assert hist and all(h["loss"] == h["loss"] for h in hist)
     assert all(n > 0 for n in PM.LAUNCHES.values()), PM.LAUNCHES
     assert all(n > 0 for n in FA.LAUNCHES.values()), FA.LAUNCHES
+
+
+# kernel 10: shapes of tests/test_kernels.py, a bf16 one, a view that is not
+# 16-byte aligned, sizes that are not multiples of 4 or 8
+QUANT = [((128, 256), "float32"), ((7, 300), "float32"), ((1000,), "float32"),
+         ((4, 4, 64), "float32"), ((7, 300), "bfloat16"),
+         ((3, 5, 11), "bfloat16"), ((1,), "float32")]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8, 10, 16])
+@pytest.mark.parametrize("shape,dt", QUANT,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else v)
+def test_quantize_kernel_equals_plain_bit_for_bit(card, shape, dt, bits):
+    from repro_torch.core.quant import qscale
+    from repro_torch.kernels import quant as Q
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=card).manual_seed(bits)
+    view = torch.int32 if dt == "float32" else torch.int16
+    n = 1
+    for d in shape:
+        n *= d
+    for offset in (0, 1):       # 1: a view 4 or 2 bytes into its storage
+        x = (torch.randn(n + offset, device=card, generator=g) * 3).to(dtype)
+        x = x[offset:].view(shape)
+        Q.reset_launches()
+        out = Q.quantize(x, bits)
+        assert Q.LAUNCHES["quantize"] == 1
+        want = Q.quantize_plain(x, qscale(x, bits), bits)
+        assert out.dtype == dtype and out.shape == x.shape
+        assert torch.equal(out.view(view), want.view(view))
+
+
+def test_quantize_kernel_on_the_card_through_dispatch(card):
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import quant as Q
+    x = torch.randn(257, 33, device=card)
+    Q.reset_launches()
+    y = dispatch.quantize(x, 8)
+    assert Q.LAUNCHES["quantize"] == 1
+    for backend in ("plain", "reference"):
+        with dispatch.override_backend(backend):
+            torch.testing.assert_close(dispatch.quantize(x, 8), y, rtol=0,
+                                       atol=0)
+    assert Q.LAUNCHES["quantize"] == 1
+    with pytest.raises(ValueError):
+        Q.quantize(x.half(), 8)
+
+
+def test_resnet_im2col_and_psg_off_trainers_run_on_the_card(card):
+    from repro_torch.launch.train import E2TRAIN, build_trainer
+    trainer = build_trainer(depth=8, width=8, batch=4, steps=3, device="cuda",
+                            fused_conv=False)
+    K.reset_launches()
+    PM.reset_launches()
+    hist = trainer.run(3)
+    assert hist and all(h["loss"] == h["loss"] for h in hist)
+    assert all(n > 0 for n in PM.LAUNCHES.values()), PM.LAUNCHES
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES
+    trainer = build_trainer(depth=8, width=8, batch=4, steps=2, device="cuda",
+                            e2=E2TRAIN["off"])
+    PM.reset_launches()
+    hist = trainer.run(2)
+    assert len(hist) == 2 and trainer.measured_psg_fallback() is None
+    assert not any(PM.LAUNCHES.values()) and not any(K.LAUNCHES.values())
