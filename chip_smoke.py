@@ -7,8 +7,9 @@ Phases, each fatal on failure:
 
 1. report the card (name, power limit) and build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once);
-   refuse to run under a ``REPRO_TORCH_KERNEL_BACKEND`` pin other than
-   ``cuda``, which could hide the kernels;
+   refuse to run under any ``REPRO_TORCH_KERNEL_BACKEND`` pin (``plain``
+   and ``reference`` would hide the kernels, ``cuda`` fail the CPU halves
+   of phase 5);
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
    version (kernels 3 and 4 bit for bit; kernels 1 and 2 within
@@ -24,9 +25,11 @@ Phases, each fatal on failure:
    kernel 7 is timed beside ``scaled_dot_product_attention``; then one
    qwen2.5-3b attention sub-block forward and backward, materialized softmax
    against flash kernels, timed in turns with its peak memory;
-4c. the same for the quantize kernel (bit for bit) at the qwen2.5-3b
+4c. the same for the quantize kernel (bit for bit) at the input of its main
+   path, the kernel microbenchmark's x (2048 x 1024 fp32, 8 bits), the one
+   its times in the ``kernels`` line are of; also at the qwen2.5-3b
    weight-matmul operands (N = 8192), a ResNet-74 batch-128 activation and
-   the JAX package's test shapes at 2 to 16 bits, timed beside
+   the JAX package's test shapes at 2 to 16 bits; timed beside
    ``fake_quantize_per_tensor_affine``;
 4d. the dispatch layer: ``dispatch.psg_grad_w`` at the ResNet-74 im2col
    geometries of the kernel microbenchmark under the ``cuda``, ``plain``
@@ -505,16 +508,20 @@ def attention_ab(torch, m):
 
 
 def quant_geometries(m):
-    """(name, shape, dtype, bits, calls counted): the qwen2.5-3b
-    weight-matmul operands at N = 8192 (x, w and gy of the d_ff matmuls) and
-    a ResNet-74 batch-128 activation, counted once each; then the JAX
-    package's test shapes at 2-16 bits and an input that is not 16-byte
-    aligned, checked and not counted."""
+    """(name, shape, dtype, bits, calls counted).  Counted: the input the
+    kernel microbenchmark quantizes, kernel 10's main path (``bench_x``, x
+    of ``bench_kernels.psg_operands`` in full mode, fp32 at 8 bits).
+    Checked and timed, not counted: the qwen2.5-3b weight-matmul operands
+    at N = 8192 (x, w and gy of the d_ff matmuls) and a ResNet-74 batch-128
+    activation, which the training paths quantize in PyTorch
+    (``core/quant``); checked only: the JAX package's test shapes at 2-16
+    bits and inputs that are not 16-byte aligned."""
     n = LM_BATCH * LM_SEQ
-    geos = [("qwen_x", (n, m.d_model), "bfloat16", 8, 1),
-            ("qwen_w", (m.d_model, m.d_ff), "float32", 8, 1),
-            ("qwen_gy", (n, m.d_ff), "bfloat16", 16, 1),
-            ("resnet_act", (BATCH, 32, 32, WIDTH), "float32", 8, 1)]
+    geos = [("bench_x", (2048, 1024), "float32", 8, 1),
+            ("qwen_x", (n, m.d_model), "bfloat16", 8, 0),
+            ("qwen_w", (m.d_model, m.d_ff), "float32", 8, 0),
+            ("qwen_gy", (n, m.d_ff), "bfloat16", 16, 0),
+            ("resnet_act", (BATCH, 32, 32, WIDTH), "float32", 8, 0)]
     for shape in ((128, 256), (7, 300), (1000,), (4, 4, 64)):
         for bits in (2, 4, 8, 10, 16):
             geos.append((f"test_{'x'.join(map(str, shape))}_{bits}bit", shape,
@@ -530,6 +537,7 @@ def check_quant_kernel(torch, Q, geometries):
     fp32 and bf16 on the card); the times include the scale's reduction in
     all three."""
     from repro_torch.core.quant import qscale
+    from repro_torch.launch.bench_kernels import psg_operands
 
     tot = {"quantize": _zero_total()}
     details = []
@@ -538,7 +546,10 @@ def check_quant_kernel(torch, Q, geometries):
     for name, shape, dt, bits, m in geometries:
         dtype = getattr(torch, dt)
         n = math.prod(shape)
-        if name.startswith("unaligned"):    # a view 4 or 2 bytes in
+        if name == "bench_x":       # the microbenchmark's own input
+            x = psg_operands(False, "cuda")[0]
+            assert tuple(x.shape) == shape and x.dtype == dtype
+        elif name.startswith("unaligned"):    # a view 4 or 2 bytes in
             x = torch.randn(n + 1, device="cuda", generator=gen).to(dtype)
             x = x[1:].view(shape)
         else:
@@ -554,7 +565,7 @@ def check_quant_kernel(torch, Q, geometries):
         zp = torch.zeros(1, dtype=torch.int32, device="cuda")
         row = {"geometry": [list(shape), dt, bits], "name": name,
                "calls_counted": m}
-        if m:   # the elementwise pass alone, on a scale computed before
+        if n >= 2 ** 20:    # the elementwise pass alone, on a scale computed before
             s = qscale(x, bits)
             row["pass_only_ms"] = time_ms(
                 torch, lambda: Q.quantize_scaled(x, s, bits))
@@ -833,10 +844,10 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: no card to run on")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py")
-    pin = os.environ.get("REPRO_TORCH_KERNEL_BACKEND", "").strip().lower()
-    if pin not in ("", "cuda"):
-        fail(f"REPRO_TORCH_KERNEL_BACKEND={pin!r} would run the plain "
-             "versions or the oracles in place of the kernels")
+    pin = os.environ.get("REPRO_TORCH_KERNEL_BACKEND", "").strip()
+    if pin:     # plain or reference would hide the kernels; cuda the CPU halves
+        fail(f"REPRO_TORCH_KERNEL_BACKEND={pin!r}: run without a pin, the "
+             "tensors' device picks the kernels")
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -846,15 +857,12 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     from repro_torch.configs import get_experiment
     from repro_torch.configs.paper_cnns import resnet_conv_shapes
-    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels import build
     from repro_torch.kernels import conv as K
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import psg_matmul as PM
     from repro_torch.kernels import quant as Q
     from repro_torch.launch.train import E2TRAIN, build_lm_trainer, build_trainer
-    # a cuda pin is auto on the card; auto also lets the CPU halves of the
-    # phase-5 comparisons run
-    dispatch.set_default_backend("auto")
     t0 = time.perf_counter()
     build.build(list(build.SOURCES), verbose=True)
     build_s = time.perf_counter() - t0
@@ -966,10 +974,11 @@ def main() -> None:
                  "N = 8192 tokens, flash kernel times over the attention "
                  "sites of one qwen2.5-3b 8-layer step at batch 2 x 4096 "
                  "(kernel 7 twice per layer), with every block executed; "
-                 "quantize times over one call at each of four geometries "
-                 "(the qwen2.5-3b x, w and gy operands at N = 8192 and a "
-                 "ResNet-74 batch-128 activation), the scale's reduction "
-                 "included; its launches are the microbenchmark CLI's",
+                 "quantize times over one call at its main path's input, "
+                 "the microbenchmark's x (2048 x 1024 fp32, 8 bits), the "
+                 "scale's reduction included; its launches are the "
+                 "microbenchmark CLI's (the other geometries are in "
+                 "quant_geometries, not counted)",
          "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ The weight gradient leaves the backward as a sign: ``sign(g_msb)`` from a
 the sign of the full 8-bit x 16-bit product elsewhere (Eq. 2).  The forward
 runs on the 8-bit grid and the input gradient on the 16-bit output-gradient
 grid.  Convolutions run all three directions through the kernels of
-``kernels/conv.py``; a dense matmul (:class:`PSGMatmul`) runs its forward
+``kernels/conv.py``, or, with ``fused_conv`` off, as a dense matmul of
+their im2col patches; a dense matmul (:class:`PSGMatmul`) runs its forward
 and input gradient as plain matmuls of the quantized operands, as the JAX
 package leaves them to XLA, and its weight-gradient sign through the
 kernels of ``kernels/psg_matmul.py``.  Self-attention (:class:`PSGAttention`,
@@ -35,7 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import quantize
-from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.conv import conv_out_hw, conv_patches
 
 PROBE_SIZE = 2
 
@@ -209,14 +211,19 @@ def fused_conv_active(cfg: Optional[PSGConfig]) -> bool:
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, k: int = 3,
            stride: int = 1) -> torch.Tensor:
     """NHWC ``x`` with a patch-major ``(k*k*C, dout)`` weight and SAME
-    padding ``k // 2``.
+    padding ``k // 2``: the one conv entry point of the models.
 
-    Runs :class:`PSGConv2d` under the active PSG config; without one, the
-    materialized im2col + plain matmul (``kernels/ref.conv_fwd_ref``), as
-    the JAX package does.
+    When the active config's ``fused_conv`` resolves on
+    (:func:`fused_conv_active`), :class:`PSGConv2d` runs the implicit-GEMM
+    kernels.  Otherwise, the JAX package's materialized im2col: the padded
+    input's channel-major patches times ``w`` through :func:`matmul`, which
+    is the PSG matmul kernels under a config and a plain product with PSG
+    off (JAX ``models/resnet.conv2d`` and ``core/psg.conv2d``'s
+    ``conv_fwd_ref``, the same product).
 
     ``k < stride`` (the 1x1 stride-2 shortcut) is a pre-subsampled stride-1
-    conv, so the quantization grid is that of the subsample.
+    conv: its im2col patches are the subsample, so the quantization grid is
+    the same on both paths.
     """
     cfg = active_config()
     if k < stride:
@@ -224,8 +231,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, k: int = 3,
         stride = 1
     pad = k // 2
     xp = F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
-    if cfg is None:
-        return ref.conv_fwd_ref(xp, w, k, stride)
+    if not fused_conv_active(cfg):
+        ho, wo = conv_out_hw(xp.shape[1], xp.shape[2], k, stride)
+        y = matmul(conv_patches(xp, k, stride), w)
+        return y.reshape(xp.shape[0], ho, wo, -1)
     return PSGConv2d.apply(xp, w, _current_probe(xp.device), k, stride, cfg)
 
 

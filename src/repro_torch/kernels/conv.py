@@ -60,6 +60,20 @@ def conv_out_hw(hp: int, wp: int, k: int, stride: int) -> Tuple[int, int]:
     return (hp - k) // stride + 1, (wp - k) // stride + 1
 
 
+def conv_patches(xp: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """Materialized im2col of a pre-padded NHWC input: ``(B*Ho*Wo,
+    k*k*C)``, channel-major like the weights (feature ``c*k*k + ki*k +
+    kj``), the layout of the JAX package's
+    ``conv_general_dilated_patches``.  The operand of the im2col conv path;
+    the kernels above gather their patches in-kernel instead."""
+    B, Hp, Wp, C = xp.shape
+    ho, wo = conv_out_hw(Hp, Wp, k, stride)
+    taps = [xp[:, ki:ki + (ho - 1) * stride + 1:stride,
+               kj:kj + (wo - 1) * stride + 1:stride, :]
+            for ki in range(k) for kj in range(k)]
+    return torch.stack(taps, dim=-1).reshape(B * ho * wo, C * k * k)
+
+
 def fallback_blocks(dout: int) -> Tuple[int, int]:
     """(block width, block count) of the per-tap fallback flags."""
     bn_ = min(FALLBACK_BLOCK, dout)

@@ -18,9 +18,10 @@ Selection, strongest first:
    module is imported (a name of the port's own, so a pin of the JAX
    package's ``REPRO_KERNEL_BACKEND`` does not reach it), or
    :func:`set_default_backend`;
-4. ``"auto"``: the tensors' device decides, CUDA tensors launch the
-   kernels and CPU tensors take the plain versions.  ``auto`` never runs a
-   plain version or an oracle on the card; only an explicit pin does.
+4. ``"auto"``: the wrappers decide by the tensors' device, CUDA tensors
+   launch the kernels and CPU tensors take the plain versions.  ``auto``
+   never runs a plain version or an oracle on the card; only an explicit
+   pin does.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ BACKEND_AUTO = "auto"
 BACKEND_REFERENCE = "reference"
 BACKEND_PLAIN = "plain"
 BACKEND_CUDA = "cuda"
-BACKENDS = KERNEL_BACKENDS[1:]   # the pins; "auto" picks plain or cuda
+BACKENDS = KERNEL_BACKENDS[1:]   # the pins; under "auto" the wrappers pick
 
 _ENV_DEFAULT = os.environ.get("REPRO_TORCH_KERNEL_BACKEND", "").strip().lower()
 
@@ -78,8 +79,8 @@ def override_backend(name: str):
 
 
 def resolve_backend(cfg: Optional[PSGConfig] = None) -> str:
-    """The backend an op called now with ``cfg`` uses; ``"auto"`` means the
-    tensors' device decides (:func:`backend_for`)."""
+    """The backend an op called now with ``cfg`` uses; under ``"auto"`` the
+    wrappers decide by the tensors' device."""
     override = getattr(_state, "override", None)
     if override is not None:
         return override
@@ -99,14 +100,12 @@ def pinned(cfg: PSGConfig) -> PSGConfig:
 
 
 def backend_for(cfg: Optional[PSGConfig], *tensors: torch.Tensor) -> str:
-    """The concrete backend for an op on ``tensors``: ``auto`` becomes
-    ``cuda`` on CUDA tensors and ``plain`` on CPU tensors; ``cuda`` on CPU
-    tensors raises."""
+    """The backend for an op on ``tensors``.  ``auto`` stays ``auto``: the
+    ops then call the wrappers, which launch their kernels on CUDA tensors
+    and compute the plain versions on CPU tensors.  ``cuda`` on CPU tensors
+    raises."""
     backend = resolve_backend(cfg)
-    on_cuda = all(t.is_cuda for t in tensors)
-    if backend == BACKEND_AUTO:
-        return BACKEND_CUDA if on_cuda else BACKEND_PLAIN
-    if backend == BACKEND_CUDA and not on_cuda:
+    if backend == BACKEND_CUDA and not all(t.is_cuda for t in tensors):
         raise ValueError("kernel backend 'cuda' needs CUDA tensors; got "
                          f"{sorted({str(t.device) for t in tensors})}")
     return backend

@@ -22,7 +22,8 @@ import torch
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import flash_attn as FA
-from repro_torch.kernels.conv import conv_grad_x_plain, conv_out_hw
+from repro_torch.kernels.conv import (conv_grad_x_plain, conv_out_hw,
+                                     conv_patches)
 
 NEG_INF = -1e30
 
@@ -103,17 +104,8 @@ def psg_grad_w_oracle(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig
 # ---------------------------------------------------------------------------
 
 
-def conv_patches_ref(xp: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """Materialized im2col of a pre-padded NHWC input: ``(B*Ho*Wo,
-    k*k*C)``, channel-major like the weights (feature ``c*k*k + ki*k +
-    kj``), the layout of the JAX package's
-    ``conv_general_dilated_patches``."""
-    B, Hp, Wp, C = xp.shape
-    ho, wo = conv_out_hw(Hp, Wp, k, stride)
-    taps = [xp[:, ki:ki + (ho - 1) * stride + 1:stride,
-               kj:kj + (wo - 1) * stride + 1:stride, :]
-            for ki in range(k) for kj in range(k)]
-    return torch.stack(taps, dim=-1).reshape(B * ho * wo, C * k * k)
+# the materialized im2col operand is the im2col conv path's own gather
+conv_patches_ref = conv_patches
 
 
 def conv_fwd_ref(xp: torch.Tensor, w: torch.Tensor, k: int, stride: int

@@ -15,7 +15,10 @@ The counterpart of the JAX package's ``benchmarks/bench_kernels.py``
   ``--fast``), with its fallback-tile ratio;
 * ``kernel/flash_attn``: the flash forward (kernel 7) against the
   materialized oracle, the PSG flash backward (kernels 8-9), and the
-  two-direction HBM byte model of both paths.
+  two-direction HBM byte model of both paths.  The byte model is the JAX
+  package's, of its TPU kernels (128 x 128 tiles, four per-query-head fp32
+  products in the dk/dv pass), and the row says so (``byte_model=``): the
+  port's kernels tile by 64 and emit group-summed integer products.
 
 Ops run through ``kernels/dispatch.py``, so the backend is the tensors'
 device unless ``REPRO_TORCH_KERNEL_BACKEND`` pins another.  On the card a
@@ -38,7 +41,7 @@ from repro_torch.core.energy import FP32_MAC_PJ, mac_energy_pj
 from repro_torch.kernels import dispatch, ref
 
 FP32, BF16 = 4, 2
-BQ = BK = 128          # the flash kernels' tiles in the JAX package's model
+BQ = BK = 128          # the TPU flash kernels' tiles (the JAX package's model)
 
 
 def csv_row(name: str, us_per_call: float, derived: str) -> str:
@@ -164,16 +167,24 @@ def flash_bytes(s: AttnShape, bq: int = BQ, bk: int = BK) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
+def psg_operands(fast: bool, device, seed: int = 0):
+    """The ``(x (N, din), gy (N, dout))`` of the ``kernel/psg_pallas`` and
+    ``kernel/quantize`` rows (``x`` is what kernel 10 quantizes)."""
+    N, din, dout = (512, 256, 256) if fast else (2048, 1024, 1024)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(N, din, device=device, generator=gen)
+    return x, torch.randn(N, dout, device=device, generator=gen) * 0.01
+
+
 def run(fast: bool = True, device=None, seed: int = 0) -> List[str]:
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def normal(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
     cfg = PSGConfig(enabled=True)
-    N, din, dout = (512, 256, 256) if fast else (2048, 1024, 1024)
-    x, gy = normal(N, din), normal(N, dout, scale=0.01)
+    x, gy = psg_operands(fast, dev, seed)
     rows = []
     us_k, _ = time_us(lambda a, b: dispatch.psg_grad_w(a, b, cfg), x, gy)
     us_r, _ = time_us(lambda a, b: ref.psg_grad_w_ref(a, b, cfg), x, gy)
@@ -220,7 +231,8 @@ def run(fast: bool = True, device=None, seed: int = 0) -> List[str]:
         "kernel/flash_attn", us_f,
         f"oracle_us={us_o:.1f};bwd_us={us_b:.1f};"
         f"flash_MB_fwd_bwd={b_flash['total'] / 1e6:.1f};"
-        f"hbm_bytes_ratio={b_mat['total'] / b_flash['total']:.2f}"))
+        f"hbm_bytes_ratio={b_mat['total'] / b_flash['total']:.2f};"
+        f"byte_model=tpu_kernels_{BQ}x{BK}"))
     return rows
 
 

@@ -25,12 +25,16 @@ kernels, ``off`` the materialized im2col on the PSG matmul kernels.
 ``--fused-attention on`` trains the LM through the flash kernels with the
 PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` and
 ``auto`` through the materialized softmax.  Runs on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given.  The header line names the kernel backend
+(``kernels/dispatch.py``: ``auto`` unless ``REPRO_TORCH_KERNEL_BACKEND``
+pins another), with a warning on stderr when a pin runs the plain versions
+or the oracles on the card.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
@@ -44,6 +48,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.psg import fused_conv_active
 from repro_torch.data.synthetic import (GaussianImageTask, MarkovLMTask,
                                         make_image_batch, make_lm_batch)
+from repro_torch.kernels import dispatch
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
 
@@ -150,6 +155,19 @@ def build_lm_trainer(arch: str = "qwen2_5_3b",
     return Trainer(exp, state, make_batch, device=dev)
 
 
+def kernel_backend(trainer: Trainer) -> str:
+    """The kernel backend the trainer's PSG ops resolve to; warns on stderr
+    when a pin runs the plain versions or the oracles on the card, whose
+    step times are then not those of the kernels."""
+    backend = dispatch.resolve_backend(trainer.exp.e2.psg)
+    if trainer.device.type == "cuda" and backend not in ("auto", "cuda"):
+        print(f"warning: kernel backend {backend!r} (PSGConfig.backend or "
+              "REPRO_TORCH_KERNEL_BACKEND) runs the "
+              + ("plain versions" if backend == "plain" else "oracles")
+              + " on the card in place of the kernels", file=sys.stderr)
+    return backend
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--task", choices=["cifar_cnn", "lm"], default="cifar_cnn")
@@ -165,9 +183,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                          "flash kernels, off and auto = the materialized "
                          "softmax")
     ap.add_argument("--fused-conv", choices=list(FUSED), default="auto",
-                    help="PSGConfig.fused_conv (--task cifar_cnn): on and "
-                         "auto = the implicit-GEMM conv kernels, off = the "
-                         "materialized im2col")
+                    help="PSGConfig.fused_conv (--task cifar_cnn): on = "
+                         "the implicit-GEMM conv kernels, off = the "
+                         "materialized im2col; auto leaves it to "
+                         "core/psg.fused_conv_active, which picks the "
+                         "kernels on every device the port runs on (the "
+                         "JAX package's auto picks im2col on the TPU)")
     ap.add_argument("--depth", type=int, default=74,
                     help="CIFAR ResNet depth (6n+2)")
     ap.add_argument("--width", type=int, default=16, help="stage-0 width")
@@ -193,7 +214,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         print(f"model {trainer.exp.model.name} ({trainer.exp.model.num_layers}"
               f" layers, d_model {trainer.exp.model.d_model}, batch "
               f"{tc.global_batch} x seq {tc.seq_len}, {attn} attention, "
-              f"--e2train {args.e2train}) on {trainer.device}")
+              f"--e2train {args.e2train}, kernel backend "
+              f"{kernel_backend(trainer)}) on {trainer.device}")
     else:
         batch = args.batch or 128
         trainer = build_trainer(args.depth, args.width, batch, args.steps,
@@ -204,7 +226,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
             else "im2col"
         print(f"model {trainer.exp.model.name} (CIFAR shapes, width "
               f"{args.width}, batch {batch}, {conv} conv, --e2train "
-              f"{args.e2train}) on {trainer.device}")
+              f"{args.e2train}, kernel backend {kernel_backend(trainer)}) "
+              f"on {trainer.device}")
     hist = trainer.run(args.steps, log_every=1)
     if hist:
         fb = trainer.measured_psg_fallback()

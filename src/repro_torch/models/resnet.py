@@ -14,11 +14,10 @@ package's.  The decision is taken on the host, so each gated block costs
 one device-to-host read of ``p``.  A skipped block passes its
 input and its BatchNorm state through unchanged and launches no kernel.
 
-A conv runs through the implicit-GEMM kernels (``psg.conv2d``) when the
-active PSG config's ``fused_conv`` resolves on (``psg.fused_conv_active``);
-otherwise as the JAX package's materialized im2col: the padded input's
-patches, channel-major, times the weight through ``psg.matmul`` (the PSG
-matmul kernels under PSG, a plain product without it).
+Every conv is ``psg.conv2d``: the implicit-GEMM kernels when the active
+PSG config's ``fused_conv`` resolves on (``psg.fused_conv_active``),
+otherwise the JAX package's materialized im2col through ``psg.matmul``
+(the PSG matmul kernels under PSG, a plain product without it).
 """
 from __future__ import annotations
 
@@ -31,8 +30,6 @@ from torch import nn
 from repro_torch.core import psg, rng
 from repro_torch.core.config import E2TrainConfig
 from repro_torch.core.slu import Gate, GateState
-from repro_torch.kernels.conv import conv_out_hw
-from repro_torch.kernels.ref import conv_patches_ref
 from repro_torch.models.layers import dense_init
 
 BN_MOMENTUM = 0.9           # running-stat EMA decay per executed train step
@@ -45,18 +42,6 @@ def resnet_depth_to_n(depth: int) -> int:
     return (depth - 2) // 6
 
 
-def im2col_conv2d(x: torch.Tensor, w: torch.Tensor, k: int,
-                  stride: int) -> torch.Tensor:
-    """NHWC conv as ``patches (B*Ho*Wo, k*k*C) @ w`` through
-    ``psg.matmul``, SAME padding ``k // 2``."""
-    B = x.shape[0]
-    pad = k // 2
-    xp = F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
-    ho, wo = conv_out_hw(xp.shape[1], xp.shape[2], k, stride)
-    y = psg.matmul(conv_patches_ref(xp, k, stride), w)
-    return y.reshape(B, ho, wo, -1)
-
-
 class Conv(nn.Module):
     """Patch-major ``(k*k*cin, cout)`` weight; SAME padding."""
 
@@ -67,9 +52,7 @@ class Conv(nn.Module):
                                          scale=1.41))
 
     def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-        if psg.fused_conv_active(psg.active_config()):
-            return psg.conv2d(x, self.w, k=self.k, stride=stride)
-        return im2col_conv2d(x, self.w, self.k, stride)
+        return psg.conv2d(x, self.w, k=self.k, stride=stride)
 
 
 class BatchNorm(nn.Module):

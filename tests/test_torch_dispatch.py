@@ -32,7 +32,9 @@ from repro_torch.convert import state_dict_from_jax  # noqa: E402
 from repro_torch.core import config as tc  # noqa: E402
 from repro_torch.core import psg as tpsg  # noqa: E402
 from repro_torch.core.config import PSGConfig  # noqa: E402
+from repro_torch.core.quant import qscale  # noqa: E402
 from repro_torch.kernels import dispatch, ops, ref  # noqa: E402
+from repro_torch.kernels import quant as Q  # noqa: E402
 from repro_torch.models.resnet import ResNet  # noqa: E402
 from repro_torch.optim.signsgd import signsgd_init  # noqa: E402
 from repro_torch.optim.swa import swa_init  # noqa: E402
@@ -69,10 +71,16 @@ def test_order_of_precedence():
 
 
 def test_auto_follows_the_device():
-    x = torch.randn(3)
-    assert dispatch.backend_for(CFG, x) == "plain"
+    # auto is left to the wrappers, which take the plain version on CPU
+    x = torch.randn(7, 300, generator=torch.Generator().manual_seed(0))
+    assert dispatch.backend_for(CFG, x) == "auto"
     with dispatch.override_backend("reference"):
         assert dispatch.backend_for(CFG, x) == "reference"
+    Q.reset_launches()
+    got = dispatch.quantize(x, 8, CFG)
+    assert Q.LAUNCHES["quantize"] == 0
+    torch.testing.assert_close(got, Q.quantize_plain(x, qscale(x, 8), 8),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("env,want", [("reference", "reference"),

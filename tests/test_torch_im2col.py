@@ -19,6 +19,7 @@ repro_torch, against the JAX package's.
   microbenchmark CLI, on the CPU.
 """
 import dataclasses
+import types
 
 import pytest
 
@@ -40,6 +41,7 @@ from repro_torch.configs.paper_cnns import cnn_model, resnet_conv_shapes  # noqa
 from repro_torch.convert import state_dict_from_jax  # noqa: E402
 from repro_torch.core import config as tc  # noqa: E402
 from repro_torch.core import psg as tpsg  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import bench_kernels, train  # noqa: E402
 from repro_torch.models.resnet import ResNet  # noqa: E402
@@ -195,7 +197,7 @@ def test_cli_e2train_and_fused_conv_on_the_cpu(capsys, e2train, fused, conv):
                           "--steps", "2", "--device", "cpu", "--e2train",
                           e2train, "--fused-conv", fused])
     out = capsys.readouterr().out
-    assert f"{conv} conv, --e2train {e2train}" in out
+    assert f"{conv} conv, --e2train {e2train}, kernel backend auto" in out
     assert trainer.exp.e2.psg.fused_conv == train.FUSED[fused]
     assert trainer.executed_steps + trainer.dropped_steps == 2
     assert all(np.isfinite(h["loss"]) for h in trainer.history)
@@ -203,6 +205,18 @@ def test_cli_e2train_and_fused_conv_on_the_cpu(capsys, e2train, fused, conv):
         fb = trainer.measured_psg_fallback()
         assert (fb is None) == (e2train in ("off", "slu"))
         assert "measured PSG fallback" in out and "energy report" in out
+
+
+@pytest.mark.parametrize("pin,warned", [("plain", True), ("reference", True),
+                                       ("cuda", False)])
+def test_cli_warns_on_a_pin_that_hides_the_kernels(capsys, pin, warned):
+    exp = train.experiment(depth=8, width=4, batch=2, steps=2)
+    for dev, want in (("cuda", warned), ("cpu", False)):
+        trainer = types.SimpleNamespace(exp=exp, device=torch.device(dev))
+        with dispatch.override_backend(pin):
+            assert train.kernel_backend(trainer) == pin
+        err = capsys.readouterr().err
+        assert ("in place of the kernels" in err) == want, (dev, err)
 
 
 def test_bench_kernels_cli_on_the_cpu(capsys):
@@ -221,3 +235,4 @@ def test_bench_kernels_cli_on_the_cpu(capsys):
         assert float(us) > 0 and derived
     assert "bits=8" in rows[1] and "pred_mac_vs_fp32=0.0533" in rows[0]
     assert "fallback_tile_ratio=" in rows[2] and "hbm_bytes_ratio=" in rows[5]
+    assert "byte_model=tpu_kernels_128x128" in rows[5]
