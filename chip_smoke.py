@@ -10,6 +10,10 @@ Phases, each fatal on failure:
    refuse to run under any ``REPRO_TORCH_KERNEL_BACKEND`` pin (``plain``
    and ``reference`` would hide the kernels, ``cuda`` fail the CPU halves
    of phase 5);
+1b. show with ``cuobjdump -sass`` that the tensor-core kernels carry
+   tensor-core instructions: IMMA in kernel 5 (``pred_mma_kernel``), HMMA
+   in kernel 7's bf16 kernel (``flash_fwd_mma_kernel``); a missing
+   ``cuobjdump`` is reported as not checked;
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
    version (kernels 3 and 4 bit for bit; kernels 1 and 2 within
@@ -17,11 +21,14 @@ Phases, each fatal on failure:
    events next to the plain version, a PyTorch library call and its bound;
 3. the same for the two PSG matmul kernels (bit for bit, signs and flags
    included) at every qwen2.5-3b weight-matmul geometry with N = 8192
-   tokens, plus a padded one;
+   tokens, plus a padded one and the ResNet-74 batch-128 im2col ones
+   (checked and timed, not counted), and kernel 5 alone with every code at
+   its limit at the largest token count it takes;
 4. the same for the three flash-attention kernels at the qwen2.5-3b
    attention geometry (batch 2, 4096 tokens, 16 heads over 2 kv heads, hd
-   128, bf16, causal), a padded one and a non-causal one (limits in
-   ``check_flash_kernels``), plus kernel 9 bit for bit on integer inputs;
+   128, bf16, causal), a padded one (fp32: kernel 7 on the CUDA cores) and
+   a non-causal one (limits in ``check_flash_kernels``), plus kernel 9 bit
+   for bit on integer inputs;
    kernel 7 is timed beside ``scaled_dot_product_attention``; then one
    qwen2.5-3b attention sub-block forward and backward, materialized softmax
    against flash kernels, timed in turns with its peak memory;
@@ -138,6 +145,38 @@ def site(s):
         hw, stride = -(-hw // stride), 1
     hp = hw + 2 * (k // 2)
     return s.batch, hp, s.cin, s.cout, k, stride, (hp - k) // stride + 1
+
+
+# the tensor-core instruction each redesigned kernel must carry, by library
+TENSOR_CORE_KERNELS = (("psg_matmul", "pred_mma_kernel", "IMMA"),
+                       ("flash_attn", "flash_fwd_mma_kernel", "HMMA"))
+
+
+def sass_check(build):
+    """Phase 1b: ``cuobjdump -sass`` of the built libraries shows IMMA in
+    kernel 5's MMA kernel and HMMA in kernel 7's bf16 kernel (every
+    instantiation).  A missing cuobjdump is reported as not checked."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"checked": False, "why": "cuobjdump not found: tensor-core "
+                "instructions not checked"}
+    out = {"checked": True}
+    for lib, kernel, op in TENSOR_CORE_KERNELS:
+        text = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        funcs = [f for f in text.split("Function : ")[1:]
+                 if kernel in f.split("\n", 1)[0]]
+        counts = [sum(any(w.startswith(op) for w in line.split())
+                      for line in f.splitlines()) for f in funcs]
+        if not funcs or not all(counts):
+            fail(f"cuobjdump -sass of lib{lib}: {kernel} has no {op} "
+                 f"instruction ({len(funcs)} instantiations, counts {counts})")
+        out[kernel] = {"library": lib, "instantiations": len(funcs),
+                       f"{op}_per_instantiation": counts}
+    return out
 
 
 def check_kernels(torch, K, shapes_all, shapes):
@@ -269,21 +308,29 @@ def lm_matmul_sites(d, heads, kv_heads, head_dim, d_ff, layers):
     return sites
 
 
-def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens):
+def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
     """Phase 3: kernels 5 and 6 against their plain versions at each weight
-    matmul geometry, timed; the padded geometry is checked, not counted."""
+    matmul geometry, timed; the padded geometry and the ResNet-74 im2col
+    ones (``im2col``: {(N, din, dout): sites per step}) are checked and
+    timed, not counted (the im2col step's sums go to ``im2col_totals``);
+    then kernel 5 alone at the worst-case magnitude (``worst_case_check``)."""
     from repro_torch.core.quant import codes
 
     tot = {n: _zero_total() for n in ("predictor_matmul", "psg_grad_w")}
+    im2col_tot = {n: _zero_total() for n in tot}
     details = []
     g = torch.Generator(device="cuda").manual_seed(1)
-    for (din, dout), m in list(sites.items()) + [(padded, 0)]:
-        x = torch.randn(n_tokens, din, device="cuda", generator=g)
-        gy = torch.randn(n_tokens, dout, device="cuda", generator=g) * 0.01
+    geos = [((n_tokens, din, dout), m, tot) for (din, dout), m in sites.items()]
+    geos.append(((n_tokens, *padded), 0, tot))
+    geos += [(geo, m, im2col_tot) for geo, m in im2col.items()]
+    for (N, din, dout), m, into in geos:
+        x = torch.randn(N, din, device="cuda", generator=g)
+        gy = torch.randn(N, dout, device="cuda", generator=g) * 0.01
         xm, gm = codes(x, 4)[0], codes(gy, 10)[0]
         xq, gq = codes(x, 8)[0], codes(gy, 16)[0]
         del x, gy
-        row = {"geometry": [n_tokens, din, dout], "sites_per_step": m}
+        row = {"geometry": [N, din, dout], "sites_per_step": m,
+               "path": "im2col" if into is im2col_tot else "qwen"}
         pred = PM.predictor_matmul(xm, gm)
         if not torch.equal(pred, PM.predictor_matmul_plain(xm, gm)):
             fail(f"predictor_matmul at {row['geometry']}: not identical")
@@ -293,7 +340,7 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens):
         if not (torch.equal(sign, psign) and torch.equal(stats, pstats)):
             fail(f"psg_grad_w at {row['geometry']}: not identical")
         row["fallback_flags"] = float(stats.float().mean())
-        ops = 2 * n_tokens * din * dout
+        ops = 2 * N * din * dout
         xm_f, gm_f = xm.float(), gm.float()
         cases = [
             ("predictor_matmul", 0.0,
@@ -308,11 +355,40 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens):
              None,
              4 * pred.numel() + xq.numel() + 2 * gq.numel() + 4
              + sign.numel() + 4 * stats.numel(), ops, INT8_OPS_PER_S, m)]
-        time_cases(torch, cases, row, tot)
+        time_cases(torch, cases, row, into)
         details.append(row)
         del xm_f, gm_f
         torch.cuda.synchronize()
-    return tot, details
+    details.append(worst_case_check(torch, PM))
+    return tot, details, im2col_tot
+
+
+def worst_case_check(torch, PM, din=48, dout=160):
+    """Kernel 5 bit for bit with every 4-bit x code at +-7 and every 10-bit
+    g code at +-511, signed so that every output element is +-N * 7 * 511,
+    at the largest N the wrapper takes (N * 7 * 511 < 2**31): where g is
+    -511 (hi = -2, lo = 1), 256 * sum(x hi) alone passes 2**31 and only
+    exact wrapping arithmetic gives the right result.  dout 160 takes the
+    128 x 128 tiles with the token axis split across blocks (int32
+    atomics)."""
+    N = (2 ** 31 - 1) // (7 * 511)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def sign(*shape):
+        return torch.randint(0, 2, shape, device="cuda", generator=gen) * 2 - 1
+
+    tok = sign(N, 1)
+    xm = (7 * tok * sign(1, din)).to(torch.int8)
+    gm = (511 * tok * sign(1, dout)).to(torch.int16)
+    pred = PM.predictor_matmul(xm, gm)
+    want = PM.predictor_matmul_plain(xm, gm)
+    if not (torch.equal(pred, want)
+            and bool((want.long().abs() == N * 7 * 511).all())):
+        diff = int((pred != want).sum())
+        fail(f"predictor_matmul at the worst case N={N}: {diff} of "
+             f"{want.numel()} elements differ")
+    return {"geometry": [N, din, dout], "path": "worst_case",
+            "predictor_matmul": "identical", "max_abs": N * 7 * 511}
 
 
 # kernel 9's code products: a P or dS code flips where the kernel's q k^T
@@ -424,7 +500,10 @@ def check_flash_kernels(torch, FA, geometries):
              lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=causal, enable_gqa=True),
              qkv + e * o.numel() + rows,
-             *rate((prod, mm), (prod, FP32_OPS_PER_S)), sites[0]),
+             # bf16: q k^T and the two P v products of the split P, on the
+             # tensor cores; fp32: q k^T and P v on the CUDA cores
+             *(rate((3 * prod, mm)) if dt == "bfloat16"
+               else rate((prod, mm), (prod, FP32_OPS_PER_S))), sites[0]),
             ("flash_bwd_dq", err_dq,
              lambda: FA.flash_bwd_dq(q, k, v, do, lse_p, delta,
                                      causal=causal),
@@ -867,6 +946,8 @@ def main() -> None:
     build.build(list(build.SOURCES), verbose=True)
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
+    sass = sass_check(build)
+    print(json.dumps({"phase": "sass", **sass}), flush=True)
 
     shapes_all = resnet_conv_shapes(DEPTH, WIDTH, BATCH, unique=False)
     tot, details = check_kernels(torch, K, shapes_all,
@@ -876,8 +957,11 @@ def main() -> None:
     m = get_experiment(LM_ARCH).model
     sites = lm_matmul_sites(m.d_model, m.num_heads, m.num_kv_heads,
                             m.resolved_head_dim, m.d_ff, LM_LAYERS)
-    ptot, pdetails = check_psg_matmul_kernels(torch, PM, sites, (200, 328),
-                                              LM_BATCH * LM_SEQ)
+    im2col = {}
+    for c in shapes_all:
+        im2col[c.im2col] = im2col.get(c.im2col, 0) + 1
+    ptot, pdetails, im2col_tot = check_psg_matmul_kernels(
+        torch, PM, sites, (200, 328), LM_BATCH * LM_SEQ, im2col)
     tot.update(ptot)
     for row in pdetails:
         print(json.dumps(row), flush=True)
@@ -956,7 +1040,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "geometries": details,
-         "lm_geometries": pdetails, "flash_geometries": fdetails,
+         "sass": sass, "lm_geometries": pdetails,
+         "im2col_psg_matmul_totals": im2col_tot, "flash_geometries": fdetails,
          "attention_ab": ab, "quant_geometries": qdetails,
          "dispatch": disp, "bench_kernels": cli, "reference": ref,
          "reference_im2col": ref_im2col, "reference_psg_off": ref_off,
@@ -971,9 +1056,13 @@ def main() -> None:
          "note": "conv kernel times are summed over the conv sites of one "
                  "ResNet-74 batch-128 step, PSG matmul kernel times over the "
                  "weight-matmul sites of one qwen2.5-3b 8-layer step at "
-                 "N = 8192 tokens, flash kernel times over the attention "
+                 "N = 8192 tokens (im2col_psg_matmul_totals: the same two "
+                 "kernels over the 75 im2col sites of one ResNet-74 "
+                 "batch-128 step), flash kernel times over the attention "
                  "sites of one qwen2.5-3b 8-layer step at batch 2 x 4096 "
-                 "(kernel 7 twice per layer), with every block executed; "
+                 "(kernel 7 twice per layer; its bf16 bound counts q k^T "
+                 "and the two P v products of the split P at the bf16 "
+                 "rate), with every block executed; "
                  "quantize times over one call at its main path's input, "
                  "the microbenchmark's x (2048 x 1024 fp32, 8 bits), the "
                  "scale's reduction included; its launches are the "

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/lib<name>-<hash>.so`` at
 the repository root (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
--shared -Xcompiler -fPIC``), keyed by the source's content hash so that an
-edited source is rebuilt, and is loaded with ``ctypes``.  The sources
+-shared -Xcompiler -fPIC``), keyed by the hash of the source and of the
+shared headers ``csrc/*.cuh`` so that an edited source or header is
+rebuilt, and is loaded with ``ctypes``.  The sources
 include no PyTorch header, so a build takes seconds.  Nothing is built or
 loaded at import time.
 """
@@ -35,7 +36,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -5,13 +5,15 @@
 //
 // Layouts (the JAX package's): q, dO, o, dq (B, S, nh, hd); k, v (B, T, nkv,
 // hd), query head h reading kv head h / (nh / nkv); lse, delta (B, nh, S)
-// fp32.  q, k, v and dO are fp32 or bf16 and are read into fp32 shared
-// memory with 16-byte loads (every tensor 16-byte aligned, which the wrapper
-// checks); every sum is fp32 or integer.  No (S, T) tensor reaches device
-// memory: each kernel recomputes its score tiles.
+// fp32.  q, k, v and dO are fp32 or bf16, every tensor 16-byte aligned (the
+// wrapper checks); every sum is fp32 or integer.  No (S, T) tensor reaches
+// device memory: each kernel recomputes its score tiles.
 //
 //   flash_fwd      kernel 7: causal (or full) online-softmax forward, o in the
-//                  input dtype and the row logsumexp lse.
+//                  input dtype and the row logsumexp lse.  bf16 operands run
+//                  on the bf16 tensor cores (flash_fwd_mma_kernel), fp32
+//                  operands on the CUDA cores (flash_fwd_kernel); the dtype
+//                  picks the kernel, in launch_fwd.
 //                  Replaces flash_attention / _flash_kernel.
 //   flash_bwd_dq   kernel 8: P = exp(s - lse), dS = (P (dP - delta)) scale,
 //                  dq = dS k in fp32.
@@ -36,35 +38,65 @@
 // B nh S (S + 1) / 2 scores, and each product over them costs 2 hd pairs
 // operations; the bytes (q, k, v, dO, o, lse once) are far below the
 // operations at LM sequence lengths, so the operations bound all three:
-//   kernel 7: q k^T and P v, 4 hd pairs operations;
+//   kernel 7: q k^T and P v, 4 hd pairs operations; in bf16, q k^T and the
+//             two P v products of the split P below, 6 hd pairs at the bf16
+//             tensor-core rate;
 //   kernel 8: q k^T, dO v^T and dS k, 6 hd pairs;
 //   kernel 9: q k^T and dO v^T (fp32), and the four code products (integer
 //             multiply-adds, 8 hd pairs operations, at the int8 rate).
-// q k^T and dO v^T of bf16 operands with an fp32 sum may take the bf16
-// tensor-core rate as their bound; P v, dS k and the code products take the
-// fp32 and int8 rates.  These first kernels run on the CUDA cores in fp32 and
-// int32: a 64 x 64 score tile per step for kernels 7 and 8 (a 4 x 4 register
-// tile per thread, q and k transposed in shared memory so that every read is
-// a float4 across a row), a 64-query x 32-kv tile for kernel 9.  Blocks run
-// the causal loop themselves: kernels 7 and 8 take one block per (batch x
-// head, 64-row query tile), longest rows first, and loop over the kv tiles up
-// to the diagonal; kernel 9 takes one block per (batch x kv head, 32-row kv
-// tile), loops over the g query heads of its kv head and over the query tiles
-// from the diagonal on, and so writes each group-summed product once, with no
-// atomics.  Every code product pairs an 8-bit with a 16-bit code, so the
-// kernel keeps the codes of query rows 2p and 2p + 1 side by side in shared
-// memory and sums two rows with one __dp2a (two 16 x 8-bit products and an
-// add).  The integer sums are exact and order-free: the predictor products
-// stay in int32 (the wrapper checks S g lim_x_msb lim_g_msb < 2^31), the full
-// ones sum in int32 over whole 64-row query tiles, at most 2^31 / (lim_x
-// lim_g) rows (512 at 8 x 16 bits), and are then added into the int64
-// output, which the block owns.  Later work: bf16 mma/wgmma for q k^T and
-// dO v^T, int8 IMMA with byte-split 16-bit codes for the code products.
+//
+// Kernel 7 in bf16 (flash_fwd_mma_kernel): 128 query rows a block, 8 warps of
+// 16 rows, at most 128 registers a thread so that two blocks share an SM
+// (faster than one block at 185 registers, though a few spill),
+// 64-key stages through a two-stage cp.async ring of K and V in
+// shared memory (rows padded by 16 bytes, so the eight rows one ldmatrix reads
+// fall in eight bank groups).  q k^T is mma.sync.m16n8k16 bf16 with fp32
+// sums, fed by ldmatrix: products of bf16 values are exact in fp32, so only
+// the order of the sum differs from the fp32 reference.  The online softmax
+// stays in registers in JAX's order.  The reference multiplies P in fp32 by
+// v; a bf16 P would keep 8 bits of it.  The kernel splits P = p_hi + p_lo +
+// r, p_hi = bf16(p), p_lo = bf16(p - p_hi), |r| <= 2^-16 p, reuses the score
+// accumulators as the A fragments of both (no trip through shared memory),
+// and runs two bf16 MMAs against v (ldmatrix.trans).  Error bound: before the
+// final rounding, o differs from the fp32 P v / l by at most 2^-16 sum_j p_j
+// |v_j| / l <= 2^-16 max|v| (1.5e-5 max|v|), plus the fp32 sum-order
+// difference.  That is below one bf16 ulp of o (at least 2^-8 |o|) wherever
+// |o| >= 2^-8 sum_j p_j |v_j| / l, and below the contract's 1e-6 max|o|
+// slack wherever sum_j p_j |v_j| / l <= 0.065 max|o|; the r_j have random
+// signs, so the typical error is far smaller (tests/test_torch_cuda.py and
+// tests/test_torch_tensor_core_math.py hold the contract: one bf16 ulp plus
+// 1e-6 max|o|, lse within 1e-5).  A warp skips the kv tiles that lie wholly
+// after its rows, which would add p = 0.  Blocks go longest rows first.
+//
+// The rest run on the CUDA cores in fp32 and int32: a 64 x 64 score tile per
+// step for kernel 7 in fp32 and kernel 8 (a 4 x 4 register tile per thread,
+// q and k read into fp32 shared memory with 16-byte loads and transposed so
+// that every read is a float4 across a row), a 64-query x 32-kv tile for
+// kernel 9.  Blocks run the causal loop themselves: kernels 7 and 8 take one
+// block per (batch x head, query tile), longest rows first, and loop over the
+// kv tiles up to the diagonal; kernel 9 takes one block per (batch x kv head,
+// 32-row kv tile), loops over the g query heads of its kv head and over the
+// query tiles from the diagonal on, and so writes each group-summed product
+// once, with no atomics.  Every code product pairs an 8-bit with a 16-bit
+// code, so the kernel keeps the codes of query rows 2p and 2p + 1 side by side
+// in shared memory and sums two rows with one __dp2a (two 16 x 8-bit products
+// and an add).  The integer sums are exact and order-free: the predictor
+// products stay in int32 (the wrapper checks S g lim_x_msb lim_g_msb < 2^31),
+// the full ones sum in int32 over whole 64-row query tiles, at most 2^31 /
+// (lim_x lim_g) rows (512 at 8 x 16 bits), and are then added into the int64
+// output, which the block owns.  Later work: kernels 8 and 9 are still on
+// fp32 FMAs and __dp2a; bf16 mma/wgmma for their q k^T and dO v^T, int8 MMAs
+// with byte-split 16-bit codes for kernel 9's code products; wgmma and TMA for
+// kernel 7.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -80,10 +112,6 @@ struct Geo {
   float scale;                          // float32(1 / sqrt(hd))
 };
 
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Column of element jj of a thread's HD / 16 output columns: groups of four
 // at tx * 4 + 64 * group when there are four or more (so that a quarter warp
@@ -282,7 +310,7 @@ __device__ __forceinline__ void score_tile(const float* A, const float* Bm,
 }
 
 // ---------------------------------------------------------------------------
-// kernel 7: forward
+// kernel 7, fp32 operands: forward on the CUDA cores
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
@@ -372,8 +400,211 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float lc = fmaxf(l[i], 1e-30f);
     T* orow = o + (((size_t)b * G.S + qi) * G.nh + h) * HD;
 #pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) st(orow + col<HD>(tx, jj), acc[i][jj] / lc);
+    for (int jj = 0; jj < CPT; ++jj) orow[col<HD>(tx, jj)] = acc[i][jj] / lc;
     if (tx == 0) lse[((size_t)b * G.nh + h) * G.S + qi] = m[i] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 7, bf16 operands: on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int FQ = 128, FK = 64;       // query rows a block, kv rows a stage
+constexpr int kFwdThreads = 256;       // 8 warps, 16 query rows each
+
+template <int HD>
+struct FwdShape {
+  static constexpr int P = HD + 8;     // bf16 row pitch: 16 bytes of pad
+  static constexpr int kQ = FQ * P, kKV = FK * P;            // elements
+  static constexpr size_t kSmem = sizeof(__nv_bfloat16) * (kQ + 4 * kKV);
+};
+
+// rows [row0, row0 + ROWS) of head `head` of a (B, L, n, HD) bf16 tensor into
+// shared memory at pitch HD + 8 with cp.async, zero past L
+template <int HD, int ROWS>
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* __restrict__ src,
+                                        int b, int row0, int L, int n,
+                                        int head) {
+  constexpr int CH = HD / 8, P = HD + 8;           // 16-byte chunks a row
+  for (int e = threadIdx.x; e < ROWS * CH; e += kFwdThreads) {
+    const int r = e / CH, c = e % CH, row = row0 + r;
+    const bool ok = row < L;
+    cp_async16(dst + r * P + c * 8,
+               src + (((size_t)b * L + (ok ? row : 0)) * n + head) * HD + c * 8,
+               ok);
+  }
+}
+
+// d += a (16 x 16 bf16, row) * b (16 x 8, col), fp32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo) |
+         ((unsigned)__bfloat16_as_ushort(hi) << 16);
+}
+
+// p = p_hi + p_lo + r with p_hi = bf16(p), p_lo = bf16(p - p_hi) (the
+// subtraction is exact in fp32), |r| <= 2^-16 |p|; two columns a register,
+// the lower column in the low half
+__device__ __forceinline__ void split_p(float a, float b, unsigned& hi,
+                                        unsigned& lo) {
+  const __nv_bfloat16 ah = __float2bfloat16_rn(a), bh = __float2bfloat16_rn(b);
+  hi = pack_bf16(ah, bh);
+  lo = pack_bf16(__float2bfloat16_rn(__fsub_rn(a, __bfloat162float(ah))),
+                 __float2bfloat16_rn(__fsub_rn(b, __bfloat162float(bh))));
+}
+
+// Warp w owns query rows q0 + 16 w .. + 15; a thread holds rows g = lane / 4
+// and g + 8 of them, and columns 2 (lane % 4) and + 1 of every 8-column tile
+// of the score tile s (FK / 8 tiles) and of the output accumulator (HD / 8).
+template <int HD>
+__global__ void __launch_bounds__(kFwdThreads, 2)   // two blocks an SM
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     Geo G) {
+  using Sh = FwdShape<HD>;
+  constexpr int P = Sh::P, NS = FK / 8, NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [FQ][P]
+  __nv_bfloat16* Ks = Qs + Sh::kQ;               // [2][FK][P], a ring
+  __nv_bfloat16* Vs = Ks + 2 * Sh::kKV;          // [2][FK][P]
+  const int iq = gridDim.x - 1 - blockIdx.x;     // longest rows first
+  const int b = blockIdx.y / G.nh, h = blockIdx.y % G.nh, kvh = h / G.g;
+  const int q0 = iq * FQ, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w0 = q0 + warp * 16;                 // the warp's first row
+  const int rows[2] = {w0 + lane / 4, w0 + lane / 4 + 8};
+  const int t_end = G.causal ? min(G.T, q0 + FQ) : G.T;
+  const int n_tiles = (t_end + FK - 1) / FK;
+
+  cp_rows<HD, FQ>(Qs, q, b, q0, G.S, G.nh, h);
+  cp_rows<HD, FK>(Ks, k, b, 0, G.T, G.nkv, kvh);
+  cp_rows<HD, FK>(Vs, v, b, 0, G.T, G.nkv, kvh);
+  cp_async_commit();
+
+  float acc[NO][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * FK;
+    if (it + 1 < n_tiles) {            // prefetch the next kv tile
+      const int nxt = (it + 1) & 1;
+      cp_rows<HD, FK>(Ks + nxt * Sh::kKV, k, b, k0 + FK, G.T, G.nkv, kvh);
+      cp_rows<HD, FK>(Vs + nxt * Sh::kKV, v, b, k0 + FK, G.T, G.nkv, kvh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // a warp whose rows all lie before the tile's first key would only add
+    // masked entries (p = 0, alpha = 1): skipping it changes no bit
+    if (w0 < G.S && (!G.causal || k0 <= w0 + 15)) {
+      const __nv_bfloat16* Kt = Ks + (it & 1) * Sh::kKV;
+      const __nv_bfloat16* Vt = Vs + (it & 1) * Sh::kKV;
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) {          // s = q k^T
+        unsigned a[4];
+        ldsm_x4(a, Qs + (warp * 16 + lane % 16) * P + kc * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int np = 0; np < NS; np += 2) {
+          unsigned bb[4];
+          ldsm_x4(bb, Kt + (np * 8 + lane % 8 + (lane / 16) * 8) * P +
+                          kc * 16 + ((lane / 8) % 2) * 8);
+          mma_bf16(s[np], a, bb[0], bb[1]);
+          mma_bf16(s[np + 1], a, bb[2], bb[3]);
+        }
+      }
+      // JAX's order: s * scale, masked at -1e30, m_new, p, alpha, l
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const bool ok = kj < G.T && (!G.causal || kj <= rows[e / 2]);
+          s[n][e] = ok ? __fmul_rn(s[n][e], G.scale) : kNegInf;
+          mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+        }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {    // the four threads of a row: a quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(__fsub_rn(m[r], m_new));
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(__fsub_rn(s[n][e], m[e / 2]));
+          rs[e / 2] += s[n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), rs[r]);
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = __fmul_rn(acc[n][e], alpha[e / 2]);
+      // acc += p_hi v + p_lo v: the score accumulators of key tiles 2 kc and
+      // 2 kc + 1 are the A fragment of key chunk kc
+#pragma unroll
+      for (int kc = 0; kc < FK / 16; ++kc) {
+        unsigned ph[4], pl[4];
+        split_p(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
+        split_p(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
+        split_p(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
+        split_p(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int np = 0; np < NO; np += 2) {
+          unsigned bb[4];
+          ldsm_x4_t(bb, Vt + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * P +
+                            np * 8 + (lane / 16) * 8);
+          mma_bf16(acc[np], ph, bb[0], bb[1]);
+          mma_bf16(acc[np], pl, bb[0], bb[1]);
+          mma_bf16(acc[np + 1], ph, bb[2], bb[3]);
+          mma_bf16(acc[np + 1], pl, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before its refill
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= G.S) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = o + (((size_t)b * G.S + rows[r]) * G.nh + h) * HD;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<unsigned*>(orow + n * 8 + (lane % 4) * 2) =
+          pack_bf16(__float2bfloat16_rn(acc[n][2 * r] / lc),
+                    __float2bfloat16_rn(acc[n][2 * r + 1] / lc));
+    if (lane % 4 == 0)
+      lse[((size_t)b * G.nh + h) * G.S + rows[r]] = m[r] + logf(lc);
   }
 }
 
@@ -660,15 +891,26 @@ int prepare(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// by dtype: bf16 on the tensor cores, fp32 on the CUDA cores
 template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, Geo G, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (HD * QP + HD * KP + BK * HD + BK * QP);
-  int err = prepare(flash_fwd_kernel<T, HD>, smem);
-  if (err) return err;
-  dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, G);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const size_t smem = FwdShape<HD>::kSmem;
+    int err = prepare(flash_fwd_mma_kernel<HD>, smem);
+    if (err) return err;
+    dim3 grid((G.S + FQ - 1) / FQ, G.B * G.nh);
+    flash_fwd_mma_kernel<HD><<<grid, kFwdThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, G);
+  } else {
+    const size_t smem =
+        sizeof(float) * (HD * QP + HD * KP + BK * HD + BK * QP);
+    int err = prepare(flash_fwd_kernel<T, HD>, smem);
+    if (err) return err;
+    dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
+    flash_fwd_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, G);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -19,11 +19,23 @@ flash_bwd_dkv  ``flash_bwd_dkv_pallas`` / ``_flash_bwd_dkv_kernel``
 
 No ``(S, T)`` tensor reaches device memory in either direction: the
 forward keeps a running row max and row sum and emits the logsumexp; the
-backward recomputes each probability tile from it.  ``flash_bwd_dkv`` is
-the PSG kernel: it quantizes P and dS in-tile onto their grids
-(:func:`codes_tile`, the JAX package's operations) and sums the four code
-products of ``dv = P^T dO`` and ``dk = dS^T q`` (predictor and full) in
-integers, which is exact.  Unlike the TPU kernel, which emits one product
+backward recomputes each probability tile from it.
+
+``flash_fwd`` picks its kernel by dtype.  bf16 operands run on the bf16
+tensor cores: ``q k^T`` as bf16 MMAs with fp32 sums (exact products, only
+the order of the sum differs), the online softmax in registers in JAX's
+order, and ``P v`` with P split into ``p_hi = bf16(p)`` and ``p_lo =
+bf16(p - p_hi)``, two bf16 MMAs that keep about 16 bits of the fp32 P the
+reference multiplies (``|p - p_hi - p_lo| <= 2**-16 p``), fed by a
+two-stage ``cp.async`` ring of 64-key tiles.  :func:`flash_attention_split_p`
+is that arithmetic in plain PyTorch.  fp32 operands run on the CUDA cores
+in fp32, as no LM path does (its activations are bf16).  Kernels 8 and 9
+are still fp32 FMAs and ``__dp2a`` integer products on the CUDA cores.
+
+``flash_bwd_dkv`` is the PSG kernel: it quantizes P and dS in-tile onto
+their grids (:func:`codes_tile`, the JAX package's operations) and sums the
+four code products of ``dv = P^T dO`` and ``dk = dS^T q`` (predictor and
+full) in integers, which is exact.  Unlike the TPU kernel, which emits one product
 per *query* head, it loops over the query heads of each kv head and emits
 the group-summed products, as its plain version does.  The Eq. (2) select
 (:func:`psg_attention_select`) runs outside, on those products, with the
@@ -51,6 +63,7 @@ from repro_torch.kernels.conv import _call, _check, _on_cuda, _stream
 NEG_INF = -1e30
 FALLBACK_TILE = 128     # kv rows of one fallback tile (the TPU kernel's bk)
 HEAD_DIMS = (16, 32, 64, 128)   # the head dims the CUDA kernels are built for
+FWD_BLOCK_K = 64        # kv rows a stage of the bf16 forward kernel
 INT32_MAX = 2 ** 31 - 1
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
@@ -179,6 +192,46 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lsum = torch.clamp_min(p.sum(dim=1, keepdim=True), 1e-30)
             o[b, :, h] = ((p @ _head(v, b, h // g)) / lsum).to(q.dtype)
             lse[b, h] = (m + torch.log(lsum))[:, 0]
+    return o, lse
+
+
+def flash_attention_split_p(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            block_k: int = FWD_BLOCK_K
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward kernel's arithmetic in plain PyTorch: the online
+    softmax over ``block_k``-key tiles in JAX's order, and each tile's fp32
+    P rounded to ``p_hi + p_lo`` (two bf16) before the fp32 products with
+    v.  Returns ``(o in q.dtype, lse (B, nh, S) fp32)``; for the tests, not
+    on any path."""
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    scale = softmax_scale(hd)
+    valid = _valid(S, T, causal, q.device)
+    neg = torch.full((), NEG_INF, device=q.device)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, nh, S), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for h in range(nh):
+            vb = _head(v, b, h // g)
+            s_all = torch.where(
+                valid, (_head(q, b, h) @ _head(k, b, h // g).T) * scale, neg)
+            m = torch.full((S,), NEG_INF, device=q.device)
+            lsum = torch.zeros(S, device=q.device)
+            acc = torch.zeros(S, hd, device=q.device)
+            for k0 in range(0, T, block_k):
+                s = s_all[:, k0:k0 + block_k]
+                m_new = torch.maximum(m, s.amax(dim=1))
+                p = torch.exp(s - m_new[:, None])
+                alpha = torch.exp(m - m_new)
+                lsum = lsum * alpha + p.sum(dim=1)
+                p_hi = p.to(torch.bfloat16).float()
+                p_lo = (p - p_hi).to(torch.bfloat16).float()
+                vt = vb[k0:k0 + block_k]
+                acc = acc * alpha[:, None] + (p_hi @ vt + p_lo @ vt)
+                m = m_new
+            lc = torch.clamp_min(lsum, 1e-30)
+            o[b, :, h] = (acc / lc[:, None]).to(q.dtype)
+            lse[b, h] = m + torch.log(lc)
     return o, lse
 
 
@@ -321,7 +374,10 @@ def _geo(B, S, T, nh, nkv, hd, causal):
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 7: ``(o (B, S, nh, hd) in q.dtype, lse (B, nh, S) fp32)``."""
+    """Kernel 7: ``(o (B, S, nh, hd) in q.dtype, lse (B, nh, S) fp32)``.
+    On the card bf16 operands run the tensor-core kernel (P split into two
+    bf16 parts, :func:`flash_attention_split_p`) and fp32 operands the
+    CUDA-core kernel; the dtype picks, never a failure."""
     if not _on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal)
     B, S, T, nh, nkv, g, hd = _check_qkv(q, k, v)

@@ -17,13 +17,29 @@ psg_grad_w        ``psg_grad_w_pallas`` / ``_psg_kernel``
 
 What bounds them on an H100, and what the design does about it: integer
 code products, bound by their operations (counted at the int8 rate) at the
-token counts of LM training.  These first kernels run on the CUDA cores:
-a 128 x 128 output tile per block, the token axis split across blocks that
-meet in integer atomics, which are exact, so the result does not depend on
-the order.  Pass 1 sums in int32 (the wrapper checks the bound); pass 2
-sums the 8-bit x 16-bit product in int32 over at most 512 tokens and in
-int64 beyond, takes pass 1's product as its predictor instead of
-recomputing it, and reads ``tau`` from device memory.
+token counts of LM training.
+
+``predictor_matmul`` runs on the int8 tensor cores.  Each 16-bit g code is
+split into two byte planes (:func:`split_code_bytes`: ``lo = g & 0xFF``
+unsigned, ``hi = g >> 8`` signed, ``g = 256 hi + lo``), and two int8 MMAs
+(s8 x s8 on the high plane, s8 x u8 on the low one) sum in int32 before the
+kernel forms ``256 sum(x hi) + sum(x lo)`` (:func:`predictor_matmul_split_plain`
+is that arithmetic in plain PyTorch).  Every step wraps modulo 2**32, so the
+result is exact whenever it fits int32, which the wrapper checks as before.
+The MMAs want the token axis contiguous, so a pre-pass in the same call
+writes ``x^T`` and the two planes of ``g^T``, zero-padded to a multiple of
+``PRED_STAGE_TOKENS`` tokens, into scratch that the wrapper allocates; a
+three-stage ``cp.async`` ring feeds the MMAs; the token axis is split across
+blocks that meet in int32 atomics where the output has too few tiles to
+fill the card.
+
+``psg_grad_w`` stays on the CUDA cores: a 128 x 128 output tile per block,
+the token axis split across blocks that meet in integer atomics, which are
+exact, so the result does not depend on the order.  It sums the 8-bit x
+16-bit product in int32 over at most 512 tokens and in int64 beyond, takes
+pass 1's product as its predictor instead of recomputing it, and reads
+``tau`` from device memory.  Later work: ``psg_grad_w`` on the int8 tensor
+cores with the same byte planes; ``wgmma`` and TMA for both.
 
 The fallback flags follow the TPU kernel's tiling whatever the CUDA tiling
 is: one flag per ``min(128, din) x min(128, dout)`` tile of the padded
@@ -45,6 +61,7 @@ import torch
 from repro_torch.kernels.conv import _call, _check, _on_cuda, _stream
 
 TILE = 128             # the TPU kernel's output tile, rows and columns
+PRED_STAGE_TOKENS = 128  # tokens a pipeline stage of the predictor kernel
 
 LAUNCHES: Dict[str, int] = {"predictor_matmul": 0, "psg_grad_w": 0}
 
@@ -67,7 +84,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load("psg_matmul")
-    lib.psg_pred.argtypes = [_P, _P, _P] + [_I] * 3 + [_P]
+    lib.psg_pred.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     lib.psg_sign.argtypes = [_P] * 7 + [_I] * 5 + [_P]
     for fn in (lib.psg_pred, lib.psg_sign):
         fn.restype = ctypes.c_int
@@ -86,6 +103,21 @@ def _code_product(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def predictor_matmul_plain(xm: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
     return _code_product(xm, gm).to(torch.int32)
+
+
+def split_code_bytes(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two byte planes of int16 codes: ``(hi int8, lo uint8)`` with
+    ``g = 256 hi + lo`` for every int16 code."""
+    return (g >> 8).to(torch.int8), (g & 0xFF).to(torch.uint8)
+
+
+def predictor_matmul_split_plain(xm: torch.Tensor,
+                                 gm: torch.Tensor) -> torch.Tensor:
+    """The predictor kernel's arithmetic in plain PyTorch: ``256 x^T hi +
+    x^T lo`` over the byte planes of ``gm``, as int64."""
+    hi, lo = split_code_bytes(gm)
+    x = xm.long()
+    return 256 * (x.T @ hi.long()) + x.T @ lo.long()
 
 
 def _fallback_stats(notconf: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
@@ -130,9 +162,13 @@ def predictor_matmul(xm: torch.Tensor, gm: torch.Tensor, x_lim: int = 7,
     N, din, dout = _check_codes(xm, gm)
     if N * x_lim * g_lim >= 2 ** 31:
         raise ValueError("predictor product could overflow int32")
-    out = torch.empty((din, dout), device=xm.device, dtype=torch.int32)
-    _call(_lib().psg_pred, xm.data_ptr(), gm.data_ptr(), out.data_ptr(), N,
-          din, dout, _stream(xm))
+    n_pad = -(-N // PRED_STAGE_TOKENS) * PRED_STAGE_TOKENS
+    dev = xm.device
+    out = torch.empty((din, dout), device=dev, dtype=torch.int32)
+    xt = torch.empty((din, n_pad), device=dev, dtype=torch.int8)
+    gt = torch.empty((2, dout, n_pad), device=dev, dtype=torch.uint8)
+    _call(_lib().psg_pred, xm.data_ptr(), gm.data_ptr(), xt.data_ptr(),
+          gt.data_ptr(), out.data_ptr(), N, n_pad, din, dout, _stream(xm))
     LAUNCHES["predictor_matmul"] += 1
     return out
 

@@ -8,10 +8,11 @@ on a machine with a card:
         tests/test_torch_cuda.py
 
 (``--noconftest``: the repository's conftest imports JAX.)  Kernels 3-6
-and 10 must equal their exact plain versions; kernels 1, 2 and 8 sum in fp32 in
-another order, within ``1e-5 * max|ref|``; kernel 7's output is within one
-bf16 ulp (fp32: ``1e-5 * max|ref|``) and its lse within 1e-5; kernel 9's
-code products equal the plain version's on integer inputs and elsewhere
+and 10 must equal their exact plain versions (kernel 5 also with every code
+at its limit); kernels 1, 2 and 8 sum in fp32 in another order, within
+``1e-5 * max|ref|``; kernel 7's output is within one bf16 ulp (its bf16
+kernel keeps about 16 bits of P; fp32: ``1e-5 * max|ref|``) and its lse
+within 1e-5; kernel 9's code products equal the plain version's on integer inputs and elsewhere
 differ only where a P or dS code flips at a rounding boundary.
 """
 import pytest
@@ -103,10 +104,13 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
 
 
 # (N, din, dout) of the PSG matmul kernels: tiles smaller than 128, a padded
-# 200 x 328 grid with N not a multiple of the 32-token stage, and two
-# qwen2.5-3b projections at a short sequence
+# 200 x 328 grid with N not a multiple of the 32-token stage, two qwen2.5-3b
+# projections at a short sequence, two ResNet-74 im2col geometries (the stem
+# and a 16-channel 3x3 conv at batch 32) and the qwen2.5-3b k_proj width at
+# its training N (8192 tokens)
 MATMULS = [(64, 32, 48), (1000, 200, 328), (2048, 2048, 256),
-           (1024, 11008, 128)]
+           (1024, 11008, 128), (32768, 27, 16), (32768, 144, 32),
+           (8192, 2048, 256)]
 
 
 @pytest.mark.parametrize("s", MATMULS, ids=lambda s: "N{}_{}x{}".format(*s))
@@ -123,6 +127,27 @@ def test_psg_matmul_kernels_equal_plain(card, s):
         sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
         psign, pstats = PM.psg_grad_w_plain(pred, xq, gq, tau)
         assert torch.equal(sign, psign) and torch.equal(stats, pstats)
+
+
+@pytest.mark.parametrize("dout", [32, 160])
+def test_predictor_kernel_is_exact_at_the_worst_case_magnitude(card, dout):
+    """Every 4-bit x code at +-7 and every 10-bit g code at +-511, signed so
+    that every output element is +-N * 7 * 511, with N the largest token
+    count the wrapper takes (odd, so not a multiple of any stage).  Where g
+    is -511 (hi = -2, lo = 1) the high plane's 256 * sum(x hi) alone passes
+    2**31: only exact wrapping arithmetic gives the right result."""
+    N = (2 ** 31 - 1) // (7 * 511)
+    g = torch.Generator(device=card).manual_seed(dout)
+    sign = lambda *s: torch.randint(0, 2, s, device=card,  # noqa: E731
+                                    generator=g) * 2 - 1
+    tok = sign(N, 1)
+    xm = (7 * tok * sign(1, 48)).to(torch.int8)
+    gm = (511 * tok * sign(1, dout)).to(torch.int16)
+    pred = PM.predictor_matmul(xm, gm)
+    assert torch.equal(pred, PM.predictor_matmul_plain(xm, gm))
+    assert bool((pred.long().abs() == N * 7 * 511).all())
+    with pytest.raises(ValueError):
+        PM.predictor_matmul(torch.cat([xm, xm[:1]]), torch.cat([gm, gm[:1]]))
 
 
 def test_psg_matmul_on_the_card_counts_its_launches(card):
@@ -152,10 +177,15 @@ def test_lm_trainer_runs_on_the_card(card):
 # ---------------------------------------------------------------------------
 
 # (B, S, nh, nkv, hd, causal): the reduced qwen2.5-3b head dim, MHA with S
-# padded past two 64-row tiles, GQA at the qwen2.5-3b head dim, non-causal
+# padded past two 64-row tiles, GQA at the qwen2.5-3b head dim, non-causal;
+# then S = T not a multiple of the bf16 forward's 128-row query block or
+# 64-row kv stage: the qwen2.5-3b grouping (g = 8) at hd 128, and a
+# non-causal g = 4 one
 FLASH = [(2, 40, 4, 2, 16, True), (2, 300, 8, 8, 32, True),
-         (1, 256, 4, 2, 128, True), (1, 200, 4, 4, 64, False)]
-FLASH_IDS = ["hd16", "mha_padded", "gqa_hd128", "noncausal"]
+         (1, 256, 4, 2, 128, True), (1, 200, 4, 4, 64, False),
+         (1, 200, 16, 2, 128, True), (2, 77, 4, 1, 64, False)]
+FLASH_IDS = ["hd16", "mha_padded", "gqa_hd128", "noncausal", "gqa8_hd128",
+             "ragged_noncausal"]
 
 
 def _flash_data(shape, dev, dtype, integer=False):
