@@ -11,19 +11,28 @@ Phases, each fatal on failure:
    and ``reference`` would hide the kernels, ``cuda`` fail the CPU halves
    of phase 5);
 1b. show with ``cuobjdump -sass`` that the tensor-core kernels carry
-   tensor-core instructions: IMMA in kernel 5 (``pred_mma_kernel``), HMMA
-   in kernel 7's bf16 kernel (``flash_fwd_mma_kernel``); a missing
-   ``cuobjdump`` is reported as not checked;
+   tensor-core instructions: IMMA in kernel 1's 8-bit kernel
+   (``conv_fwd_mma_kernel``), kernel 3 (``conv_pred_mma_kernel``) and
+   kernel 5 (``pred_mma_kernel``), HMMA in kernel 7's bf16 kernel
+   (``flash_fwd_mma_kernel``); a missing ``cuobjdump`` is reported as not
+   checked;
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
-   version (kernels 3 and 4 bit for bit; kernels 1 and 2 within
-   ``FP32_REL`` of the reference's largest magnitude) and time it with CUDA
-   events next to the plain version, a PyTorch library call and its bound;
+   version (kernels 3 and 4 bit for bit, kernel 3 also with every code at
+   its limit and against the emulation of its padded-grid arithmetic;
+   kernels 1 and 2 within ``FP32_REL`` of the reference's largest
+   magnitude, kernel 1 also bit for bit against the emulation of its
+   integer arithmetic) and time it with CUDA events next to the plain
+   version, a PyTorch library call and its bound, and alone on the device
+   (one call captured in a CUDA graph and replayed); then, checked and not
+   counted, kernel 1 on 16-bit codes (its fp32 kernel) and kernel 3 past
+   the size its int32 sums once refused (batch 640 at 32 x 32);
 3. the same for the two PSG matmul kernels (bit for bit, signs and flags
    included) at every qwen2.5-3b weight-matmul geometry with N = 8192
    tokens, plus a padded one and the ResNet-74 batch-128 im2col ones
    (checked and timed, not counted), and kernel 5 alone with every code at
-   its limit at the largest token count it takes;
+   its limit at N = 700,000 tokens, past the size its int32 sums once
+   refused;
 4. the same for the three flash-attention kernels at the qwen2.5-3b
    attention geometry (batch 2, 4096 tokens, 16 heads over 2 kv heads, hd
    128, bf16, causal), a padded one (fp32: kernel 7 on the CUDA cores) and
@@ -124,7 +133,9 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, reps: int = 10) -> float:
-    """Mean time of ``fn`` on the card, by CUDA events, after one warm-up."""
+    """Mean time of ``fn`` on the card, by CUDA events, after one warm-up.
+    Where the host enqueues a call more slowly than the card runs it, this
+    is the host's time per call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -135,6 +146,22 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of one call of ``fn``: the call captured once in a
+    CUDA graph (after two warm-up calls on a side stream) and replayed, so
+    that no host work lies between its kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, reps)
 
 
 def site(s):
@@ -148,14 +175,17 @@ def site(s):
 
 
 # the tensor-core instruction each redesigned kernel must carry, by library
-TENSOR_CORE_KERNELS = (("psg_matmul", "pred_mma_kernel", "IMMA"),
+TENSOR_CORE_KERNELS = (("conv", "conv_fwd_mma_kernel", "IMMA"),
+                       ("conv", "conv_pred_mma_kernel", "IMMA"),
+                       ("psg_matmul", "pred_mma_kernel", "IMMA"),
                        ("flash_attn", "flash_fwd_mma_kernel", "HMMA"))
 
 
 def sass_check(build):
     """Phase 1b: ``cuobjdump -sass`` of the built libraries shows IMMA in
-    kernel 5's MMA kernel and HMMA in kernel 7's bf16 kernel (every
-    instantiation).  A missing cuobjdump is reported as not checked."""
+    the MMA kernels of kernels 1, 3 and 5 and HMMA in kernel 7's bf16
+    kernel (every instantiation).  A missing cuobjdump is reported as not
+    checked."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -186,6 +216,9 @@ def check_kernels(torch, K, shapes_all, shapes):
 
     mult = {s: shapes_all.count(s) for s in shapes}
     tot = {n: _zero_total() for n in list(REPLACES)[:4]}
+    for n in tot:
+        tot[n]["device_ms"] = 0.0
+    tot["conv_fwd"]["bound_fp32_ms"] = 0.0
     details = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for s in shapes:
@@ -196,10 +229,12 @@ def check_kernels(torch, K, shapes_all, shapes):
                                                device="cuda", generator=g)
         w = torch.randn(k * k * C, dout, device="cuda", generator=g) * 0.1
         gy = torch.randn(B, ho, ho, dout, device="cuda", generator=g) * 0.01
-        xq, wq, gq = quantize(x, 8), quantize(w, 8), quantize(gy, 16)
+        wq, gq = quantize(w, 8), quantize(gy, 16)
+        xc, sx = codes(x, 8)
+        wc, sw = codes(w, 8)
+        xq = xc.float() * sx                      # quantize(x, 8), bit for bit
         xm, _ = codes(x, 4)
         gm, _ = codes(gy, 10)
-        xc, _ = codes(x, 8)
         gc, _ = codes(gy, 16)
         w_oihw = wq.reshape(C, k, k, dout).permute(3, 0, 1, 2).contiguous()
         x_nchw = xq.permute(0, 3, 1, 2)          # channels-last views
@@ -211,18 +246,28 @@ def check_kernels(torch, K, shapes_all, shapes):
         row = {"geometry": [B, hp, C, dout, k, st], "kind": s.kind,
                "sites_per_step": mult[s]}
 
-        # kernel 1: forward
-        y = K.conv_fwd(xq, wq, k, st)
+        # kernel 1: forward on 8-bit codes (int8 tensor cores)
+        y = K.conv_fwd(xc, sx, wc, sw, k, st)
         ref = K.conv_fwd_plain(xq, wq, k, st)
         err = float((y - ref).abs().max())
         if not err <= FP32_REL * float(ref.abs().max()):
             fail(f"conv_fwd at {row['geometry']}: max abs err {err}")
+        if not torch.equal(y, K.conv_fwd_codes_plain(xc, sx, wc, sw, k, st)):
+            fail(f"conv_fwd at {row['geometry']}: differs from the emulation "
+                 "of its integer arithmetic")
+        # the fp32 kernel's bound: fp32 operands, operations at the fp32 rate
+        row["conv_fwd_bound_fp32_ms"] = 1e3 * max(
+            4 * (xq.numel() + wq.numel() + y.numel()) / HBM_BYTES_PER_S,
+            2 * macs / FP32_OPS_PER_S)
+        tot["conv_fwd"]["bound_fp32_ms"] += \
+            mult[s] * row["conv_fwd_bound_fp32_ms"]
         cases = [("conv_fwd", err,
-                  lambda: K.conv_fwd(xq, wq, k, st),
-                  lambda: K.conv_fwd_plain(xq, wq, k, st),
+                  lambda: K.conv_fwd(xc, sx, wc, sw, k, st),
+                  lambda: K.conv_fwd_plain(xc.float() * sx, wc.float() * sw,
+                                           k, st),
                   lambda: F.conv2d(x_nchw, w_oihw, stride=st),
-                  4 * (xq.numel() + wq.numel() + y.numel()), 2 * macs,
-                  FP32_OPS_PER_S, mult[s])]
+                  xc.numel() + wc.numel() + 4 * y.numel() + 8, 2 * macs,
+                  INT8_OPS_PER_S, mult[s])]
 
         # kernel 2: input gradient (the stem's image needs none)
         dx = K.conv_grad_x(gq, wq, k, st, hp, hp)
@@ -238,10 +283,19 @@ def check_kernels(torch, K, shapes_all, shapes):
                       4 * (gq.numel() + wq.numel() + dx.numel()), 2 * macs,
                       FP32_OPS_PER_S, 0 if C == 3 else mult[s]))
 
-        # kernel 3: PSG predictor product, exact
+        # kernel 3: PSG predictor product (int8 tensor cores), exact
         pred = K.conv_grad_w_predictor(xm, gm, k, st)
-        if not torch.equal(pred, K.conv_grad_w_predictor_plain(xm, gm, k, st)):
+        if not (torch.equal(pred, K.conv_grad_w_predictor_plain(xm, gm, k, st))
+                and torch.equal(pred, K.conv_grad_w_predictor_grid_plain(
+                    xm, gm, k, st))):
             fail(f"conv_grad_w_predictor at {row['geometry']}: not identical")
+        xl = (7 * torch.sign(x)).to(torch.int8)          # codes at their limits
+        gl = (511 * torch.where(gy < 0, -1, 1)).to(torch.int16)
+        if not torch.equal(K.conv_grad_w_predictor(xl, gl, k, st),
+                           K.conv_grad_w_predictor_plain(xl, gl, k, st)):
+            fail(f"conv_grad_w_predictor at {row['geometry']} with the codes "
+                 "at their limits: not identical")
+        del xl, gl
         cases.append(("conv_grad_w_predictor", 0.0,
                       lambda: K.conv_grad_w_predictor(xm, gm, k, st),
                       lambda: K.conv_grad_w_predictor_plain(xm, gm, k, st),
@@ -250,7 +304,7 @@ def check_kernels(torch, K, shapes_all, shapes):
                       xm.numel() + 2 * gm.numel() + 4 * pred.numel(),
                       2 * macs, INT8_OPS_PER_S, mult[s]))
 
-        # kernel 4: PSG select, exact
+        # kernel 4: PSG select on the fp32 predictor, exact
         tau = 0.05 * pred.float().abs().amax()
         sign, stats = K.conv_grad_w(pred, xc, gc, tau, k, st)
         psign, pstats = K.conv_grad_w_plain(pred, xc, gc, tau, k, st)
@@ -265,10 +319,41 @@ def check_kernels(torch, K, shapes_all, shapes):
                       + sign.numel() + 4 * stats.numel(),
                       2 * macs, INT8_OPS_PER_S, mult[s]))
 
-        time_cases(torch, cases, row, tot)
+        time_cases(torch, cases, row, tot, on_device=True)
         details.append(row)
         torch.cuda.synchronize()
+    details.append(conv_uncounted_checks(torch, K, g))
     return tot, details
+
+
+def conv_uncounted_checks(torch, K, g):
+    """Phase 2, checked and not counted: kernel 1 on 16-bit codes (its fp32
+    kernel, within ``FP32_REL``) at a ResNet-74 body geometry, and kernel 3
+    bit for bit at batch 640 of 32 x 32 images (C 3, dout 16, every code at
+    its limit: sums up to 640 * 1024 * 7 * 511 pass 2**31)."""
+    from repro_torch.core.quant import codes
+
+    x = torch.randn(128, 18, 18, 32, device="cuda", generator=g)
+    w = torch.randn(288, 32, device="cuda", generator=g) * 0.1
+    (xc, sx), (wc, sw) = codes(x, 12), codes(w, 12)
+    y = K.conv_fwd(xc, sx, wc, sw, 3, 1)
+    ref = K.conv_fwd_plain(xc.float() * sx, wc.float() * sw, 3, 1)
+    err16 = float((y - ref).abs().max())
+    if xc.dtype != torch.int16 or not err16 <= FP32_REL * float(ref.abs().max()):
+        fail(f"conv_fwd on int16 codes: max abs err {err16}")
+    x = torch.randn(640, 34, 34, 3, device="cuda", generator=g)
+    gy = torch.randn(640, 32, 32, 16, device="cuda", generator=g)
+    xm = (7 * torch.sign(x)).to(torch.int8)
+    gm = (511 * torch.where(gy < 0, -1, 1)).to(torch.int16)
+    pred = K.conv_grad_w_predictor(xm, gm, 3, 1)
+    want = K.conv_grad_w_predictor_plain(xm, gm, 3, 1)
+    if not torch.equal(pred, want):
+        fail("conv_grad_w_predictor at batch 640: not identical")
+    return {"name": "checked_not_counted", "conv_fwd_int16_codes":
+            {"geometry": [128, 18, 32, 32, 3, 1], "max_abs_err": err16},
+            "conv_grad_w_predictor_batch640": {
+                "geometry": [640, 34, 3, 16, 3, 1], "identical": True,
+                "max_abs": float(want.abs().max())}}
 
 
 def _zero_total():
@@ -276,18 +361,22 @@ def _zero_total():
                 max_abs_err=0.0)
 
 
-def time_cases(torch, cases, row, tot):
+def time_cases(torch, cases, row, tot, on_device=False):
     """Time each (kernel, plain, library) triple and add it, weighted by
-    its sites per step, to the kernel's totals."""
+    its sites per step, to the kernel's totals; ``on_device`` also times
+    the kernel's call alone on the device (:func:`device_ms`)."""
     for name, err, kern, plain, lib, nbytes, ops, peak, m in cases:
         r = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
              "library_ms": time_ms(torch, lib) if lib else None,
              "bytes": nbytes, "ops": ops, "max_abs_err": err,
              "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)}
+        if on_device:
+            r["device_ms"] = device_ms(torch, kern)
         row[name] = r
         t = tot[name]
         t["max_abs_err"] = max(t["max_abs_err"], err)
-        for key in ("ms", "plain_ms", "bytes"):
+        for key in ("ms", "plain_ms", "bytes") + (("device_ms",) if on_device
+                                                   else ()):
             t[key] += m * r[key]
         if lib is None:
             t["library_ms"] = None
@@ -363,15 +452,14 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
     return tot, details, im2col_tot
 
 
-def worst_case_check(torch, PM, din=48, dout=160):
+def worst_case_check(torch, PM, din=48, dout=160, N=700_000):
     """Kernel 5 bit for bit with every 4-bit x code at +-7 and every 10-bit
-    g code at +-511, signed so that every output element is +-N * 7 * 511,
-    at the largest N the wrapper takes (N * 7 * 511 < 2**31): where g is
-    -511 (hi = -2, lo = 1), 256 * sum(x hi) alone passes 2**31 and only
-    exact wrapping arithmetic gives the right result.  dout 160 takes the
-    128 x 128 tiles with the token axis split across blocks (int32
-    atomics)."""
-    N = (2 ** 31 - 1) // (7 * 511)
+    g code at +-511, signed so that every output element is +-N * 7 * 511
+    (2.5e9 at N = 700,000: past 2**31, the size the int32 sums once
+    refused, and past 2**24, where the fp32 output rounds); where g is -511
+    (hi = -2, lo = 1) the high plane's sum is 256 times larger still.  dout
+    160 takes the 128 x 128 tiles with the token axis split across blocks
+    (int64 atomics)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
 
     def sign(*shape):
@@ -382,13 +470,13 @@ def worst_case_check(torch, PM, din=48, dout=160):
     gm = (511 * tok * sign(1, dout)).to(torch.int16)
     pred = PM.predictor_matmul(xm, gm)
     want = PM.predictor_matmul_plain(xm, gm)
-    if not (torch.equal(pred, want)
-            and bool((want.long().abs() == N * 7 * 511).all())):
+    top = torch.tensor(float(N * 7 * 511), device="cuda")   # rounded to fp32
+    if not (torch.equal(pred, want) and bool((want.abs() == top).all())):
         diff = int((pred != want).sum())
         fail(f"predictor_matmul at the worst case N={N}: {diff} of "
              f"{want.numel()} elements differ")
     return {"geometry": [N, din, dout], "path": "worst_case",
-            "predictor_matmul": "identical", "max_abs": N * 7 * 511}
+            "predictor_matmul": "identical", "max_abs": float(top)}
 
 
 # kernel 9's code products: a P or dS code flips where the kernel's q k^T
@@ -398,13 +486,18 @@ def worst_case_check(torch, PM, din=48, dout=160):
 DKV_MISMATCH, DKV_REL = 1e-3, 1e-3
 
 
-def bf16_one_ulp(torch, a, ref) -> bool:
-    """Within one bf16 ulp of the larger magnitude, plus 1e-6 * max|ref| for
-    the fp32 difference before both were rounded to bf16."""
+def bf16_ulp_ratio(torch, a, ref) -> float:
+    """The largest ``|a - ref|`` as a share of its slack: one bf16 ulp of
+    the larger magnitude, plus 1e-6 * max|ref| for the fp32 difference
+    before both were rounded to bf16.  At most 1 holds the contract."""
     a, ref = a.double(), ref.double()
     big = torch.maximum(a.abs(), ref.abs()).clamp_min(1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
-    return bool(((a - ref).abs() <= ulp + 1e-6 * ref.abs().max()).all())
+    return float(((a - ref).abs() / (ulp + 1e-6 * ref.abs().max())).max())
+
+
+def bf16_one_ulp(torch, a, ref) -> bool:
+    return bf16_ulp_ratio(torch, a, ref) <= 1.0
 
 
 def flash_geometries(m):
@@ -545,7 +638,72 @@ def check_flash_kernels(torch, FA, geometries):
         details.append({"name": f"integer_{dt}", "flash_bwd_dkv": "identical",
                         "nonzero_products": [int((w_ != 0).sum())
                                              for w_ in want]})
+    details.append(dkv_past_guard(torch, FA, gen, lims))
+    details.append(split_p_adversarial(torch, FA, geometries[0], gen))
     return tot, details
+
+
+def dkv_past_guard(torch, FA, gen, lims, S=9472, nh=64, hd=16):
+    """Kernel 9 bit for bit on small integer inputs at S g = 606,208 query
+    rows per kv head (g = nh, one kv head), past the 600,358 its int32
+    predictor sums once refused."""
+    q, k, v, do = (torch.randint(-2, 3, shape, device="cuda",
+                                 generator=gen).to(torch.bfloat16)
+                   for shape in ((1, S, nh, hd), (1, S, 1, hd),
+                                 (1, S, 1, hd), (1, S, nh, hd)))
+    o, lse = FA.flash_attention_plain(q, k, v)
+    delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
+    scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8, bits_x_msb=4,
+                                     bits_g=16, bits_g_msb=10)
+    got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims)
+    want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, lims=lims)
+    if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+        fail(f"flash_bwd_dkv at S g = {S * nh}: not identical")
+    out = {"name": "dkv_past_guard", "geometry": [1, S, nh, 1, hd],
+           "flash_bwd_dkv": "identical",
+           "max_abs": [float(w_.abs().max()) for w_ in want]}
+    del q, k, v, do, o, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_p_adversarial(torch, FA, geometry, gen):
+    """Kernel 7 at ``geometry`` (the qwen2.5-3b one) with v built against
+    its split P (``FA.split_p_adversarial_v``: in each column one query
+    row's rounding terms all add while its o cancels): o within one bf16
+    ulp plus 1e-6 * max|o| of the plain version, lse within 1e-5; returns
+    the largest error as a share of that slack (the margin is its
+    inverse)."""
+    _, B, S, nh, nkv, hd, dt, causal, _ = geometry
+    q = torch.randn(B, S, nh, hd, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, S, nkv, hd, device="cuda", generator=gen).to(torch.bfloat16)
+    v = FA.split_p_adversarial_v(q, k, causal=causal)
+    o, lse = FA.flash_fwd(q, k, v, causal=causal)
+    o_p, lse_p = FA.flash_attention_plain(q, k, v, causal=causal)
+    ratio = bf16_ulp_ratio(torch, o.float(), o_p.float())
+    err_l = float((lse - lse_p).abs().max())
+    g = nh // nkv
+
+    def targets(t):      # the element of each column's target row
+        return torch.stack([t[:, S - 1 - d // g, n * g + d % g, d].float()
+                            for n in range(nkv) for d in range(hd)])
+
+    t_k, t_p = targets(o), targets(o_p)
+    big = torch.maximum(t_k.abs(), t_p.abs()).clamp_min(1e-30).double()
+    slack = torch.exp2(torch.floor(torch.log2(big)) - 7) \
+        + 1e-6 * float(o_p.float().abs().max())
+    out = {"name": "split_p_adversarial", "geometry": [B, S, nh, nkv, hd, dt],
+           "share_of_slack": ratio, "lse_err": err_l,
+           "max_abs_err": float((o.float() - o_p.float()).abs().max()),
+           "target_share_of_slack": float(((t_k - t_p).abs().double()
+                                           / slack).max()),
+           "target_median_abs_o": float(t_p.abs().median()),
+           "max_abs_o": float(o_p.float().abs().max())}
+    if not (ratio <= 1.0 and err_l <= 1e-5):
+        fail(f"flash_fwd on the split-P adversarial v: {out}")
+    del q, k, v, o, o_p
+    torch.cuda.empty_cache()
+    return out
 
 
 def attention_ab(torch, m):
@@ -1053,8 +1211,15 @@ def main() -> None:
          "lm_main_path": lm_main, "lm_profile": lm_prof,
          "lm_flash_main_path": lm_flash_main,
          "lm_flash_profile": lm_flash_prof, "kernels": kernels,
+         "conv_device_ms": {n: tot[n]["device_ms"] for n in list(REPLACES)[:4]},
+         "conv_fwd_bound_fp32_ms": tot["conv_fwd"]["bound_fp32_ms"],
          "note": "conv kernel times are summed over the conv sites of one "
-                 "ResNet-74 batch-128 step, PSG matmul kernel times over the "
+                 "ResNet-74 batch-128 step (conv_device_ms: the same calls "
+                 "each replayed from a CUDA graph, device time alone; "
+                 "kernel 1's bound counts its int8 codes in and fp32 y out "
+                 "and its operations at the int8 rate, "
+                 "conv_fwd_bound_fp32_ms the fp32 operands at the fp32 "
+                 "rate), PSG matmul kernel times over the "
                  "weight-matmul sites of one qwen2.5-3b 8-layer step at "
                  "N = 8192 tokens (im2col_psg_matmul_totals: the same two "
                  "kernels over the 75 im2col sites of one ResNet-74 "

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import PSGConfig
-from repro_torch.core.quant import quantize
+from repro_torch.core.quant import codes, quantize
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.conv import conv_out_hw, conv_patches
 
@@ -63,9 +63,11 @@ class PSGConv2d(torch.autograd.Function):
         cfg = dispatch.pinned(cfg)
         ctx.save_for_backward(xp, w)
         ctx.k, ctx.stride, ctx.cfg = k, stride, cfg
-        xq = quantize(xp, cfg.bits_x)
-        wq = quantize(w, cfg.bits_x).to(xq.dtype)
-        return dispatch.conv_fwd(xq, wq, cfg, k=k, stride=stride)
+        # codes and scales of the 8-bit grid: the same grid as quantize, bit
+        # for bit, handed to the kernel as int8 codes
+        xc, sx = codes(xp, cfg.bits_x)
+        wc, sw = codes(w, cfg.bits_x)
+        return dispatch.conv_fwd(xc, sx, wc, sw, cfg, k=k, stride=stride)
 
     @staticmethod
     def backward(ctx, gy):

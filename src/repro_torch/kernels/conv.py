@@ -19,22 +19,38 @@ conv_grad_w            ``conv_grad_w_pallas`` / ``_conv_grad_w_kernel``
 
 What bounds them on an H100, and what the design does about it:
 
-* ``conv_fwd`` / ``conv_grad_x``: fp32 operands on the CUDA cores, one
-  thread per output element; at ResNet widths the least time is set by the
-  operation count at the fp32 rate.  No im2col tensor exists: the gather is
-  index arithmetic.  ``conv_grad_x`` is the gather form of the transposed
-  conv, so it needs no atomics and is deterministic.
-* ``conv_grad_w_predictor`` / ``conv_grad_w``: integer code products
-  reduced over ``B*Ho*Wo`` positions; bound by operations.  The reduction is
-  split across blocks that meet in integer atomics, which are exact, so the
-  result does not depend on the order.  Pass 2 takes pass 1's product as its
-  predictor instead of recomputing it, and reads ``tau`` from device memory:
-  no host round trip between the passes.
+* ``conv_fwd`` takes the operands as integer codes and their two fp32
+  scales.  8-bit codes run an int8 implicit GEMM on the tensor cores: the
+  block stages its input rows plus halo once and runs every tap from shared
+  memory, sums ``cx cw`` exactly in int32 and multiplies by ``sx sw`` once
+  (:func:`conv_fwd_codes_plain` is that arithmetic in PyTorch); it reads a
+  quarter of the bytes of fp32 operands and is bound by its bytes.  Wider
+  codes (int16) run the fp32 CUDA-core kernel on ``cx sx`` and ``cw sw``;
+  the codes' dtype picks the kernel.
+* ``conv_grad_x``: fp32 operands on the CUDA cores, one thread per output
+  element, bound by its operations at the fp32 rate; the gather form of the
+  transposed conv, so it needs no atomics and is deterministic.
+* ``conv_grad_w_predictor`` runs on the int8 tensor cores: a pre-pass writes
+  the x codes channel-major on a padded grid (per stride phase) and the two
+  byte planes of the g codes (``g = 256 hi + lo``) on the same grid, where
+  every tap is a constant shift of the position (:func:`pred_grid`,
+  :func:`conv_grad_w_predictor_grid_plain` is that arithmetic in PyTorch);
+  a block stages one chunk of positions once for all taps.  The sums are
+  exact integers at any size (int32 partials over at most 65536 positions,
+  int64 across them) and come out as fp32, rounded once, as the JAX
+  package's fp32 pass 1.
+* ``conv_grad_w``: the full 8x16-bit code product in int64 on the CUDA
+  cores, split across blocks that meet in integer atomics, which are exact,
+  so the result does not depend on the order.  It takes pass 1's fp32
+  product as its predictor instead of recomputing it, and reads ``tau`` from
+  device memory: no host round trip between the passes.
 
-The plain versions accumulate kernels 1 and 2 in fp32, and multiply the
-integer codes of kernels 3 and 4 as float64, which is exact below 2**53
-(the ResNet-74 batch-128 sums stay below 6e11), so kernel and plain version
-agree bit for bit there.
+The plain versions accumulate kernels 1 and 2 in fp32 on the scaled codes
+(the operands the JAX package's kernels take), and multiply the integer
+codes of kernels 3 and 4 as float64, which is exact below 2**53 (the
+ResNet-74 batch-128 sums stay below 6e11); pass 1 rounds its exact sum to
+fp32 once, as the kernel does, so kernels 3 and 4 and their plain versions
+agree bit for bit.
 """
 from __future__ import annotations
 
@@ -45,6 +61,8 @@ from typing import Dict, Tuple
 import torch
 
 FALLBACK_BLOCK = 128   # dout block of one fallback flag (the TPU kernels' tile)
+PRED_BLOCK = 256       # positions a pre-pass block of the predictor kernel
+FWD_K_STEP = 32        # K bytes an MMA step of the forward kernel
 
 LAUNCHES: Dict[str, int] = {"conv_fwd": 0, "conv_grad_x": 0,
                             "conv_grad_w_predictor": 0, "conv_grad_w": 0}
@@ -74,6 +92,17 @@ def conv_patches(xp: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     return torch.stack(taps, dim=-1).reshape(B * ho * wo, C * k * k)
 
 
+def pred_grid(hp: int, wp: int, k: int, stride: int) -> Tuple[int, int, int]:
+    """``(Hq, Wq, halo)`` of the predictor kernel's padded grid: each stride
+    phase of the padded input is an ``Hq x Wq`` grid, the output gradient
+    sits at its top left, and tap ``(ki, kj)`` reads phase ``(ki % s, kj %
+    s)`` shifted by ``(ki // s) * Wq + kj // s`` positions, at most
+    ``halo``."""
+    hq, wq = -(-hp // stride), -(-wp // stride)
+    a = (k - 1) // stride
+    return hq, wq, a * wq + a
+
+
 def fallback_blocks(dout: int) -> Tuple[int, int]:
     """(block width, block count) of the per-tap fallback flags."""
     bn_ = min(FALLBACK_BLOCK, dout)
@@ -92,11 +121,12 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load("conv")
     lib.conv_fwd.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
+    lib.conv_fwd_codes.argtypes = [_P] * 6 + [_I] * 12 + [_P]
     lib.conv_grad_x.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
-    lib.conv_grad_w_pred.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
+    lib.conv_grad_w_pred.argtypes = [_P] * 4 + [_I] * 13 + [_P]
     lib.conv_grad_w_sign.argtypes = [_P] * 7 + [_I] * 11 + [_P]
-    for fn in (lib.conv_fwd, lib.conv_grad_x, lib.conv_grad_w_pred,
-               lib.conv_grad_w_sign):
+    for fn in (lib.conv_fwd, lib.conv_fwd_codes, lib.conv_grad_x,
+               lib.conv_grad_w_pred, lib.conv_grad_w_sign):
         fn.restype = ctypes.c_int
     return lib
 
@@ -155,6 +185,25 @@ def conv_fwd_plain(xp: torch.Tensor, w: torch.Tensor, k: int,
     return y
 
 
+def conv_fwd_codes_plain(xc: torch.Tensor, sx: torch.Tensor,
+                         wc: torch.Tensor, sw: torch.Tensor, k: int,
+                         stride: int) -> torch.Tensor:
+    """The forward kernel's arithmetic on 8-bit codes: ``(sum_t
+    window_t(xc) @ wc_t)`` summed exactly (float64, exact below 2**53, as
+    the kernel's int32 sum is exact), rounded to fp32 and multiplied by the
+    fp32 ``sx * sw``.  Bit-identical to the kernel."""
+    B, Hp, Wp, C = xc.shape
+    dout = wc.shape[-1]
+    ho, wo = conv_out_hw(Hp, Wp, k, stride)
+    w64 = wc.double().reshape(C, k, k, dout)
+    acc = xc.new_zeros((B, ho, wo, dout), dtype=torch.float64)
+    for ki in range(k):
+        for kj in range(k):
+            win = _window(xc.double(), ki, kj, stride, ho, wo)
+            acc += win @ w64[:, ki, kj]
+    return acc.float() * (sx * sw)
+
+
 def conv_grad_x_plain(gq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
                       hp: int, wp: int) -> torch.Tensor:
     """fp32 per-tap scatter-add of ``gy @ w_t^T`` into the padded input."""
@@ -187,7 +236,40 @@ def _code_product(x: torch.Tensor, g: torch.Tensor, k: int,
 
 def conv_grad_w_predictor_plain(xm: torch.Tensor, gm: torch.Tensor, k: int,
                                 stride: int) -> torch.Tensor:
-    return _code_product(xm, gm, k, stride).to(torch.int32)
+    return _code_product(xm, gm, k, stride).to(torch.float32)
+
+
+def conv_grad_w_predictor_grid_plain(xm: torch.Tensor, gm: torch.Tensor,
+                                     k: int, stride: int) -> torch.Tensor:
+    """The predictor kernel's arithmetic: the x codes of each stride phase
+    and the byte planes of the g codes (``hi = g >> 8``, ``lo = g & 0xFF``)
+    on the padded grid of :func:`pred_grid`, every tap a shifted view of
+    one phase, ``256 x^T hi + x^T lo`` summed exactly (float64) and rounded
+    to fp32."""
+    B, Hp, Wp, C = xm.shape
+    dout = gm.shape[-1]
+    ho, wo = conv_out_hw(Hp, Wp, k, stride)
+    hq, wq, halo = pred_grid(Hp, Wp, k, stride)
+    q = B * hq * wq
+    g = gm.new_zeros((B, hq, wq, dout))
+    g[:, :ho, :wo] = gm
+    g = g.reshape(q, dout)
+    hi, lo = (g >> 8).double(), (g & 0xFF).double()
+    phases = {}
+    for pi in range(stride):
+        for pj in range(stride):
+            ph = xm[:, pi::stride, pj::stride]
+            grid = xm.new_zeros((B, hq, wq, C))
+            grid[:, :ph.shape[1], :ph.shape[2]] = ph
+            flat = grid.reshape(q, C).double()
+            phases[pi, pj] = torch.cat([flat, flat.new_zeros((halo, C))])
+    out = torch.empty((C, k, k, dout), dtype=torch.float64, device=xm.device)
+    for ki in range(k):
+        for kj in range(k):
+            shift = (ki // stride) * wq + kj // stride
+            xs = phases[ki % stride, kj % stride][shift:shift + q]
+            out[:, ki, kj] = 256 * (xs.T @ hi) + xs.T @ lo
+    return out.reshape(k * k * C, dout).to(torch.float32)
 
 
 def _fallback_stats(notconf: torch.Tensor, tau: torch.Tensor,
@@ -220,23 +302,47 @@ def conv_grad_w_plain(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def conv_fwd(xp: torch.Tensor, w: torch.Tensor, k: int,
-             stride: int) -> torch.Tensor:
-    """``(B, Hp, Wp, C)`` fp32 x ``(k*k*C, dout)`` fp32 -> ``(B, Ho, Wo,
-    dout)`` fp32."""
-    if not _on_cuda(xp, w):
-        return conv_fwd_plain(xp, w, k, stride)
-    _check(xp, "xp", torch.float32, 4)
-    _check(w, "w", torch.float32, 2)
-    B, Hp, Wp, C = xp.shape
-    if w.shape[0] != k * k * C:
-        raise ValueError(f"w has {w.shape[0]} rows, expected {k * k * C}")
-    dout = w.shape[1]
+def conv_fwd(xc: torch.Tensor, sx: torch.Tensor, wc: torch.Tensor,
+             sw: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """``(B, Hp, Wp, C)`` codes with scale ``sx`` x ``(k*k*C, dout)`` codes
+    with scale ``sw`` -> ``(B, Ho, Wo, dout)`` fp32: the conv of the
+    quantized operands ``xc * sx`` and ``wc * sw`` (the scales fp32 0-d
+    tensors).  int8 codes run the int8 tensor-core kernel, int16 codes the
+    fp32 kernel."""
+    if not _on_cuda(xc, sx, wc, sw):
+        return conv_fwd_plain(xc.float() * sx, wc.float() * sw, k, stride)
+    if xc.dtype not in (torch.int8, torch.int16):
+        raise ValueError(f"xc: expected int8 or int16 codes, got {xc.dtype}")
+    _check(xc, "xc", xc.dtype, 4)
+    _check(wc, "wc", xc.dtype, 2)
+    _check(sx, "sx", torch.float32, 0)
+    _check(sw, "sw", torch.float32, 0)
+    B, Hp, Wp, C = xc.shape
+    if wc.shape[0] != k * k * C:
+        raise ValueError(f"wc has {wc.shape[0]} rows, expected {k * k * C}")
+    dout = wc.shape[1]
     ho, wo = conv_out_hw(Hp, Wp, k, stride)
-    y = torch.empty((B, ho, wo, dout), device=xp.device, dtype=torch.float32)
+    y = torch.empty((B, ho, wo, dout), device=xc.device, dtype=torch.float32)
     lib = _lib()
-    _call(lib.conv_fwd, xp.data_ptr(), w.data_ptr(), y.data_ptr(), B, Hp, Wp,
-          C, dout, k, stride, ho, wo, _stream(xp))
+    if xc.dtype == torch.int16:
+        xq = (xc.float() * sx).contiguous()
+        wq = (wc.float() * sw).contiguous()
+        _call(lib.conv_fwd, xq.data_ptr(), wq.data_ptr(), y.data_ptr(), B, Hp,
+              Wp, C, dout, k, stride, ho, wo, _stream(xc))
+    else:
+        if wo > 128:
+            raise ValueError(f"output width {wo}: the int8 conv kernel takes "
+                             "at most 128")
+        # scratch for the kernel's tap-major w^T (dout, k*k*C), zero-padded
+        # to whole dout tiles and to a multiple of the 32-byte K step
+        kp = -(-k * k * C // FWD_K_STEP) * FWD_K_STEP
+        bn = 16 if dout <= 16 else 32 if dout <= 32 else 64
+        wt = torch.empty((-(-dout // bn) * bn, kp), device=xc.device,
+                         dtype=torch.int8)
+        _call(lib.conv_fwd_codes, xc.data_ptr(), wc.data_ptr(), wt.data_ptr(),
+              sx.data_ptr(), sw.data_ptr(), y.data_ptr(), B, Hp, Wp, C, dout,
+              k, stride, ho, wo, kp, bn, int(xc.data_ptr() % 16 == 0),
+              _stream(xc))
     LAUNCHES["conv_fwd"] += 1
     return y
 
@@ -279,20 +385,29 @@ def _check_codes(x: torch.Tensor, g: torch.Tensor, k: int, stride: int
 
 
 def conv_grad_w_predictor(xm: torch.Tensor, gm: torch.Tensor, k: int,
-                          stride: int, x_lim: int = 7, g_lim: int = 511
-                          ) -> torch.Tensor:
-    """PSG pass 1: ``sum_n window(x_msb)^T g_msb`` as int32, patch-major.
-    ``x_lim``/``g_lim`` bound the code magnitudes; the call raises when the
-    sum could overflow int32."""
+                          stride: int) -> torch.Tensor:
+    """PSG pass 1: ``sum_n window(x_msb)^T g_msb`` patch-major ``(k*k*C,
+    dout)`` as fp32, the exact integer sum rounded once, at any size."""
     if not _on_cuda(xm, gm):
         return conv_grad_w_predictor_plain(xm, gm, k, stride)
     B, Hp, Wp, C, ho, wo, dout = _check_codes(xm, gm, k, stride)
-    if B * ho * wo * x_lim * g_lim >= 2 ** 31:
-        raise ValueError("predictor product could overflow int32")
-    out = torch.empty((k * k * C, dout), device=xm.device, dtype=torch.int32)
-    lib = _lib()
-    _call(lib.conv_grad_w_pred, xm.data_ptr(), gm.data_ptr(), out.data_ptr(),
-          B, Hp, Wp, C, ho, wo, dout, k, stride, _stream(xm))
+    if k > 3:
+        raise ValueError(f"k={k}: the predictor kernel takes kernels up to "
+                         "3x3")
+    hq, wq, halo = pred_grid(Hp, Wp, k, stride)
+    n_pad = -(-B * hq * wq // PRED_BLOCK) * PRED_BLOCK
+    # x rows reach a chunk plus its halo (and one word) past the last stage
+    x_pad = -(-(n_pad + halo + 4 + 15) // PRED_BLOCK) * PRED_BLOCK
+    dev = xm.device
+    out = torch.empty((k * k * C, dout), device=dev, dtype=torch.float32)
+    # the int64 sums (padded to 128 bytes), the x copies (s*s, C, x_pad) and
+    # the g planes (2, dout, n_pad), in one allocation
+    acc_bytes = -(-8 * k * k * C * dout // 128) * 128
+    scratch = torch.empty(acc_bytes + stride * stride * C * x_pad
+                          + 2 * dout * n_pad, device=dev, dtype=torch.uint8)
+    _call(_lib().conv_grad_w_pred, xm.data_ptr(), gm.data_ptr(),
+          scratch.data_ptr(), out.data_ptr(), B, Hp, Wp, C, ho, wo, dout, k,
+          stride, hq, wq, n_pad, x_pad, _stream(xm))
     LAUNCHES["conv_grad_w_predictor"] += 1
     return out
 
@@ -301,13 +416,13 @@ def conv_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
                 tau: torch.Tensor, k: int, stride: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PSG pass 2: the full 8x16-bit code product (int64) and the Eq. (2)
-    select against pass 1's ``pred`` at threshold ``tau`` (fp32 0-d, read on
-    the device).  Returns ``(sign (k*k*C, dout) int8 patch-major, fallback
+    select against pass 1's fp32 ``pred`` at threshold ``tau`` (fp32 0-d,
+    read on the device).  Returns ``(sign (k*k*C, dout) int8 patch-major, fallback
     flags (k*k, ceil(dout/128)) int32)``."""
     if not _on_cuda(pred, xq, gq, tau):
         return conv_grad_w_plain(pred, xq, gq, tau, k, stride)
     B, Hp, Wp, C, ho, wo, dout = _check_codes(xq, gq, k, stride)
-    _check(pred, "pred", torch.int32, 2)
+    _check(pred, "pred", torch.float32, 2)
     _check(tau, "tau", torch.float32, 0)
     if pred.shape != (k * k * C, dout):
         raise ValueError(f"pred {tuple(pred.shape)} != {(k * k * C, dout)}")

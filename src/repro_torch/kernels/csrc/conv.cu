@@ -7,34 +7,89 @@
 // (k*k*C, dout) with row = c*k*k + ki*k + kj (JAX package, kernels/conv.py).
 //
 // Replaces, in the JAX package's src/repro/kernels/conv.py:
-//   conv_fwd            <- conv_fwd_pallas / _conv_fwd_kernel
+//   conv_fwd_codes      <- conv_fwd_pallas / _conv_fwd_kernel (8-bit codes)
+//   conv_fwd            <- the same, on fp32 operands (wider codes)
 //   conv_grad_x         <- conv_grad_x_pallas / _conv_grad_x_kernel
 //   conv_grad_w_pred    <- conv_grad_w_predictor_pallas / _conv_pred_kernel
 //   conv_grad_w_sign    <- conv_grad_w_pallas / _conv_grad_w_kernel
 //
-// Bounds on an H100 at the CIFAR ResNet shapes: the fp32 forward and input
-// gradient are bound by their operations at the fp32 rate; the integer
-// weight-gradient passes, counted at the int8 rate, by their bytes.  These
-// first versions run on the CUDA cores (no tensor cores, no TMA) and sit far
-// above both bounds.  No im2col tensor is ever written: the k x k gather
-// happens in the index arithmetic, as in the TPU kernels.
+// Bounds on an H100 at the CIFAR ResNet shapes.  The forward on 8-bit codes
+// is bound by its bytes (int8 codes in, fp32 y out) far above its operations
+// at the int8 rate; on fp32 operands by its operations at the fp32 rate.
+// The input gradient is fp32, bound by its operations.  The integer
+// weight-gradient passes, counted at the int8 rate, are bound by their bytes.
+// No im2col tensor is ever written: the k x k gather happens in shared
+// memory or in the index arithmetic, as in the TPU kernels.
+//
+// The forward on 8-bit codes (conv_fwd_mma_kernel) and the PSG predictor
+// (conv_pred_mma_kernel) run int8 mma.sync.m16n8k32 with int32 sums on the
+// tensor cores; the rest run on the CUDA cores.
+//
+// conv_fwd_mma_kernel: y = (sum_t window_t(cx) cw_t) (sx sw), exact in int32
+// (at most 127^2 k^2 C, below 2^24 at ResNet widths, so also exact as fp32)
+// and scaled once at the end.  M is the output positions, N dout, K = k^2 C
+// in (tap, channel) order, so that a 16-byte group of K is 16 channels of
+// one pixel: A (the codes, NHWC) is K-major per tap as it lies in memory.
+// A block owns 16 positions per warp (a tile of whole output rows of one
+// image, or of whole images) times a dout tile of 16-64.  It stages the
+// input rows of its tile plus the k - 1 halo rows, full width and all
+// channels, once with cp.async, and the tap-major weight tile w^T (dout x
+// k^2 C, prepared by the wrapper), and runs every tap from shared memory:
+// ldmatrix reads the A fragment of 16 positions straight from the staged
+// pixels, a table gives each 16-byte K group its offset (tap, channel)
+// within the window.  Channel counts that are not a multiple of 16 (the
+// stem's 3) gather their A bytes one by one through a per-byte table, with K
+// zero-padded to 32.  The epilogue multiplies the fp32 of the sum by sx sw,
+// read on the device, and stores fp32 NHWC.
+//
+// conv_pred_mma_kernel: out[c k^2 + t, o] = sum_n x_msb[window_t(n), c]
+// g_msb[n, o], the exact integer sum rounded once to fp32.  K is the
+// position axis.  The int8 MMAs want K contiguous, so a pre-pass
+// (grid_kmajor_kernel) writes channel-major copies on a padded grid: x
+// codes (C, B Hq Wq) per stride phase, and the two byte planes of the 10-bit
+// g codes (lo = g & 0xFF u8, hi = g >> 8 s8, g = 256 hi + lo) scattered onto
+// the same grid with zeros where no output lies.  On that grid tap (ki, kj)
+// is phase (ki % s, kj % s) shifted by (ki / s) Wq + kj / s positions, so a
+// block stages one chunk of positions of g and of x (with its halo) once and
+// computes all k^2 taps from it: warp w takes tap w % k^2 (1x1 convs split
+// the chunk's K among four warps; kernels up to 3 x 3).  A tap's shift is not
+// 4-byte aligned, so its A fragments come from two 32-bit shared loads and a
+// funnel shift; the g fragments come by ldmatrix and serve every tap.  Each plane sums in
+// int32 over at most 65536 positions a split (65536 * 127 * 255 < 2^31);
+// the epilogue forms 256 sum(x hi) + sum(x lo) in int64, splits of the
+// position axis meet in int64 atomics (exact and order-free), and a last
+// pass rounds them to fp32 (__ll2float_rn).  The padded grid costs 1.13x
+// to 1.56x the positions of the valid outputs at the ResNet stages.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSMs = 132;          // H100 SXM
 
 inline int blocks_for(long long n) {
   return (int)((n + kThreads - 1) / kThreads);
 }
 
+// shared-memory row pitch for rows of `bytes` bytes: a multiple of 16 that is
+// 16 more than a multiple of 128, so that the eight rows one ldmatrix (or one
+// 32-bit load per lane of four consecutive words) reads fall in different
+// bank groups
+inline int smem_pitch(int bytes) {
+  int p = (bytes + 15) / 16 * 16;
+  while (p % 128 != 16) p += 16;
+  return p;
+}
+
 // ---------------------------------------------------------------------------
-// forward: one thread per output element, fp32 accumulation over the taps
-// and input channels.  Neighbouring threads differ in the output channel, so
-// the weight reads and the output writes are coalesced and the input reads
-// are broadcasts.
+// forward on fp32 operands (codes wider than 8 bits): one thread per output
+// element, fp32 accumulation over the taps and input channels.  Neighbouring
+// threads differ in the output channel, so the weight reads and the output
+// writes are coalesced and the input reads are broadcasts.
 // ---------------------------------------------------------------------------
 __global__ void conv_fwd_kernel(const float* __restrict__ x,
                                 const float* __restrict__ w,
@@ -59,6 +114,221 @@ __global__ void conv_fwd_kernel(const float* __restrict__ x,
     }
   }
   y[idx] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// forward on 8-bit codes: int8 implicit GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+
+struct FwdPlan {
+  int B, Hp, Wp, C, dout, k, s, Ho, Wo;
+  int Kp;           // k^2 C rounded up to 32
+  int R, NI, tpi;   // output rows and images a tile, tiles an image group
+  int rin;          // input rows staged per image: (R - 1) s + k
+  int xbytes;       // staged input bytes: NI rin Wp C, rounded up to 16
+  int wpitch;       // shared row pitch of the weight tile
+  int vec;          // C % 16 == 0: ldmatrix A; else byte gathers
+  int copy16;       // the image slabs can be copied in 16-byte pieces
+};
+
+// y tile (16 positions a warp) x (8 NT dout); K in 32-byte steps
+template <int NT>
+__global__ void __launch_bounds__(256)
+conv_fwd_mma_kernel(const int8_t* __restrict__ x,
+                    const int8_t* __restrict__ wt,    // (dout tiles * 8NT, Kp)
+                    const float* __restrict__ sx, const float* __restrict__ sw,
+                    float* __restrict__ y, FwdPlan P) {
+  constexpr int BN = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* xs = smem;                              // staged input
+  unsigned char* zero = xs + P.xbytes;                   // 16 zero bytes
+  unsigned char* ws = zero + 16;                         // BN x wpitch
+  int* koff = reinterpret_cast<int*>(ws + BN * P.wpitch);  // K offsets
+  const int nthreads = blockDim.x;
+  const int tile = blockIdx.x, j0 = blockIdx.y * BN;
+  const int b0 = (tile / P.tpi) * P.NI, oh0 = (tile % P.tpi) * P.R;
+  const int WpC = P.Wp * P.C, slab = P.rin * WpC;
+
+  // stage the input slabs, the weight tile and the K offset table
+  for (int img = 0; img < P.NI; ++img) {
+    const int b = b0 + img;
+    if (b >= P.B) break;
+    const int rows = min(P.rin, P.Hp - oh0 * P.s);
+    const size_t src0 = ((size_t)b * P.Hp + oh0 * P.s) * WpC;
+    const int n = rows * WpC;
+    unsigned char* dst = xs + img * slab;
+    if (P.copy16) {
+      for (int e = threadIdx.x * 16; e < n; e += nthreads * 16)
+        cp_async16(dst + e, x + src0 + e, true);
+    } else {
+      for (int e = threadIdx.x; e < n; e += nthreads)
+        dst[e] = (unsigned char)x[src0 + e];
+    }
+  }
+  const int kg = P.Kp / 16;
+  for (int e = threadIdx.x; e < BN * kg; e += nthreads) {
+    const int r = e / kg, g = e % kg;
+    cp_async16(ws + r * P.wpitch + g * 16, wt + (size_t)(j0 + r) * P.Kp + g * 16,
+               true);
+  }
+  cp_async_commit();
+  const int K = P.k * P.k * P.C;
+  const int nk = P.vec ? kg : P.Kp;      // 16-byte groups, or single bytes
+  for (int e = threadIdx.x; e < nk; e += nthreads) {
+    const int kk = P.vec ? e * 16 : e;
+    int off = -1;
+    if (kk < K) {
+      const int t = kk / P.C, c = kk % P.C;
+      off = ((t / P.k) * P.Wp + t % P.k) * P.C + c;
+    }
+    koff[e] = off;
+  }
+  if (threadIdx.x < 4) reinterpret_cast<unsigned*>(zero)[threadIdx.x] = 0u;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int RW = P.R * P.Wo;
+  // shared offset of the window's top-left pixel of position m of the tile,
+  // and whether that position is an output
+  auto pix = [&](int m, bool& ok) {
+    const int img = m / RW, r = (m / P.Wo) % P.R, ow = m % P.Wo;
+    ok = img < P.NI && b0 + img < P.B && oh0 + r < P.Ho;
+    return ok ? img * slab + (r * P.s * P.Wp + ow * P.s) * P.C : 0;
+  };
+  const int m0 = warp * 16;
+  int acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0;
+
+  if (P.vec) {
+    bool ok;
+    const int pa = pix(m0 + lane % 16, ok);
+    for (int ks = 0; ks < P.Kp / 32; ++ks) {
+      const int off = koff[2 * ks + lane / 16];
+      unsigned a[4];
+      ldsm_x4(a, off < 0 ? zero : xs + pa + off);
+#pragma unroll
+      for (int np = 0; np < NT; np += 2) {
+        const int row = np * 8 + lane % 8 + (lane / 16) * 8;
+        unsigned bf[4];
+        ldsm_x4(bf, ws + row * P.wpitch + ks * 32 + ((lane / 8) % 2) * 16);
+        mma_s8s8(acc[np], a, bf[0], bf[1]);
+        mma_s8s8(acc[np + 1], a, bf[2], bf[3]);
+      }
+    }
+  } else {
+    bool ok0, ok1;
+    const int p0 = pix(m0 + lane / 4, ok0), p1 = pix(m0 + lane / 4 + 8, ok1);
+    for (int ks = 0; ks < P.Kp / 32; ++ks) {
+      unsigned a[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int base = (r & 1) ? p1 : p0;
+        const int kk = ks * 32 + (r >> 1) * 16 + (lane % 4) * 4;
+        unsigned v = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int off = koff[kk + e];
+          const unsigned byte = off < 0 ? 0u : (unsigned)xs[base + off];
+          v |= byte << (8 * e);
+        }
+        a[r] = v;
+      }
+#pragma unroll
+      for (int np = 0; np < NT; np += 2) {
+        const int row = np * 8 + lane % 8 + (lane / 16) * 8;
+        unsigned bf[4];
+        ldsm_x4(bf, ws + row * P.wpitch + ks * 32 + ((lane / 8) % 2) * 16);
+        mma_s8s8(acc[np], a, bf[0], bf[1]);
+        mma_s8s8(acc[np + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+
+  // epilogue: fp32 of the exact sum times sx sw, NHWC
+  const float scale = __fmul_rn(*sx, *sw);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + lane / 4 + h * 8;
+    bool ok;
+    pix(m, ok);
+    if (!ok) continue;
+    const int img = m / RW, r = (m / P.Wo) % P.R, ow = m % P.Wo;
+    float* yr = y + ((((size_t)(b0 + img) * P.Ho + oh0 + r) * P.Wo + ow) *
+                     P.dout);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int o = j0 + n * 8 + (lane % 4) * 2;
+      const float v0 = __fmul_rn((float)acc[n][2 * h], scale);
+      const float v1 = __fmul_rn((float)acc[n][2 * h + 1], scale);
+      if (o + 1 < P.dout && P.dout % 2 == 0) {
+        *reinterpret_cast<float2*>(yr + o) = make_float2(v0, v1);
+      } else {
+        if (o < P.dout) yr[o] = v0;
+        if (o + 1 < P.dout) yr[o + 1] = v1;
+      }
+    }
+  }
+}
+
+// wt[o][t C + c] = wc[(c k^2 + t) dout + o]: the tap-major w^T of the
+// patch-major weight codes, zero in the rows and columns of padding
+__global__ void wt_tapmajor_kernel(const int8_t* __restrict__ wc,
+                                   int8_t* __restrict__ wt, int C, int kk,
+                                   int dout, int rows, int Kp) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * Kp) return;
+  const int o = (int)(i / Kp), q = (int)(i % Kp);
+  int8_t v = 0;
+  if (o < dout && q < kk * C)
+    v = wc[((size_t)(q % C) * kk + q / C) * dout + o];
+  wt[i] = v;
+}
+
+// tile plan of the forward on codes: warps (2, 4 or 8; 16 positions each),
+// rows and images a tile, shared bytes; false when no plan fits
+bool plan_fwd(FwdPlan& P, int bn, int& warps, size_t& smem) {
+  if (P.Wo > 128) return false;
+  const int tiles_n = (P.dout + bn - 1) / bn;
+  auto tile = [&](int w) {          // the tile of w warps; the tile count
+    const int bmp = 16 * w;
+    if (P.Ho * P.Wo <= bmp) {
+      P.R = P.Ho, P.NI = bmp / (P.Ho * P.Wo), P.tpi = 1;
+    } else {
+      P.R = bmp / P.Wo, P.NI = 1, P.tpi = (P.Ho + P.R - 1) / P.R;
+    }
+    return (long long)(P.B + P.NI - 1) / P.NI * P.tpi * tiles_n;
+  };
+  // the most warps that still give about two blocks per SM
+  for (warps = 8; warps > 2 && 16 * (warps / 2) >= P.Wo; warps /= 2)
+    if (tile(warps) >= 2 * kSMs) break;
+  tile(warps);
+  P.rin = (P.R - 1) * P.s + P.k;
+  const long long xb = (long long)P.NI * P.rin * P.Wp * P.C;
+  P.xbytes = (int)((xb + 15) / 16 * 16);
+  P.wpitch = smem_pitch(P.Kp);
+  smem = (size_t)P.xbytes + 16 + (size_t)bn * P.wpitch +
+         sizeof(int) * (size_t)(P.vec ? P.Kp / 16 : P.Kp);
+  return xb < (1LL << 30) && smem <= 227 * 1024;
+}
+
+template <int NT>
+int launch_fwd_mma(const int8_t* x, const int8_t* wt, const float* sx,
+                   const float* sw, float* y, FwdPlan P, cudaStream_t st) {
+  int warps;
+  size_t smem;
+  if (!plan_fwd(P, 8 * NT, warps, smem)) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(conv_fwd_mma_kernel<NT>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
+  if (err) return err;
+  const int tiles = (P.B + P.NI - 1) / P.NI * P.tpi;
+  dim3 grid(tiles, (P.dout + 8 * NT - 1) / (8 * NT));
+  conv_fwd_mma_kernel<NT><<<grid, warps * 32, smem, st>>>(x, wt, sx, sw, y, P);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -103,32 +373,257 @@ __global__ void conv_grad_x_kernel(const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// weight-gradient code product, exact in integers:
-//   out[c*k*k + t, o] += sum_n x[window_t(n), c] * g[n, o]
-// over the B*Ho*Wo output positions n.  Block (t, tile, split): one filter
-// tap, one TC x TO output tile, one contiguous range of positions.  Each
-// strip of TP positions is staged in shared memory; a thread owns one
-// channel and four output columns.  Partial sums of a strip fit int32
-// (TP * 127 * 32767 < 2^31); ACC is int32 for the predictor (4-bit x 10-bit
-// codes; the wrapper checks the whole sum fits) and int64 for the full
-// 8-bit x 16-bit product.  The splits meet in integer atomics, which are
-// exact and order-free: the result is the same on every run.
+// PSG pass 1, the predictor product, on the int8 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int PT = 128;            // positions (bytes of a K-major row) a stage
+constexpr int kPredStages = 3;
+constexpr int kMaxSplitStages = 65536 / PT;   // int32 partials' bound
+constexpr int kMinSplitStages = 2;
+constexpr int GT = 256;            // positions of a pre-pass block
+
+// Pre-pass: codes (B, Hs, Ws, C) position-major -> byte planes (C, Np)
+// K-major on the padded grid of B x Hq x Wq positions, one plane set per
+// stride phase (pi, pj) = (z / s, z % s), z = blockIdx.z, at offset z C Np:
+// grid position (b, u, v) takes the code at (b, u s + pi, v s + pj) where
+// that lies inside Hs x Ws, else 0, and every position from B Hq Wq to Np
+// is 0.  int8 codes give one plane (their bytes); int16 codes lo = g & 0xFF
+// and hi = g >> 8.  A block takes GT consecutive positions, one thread each,
+// which reads its position's channels (16-byte loads where the row allows),
+// and then writes 16 channels x GT positions per round through shared
+// memory, 16 positions of one channel a thread.
+template <typename CODE>
+__global__ void __launch_bounds__(GT)
+grid_kmajor_kernel(const CODE* __restrict__ src, int C, int Np, int B,
+                   int Hq, int Wq, int Hs, int Ws, int s, int vec,
+                   uint8_t* __restrict__ lo, uint8_t* __restrict__ hi) {
+  __shared__ CODE tile[16][GT + 16];   // [channel][position]
+  const int n0 = blockIdx.x * GT, t = threadIdx.x;
+  const int pi = blockIdx.z / s, pj = blockIdx.z % s;
+  lo += (size_t)blockIdx.z * C * Np;
+  const int per_img = Hq * Wq, P = n0 + t;
+  const CODE* row = nullptr;            // this position's channels, or none
+  if (P < B * per_img) {
+    const int b = P / per_img, r = P % per_img;
+    const int h = (r / Wq) * s + pi, w = (r % Wq) * s + pj;
+    if (h < Hs && w < Ws) row = src + (((size_t)b * Hs + h) * Ws + w) * C;
+  }
+  constexpr int PER16 = 16 / sizeof(CODE);      // codes in 16 bytes
+  for (int c0 = 0; c0 < C; c0 += 16) {
+    const int nc = min(16, C - c0);
+    if (vec && nc == 16) {
+#pragma unroll
+      for (int q = 0; q < 16 / PER16; ++q) {
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (row) v = *reinterpret_cast<const uint4*>(row + c0 + q * PER16);
+        const CODE* e = reinterpret_cast<const CODE*>(&v);
+#pragma unroll
+        for (int j = 0; j < PER16; ++j) tile[q * PER16 + j][t] = e[j];
+      }
+    } else {
+      for (int j = 0; j < nc; ++j) tile[j][t] = row ? row[c0 + j] : (CODE)0;
+    }
+    __syncthreads();
+    // thread -> channel c0 + t / (GT / 16), positions 16 (t % (GT / 16)) ..
+    const int c = t / (GT / 16), n = (t % (GT / 16)) * 16;
+    if (c < nc) {
+      unsigned wl[4], wh[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        wl[q] = wh[q] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int v = (int)tile[c][n + 4 * q + b];
+          wl[q] |= (unsigned)(v & 0xff) << (8 * b);
+          wh[q] |= (unsigned)((v >> 8) & 0xff) << (8 * b);   // arithmetic shift
+        }
+      }
+      const size_t off = (size_t)(c0 + c) * Np + n0 + n;
+      *reinterpret_cast<uint4*>(lo + off) = make_uint4(wl[0], wl[1], wl[2], wl[3]);
+      if (hi)
+        *reinterpret_cast<uint4*>(hi + off) = make_uint4(wh[0], wh[1], wh[2], wh[3]);
+    }
+    __syncthreads();
+  }
+}
+
+struct PredPlan {
+  int C, dout, k, s;
+  int Np, NpX;      // padded positions of the g planes and of the x copies
+  int Wq;           // padded-grid row length
+  int xw, xpitch;   // staged x bytes a row (chunk plus halo) and its pitch
+  int ksplit;       // warps sharing one tap (1x1 convs: 4)
+  int stages_per_split;
+};
+
+// MT m16 tiles of channels, NP pairs of n8 tiles of dout, per block
+template <int MT, int NP>
+struct PredTile {
+  static constexpr int MB = 16 * MT, NB = 16 * NP;
+  static constexpr int GPITCH = PT + 16;                 // 144: 16 mod 128
+  __host__ __device__ static int stage_bytes(const PredPlan& P) {
+    return 2 * NB * GPITCH + P.s * P.s * MB * P.xpitch;
+  }
+};
+
+// out64[c k^2 + t, o] += sum over this block's positions of the tap-t
+// shifted x codes times the g planes (256 hi + lo)
+template <int MT, int NP>
+__global__ void __launch_bounds__(288)
+conv_pred_mma_kernel(const int8_t* __restrict__ xt,     // (s^2, C, NpX)
+                     const uint8_t* __restrict__ glo,   // (dout, Np)
+                     const uint8_t* __restrict__ ghi,
+                     long long* __restrict__ out64, PredPlan P) {
+  using T = PredTile<MT, NP>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int i0 = blockIdx.y * T::MB, j0 = blockIdx.x * T::NB;
+  const int kt0 = blockIdx.z * P.stages_per_split;
+  const int nk = max(0, min(P.Np / PT, kt0 + P.stages_per_split) - kt0);
+  const int nthreads = blockDim.x, kk2 = P.k * P.k, ph2 = P.s * P.s;
+  const int stage = T::stage_bytes(P);
+  const int xg = P.xw / 16;                 // 16-byte pieces of an x row
+
+  // stage layout: [0, NB) lo rows, [NB, 2 NB) hi rows (pitch GPITCH), then
+  // s^2 MB x rows (pitch xpitch), phase-major
+  auto load = [&](int buf, int kt) {
+    unsigned char* base = smem + buf * stage;
+    const size_t p0 = (size_t)(kt0 + kt) * PT;
+    for (int e = threadIdx.x; e < 2 * T::NB * (PT / 16); e += nthreads) {
+      const int r = e / (PT / 16), ch = e % (PT / 16);
+      const int j = j0 + r % T::NB;
+      const bool ok = j < P.dout;
+      const uint8_t* plane = r < T::NB ? glo : ghi;
+      cp_async16(base + r * T::GPITCH + ch * 16,
+                 ok ? plane + (size_t)j * P.Np + p0 + ch * 16 : glo, ok);
+    }
+    unsigned char* xb = base + 2 * T::NB * T::GPITCH;
+    for (int e = threadIdx.x; e < ph2 * T::MB * xg; e += nthreads) {
+      const int r = e / xg, ch = e % xg;
+      const int ph = r / T::MB, c = i0 + r % T::MB;
+      const bool ok = c < P.C;
+      cp_async16(xb + r * P.xpitch + ch * 16,
+                 ok ? reinterpret_cast<const uint8_t*>(xt) +
+                          ((size_t)ph * P.C + c) * P.NpX + p0 + ch * 16
+                    : glo, ok);
+    }
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = warp % kk2, ksub = warp / kk2;
+  const int ki = t / P.k, kj = t % P.k;
+  const int ph = (ki % P.s) * P.s + kj % P.s;
+  const int shift = (ki / P.s) * P.Wq + kj / P.s;
+  const int sw = shift >> 2, sb = (shift & 3) * 8;     // words, bits
+
+  int hi[MT][2 * NP][4], lo[MT][2 * NP][4];
+#pragma unroll
+  for (int a = 0; a < MT; ++a)
+#pragma unroll
+    for (int b = 0; b < 2 * NP; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) hi[a][b][c] = lo[a][b][c] = 0;
+
+#pragma unroll
+  for (int st = 0; st < kPredStages - 1; ++st) {
+    if (st < nk) load(st, st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<kPredStages - 2>();
+    __syncthreads();
+    if (it + kPredStages - 1 < nk)
+      load((it + kPredStages - 1) % kPredStages, it + kPredStages - 1);
+    cp_async_commit();
+    const unsigned char* slo = smem + (it % kPredStages) * stage;
+    const unsigned char* shi = slo + T::NB * T::GPITCH;
+    const unsigned* sx = reinterpret_cast<const unsigned*>(
+        shi + T::NB * T::GPITCH + ph * T::MB * P.xpitch);
+    const int xpw = P.xpitch / 4;
+    for (int kk = ksub * 32; kk < PT; kk += 32 * P.ksplit) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = mt * 16 + lane / 4 + (r & 1) * 8;
+          const unsigned* w = sx + row * xpw + sw + (kk + (r >> 1) * 16) / 4 +
+                              lane % 4;
+          a[mt][r] = __funnelshift_r(w[0], w[1], sb);
+        }
+#pragma unroll
+      for (int np = 0; np < NP; ++np) {
+        const int row = np * 16 + lane % 8 + (lane / 16) * 8;
+        const int kb = kk + ((lane / 8) % 2) * 16;
+        unsigned bl[4], bh[4];
+        ldsm_x4(bl, slo + row * T::GPITCH + kb);
+        ldsm_x4(bh, shi + row * T::GPITCH + kb);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_s8u8(lo[mt][2 * np], a[mt], bl[0], bl[1]);
+          mma_s8u8(lo[mt][2 * np + 1], a[mt], bl[2], bl[3]);
+          mma_s8s8(hi[mt][2 * np], a[mt], bh[0], bh[1]);
+          mma_s8s8(hi[mt][2 * np + 1], a[mt], bh[2], bh[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: 256 hi + lo in int64, added into the patch-major sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2 * NP; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int ch = i0 + mt * 16 + lane / 4 + (c / 2) * 8;
+        const int o = j0 + nt * 8 + (lane % 4) * 2 + c % 2;
+        if (ch >= P.C || o >= P.dout) continue;
+        const long long v = 256LL * hi[mt][nt][c] + lo[mt][nt][c];
+        if (v) atomic_add_ll(out64 + ((size_t)ch * kk2 + t) * P.dout + o, v);
+      }
+}
+
+template <int MT, int NP>
+int launch_pred_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
+                    long long* out64, PredPlan P, cudaStream_t st) {
+  using T = PredTile<MT, NP>;
+  const int ti = (P.C + T::MB - 1) / T::MB, tj = (P.dout + T::NB - 1) / T::NB;
+  const int kts = P.Np / PT, tiles = ti * tj;
+  int splits = (2 * kSMs + tiles - 1) / tiles;  // about two blocks per SM
+  const int most = kts / kMinSplitStages > 1 ? kts / kMinSplitStages : 1;
+  splits = splits < most ? splits : most;
+  const int least = (kts + kMaxSplitStages - 1) / kMaxSplitStages;
+  splits = splits > least ? splits : least;
+  P.stages_per_split = (kts + splits - 1) / splits;
+  splits = (kts + P.stages_per_split - 1) / P.stages_per_split;
+  const size_t smem = (size_t)kPredStages * T::stage_bytes(P);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(conv_pred_mma_kernel<MT, NP>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
+  if (err) return err;
+  const int threads = 32 * P.k * P.k * P.ksplit;
+  conv_pred_mma_kernel<MT, NP><<<dim3(tj, ti, splits), threads, smem, st>>>(
+      xt, glo, ghi, out64, P);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// PSG pass 2: the full 8 x 16-bit product in int64 on the CUDA cores, then the
+// select.  Block (t, tile, split): one filter tap, one TC x TO output tile,
+// one contiguous range of positions.  Each strip of TP positions is staged in
+// shared memory; a thread owns one channel and four output columns.  Partial
+// sums of a strip fit int32 (TP * 127 * 32767 < 2^31); the splits meet in
+// int64 atomics, which are exact and order-free: the result is the same on
+// every run.
 // ---------------------------------------------------------------------------
 constexpr int TC = 32, TO = 32, TP = 64;
 
-__device__ __forceinline__ void atomic_add_acc(int32_t* p, long long v) {
-  atomicAdd(p, (int32_t)v);
-}
-__device__ __forceinline__ void atomic_add_acc(long long* p, long long v) {
-  atomicAdd(reinterpret_cast<unsigned long long*>(p), (unsigned long long)v);
-}
-
-template <typename ACC>
-__global__ void wgrad_accum_kernel(const int8_t* __restrict__ x,
-                                   const int16_t* __restrict__ g,
-                                   ACC* __restrict__ out, int B, int Hp,
-                                   int Wp, int C, int Ho, int Wo, int dout,
-                                   int k, int s, int n_per_split) {
+__global__ void wgrad_full_kernel(const int8_t* __restrict__ x,
+                                  const int16_t* __restrict__ g,
+                                  long long* __restrict__ out, int B, int Hp,
+                                  int Wp, int C, int Ho, int Wo, int dout,
+                                  int k, int s, int n_per_split) {
   __shared__ int xs[TP][TC];
   __shared__ int gs[TP][TO + 1];
   const int t = blockIdx.x, kk = k * k, ki = t / k, kj = t % k;
@@ -170,7 +665,7 @@ __global__ void wgrad_accum_kernel(const int8_t* __restrict__ x,
   if (c >= C) return;
   for (int j = 0; j < 4; ++j) {
     int o = o0 + to + j;
-    if (o < dout) atomic_add_acc(&out[((size_t)c * kk + t) * dout + o], acc[j]);
+    if (o < dout) atomic_add_ll(&out[((size_t)c * kk + t) * dout + o], acc[j]);
   }
 }
 
@@ -178,7 +673,7 @@ __global__ void wgrad_accum_kernel(const int8_t* __restrict__ x,
 // fallback flag per (tap, bn-wide dout block).  Columns the TPU kernel
 // padded up to a whole block hold g_msb = 0 and count as fallback whenever
 // tau > 0; the flag of the last block reproduces that.
-__global__ void psg_select_kernel(const int32_t* __restrict__ pred,
+__global__ void psg_select_kernel(const float* __restrict__ pred,
                                   const long long* __restrict__ full,
                                   const float* __restrict__ tau,
                                   int8_t* __restrict__ sign,
@@ -188,10 +683,11 @@ __global__ void psg_select_kernel(const int32_t* __restrict__ pred,
   if (idx >= (long long)rows * dout) return;
   const int o = (int)(idx % dout), row = (int)(idx / dout), t = row % kk;
   const float tv = *tau;
-  const int32_t pm = pred[idx];
-  const bool conf = fabsf((float)pm) >= tv;
-  const long long v = conf ? (long long)pm : full[idx];
-  sign[idx] = (int8_t)((v > 0) - (v < 0));
+  const float pm = pred[idx];
+  const bool conf = fabsf(pm) >= tv;
+  const long long v = full[idx];
+  sign[idx] = conf ? (int8_t)((pm > 0.f) - (pm < 0.f))
+                   : (int8_t)((v > 0) - (v < 0));
   if (!conf) atomicOr(&stats[t * nj + o / bn], 1);
   if (row < kk && o == 0 && dout % bn != 0 && !(0.f >= tv))
     atomicOr(&stats[row * nj + nj - 1], 1);
@@ -199,24 +695,11 @@ __global__ void psg_select_kernel(const int32_t* __restrict__ pred,
 
 int n_per_split(int N, int blocks_xy) {
   // about eight blocks per SM of the 132, in whole strips
-  int target = 132 * 8;
+  int target = kSMs * 8;
   int splits = (target + blocks_xy - 1) / blocks_xy;
   int per = (N + splits - 1) / splits;
   per = ((per + TP - 1) / TP) * TP;
   return per < TP ? TP : per;
-}
-
-template <typename ACC>
-int launch_accum(const int8_t* x, const int16_t* g, ACC* out, int B, int Hp,
-                 int Wp, int C, int Ho, int Wo, int dout, int k, int s,
-                 cudaStream_t st) {
-  const int tiles = ((C + TC - 1) / TC) * ((dout + TO - 1) / TO);
-  const int N = B * Ho * Wo;
-  const int per = n_per_split(N, k * k * tiles);
-  dim3 grid(k * k, tiles, (N + per - 1) / per);
-  wgrad_accum_kernel<ACC><<<grid, kThreads, 0, st>>>(x, g, out, B, Hp, Wp, C,
-                                                     Ho, Wo, dout, k, s, per);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -226,30 +709,96 @@ extern "C" {
 int conv_fwd(const void* x, const void* w, void* y, int B, int Hp, int Wp,
              int C, int dout, int k, int s, int Ho, int Wo, void* stream) {
   long long total = (long long)B * Ho * Wo * dout;
+  if (total == 0) return 0;
   conv_fwd_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (float*)y, B, Hp, Wp, C, dout, k, s,
       Ho, Wo);
   return (int)cudaGetLastError();
 }
 
+// xc (B, Hp, Wp, C) int8 codes, wc (k^2 C, dout) int8 patch-major codes,
+// sx, sw fp32 scalars on the device; wt scratch of ceil(dout / bn) bn x Kp
+// bytes for the tap-major w^T, with Kp = k^2 C rounded up to 32 and the dout
+// tile bn = 16 for dout <= 16, 32 for dout <= 32, else 64
+int conv_fwd_codes(const void* xc, const void* wc, void* wt, const void* sx,
+                   const void* sw, void* y, int B, int Hp, int Wp, int C,
+                   int dout, int k, int s, int Ho, int Wo, int Kp, int bn,
+                   int aligned, void* stream) {
+  if ((long long)B * Ho * Wo * dout == 0) return 0;
+  if (Kp % 32 || Kp < k * k * C || bn != (dout <= 16 ? 16 : dout <= 32 ? 32 : 64))
+    return (int)cudaErrorInvalidValue;
+  FwdPlan P{};
+  P.B = B, P.Hp = Hp, P.Wp = Wp, P.C = C, P.dout = dout, P.k = k, P.s = s;
+  P.Ho = Ho, P.Wo = Wo, P.Kp = Kp, P.vec = C % 16 == 0;
+  P.copy16 = aligned && (Wp * C) % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rows = (dout + bn - 1) / bn * bn;
+  wt_tapmajor_kernel<<<blocks_for((long long)rows * Kp), kThreads, 0, st>>>(
+      (const int8_t*)wc, (int8_t*)wt, C, k * k, dout, rows, Kp);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int8_t* xp = (const int8_t*)xc;
+  const int8_t* wp = (const int8_t*)wt;
+  const float *fx = (const float*)sx, *fw = (const float*)sw;
+  if (bn == 16) return launch_fwd_mma<2>(xp, wp, fx, fw, (float*)y, P, st);
+  if (bn == 32) return launch_fwd_mma<4>(xp, wp, fx, fw, (float*)y, P, st);
+  return launch_fwd_mma<8>(xp, wp, fx, fw, (float*)y, P, st);
+}
+
 int conv_grad_x(const void* g, const void* wt, void* dx, int B, int Ho, int Wo,
                 int dout, int C, int k, int s, int Hp, int Wp, void* stream) {
   long long total = (long long)B * Hp * Wp * C;
+  if (total == 0) return 0;
   conv_grad_x_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)g, (const float*)wt, (float*)dx, B, Ho, Wo, dout, C, k, s,
       Hp, Wp);
   return (int)cudaGetLastError();
 }
 
-int conv_grad_w_pred(const void* xm, const void* gm, void* out, int B, int Hp,
-                     int Wp, int C, int Ho, int Wo, int dout, int k, int s,
+// xm (B, Hp, Wp, C) int8, gm (B, Ho, Wo, dout) int16 codes; out (k^2 C,
+// dout) fp32; scratch of A + s^2 C NpX + 2 dout Np bytes, A = 8 k^2 C dout
+// rounded up to 128, which holds the int64 sums, the x copies (s^2, C, NpX)
+// and the g planes (2, dout, Np), with Np and NpX as kernels/conv.py
+// computes them
+int conv_grad_w_pred(const void* xm, const void* gm, void* scratch, void* out,
+                     int B, int Hp, int Wp, int C, int Ho, int Wo, int dout,
+                     int k, int s, int Hq, int Wq, int Np, int NpX,
                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(out, 0, (size_t)k * k * C * dout * 4, st);
+  const size_t n_out = (size_t)k * k * C * dout;
+  if (n_out == 0) return 0;
+  if (k > 3 || s < 1 || Np % GT || NpX % GT || (long long)B * Hq * Wq > Np)
+    return (int)cudaErrorInvalidValue;
+  const int halo = ((k - 1) / s) * Wq + (k - 1) / s;
+  PredPlan P{};
+  P.C = C, P.dout = dout, P.k = k, P.s = s, P.Np = Np, P.NpX = NpX, P.Wq = Wq;
+  P.xw = (PT + halo + 4 + 15) / 16 * 16;   // + 4: the funnel shift's next word
+  P.xpitch = smem_pitch(P.xw);
+  P.ksplit = k * k >= 4 ? 1 : 4 / (k * k);
+  if (Np + P.xw - PT > NpX) return (int)cudaErrorInvalidValue;
+  long long* acc = (long long*)scratch;
+  uint8_t* xt = (uint8_t*)scratch + (n_out * 8 + 127) / 128 * 128;
+  uint8_t* lo = xt + (size_t)s * s * C * NpX;
+  uint8_t* hi = lo + (size_t)dout * Np;
+  int err = (int)cudaMemsetAsync(acc, 0, n_out * 8, st);
   if (err) return err;
-  return launch_accum<int32_t>((const int8_t*)xm, (const int16_t*)gm,
-                               (int32_t*)out, B, Hp, Wp, C, Ho, Wo, dout, k, s,
-                               st);
+  // 16-byte loads of a position's channels where every row is 16-byte aligned
+  const int vx = C % 16 == 0 && (uintptr_t)xm % 16 == 0;
+  const int vg = dout % 8 == 0 && (uintptr_t)gm % 16 == 0;
+  grid_kmajor_kernel<int8_t><<<dim3(NpX / GT, 1, s * s), GT, 0, st>>>(
+      (const int8_t*)xm, C, NpX, B, Hq, Wq, Hp, Wp, s, vx, xt, nullptr);
+  grid_kmajor_kernel<int16_t><<<dim3(Np / GT, 1, 1), GT, 0, st>>>(
+      (const int16_t*)gm, dout, Np, B, Hq, Wq, Ho, Wo, 1, vg, lo, hi);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const bool m2 = C > 16, n2 = dout > 16;
+  const int8_t* x8 = (const int8_t*)xt;
+  if (m2 && n2) err = launch_pred_mma<2, 2>(x8, lo, hi, acc, P, st);
+  else if (m2) err = launch_pred_mma<2, 1>(x8, lo, hi, acc, P, st);
+  else if (n2) err = launch_pred_mma<1, 2>(x8, lo, hi, acc, P, st);
+  else err = launch_pred_mma<1, 1>(x8, lo, hi, acc, P, st);
+  if (err) return err;
+  return ll_to_f32(acc, (float*)out, (long long)n_out, st);
 }
 
 int conv_grad_w_sign(const void* pred, const void* xq, const void* gq,
@@ -258,15 +807,23 @@ int conv_grad_w_sign(const void* pred, const void* xq, const void* gq,
                      int k, int s, int bn, int nj, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = k * k * C;
+  if ((long long)rows * dout == 0) return 0;
   int err = (int)cudaMemsetAsync(full, 0, (size_t)rows * dout * 8, st);
   if (!err) err = (int)cudaMemsetAsync(stats, 0, (size_t)k * k * nj * 4, st);
   if (err) return err;
-  err = launch_accum<long long>((const int8_t*)xq, (const int16_t*)gq,
-                                (long long*)full, B, Hp, Wp, C, Ho, Wo, dout, k,
-                                s, st);
-  if (err) return err;
+  const int tiles = ((C + TC - 1) / TC) * ((dout + TO - 1) / TO);
+  const int N = B * Ho * Wo;
+  if (N > 0) {
+    const int per = n_per_split(N, k * k * tiles);
+    dim3 grid(k * k, tiles, (N + per - 1) / per);
+    wgrad_full_kernel<<<grid, kThreads, 0, st>>>(
+        (const int8_t*)xq, (const int16_t*)gq, (long long*)full, B, Hp, Wp, C,
+        Ho, Wo, dout, k, s, per);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
   psg_select_kernel<<<blocks_for((long long)rows * dout), kThreads, 0, st>>>(
-      (const int32_t*)pred, (const long long*)full, (const float*)tau,
+      (const float*)pred, (const long long*)full, (const float*)tau,
       (int8_t*)sign, (int32_t*)stats, rows, dout, k * k, bn, nj);
   return (int)cudaGetLastError();
 }

@@ -80,14 +80,15 @@
 // once, with no atomics.  Every code product pairs an 8-bit with a 16-bit
 // code, so the kernel keeps the codes of query rows 2p and 2p + 1 side by side
 // in shared memory and sums two rows with one __dp2a (two 16 x 8-bit products
-// and an add).  The integer sums are exact and order-free: the predictor
-// products stay in int32 (the wrapper checks S g lim_x_msb lim_g_msb < 2^31),
-// the full ones sum in int32 over whole 64-row query tiles, at most 2^31 /
-// (lim_x lim_g) rows (512 at 8 x 16 bits), and are then added into the int64
-// output, which the block owns.  Later work: kernels 8 and 9 are still on
-// fp32 FMAs and __dp2a; bf16 mma/wgmma for their q k^T and dO v^T, int8 MMAs
-// with byte-split 16-bit codes for kernel 9's code products; wgmma and TMA for
-// kernel 7.
+// and an add).  The integer sums are exact and order-free at any S g: the
+// four products sum in int32 over whole 64-row query tiles, the full ones
+// over at most 2^31 / (lim_x lim_g) rows (512 at 8 x 16 bits), the
+// predictor ones over at most 2^31 / (lim_x_msb lim_g_msb) rows (600,320
+// at 4 x 10 bits, so at LM sizes once, at the end), and are then added into
+// their int64 outputs, which the block owns.  Later work: kernels 8 and 9
+// are still on fp32 FMAs and __dp2a; bf16 mma/wgmma for their q k^T and dO
+// v^T, int8 MMAs with byte-split 16-bit codes for kernel 9's code products;
+// wgmma and TMA for kernel 7.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -695,16 +696,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Grid9 {
   float s_pm, s_pf;                 // P's grids: float32(1 / lim)
   float lim_x, lim_xm, lim_g, lim_gm;
-  int flush_tiles;                  // query tiles per int32 partial
+  int flush_full, flush_msb;        // query tiles per int32 partial
 };
 
-// add a thread's int32 partial full products into the block's int64 output
-// rows (kv rows ty * 2 + a) and clear them
+// add a thread's int32 partial products of dv and dk into the block's int64
+// output rows (kv rows ty * 2 + a) and clear them
 template <int HD>
-__device__ __forceinline__ void flush_full(long long* __restrict__ dvf,
-                                           long long* __restrict__ dkf,
-                                           int (&vf)[2][HD / 16],
-                                           int (&kf)[2][HD / 16],
+__device__ __forceinline__ void flush_sums(long long* __restrict__ dv64,
+                                           long long* __restrict__ dk64,
+                                           int (&vs)[2][HD / 16],
+                                           int (&ks)[2][HD / 16],
                                            const Geo& G, int b, int kvh,
                                            int kv0, int tx, int ty) {
 #pragma unroll
@@ -714,12 +715,12 @@ __device__ __forceinline__ void flush_full(long long* __restrict__ dvf,
       const size_t base = (((size_t)b * G.T + kj) * G.nkv + kvh) * HD;
 #pragma unroll
       for (int jj = 0; jj < HD / 16; ++jj) {
-        dvf[base + col<HD>(tx, jj)] += vf[a][jj];
-        dkf[base + col<HD>(tx, jj)] += kf[a][jj];
+        dv64[base + col<HD>(tx, jj)] += vs[a][jj];
+        dk64[base + col<HD>(tx, jj)] += ks[a][jj];
       }
     }
 #pragma unroll
-    for (int jj = 0; jj < HD / 16; ++jj) vf[a][jj] = kf[a][jj] = 0;
+    for (int jj = 0; jj < HD / 16; ++jj) vs[a][jj] = ks[a][jj] = 0;
   }
 }
 
@@ -734,8 +735,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const int8_t* __restrict__ qf,
                      const int16_t* __restrict__ dom,
                      const int16_t* __restrict__ dof,
-                     int32_t* __restrict__ dvm, long long* __restrict__ dvf,
-                     int32_t* __restrict__ dkm, long long* __restrict__ dkf,
+                     long long* __restrict__ dvm, long long* __restrict__ dvf,
+                     long long* __restrict__ dkm, long long* __restrict__ dkf,
                      Geo G, Grid9 Z) {
   constexpr int CPT = HD / 16, NP = BQ9 / 2;   // NP query-row pairs a step
   extern __shared__ __align__(16) float smem[];
@@ -771,109 +772,109 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int n_q = (G.S + BQ9 - 1) / BQ9;
   const int iq_first = G.causal ? kv0 / BQ9 : 0;
-  int tiles = 0;
+  int tiles_full = 0, tiles_msb = 0;
   for (int hh = 0; hh < G.g; ++hh) {
     const int h = kvh * G.g + hh;
-    for (int iq = iq_first; iq < n_q; ++iq) {
-      const int q0 = iq * BQ9;
-      __syncthreads();   // the last step's readers of every tile are done
-      load_tile<T, HD, true>(Qt, QP, q, b, q0, BQ9, G.S, G.nh, h);
-      load_tile<T, HD, true>(dOt, QP, dout, b, q0, BQ9, G.S, G.nh, h);
-      load_code_pairs<int8_t, HD>(qm_p, qm, b, q0, NP, G.S, G.nh, h);
-      load_code_pairs<int8_t, HD>(qf_p, qf, b, q0, NP, G.S, G.nh, h);
-      load_code_pairs<int16_t, HD>(dom_p, dom, b, q0, NP, G.S, G.nh, h);
-      load_code_pairs<int16_t, HD>(dof_p, dof, b, q0, NP, G.S, G.nh, h);
-      for (int r = threadIdx.x; r < BQ9; r += kThreads) {
-        const int qi = q0 + r;
-        const size_t idx = ((size_t)b * G.nh + h) * G.S + qi;
-        lse_s[r] = qi < G.S ? lse[idx] : 0.f;
-        dlt_s[r] = qi < G.S ? delta[idx] : 0.f;
+    // the predictor sums flush between runs of at most flush_msb query
+    // tiles, outside the tile loop (one run at LM sizes)
+    for (int c0 = iq_first; c0 < n_q; c0 += Z.flush_msb) {
+      const int c1 = min(n_q, c0 + Z.flush_msb);
+      if (tiles_msb + (c1 - c0) > Z.flush_msb) {
+        flush_sums<HD>(dvm, dkm, vm, km, G, b, kvh, kv0, tx, ty);
+        tiles_msb = 0;
       }
-      __syncthreads();
-      // score tile: query rows ty * 4 + i, kv columns tx * 2 + j
-      float s[4][2], dp[4][2];
-      score_tile<HD, 2, QP, KP9>(Qt, Kt, tx, ty, s);
-      score_tile<HD, 2, QP, KP9>(dOt, Vt, tx, ty, dp);
-      int cpm[4][2], cpf[4][2], cdm[4][2], cdf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i, qi = q0 + r;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float p = visible(G, qi, kv0 + tx * 2 + j)
-              ? expf(__fsub_rn(__fmul_rn(s[i][j], G.scale), lse_s[r])) : 0.f;
-          const float ds =
-              __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i][j], dlt_s[r])), G.scale);
-          cpm[i][j] = code(p, Z.s_pm, Z.lim_xm);
-          cpf[i][j] = code(p, Z.s_pf, Z.lim_x);
-          cdm[i][j] = code(ds, s_dsm, Z.lim_gm);
-          cdf[i][j] = code(ds, s_ds, Z.lim_g);
+      tiles_msb += c1 - c0;
+      for (int iq = c0; iq < c1; ++iq) {
+        const int q0 = iq * BQ9;
+        __syncthreads();   // the last step's readers of every tile are done
+        load_tile<T, HD, true>(Qt, QP, q, b, q0, BQ9, G.S, G.nh, h);
+        load_tile<T, HD, true>(dOt, QP, dout, b, q0, BQ9, G.S, G.nh, h);
+        load_code_pairs<int8_t, HD>(qm_p, qm, b, q0, NP, G.S, G.nh, h);
+        load_code_pairs<int8_t, HD>(qf_p, qf, b, q0, NP, G.S, G.nh, h);
+        load_code_pairs<int16_t, HD>(dom_p, dom, b, q0, NP, G.S, G.nh, h);
+        load_code_pairs<int16_t, HD>(dof_p, dof, b, q0, NP, G.S, G.nh, h);
+        for (int r = threadIdx.x; r < BQ9; r += kThreads) {
+          const int qi = q0 + r;
+          const size_t idx = ((size_t)b * G.nh + h) * G.S + qi;
+          lse_s[r] = qi < G.S ? lse[idx] : 0.f;
+          dlt_s[r] = qi < G.S ? delta[idx] : 0.f;
         }
-      }
-      // rows ty * 4 + (2m, 2m + 1) form pair ty * 2 + m
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int e = (ty * 2 + m) * BK9 + tx * 2 + j;
-          Ppm[e] = (uint16_t)((cpm[2 * m][j] & 0xff) | ((cpm[2 * m + 1][j] & 0xff) << 8));
-          Ppf[e] = (uint16_t)((cpf[2 * m][j] & 0xff) | ((cpf[2 * m + 1][j] & 0xff) << 8));
-          Pdm[e] = (unsigned)(cdm[2 * m][j] & 0xffff) | ((unsigned)cdm[2 * m + 1][j] << 16);
-          Pdf[e] = (unsigned)(cdf[2 * m][j] & 0xffff) | ((unsigned)cdf[2 * m + 1][j] << 16);
+        __syncthreads();
+        // score tile: query rows ty * 4 + i, kv columns tx * 2 + j
+        float s[4][2], dp[4][2];
+        score_tile<HD, 2, QP, KP9>(Qt, Kt, tx, ty, s);
+        score_tile<HD, 2, QP, KP9>(dOt, Vt, tx, ty, dp);
+        int cpm[4][2], cpf[4][2], cdm[4][2], cdf[4][2];
+  #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ty * 4 + i, qi = q0 + r;
+  #pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float p = visible(G, qi, kv0 + tx * 2 + j)
+                ? expf(__fsub_rn(__fmul_rn(s[i][j], G.scale), lse_s[r])) : 0.f;
+            const float ds =
+                __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i][j], dlt_s[r])), G.scale);
+            cpm[i][j] = code(p, Z.s_pm, Z.lim_xm);
+            cpf[i][j] = code(p, Z.s_pf, Z.lim_x);
+            cdm[i][j] = code(ds, s_dsm, Z.lim_gm);
+            cdf[i][j] = code(ds, s_ds, Z.lim_g);
+          }
         }
-      __syncthreads();
-      // each __dp2a sums the products of two query rows: the low variant
-      // takes bytes 0-1 of its second operand, the high one bytes 2-3
-#pragma unroll 2
-      for (int pr = 0; pr < NP; ++pr) {
-        // P codes of kv rows ty * 2 (low half) and ty * 2 + 1 (high half)
-        const int pmw = *reinterpret_cast<const int*>(Ppm + pr * BK9 + ty * 2);
-        const int pfw = *reinterpret_cast<const int*>(Ppf + pr * BK9 + ty * 2);
-        const uint2 dm = *reinterpret_cast<const uint2*>(Pdm + pr * BK9 + ty * 2);
-        const uint2 df = *reinterpret_cast<const uint2*>(Pdf + pr * BK9 + ty * 2);
-        const int dmv[2] = {(int)dm.x, (int)dm.y}, dfv[2] = {(int)df.x, (int)df.y};
-        unsigned om[CPT], of[CPT], qmw[(CPT + 1) / 2], qfw[(CPT + 1) / 2];
-        lds_words<HD>(dom_p + pr * HD, tx, om);
-        lds_words<HD>(dof_p + pr * HD, tx, of);
-        lds_halves<HD>(qm_p + pr * HD, tx, qmw);
-        lds_halves<HD>(qf_p + pr * HD, tx, qfw);
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) {
-          vm[0][jj] = __dp2a_lo((int)om[jj], pmw, vm[0][jj]);
-          vm[1][jj] = __dp2a_hi((int)om[jj], pmw, vm[1][jj]);
-          vf[0][jj] = __dp2a_lo((int)of[jj], pfw, vf[0][jj]);
-          vf[1][jj] = __dp2a_hi((int)of[jj], pfw, vf[1][jj]);
-          const int qmj = (int)qmw[jj / 2], qfj = (int)qfw[jj / 2];
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            if (jj % 2 == 0) {
-              km[a][jj] = __dp2a_lo(dmv[a], qmj, km[a][jj]);
-              kf[a][jj] = __dp2a_lo(dfv[a], qfj, kf[a][jj]);
-            } else {
-              km[a][jj] = __dp2a_hi(dmv[a], qmj, km[a][jj]);
-              kf[a][jj] = __dp2a_hi(dfv[a], qfj, kf[a][jj]);
+        // rows ty * 4 + (2m, 2m + 1) form pair ty * 2 + m
+  #pragma unroll
+        for (int m = 0; m < 2; ++m)
+  #pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = (ty * 2 + m) * BK9 + tx * 2 + j;
+            Ppm[e] = (uint16_t)((cpm[2 * m][j] & 0xff) | ((cpm[2 * m + 1][j] & 0xff) << 8));
+            Ppf[e] = (uint16_t)((cpf[2 * m][j] & 0xff) | ((cpf[2 * m + 1][j] & 0xff) << 8));
+            Pdm[e] = (unsigned)(cdm[2 * m][j] & 0xffff) | ((unsigned)cdm[2 * m + 1][j] << 16);
+            Pdf[e] = (unsigned)(cdf[2 * m][j] & 0xffff) | ((unsigned)cdf[2 * m + 1][j] << 16);
+          }
+        __syncthreads();
+        // each __dp2a sums the products of two query rows: the low variant
+        // takes bytes 0-1 of its second operand, the high one bytes 2-3
+  #pragma unroll 2
+        for (int pr = 0; pr < NP; ++pr) {
+          // P codes of kv rows ty * 2 (low half) and ty * 2 + 1 (high half)
+          const int pmw = *reinterpret_cast<const int*>(Ppm + pr * BK9 + ty * 2);
+          const int pfw = *reinterpret_cast<const int*>(Ppf + pr * BK9 + ty * 2);
+          const uint2 dm = *reinterpret_cast<const uint2*>(Pdm + pr * BK9 + ty * 2);
+          const uint2 df = *reinterpret_cast<const uint2*>(Pdf + pr * BK9 + ty * 2);
+          const int dmv[2] = {(int)dm.x, (int)dm.y}, dfv[2] = {(int)df.x, (int)df.y};
+          unsigned om[CPT], of[CPT], qmw[(CPT + 1) / 2], qfw[(CPT + 1) / 2];
+          lds_words<HD>(dom_p + pr * HD, tx, om);
+          lds_words<HD>(dof_p + pr * HD, tx, of);
+          lds_halves<HD>(qm_p + pr * HD, tx, qmw);
+          lds_halves<HD>(qf_p + pr * HD, tx, qfw);
+  #pragma unroll
+          for (int jj = 0; jj < CPT; ++jj) {
+            vm[0][jj] = __dp2a_lo((int)om[jj], pmw, vm[0][jj]);
+            vm[1][jj] = __dp2a_hi((int)om[jj], pmw, vm[1][jj]);
+            vf[0][jj] = __dp2a_lo((int)of[jj], pfw, vf[0][jj]);
+            vf[1][jj] = __dp2a_hi((int)of[jj], pfw, vf[1][jj]);
+            const int qmj = (int)qmw[jj / 2], qfj = (int)qfw[jj / 2];
+  #pragma unroll
+            for (int a = 0; a < 2; ++a) {
+              if (jj % 2 == 0) {
+                km[a][jj] = __dp2a_lo(dmv[a], qmj, km[a][jj]);
+                kf[a][jj] = __dp2a_lo(dfv[a], qfj, kf[a][jj]);
+              } else {
+                km[a][jj] = __dp2a_hi(dmv[a], qmj, km[a][jj]);
+                kf[a][jj] = __dp2a_hi(dfv[a], qfj, kf[a][jj]);
+              }
             }
           }
         }
-      }
-      if (++tiles == Z.flush_tiles) {
-        flush_full<HD>(dvf, dkf, vf, kf, G, b, kvh, kv0, tx, ty);
-        tiles = 0;
+        if (++tiles_full == Z.flush_full) {
+          flush_sums<HD>(dvf, dkf, vf, kf, G, b, kvh, kv0, tx, ty);
+          tiles_full = 0;
+        }
       }
     }
   }
-  flush_full<HD>(dvf, dkf, vf, kf, G, b, kvh, kv0, tx, ty);
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int kj = kv0 + ty * 2 + a;
-    if (kj >= G.T) continue;
-    const size_t base = (((size_t)b * G.T + kj) * G.nkv + kvh) * HD;
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      dvm[base + col<HD>(tx, jj)] = vm[a][jj];
-      dkm[base + col<HD>(tx, jj)] = km[a][jj];
-    }
-  }
+  flush_sums<HD>(dvm, dkm, vm, km, G, b, kvh, kv0, tx, ty);
+  flush_sums<HD>(dvf, dkf, vf, kf, G, b, kvh, kv0, tx, ty);
 }
 
 // ---------------------------------------------------------------------------
@@ -941,16 +942,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   int err = prepare(flash_bwd_dkv_kernel<T, HD>, smem);
   if (err) return err;
   const size_t n_out = (size_t)G.B * G.T * G.nkv * HD;
-  err = (int)cudaMemsetAsync(dvf, 0, n_out * sizeof(long long), st);
-  if (err) return err;
-  err = (int)cudaMemsetAsync(dkf, 0, n_out * sizeof(long long), st);
-  if (err) return err;
+  for (void* out : {dvm, dvf, dkm, dkf}) {
+    err = (int)cudaMemsetAsync(out, 0, n_out * sizeof(long long), st);
+    if (err) return err;
+  }
   dim3 grid((G.T + BK9 - 1) / BK9, G.B * G.nkv);
   flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
       (const float*)lse, (const float*)delta, (const float*)scales,
       (const int8_t*)qm, (const int8_t*)qf, (const int16_t*)dom,
-      (const int16_t*)dof, (int32_t*)dvm, (long long*)dvf, (int32_t*)dkm,
+      (const int16_t*)dof, (long long*)dvm, (long long*)dvf, (long long*)dkm,
       (long long*)dkf, G, Z);
   return (int)cudaGetLastError();
 }
@@ -1007,13 +1008,15 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   void* stream) {
   if (B * T * nkv == 0) return 0;
   const Geo G = make_geo(B, S, T, nh, nkv, hd, causal);
-  if (lim_x < 1 || lim_g < 1) return (int)cudaErrorInvalidValue;
-  // query tiles whose full products fit an int32 sum
-  const int flush_tiles =
-      (int)(2147483647LL / ((long long)lim_x * lim_g) / BQ9);
-  if (flush_tiles < 1) return (int)cudaErrorInvalidValue;
+  if (lim_x < 1 || lim_g < 1 || lim_xm < 1 || lim_gm < 1)
+    return (int)cudaErrorInvalidValue;
+  // query tiles whose full products, and whose predictor products, fit an
+  // int32 sum (8 and 9380 tiles at 8 x 16 and 4 x 10 bits)
+  const long long flush_full = 2147483647LL / ((long long)lim_x * lim_g) / BQ9;
+  const long long flush_msb = 2147483647LL / ((long long)lim_xm * lim_gm) / BQ9;
+  if (flush_full < 1 || flush_msb < 1) return (int)cudaErrorInvalidValue;
   const Grid9 Z{s_pm, s_pf, (float)lim_x, (float)lim_xm, (float)lim_g,
-                (float)lim_gm, flush_tiles};
+                (float)lim_gm, (int)flush_full, (int)flush_msb};
   FLASH_DISPATCH(launch_dkv, bf16, hd, q, k, v, dout, lse, delta, scales, qm,
                  qf, dom, dof, dvm, dvf, dkm, dkf, G, Z, (cudaStream_t)stream)
 }

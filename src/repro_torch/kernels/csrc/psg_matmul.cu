@@ -6,9 +6,9 @@
 // For y = x @ w with x (N, din) and gy (N, dout), the weight gradient is
 // x^T gy over the N tokens.  Both passes take integer codes (kernels/ops.py):
 //   psg_pred  pass 1, the predictor product of 4-bit x and 10-bit gy codes,
-//             exact in int32, on the int8 tensor cores;
+//             exact in integers on the int8 tensor cores, written as fp32;
 //   psg_sign  pass 2, the full product of 8-bit x and 16-bit gy codes,
-//             exact in int64, then the Eq. (2) select against pass 1's
+//             exact in int64, then the Eq. (2) select against pass 1's fp32
 //             product at threshold tau (read from device memory), and one
 //             fallback flag per 128 x 128 tile of the TPU kernel's grid.
 //
@@ -25,15 +25,14 @@
 //   * Exact integer arithmetic.  Each int16 g code is split into two byte
 //     planes, lo = g & 0xFF (u8) and hi = g >> 8 (s8), so g = 256 hi + lo for
 //     every int16 code.  Two MMAs per fragment, s8 x s8 on (x, hi) and s8 x
-//     u8 on (x, lo), sum in int32, and the epilogue forms 256 sum(x hi) +
-//     sum(x lo).
-//     The kernel relies on two's-complement wrapping: no .satfinite, the
-//     combination in unsigned arithmetic, int32 atomics that wrap too.  Every
-//     step is exact modulo 2^32, so the result is exact whenever it fits
-//     int32 (the wrapper checks N x_lim g_lim < 2^31), even where 256 sum(x hi)
-//     alone passes 2^31 (x = 7, g = -511: hi = -2, lo = 1).  The two planes
-//     cost twice the operations of one int8 product, so 2x the bound is this
-//     design's own floor.
+//     u8 on (x, lo), sum in int32 over at most kMaxSplitTokens tokens, where
+//     neither plane can overflow (65536 * 127 * 255 < 2^31); the epilogue
+//     forms 256 sum(x hi) + sum(x lo) in int64.  Splits of the token axis
+//     meet in int64 atomics (exact and order-free) and the output is fp32:
+//     the exact integer sum rounded once (__ll2float_rn), at any N, as the
+//     JAX package's fp32 pass 1 returns it.  The two planes cost twice the
+//     operations of one int8 product, so 2x the bound is this design's own
+//     floor.
 //   * Layout.  The int8 MMAs want both operands K-major, K being the token
 //     axis, but the codes arrive token-major and ldmatrix has no 8-bit
 //     transpose.  A pre-pass kernel (kmajor_kernel) writes x^T (din, Np) and
@@ -51,8 +50,8 @@
 //     per plane) when dout >= 128, else 128 x 32 (4 warps, 32 x 32), for the
 //     ResNet im2col widths (dout 16-64).  Where the output has fewer tiles
 //     than the card has SMs, the token axis is split across blocks, which meet
-//     in int32 atomics (exact and order-free, so every run gives the same
-//     result).
+//     in int64 atomics in scratch that the wrapper allocates, and a last
+//     pass rounds the sums to fp32.
 // psg_sign stays on the CUDA cores: a shared-memory tiled integer GEMM, 128 x
 // 128 output tile per block, 32 tokens per stage, an 8 x 8 register tile per
 // thread, the token axis split across blocks that meet in int64 atomics.  It
@@ -81,25 +80,10 @@ constexpr int KT = 128;                // tokens (bytes of a K-major row) per st
 constexpr int KPITCH = KT + 16;        // padded shared-memory row pitch, bytes
 constexpr int kStages = 3;
 constexpr int kMinStagesPerBlock = 4;  // at least 512 tokens per split
+// tokens per int32 partial: 65536 * 127 * 255 < 2^31 for either byte plane
+constexpr int kMaxSplitTokens = 65536;
+constexpr int kMaxStagesPerBlock = kMaxSplitTokens / KT;
 constexpr int TT = 64;                 // tokens and columns of a pre-pass tile
-
-// d += a (16 x 32 s8, row) * b (32 x 8, col), int32, wrapping
-__device__ __forceinline__ void mma_s8s8(int (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Pre-pass: codes (N, C) token-major -> byte planes (C, Np) K-major, zero for
 // tokens N..Np.  int8 codes give one plane (their bytes); int16 codes give
@@ -146,8 +130,9 @@ struct PredShape {
 template <int WM, int WN, int MT, int NT>
 __global__ void __launch_bounds__(WM * WN * 32)
 pred_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
-                const uint8_t* __restrict__ ghi, int32_t* __restrict__ out,
-                int din, int dout, int Np, int stages_per_block, int atomic) {
+                const uint8_t* __restrict__ ghi, float* __restrict__ out,
+                long long* __restrict__ acc64, int din, int dout, int Np,
+                int stages_per_block) {
   using Sh = PredShape<WM, WN, MT, NT>;
   static_assert(NT % 2 == 0, "B fragments come in pairs of n8 tiles");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -238,7 +223,7 @@ pred_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
     }
   }
 
-  // epilogue: 256 hi + lo modulo 2^32, stored or added
+  // epilogue: 256 hi + lo in int64, stored as fp32 or added into acc64
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -248,32 +233,55 @@ pred_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
         const int i = i0 + wm * MT * 16 + mt * 16 + lane / 4 + (c / 2) * 8;
         const int j = j0 + wn * NT * 8 + nt * 8 + (lane % 4) * 2 + c % 2;
         if (i >= din || j >= dout) continue;
-        const int v = (int)((unsigned)hi[mt][nt][c] * 256u +
-                            (unsigned)lo[mt][nt][c]);
-        int32_t* dst = out + (size_t)i * dout + j;
-        if (!atomic) *dst = v;
-        else if (v) atomicAdd(dst, v);
+        const long long v = 256LL * hi[mt][nt][c] + lo[mt][nt][c];
+        const size_t idx = (size_t)i * dout + j;
+        if (!acc64) out[idx] = __ll2float_rn(v);
+        else if (v) atomic_add_ll(acc64 + idx, v);
       }
+}
+
+// token splits of the predictor kernel: about two blocks per SM where the
+// output has fewer tiles than the card has SMs, and never more than
+// kMaxStagesPerBlock stages a split (the int32 partials' bound)
+int pred_splits(int tiles, int kts) {
+  int splits = 1;
+  if (tiles < kSMs) {
+    splits = (2 * kSMs + tiles - 1) / tiles;
+    const int most = kts / kMinStagesPerBlock;
+    splits = splits < most ? splits : most;
+  }
+  const int least = (kts + kMaxStagesPerBlock - 1) / kMaxStagesPerBlock;
+  splits = splits > least ? splits : least;
+  splits = splits > 1 ? splits : 1;
+  const int per = (kts + splits - 1) / splits;
+  return (kts + per - 1) / per;
+}
+
+template <int WM, int WN, int MT, int NT>
+int pred_tiles(int din, int dout) {
+  using Sh = PredShape<WM, WN, MT, NT>;
+  return ((din + Sh::BM - 1) / Sh::BM) * ((dout + Sh::BN - 1) / Sh::BN);
+}
+
+int pred_splits_for(int din, int dout, int Np) {
+  const int tiles = dout >= 128 ? pred_tiles<2, 4, 4, 4>(din, dout)
+                                : pred_tiles<4, 1, 2, 4>(din, dout);
+  return pred_splits(tiles, Np / KT);
 }
 
 template <int WM, int WN, int MT, int NT>
 int launch_pred(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
-                int32_t* out, int din, int dout, int Np, cudaStream_t st) {
+                float* out, long long* acc64, int din, int dout, int Np,
+                cudaStream_t st) {
   using Sh = PredShape<WM, WN, MT, NT>;
   const int ti = (din + Sh::BM - 1) / Sh::BM, tj = (dout + Sh::BN - 1) / Sh::BN;
-  const int kts = Np / KT, tiles = ti * tj;
-  int splits = 1;
-  if (tiles < kSMs) {   // split the tokens until about two blocks per SM
-    splits = (2 * kSMs + tiles - 1) / tiles;
-    const int most = kts / kMinStagesPerBlock;
-    splits = splits < most ? splits : most;
-    splits = splits > 1 ? splits : 1;
-  }
+  const int kts = Np / KT;
+  const int splits = pred_splits(ti * tj, kts);
   const int per = (kts + splits - 1) / splits;
-  splits = (kts + per - 1) / per;
   int err;
   if (splits > 1) {
-    err = (int)cudaMemsetAsync(out, 0, (size_t)din * dout * 4, st);
+    if (!acc64) return (int)cudaErrorInvalidValue;
+    err = (int)cudaMemsetAsync(acc64, 0, (size_t)din * dout * 8, st);
     if (err) return err;
   }
   err = (int)cudaFuncSetAttribute(pred_mma_kernel<WM, WN, MT, NT>,
@@ -282,8 +290,11 @@ int launch_pred(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
   if (err) return err;
   pred_mma_kernel<WM, WN, MT, NT>
       <<<dim3(tj, ti, splits), Sh::kThreads, Sh::kSmem, st>>>(
-          xt, glo, ghi, out, din, dout, Np, per, splits > 1);
-  return (int)cudaGetLastError();
+          xt, glo, ghi, out, splits > 1 ? acc64 : nullptr, din, dout, Np,
+          per);
+  err = (int)cudaGetLastError();
+  if (err || splits == 1) return err;
+  return ll_to_f32(acc64, out, (long long)din * dout, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -292,11 +303,6 @@ int launch_pred(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
 
 constexpr int BM = 128, BN = 128, BK = 32, kThreads = 256;
 constexpr int kFullChunk = 512;     // tokens per int32 partial of pass 2
-
-__device__ __forceinline__ void atomic_add_out(long long* p, int v) {
-  atomicAdd(reinterpret_cast<unsigned long long*>(p),
-            (unsigned long long)(long long)v);
-}
 
 // out[i, j] += sum_{n in this block's range} x[n, i] * g[n, j]
 template <typename OUT>
@@ -349,7 +355,7 @@ code_product_kernel(const int8_t* __restrict__ x, const int16_t* __restrict__ g,
     for (int b = 0; b < 8; ++b) {
       const int j = j0 + (b < 4 ? tx * 4 + b : 64 + tx * 4 + b - 4);
       if (j < dout && acc[a][b] != 0)
-        atomic_add_out(&out[(size_t)i * dout + j], acc[a][b]);
+        atomic_add_ll(&out[(size_t)i * dout + j], acc[a][b]);
     }
   }
 }
@@ -359,7 +365,7 @@ code_product_kernel(const int8_t* __restrict__ x, const int16_t* __restrict__ g,
 // padded up to whole tiles).  A padded element holds g_msb = 0, which is
 // confident only when tau <= 0, exactly as in the TPU kernel.
 __global__ void __launch_bounds__(kThreads)
-select_kernel(const int32_t* __restrict__ pred,
+select_kernel(const float* __restrict__ pred,
               const long long* __restrict__ full,
               const float* __restrict__ tau, int8_t* __restrict__ sign,
               int32_t* __restrict__ stats, int din, int dout, int bm,
@@ -371,10 +377,11 @@ select_kernel(const int32_t* __restrict__ pred,
     const int i = ti * bm + e / bn, j = tj * bn + e % bn;
     if (i < din && j < dout) {
       const size_t idx = (size_t)i * dout + j;
-      const int32_t pm = pred[idx];
-      const bool conf = fabsf((float)pm) >= tv;
-      const long long v = conf ? (long long)pm : full[idx];
-      sign[idx] = (int8_t)((v > 0) - (v < 0));
+      const float pm = pred[idx];
+      const bool conf = fabsf(pm) >= tv;
+      const long long v = full[idx];
+      sign[idx] = conf ? (int8_t)((pm > 0.f) - (pm < 0.f))
+                       : (int8_t)((v > 0) - (v < 0));
       notconf |= !conf;
     } else {
       notconf |= !(0.f >= tv);
@@ -409,8 +416,14 @@ int launch_product(const int8_t* x, const int16_t* g, OUT* out, int N, int din,
 
 extern "C" {
 
+// token splits psg_pred makes at this geometry; above 1 it needs the int64
+// scratch acc64 (din x dout)
+int psg_pred_splits(int Np, int din, int dout) {
+  return pred_splits_for(din, dout, Np);
+}
+
 int psg_pred(const void* xm, const void* gm, void* xt, void* gt, void* out,
-             int N, int Np, int din, int dout, void* stream) {
+             void* acc64, int N, int Np, int din, int dout, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Np % KT || Np < N || N < 0) return (int)cudaErrorInvalidValue;
   if (din == 0 || dout == 0) return 0;
@@ -424,10 +437,10 @@ int psg_pred(const void* xm, const void* gm, void* xt, void* gt, void* out,
   int err = (int)cudaGetLastError();
   if (err) return err;
   if (dout >= 128)
-    return launch_pred<2, 4, 4, 4>((const int8_t*)xt, lo, hi, (int32_t*)out,
-                                   din, dout, Np, st);
-  return launch_pred<4, 1, 2, 4>((const int8_t*)xt, lo, hi, (int32_t*)out,
-                                 din, dout, Np, st);
+    return launch_pred<2, 4, 4, 4>((const int8_t*)xt, lo, hi, (float*)out,
+                                   (long long*)acc64, din, dout, Np, st);
+  return launch_pred<4, 1, 2, 4>((const int8_t*)xt, lo, hi, (float*)out,
+                                 (long long*)acc64, din, dout, Np, st);
 }
 
 int psg_sign(const void* pred, const void* xq, const void* gq,
@@ -442,7 +455,7 @@ int psg_sign(const void* pred, const void* xq, const void* gq,
   if (err) return err;
   dim3 grid((dout + bn - 1) / bn, (din + bm - 1) / bm);
   select_kernel<<<grid, kThreads, 0, st>>>(
-      (const int32_t*)pred, (const long long*)full, (const float*)tau,
+      (const float*)pred, (const long long*)full, (const float*)tau,
       (int8_t*)sign, (int32_t*)stats, din, dout, bm, bn);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels (sm_90a): cp.async
-// into shared memory and ldmatrix.  Included by psg_matmul.cu and
-// flash_attn.cu; kernels/build.py hashes it with every source.
+// into shared memory, ldmatrix, the int8 MMAs, int64 atomics and the int64
+// -> fp32 rounding pass of the exact PSG predictor sums.  Included by
+// conv.cu, psg_matmul.cu and flash_attn.cu; kernels/build.py hashes it with
+// every source.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +47,42 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p))
       : "memory");
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8, col), int32, wrapping
+__device__ __forceinline__ void mma_s8s8(int (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void atomic_add_ll(long long* p, long long v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(p), (unsigned long long)v);
+}
+
+// dst = fp32 of the exact int64 sums, each rounded once to nearest even
+__global__ void ll_to_f32_kernel(const long long* __restrict__ src,
+                                 float* __restrict__ dst, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dst[i] = __ll2float_rn(src[i]);
+}
+
+inline int ll_to_f32(const long long* src, float* dst, long long n,
+                     cudaStream_t st) {
+  if (n == 0) return 0;
+  ll_to_f32_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(src, dst, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

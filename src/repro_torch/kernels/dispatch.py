@@ -139,15 +139,18 @@ def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig
     return ops.psg_grad_w(xf, gf, cfg, plain=backend == BACKEND_PLAIN)
 
 
-def conv_fwd(xq: torch.Tensor, wq: torch.Tensor, cfg: Optional[PSGConfig],
-             *, k: int, stride: int) -> torch.Tensor:
-    """Conv forward on pre-quantized operands (pre-padded NHWC input,
-    patch-major weight): the implicit-GEMM kernel, its tap loop, or im2col
-    + one GEMM on ``reference``."""
-    backend = backend_for(cfg, xq, wq)
+def conv_fwd(xc: torch.Tensor, sx: torch.Tensor, wc: torch.Tensor,
+             sw: torch.Tensor, cfg: Optional[PSGConfig], *, k: int,
+             stride: int) -> torch.Tensor:
+    """Conv forward on quantized operands given as codes and fp32 0-d
+    scales (pre-padded NHWC input, patch-major weight): the implicit-GEMM
+    kernel, its tap loop, or im2col + one GEMM on ``reference``, each on
+    ``xc * sx`` and ``wc * sw``."""
+    backend = backend_for(cfg, xc, wc)
     if backend == BACKEND_REFERENCE:
-        return ref.conv_fwd_ref(xq, wq, k, stride)
-    return ops.conv_fwd(xq, wq, k, stride, plain=backend == BACKEND_PLAIN)
+        return ref.conv_fwd_ref(xc.float() * sx, wc.float() * sw, k, stride)
+    return ops.conv_fwd(xc, sx, wc, sw, k, stride,
+                        plain=backend == BACKEND_PLAIN)
 
 
 def conv_grad_x(gq: torch.Tensor, wq: torch.Tensor, cfg: Optional[PSGConfig],

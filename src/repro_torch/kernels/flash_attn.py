@@ -64,7 +64,6 @@ NEG_INF = -1e30
 FALLBACK_TILE = 128     # kv rows of one fallback tile (the TPU kernel's bk)
 HEAD_DIMS = (16, 32, 64, 128)   # the head dims the CUDA kernels are built for
 FWD_BLOCK_K = 64        # kv rows a stage of the bf16 forward kernel
-INT32_MAX = 2 ** 31 - 1
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
@@ -235,6 +234,42 @@ def flash_attention_split_p(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
+def split_p_adversarial_v(q: torch.Tensor, k: torch.Tensor, *,
+                          causal: bool = True,
+                          block_k: int = FWD_BLOCK_K) -> torch.Tensor:
+    """v ``(B, T, nkv, hd)`` in q's dtype, all entries +-1, built against
+    the bf16 forward kernel's split P: column d of kv head n takes the
+    signs of ``r = p - (p_hi + p_lo)`` of one target query row (head ``n g
+    + d % g``, row ``S - 1 - d // g``, with p as the kernel forms it, tile
+    by tile against the running max), so that the rounding terms of that
+    row all add while its o, a sum of p with those signs, cancels towards
+    ``sqrt(sum p^2) / l``, small against ``sum p |v| / l = 1``.  For the
+    tests, not on any path."""
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    scale = softmax_scale(hd)
+    gen = torch.Generator(device=q.device).manual_seed(0)
+    v = torch.randint(0, 2, (B, T, nkv, hd), device=q.device,
+                      generator=gen).float() * 2 - 1
+    for b in range(B):
+        for n in range(nkv):
+            for d in range(hd):
+                h, i = n * g + d % g, S - 1 - d // g
+                if i < 0:
+                    continue
+                t = T if not causal else min(T, i + 1 + T - S)
+                s_row = (_head(q, b, h)[i] @ _head(k, b, n)[:t].T) * scale
+                tiles = torch.arange(t, device=q.device) // block_k
+                tmax = torch.full((int(tiles[-1]) + 1,), NEG_INF,
+                                  device=q.device).scatter_reduce(
+                    0, tiles, s_row, "amax")
+                m_run = torch.cummax(tmax, 0).values[tiles]
+                p = torch.exp(s_row - m_run)
+                p_hi = p.to(torch.bfloat16).float()
+                r = p - p_hi - (p - p_hi).to(torch.bfloat16).float()
+                v[b, :t, n, d] = torch.where(r < 0, -1.0, 1.0)
+    return v.to(q.dtype)
+
+
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True
                        ) -> torch.Tensor:
     """dq ``(B, S, nh, hd)`` fp32: ``P = exp(s - lse)``, ``dS = P (dP -
@@ -253,17 +288,15 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True
     return dq
 
 
-def check_lims(lims, S: int, g: int) -> None:
-    """Raise unless the codes fit the CUDA kernel's int8/int16 operands and
-    the predictor products, summed over ``S * g`` query rows, fit int32 (the
-    kernel sums the full products in int32 over at most
-    ``INT32_MAX // (lim_x * lim_g)`` rows, then in int64)."""
+def check_lims(lims) -> None:
+    """Raise unless the codes fit the CUDA kernel's int8/int16 operands.
+    The kernel sums every product in int32 over at most ``(2**31 - 1) //
+    max(lim_x * lim_g, lim_x_msb * lim_g_msb)`` query rows and then in
+    int64, so any ``S * g`` is exact."""
     lim_x, lim_xm, lim_g, lim_gm = (int(v) for v in lims)
     if max(lim_x, lim_xm) > 127 or max(lim_g, lim_gm) > 32767 \
             or min(lim_x, lim_xm, lim_g, lim_gm) < 1:
         raise ValueError(f"code limits {lims} outside 1..int8 / int16")
-    if S * g * lim_xm * lim_gm > INT32_MAX:
-        raise ValueError("predictor products could overflow int32")
 
 
 def operand_codes(q, do, scales, lims):
@@ -280,7 +313,7 @@ def operand_codes(q, do, scales, lims):
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, *, lims,
                         causal: bool = True):
     """The group-summed PSG code products of ``dv = P^T dO`` and ``dk =
-    dS^T q``: ``(dv_msb int32, dv_full int64, dk_msb int32, dk_full int64)``,
+    dS^T q``: ``(dv_msb, dv_full, dk_msb, dk_full)``, all int64,
     each ``(B, T, nkv, hd)`` in code units.  ``scales`` is the (6,) vector of
     :func:`attention_psg_scales`, ``lims`` the code limits ``(lim_x,
     lim_x_msb, lim_g, lim_g_msb)``."""
@@ -307,8 +340,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, *, lims,
             for out, (a, c) in zip(outs, pairs):
                 out[b, :, kv] += a.double().T @ c.double()
     dv_m, dv_f, dk_m, dk_f = outs
-    return (dv_m.to(torch.int32), dv_f.to(torch.int64),
-            dk_m.to(torch.int32), dk_f.to(torch.int64))
+    return tuple(t.to(torch.int64) for t in (dv_m, dv_f, dk_m, dk_f))
 
 
 # ---------------------------------------------------------------------------
@@ -408,8 +440,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scales, *, lims,
                   causal: bool = True):
-    """Kernel 9: the group-summed PSG code products ``(dv_msb int32,
-    dv_full int64, dk_msb int32, dk_full int64)``, each ``(B, T, nkv, hd)``
+    """Kernel 9: the group-summed PSG code products ``(dv_msb, dv_full,
+    dk_msb, dk_full)``, int64, each ``(B, T, nkv, hd)``
     (see :func:`flash_bwd_dkv_plain`).  The codes of q and dO are built here
     in PyTorch; those of P and dS inside the kernel."""
     if not _on_cuda(q, k, v, do, lse, delta, scales):
@@ -420,11 +452,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scales, *, lims,
     _check(scales, "scales", torch.float32, 1)
     if scales.shape != (6,):
         raise ValueError(f"scales {tuple(scales.shape)} != (6,)")
-    check_lims(lims, S, g)
+    check_lims(lims)
     qm, qf, dom, dof = operand_codes(q, do, scales, lims)
     dev = q.device
-    outs = [torch.empty((B, T, nkv, hd), device=dev, dtype=dt)
-            for dt in (torch.int32, torch.int64, torch.int32, torch.int64)]
+    outs = [torch.empty((B, T, nkv, hd), device=dev, dtype=torch.int64)
+            for _ in range(4)]
     lim_x, lim_xm, lim_g, lim_gm = (int(x) for x in lims)
     _call(_lib().flash_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), scales.data_ptr(),

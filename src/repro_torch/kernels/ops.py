@@ -24,10 +24,6 @@ from repro_torch.kernels import psg_matmul as PM
 from repro_torch.kernels import quant as Q
 
 
-def _lim(bits: int) -> int:
-    return 2 ** (bits - 1) - 1
-
-
 def quantize(x: torch.Tensor, bits: int, plain: bool = False) -> torch.Tensor:
     """Fake-quantize ``x`` (fp32 or bf16) on its per-tensor grid."""
     if plain:
@@ -35,12 +31,14 @@ def quantize(x: torch.Tensor, bits: int, plain: bool = False) -> torch.Tensor:
     return Q.quantize(x, bits)
 
 
-def conv_fwd(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
+def conv_fwd(xc: torch.Tensor, sx: torch.Tensor, wc: torch.Tensor,
+             sw: torch.Tensor, k: int, stride: int,
              plain: bool = False) -> torch.Tensor:
-    """Conv forward on pre-quantized, pre-padded NHWC input and a
-    patch-major weight."""
-    fn = K.conv_fwd_plain if plain else K.conv_fwd
-    return fn(xq.float().contiguous(), wq.float().contiguous(), k, stride)
+    """Conv forward on the codes and scales of a pre-padded NHWC input and
+    a patch-major weight: the conv of ``xc * sx`` and ``wc * sw``."""
+    if plain:
+        return K.conv_fwd_plain(xc.float() * sx, wc.float() * sw, k, stride)
+    return K.conv_fwd(xc.contiguous(), sx, wc.contiguous(), sw, k, stride)
 
 
 def conv_grad_x(gq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
@@ -70,9 +68,7 @@ def conv_grad_w(xp: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig, k: int,
     if plain:
         pred = K.conv_grad_w_predictor_plain(xm, gm, k, stride)
     else:
-        pred = K.conv_grad_w_predictor(xm, gm, k, stride,
-                                       x_lim=_lim(cfg.bits_x_msb),
-                                       g_lim=_lim(cfg.bits_g_msb))
+        pred = K.conv_grad_w_predictor(xm, gm, k, stride)
     tau = cfg.beta * pred.float().abs().amax()
     select = K.conv_grad_w_plain if plain else K.conv_grad_w
     sign, stats = select(pred, xq, gq, tau, k, stride)
@@ -99,8 +95,7 @@ def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig,
     if plain:
         pred = PM.predictor_matmul_plain(xm, gm)
     else:
-        pred = PM.predictor_matmul(xm, gm, x_lim=_lim(cfg.bits_x_msb),
-                                   g_lim=_lim(cfg.bits_g_msb))
+        pred = PM.predictor_matmul(xm, gm)
     tau = cfg.beta * pred.float().abs().amax()
     select = PM.psg_grad_w_plain if plain else PM.psg_grad_w
     sign, stats = select(pred, xq, gq, tau)

@@ -24,22 +24,24 @@ split into two byte planes (:func:`split_code_bytes`: ``lo = g & 0xFF``
 unsigned, ``hi = g >> 8`` signed, ``g = 256 hi + lo``), and two int8 MMAs
 (s8 x s8 on the high plane, s8 x u8 on the low one) sum in int32 before the
 kernel forms ``256 sum(x hi) + sum(x lo)`` (:func:`predictor_matmul_split_plain`
-is that arithmetic in plain PyTorch).  Every step wraps modulo 2**32, so the
-result is exact whenever it fits int32, which the wrapper checks as before.
+is that arithmetic in plain PyTorch).  Each plane sums in int32 over at most
+65536 tokens, where it cannot overflow; the two combine in int64, splits of
+the token axis meet in int64 atomics, and the output is fp32, the exact
+integer sum rounded once, at any N (the JAX package's pass 1 is fp32).
 The MMAs want the token axis contiguous, so a pre-pass in the same call
 writes ``x^T`` and the two planes of ``g^T``, zero-padded to a multiple of
 ``PRED_STAGE_TOKENS`` tokens, into scratch that the wrapper allocates; a
 three-stage ``cp.async`` ring feeds the MMAs; the token axis is split across
-blocks that meet in int32 atomics where the output has too few tiles to
-fill the card.
+blocks where the output has too few tiles to fill the card or N passes
+65536 tokens.
 
 ``psg_grad_w`` stays on the CUDA cores: a 128 x 128 output tile per block,
 the token axis split across blocks that meet in integer atomics, which are
 exact, so the result does not depend on the order.  It sums the 8-bit x
 16-bit product in int32 over at most 512 tokens and in int64 beyond, takes
-pass 1's product as its predictor instead of recomputing it, and reads
-``tau`` from device memory.  Later work: ``psg_grad_w`` on the int8 tensor
-cores with the same byte planes; ``wgmma`` and TMA for both.
+pass 1's fp32 product as its predictor instead of recomputing it, and
+reads ``tau`` from device memory.  Later work: ``psg_grad_w`` on the int8
+tensor cores with the same byte planes; ``wgmma`` and TMA for both.
 
 The fallback flags follow the TPU kernel's tiling whatever the CUDA tiling
 is: one flag per ``min(128, din) x min(128, dout)`` tile of the padded
@@ -47,8 +49,9 @@ grid; a partly padded tile counts as fallback whenever ``tau > 0``, since
 its padded ``g_msb`` is 0.
 
 The plain versions multiply the codes as float64, which is exact below
-2**53 (the qwen2.5-3b sums at N = 8192 stay below 3.5e10), so kernel and
-plain version agree bit for bit.
+2**53 (the qwen2.5-3b sums at N = 8192 stay below 3.5e10); pass 1 then
+rounds that exact sum to fp32 once, as the kernel does, so kernel and plain
+version agree bit for bit.
 """
 from __future__ import annotations
 
@@ -84,9 +87,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load("psg_matmul")
-    lib.psg_pred.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    lib.psg_pred.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+    lib.psg_pred_splits.argtypes = [_I] * 3
     lib.psg_sign.argtypes = [_P] * 7 + [_I] * 5 + [_P]
-    for fn in (lib.psg_pred, lib.psg_sign):
+    for fn in (lib.psg_pred, lib.psg_pred_splits, lib.psg_sign):
         fn.restype = ctypes.c_int
     return lib
 
@@ -102,7 +106,7 @@ def _code_product(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def predictor_matmul_plain(xm: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
-    return _code_product(xm, gm).to(torch.int32)
+    return _code_product(xm, gm).to(torch.float32)
 
 
 def split_code_bytes(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,23 +156,24 @@ def _check_codes(x: torch.Tensor, g: torch.Tensor) -> Tuple[int, int, int]:
     return x.shape[0], x.shape[1], g.shape[1]
 
 
-def predictor_matmul(xm: torch.Tensor, gm: torch.Tensor, x_lim: int = 7,
-                     g_lim: int = 511) -> torch.Tensor:
-    """PSG pass 1: ``x_msb^T g_msb`` as int32 ``(din, dout)``.
-    ``x_lim``/``g_lim`` bound the code magnitudes; the call raises when the
-    sum could overflow int32."""
+def predictor_matmul(xm: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
+    """PSG pass 1: ``x_msb^T g_msb`` ``(din, dout)`` as fp32, the exact
+    integer sum rounded once, at any token count."""
     if not _on_cuda(xm, gm):
         return predictor_matmul_plain(xm, gm)
     N, din, dout = _check_codes(xm, gm)
-    if N * x_lim * g_lim >= 2 ** 31:
-        raise ValueError("predictor product could overflow int32")
     n_pad = -(-N // PRED_STAGE_TOKENS) * PRED_STAGE_TOKENS
     dev = xm.device
-    out = torch.empty((din, dout), device=dev, dtype=torch.int32)
+    lib = _lib()
+    out = torch.empty((din, dout), device=dev, dtype=torch.float32)
     xt = torch.empty((din, n_pad), device=dev, dtype=torch.int8)
     gt = torch.empty((2, dout, n_pad), device=dev, dtype=torch.uint8)
-    _call(_lib().psg_pred, xm.data_ptr(), gm.data_ptr(), xt.data_ptr(),
-          gt.data_ptr(), out.data_ptr(), N, n_pad, din, dout, _stream(xm))
+    # int64 sums of the token splits, where the kernel splits the tokens
+    acc = torch.empty((din, dout) if lib.psg_pred_splits(n_pad, din, dout) > 1
+                      else (0,), device=dev, dtype=torch.int64)
+    _call(lib.psg_pred, xm.data_ptr(), gm.data_ptr(), xt.data_ptr(),
+          gt.data_ptr(), out.data_ptr(), acc.data_ptr() if acc.numel() else 0,
+          N, n_pad, din, dout, _stream(xm))
     LAUNCHES["predictor_matmul"] += 1
     return out
 
@@ -182,7 +187,7 @@ def psg_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
     if not _on_cuda(pred, xq, gq, tau):
         return psg_grad_w_plain(pred, xq, gq, tau)
     N, din, dout = _check_codes(xq, gq)
-    _check(pred, "pred", torch.int32, 2)
+    _check(pred, "pred", torch.float32, 2)
     _check(tau, "tau", torch.float32, 0)
     if pred.shape != (din, dout):
         raise ValueError(f"pred {tuple(pred.shape)} != {(din, dout)}")

@@ -70,8 +70,10 @@ def _close(a, ref):
 @pytest.mark.parametrize("s", CASES)
 def test_conv_fwd_plain_matches_jax(s):
     xp, w, _, k, stride = _data(s)
+    (xc, sx), (wc, sw) = codes(torch.from_numpy(xp), 8), codes(torch.from_numpy(w), 8)
     xq, wq = quantize(torch.from_numpy(xp), 8), quantize(torch.from_numpy(w), 8)
-    y = K.conv_fwd(xq, wq, k, stride)
+    assert torch.equal(xc.float() * sx, xq) and torch.equal(wc.float() * sw, wq)
+    y = K.conv_fwd(xc, sx, wc, sw, k, stride)
     ref = jops.conv_fwd(jnp.asarray(xq.numpy()), jnp.asarray(wq.numpy()), k,
                         stride, interpret=True)
     _close(y.numpy(), ref)
@@ -133,7 +135,7 @@ def test_conv_grad_w_op_matches_jax(s):
 def test_padded_dout_block_counts_as_fallback():
     """dout=200 -> blocks of 128, the second padded: with tau > 0 its flag
     is set even where every real column is predictor-confident."""
-    pred = torch.full((4, 200), 1000, dtype=torch.int32)
+    pred = torch.full((4, 200), 1000, dtype=torch.float32)
     xq = torch.zeros((1, 2, 2, 4), dtype=torch.int8)
     gq = torch.zeros((1, 2, 2, 200), dtype=torch.int16)
     sign, stats = K.conv_grad_w(pred, xq, gq, torch.tensor(1.0), 1, 1)
@@ -183,8 +185,10 @@ def test_stem_input_gets_no_gradient_work():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
+    one = torch.tensor(1.0)
     with pytest.raises(ValueError):
-        K.conv_fwd(torch.zeros(1, 4, 4, 2), torch.zeros(18, 3, device="meta"),
+        K.conv_fwd(torch.zeros(1, 4, 4, 2, dtype=torch.int8), one,
+                   torch.zeros(18, 3, dtype=torch.int8, device="meta"), one,
                    3, 1)
     assert K.conv_out_hw(34, 34, 3, 2) == (16, 16)
     assert K.fallback_blocks(200) == (128, 2)

@@ -8,9 +8,11 @@ on a machine with a card:
         tests/test_torch_cuda.py
 
 (``--noconftest``: the repository's conftest imports JAX.)  Kernels 3-6
-and 10 must equal their exact plain versions (kernel 5 also with every code
-at its limit); kernels 1, 2 and 8 sum in fp32 in another order, within
-``1e-5 * max|ref|``; kernel 7's output is within one bf16 ulp (its bf16
+and 10 must equal their exact plain versions (kernels 3 and 5 also with
+every code at its limit and past the sizes their int32 sums once refused);
+kernel 1 on 8-bit codes must equal the emulation of its integer arithmetic
+bit for bit; kernels 1, 2 and 8 sum in fp32 in another order, within
+``1e-5 * max|ref|`` of their plain versions; kernel 7's output is within one bf16 ulp (its bf16
 kernel keeps about 16 bits of P; fp32: ``1e-5 * max|ref|``) and its lse
 within 1e-5; kernel 9's code products equal the plain version's on integer inputs and elsewhere
 differ only where a P or dS code flips at a rounding boundary.
@@ -62,8 +64,11 @@ def _close(a, ref):
 @pytest.mark.parametrize("s", CASES)
 def test_fwd_and_grad_x_kernels_match_plain(card, s):
     x, w, gy, k, st, hp = _data(s, card)
+    (xc, sx), (wc, sw) = codes(x, 8), codes(w, 8)
     xq, wq, gq = quantize(x, 8), quantize(w, 8), quantize(gy, 16)
-    _close(K.conv_fwd(xq, wq, k, st), K.conv_fwd_plain(xq, wq, k, st))
+    y = K.conv_fwd(xc, sx, wc, sw, k, st)
+    _close(y, K.conv_fwd_plain(xq, wq, k, st))
+    assert torch.equal(y, K.conv_fwd_codes_plain(xc, sx, wc, sw, k, st))
     _close(K.conv_grad_x(gq, wq, k, st, hp, hp),
            K.conv_grad_x_plain(gq, wq, k, st, hp, hp))
 
@@ -95,12 +100,17 @@ def test_psg_conv2d_on_the_card_counts_its_launches(card):
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
-    x = torch.randn(1, 4, 4, 2, device=card, dtype=torch.float64)
+    one = torch.ones((), device=card)
+    x = torch.zeros(1, 4, 4, 2, device=card, dtype=torch.int32)
     with pytest.raises(ValueError):
-        K.conv_fwd(x, torch.randn(18, 3, device=card, dtype=torch.float64), 3, 1)
+        K.conv_fwd(x, one, torch.zeros(18, 3, device=card, dtype=torch.int32),
+                   one, 3, 1)
     with pytest.raises(ValueError):
-        K.conv_fwd(torch.randn(1, 4, 4, 2, device=card),
-                   torch.randn(18, 3), 3, 1)
+        K.conv_fwd(x.to(torch.int8), one, torch.zeros(18, 3, dtype=torch.int8),
+                   one, 3, 1)
+    with pytest.raises(ValueError):              # codes of two widths
+        K.conv_fwd(x.to(torch.int8), one,
+                   torch.zeros(18, 3, device=card, dtype=torch.int16), one, 3, 1)
 
 
 # (N, din, dout) of the PSG matmul kernels: tiles smaller than 128, a padded
@@ -129,14 +139,16 @@ def test_psg_matmul_kernels_equal_plain(card, s):
         assert torch.equal(sign, psign) and torch.equal(stats, pstats)
 
 
+@pytest.mark.parametrize("N", [(2 ** 31 - 1) // (7 * 511), 700_000],
+                         ids=["old_limit", "past_old_limit"])
 @pytest.mark.parametrize("dout", [32, 160])
-def test_predictor_kernel_is_exact_at_the_worst_case_magnitude(card, dout):
+def test_predictor_kernel_is_exact_at_the_worst_case_magnitude(card, dout, N):
     """Every 4-bit x code at +-7 and every 10-bit g code at +-511, signed so
-    that every output element is +-N * 7 * 511, with N the largest token
-    count the wrapper takes (odd, so not a multiple of any stage).  Where g
-    is -511 (hi = -2, lo = 1) the high plane's 256 * sum(x hi) alone passes
-    2**31: only exact wrapping arithmetic gives the right result."""
-    N = (2 ** 31 - 1) // (7 * 511)
+    that every output element is +-N * 7 * 511: at the largest token count
+    the int32 version took (odd, so not a multiple of any stage), and past
+    it, where the sums pass 2**31 (the output is fp32, the exact sum
+    rounded once).  Where g is -511 (hi = -2, lo = 1) the high plane's 256
+    * sum(x hi) is larger still."""
     g = torch.Generator(device=card).manual_seed(dout)
     sign = lambda *s: torch.randint(0, 2, s, device=card,  # noqa: E731
                                     generator=g) * 2 - 1
@@ -144,10 +156,10 @@ def test_predictor_kernel_is_exact_at_the_worst_case_magnitude(card, dout):
     xm = (7 * tok * sign(1, 48)).to(torch.int8)
     gm = (511 * tok * sign(1, dout)).to(torch.int16)
     pred = PM.predictor_matmul(xm, gm)
+    assert pred.dtype == torch.float32
     assert torch.equal(pred, PM.predictor_matmul_plain(xm, gm))
-    assert bool((pred.long().abs() == N * 7 * 511).all())
-    with pytest.raises(ValueError):
-        PM.predictor_matmul(torch.cat([xm, xm[:1]]), torch.cat([gm, gm[:1]]))
+    top = torch.tensor(float(N * 7 * 511), device=card)     # rounded to fp32
+    assert bool((pred.abs() == top).all())
 
 
 def test_psg_matmul_on_the_card_counts_its_launches(card):
@@ -399,3 +411,88 @@ def test_resnet_im2col_and_psg_off_trainers_run_on_the_card(card):
     hist = trainer.run(2)
     assert len(hist) == 2 and trainer.measured_psg_fallback() is None
     assert not any(PM.LAUNCHES.values()) and not any(K.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 3 on int8 tensor cores; pass 1 past its old int32 limits;
+# kernel 7 against an adversarial v
+# ---------------------------------------------------------------------------
+
+RESNET74 = resnet_conv_shapes(depth=74, width=16, batch=128)
+
+
+@pytest.mark.parametrize("s", RESNET74, ids=[
+    f"{s.kind}_{s.hw}x{s.cin}-{s.cout}k{s.k}s{s.stride}" for s in RESNET74])
+def test_tensor_core_conv_kernels_at_resnet74_geometries(card, s):
+    """Kernel 1 on 8-bit codes: within 1e-5 * max|ref| of the plain version
+    and bit for bit the emulation of its integer arithmetic.  Kernel 3: bit
+    for bit its plain version and the emulation of its padded-grid
+    arithmetic, also with every code at its limit."""
+    x, w, gy, k, st, _ = _data(s, card)
+    (xc, sx), (wc, sw) = codes(x, 8), codes(w, 8)
+    y = K.conv_fwd(xc, sx, wc, sw, k, st)
+    _close(y, K.conv_fwd_plain(quantize(x, 8), quantize(w, 8), k, st))
+    assert torch.equal(y, K.conv_fwd_codes_plain(xc, sx, wc, sw, k, st))
+    xm, _ = codes(x, 4)
+    gm, _ = codes(gy, 10)
+    pred = K.conv_grad_w_predictor(xm, gm, k, st)
+    assert pred.dtype == torch.float32
+    assert torch.equal(pred, K.conv_grad_w_predictor_plain(xm, gm, k, st))
+    assert torch.equal(pred, K.conv_grad_w_predictor_grid_plain(xm, gm, k, st))
+    xl = (7 * torch.where(x < 0, -1, 1)).to(torch.int8)
+    gl = (511 * torch.where(gy < 0, -1, 1)).to(torch.int16)
+    assert torch.equal(K.conv_grad_w_predictor(xl, gl, k, st),
+                       K.conv_grad_w_predictor_plain(xl, gl, k, st))
+
+
+def test_conv_predictor_past_its_old_int32_limit(card):
+    """Batch 640 of 32 x 32 images, every code at its limit: the sums reach
+    640 * 1024 * 7 * 511 > 2**31, where the int32 version raised."""
+    g = torch.Generator(device=card).manual_seed(640)
+    x = torch.randn(640, 34, 34, 3, device=card, generator=g)
+    gy = torch.randn(640, 32, 32, 16, device=card, generator=g)
+    xm = (7 * torch.where(x < 0, -1, 1)).to(torch.int8)
+    gm = (511 * torch.where(gy < 0, -1, 1)).to(torch.int16)
+    pred = K.conv_grad_w_predictor(xm, gm, 3, 1)
+    assert torch.equal(pred, K.conv_grad_w_predictor_plain(xm, gm, 3, 1))
+
+
+def test_conv_fwd_on_int16_codes_runs_the_fp32_kernel(card):
+    g = torch.Generator(device=card).manual_seed(16)
+    x = torch.randn(8, 18, 18, 32, device=card, generator=g)
+    w = torch.randn(288, 32, device=card, generator=g) * 0.1
+    (xc, sx), (wc, sw) = codes(x, 12), codes(w, 12)
+    assert xc.dtype == torch.int16
+    K.reset_launches()
+    y = K.conv_fwd(xc, sx, wc, sw, 3, 1)
+    assert K.LAUNCHES["conv_fwd"] == 1
+    _close(y, K.conv_fwd_plain(xc.float() * sx, wc.float() * sw, 3, 1))
+
+
+def test_flash_dkv_kernel_past_its_old_int32_limit(card):
+    """S g = 9472 * 64 = 606,208 query rows per kv head, past the 600,358
+    the int32 predictor sums took; small integer inputs, so bit for bit."""
+    from repro_torch.kernels import flash_attn as FA
+    shape = (1, 9472, 64, 1, 16, True)
+    q, k, v, do = _flash_data(shape, card, torch.bfloat16, integer=True)
+    lse, delta, scales = _dkv_inputs(q, k, v, do, True)
+    lims = (127.0, 7.0, 32767.0, 511.0)
+    got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims)
+    want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, lims=lims)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.int64 and torch.equal(g_, w_)
+
+
+def test_flash_fwd_holds_its_contract_on_a_split_p_adversarial_v(card):
+    """The qwen2.5-3b attention geometry with v built against kernel 7's
+    split P (``split_p_adversarial_v``): o within one bf16 ulp plus 1e-6 *
+    max|o| of the plain version, lse within 1e-5."""
+    from repro_torch.kernels import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(2, 4096, 16, 128, device=card, generator=g).to(torch.bfloat16)
+    k = torch.randn(2, 4096, 2, 128, device=card, generator=g).to(torch.bfloat16)
+    v = FA.split_p_adversarial_v(q, k)
+    o, lse = FA.flash_fwd(q, k, v)
+    o_p, lse_p = FA.flash_attention_plain(q, k, v)
+    _bf16_close(o.float(), o_p.float())
+    assert float((lse - lse_p).abs().max()) <= 1e-5

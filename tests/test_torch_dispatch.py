@@ -130,7 +130,9 @@ def test_cuda_pin_on_cpu_tensors_raises():
     calls = [lambda: dispatch.quantize(x, 8),
              lambda: dispatch.psg_grad_w(torch.randn(8, 3), torch.randn(8, 2),
                                          CFG),
-             lambda: dispatch.conv_fwd(x, w, CFG, k=3, stride=1),
+             lambda: dispatch.conv_fwd(x.to(torch.int8), torch.tensor(1.0),
+                                       w.to(torch.int8), torch.tensor(1.0),
+                                       CFG, k=3, stride=1),
              lambda: dispatch.conv_grad_x(gy, w, CFG, k=3, stride=1, hp=6,
                                           wp=6),
              lambda: dispatch.conv_grad_w(x, gy, CFG, k=3, stride=1),

@@ -194,7 +194,7 @@ def test_bwd_dkv_products_match_the_tile_replay_oracle(jax_side, shape):
     B, S, nh, nkv, hd, _ = shape
     for g, w, name, dt in zip(got, j["products"],
                               ("dv_msb", "dv_full", "dk_msb", "dk_full"),
-                              (torch.int32, torch.int64) * 2):
+                              (torch.int64,) * 4):
         assert g.dtype == dt and g.shape == (B, S, nkv, hd), name
         diff = np.abs(g.numpy().astype(np.float64) - w)
         assert np.mean(diff > 0) <= 1e-3, name
@@ -234,11 +234,13 @@ def test_select_counts_partial_tiles_as_confident_padding():
 
 
 def test_check_lims_bounds_the_integer_sums():
-    FA.check_lims(LIMS, 4096, 8)           # qwen2.5-3b: S 4096, g 8
+    """The codes must fit int8 / int16; the sums are exact at any S * g
+    (int32 partials flushed into int64), so no size is refused."""
+    FA.check_lims(LIMS)
     with pytest.raises(ValueError):
-        FA.check_lims((255.0, 7.0, 32767.0, 511.0), 64, 1)
+        FA.check_lims((255.0, 7.0, 32767.0, 511.0))
     with pytest.raises(ValueError):
-        FA.check_lims(LIMS, 2 ** 20, 8)
+        FA.check_lims((127.0, 0.0, 32767.0, 511.0))
 
 
 # ---------------------------------------------------------------------------

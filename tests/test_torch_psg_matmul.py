@@ -110,7 +110,7 @@ def test_tau_zero_flags_nothing_even_on_padded_tiles():
 def test_partly_padded_tiles_count_as_fallback():
     """200 x 328 -> tiles of 128: with tau > 0 every tile that holds
     padding is flagged even where every real element is confident."""
-    pred = torch.full((200, 328), 1000, dtype=torch.int32)
+    pred = torch.full((200, 328), 1000, dtype=torch.float32)
     xq = torch.zeros((4, 200), dtype=torch.int8)
     gq = torch.zeros((4, 328), dtype=torch.int16)
     sign, stats = PM.psg_grad_w(pred, xq, gq, torch.tensor(1.0))
@@ -208,5 +208,5 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         PM.predictor_matmul(xm, gm.to("meta"))
     with pytest.raises(ValueError):
-        PM.psg_grad_w(torch.zeros(4, 6, dtype=torch.int32), xm,
+        PM.psg_grad_w(torch.zeros(4, 6, dtype=torch.float32), xm,
                       gm.to("meta"), torch.tensor(0.0))

@@ -1,5 +1,21 @@
-"""The arithmetic that the tensor-core kernels 5 and 7 rest on, in plain
-PyTorch on the CPU, against the JAX package's kernels.
+"""The arithmetic that the tensor-core kernels 1, 3, 5 and 7 rest on, in
+plain PyTorch on the CPU, against the JAX package's kernels.
+
+* Kernel 1 (``conv_fwd`` on int8 tensor cores) sums the 8-bit codes
+  exactly and scales once: ``(sum_t window_t(cx) @ cw_t) * (sx * sw)``
+  (``conv_fwd_codes_plain``).  It must hold against JAX's
+  ``conv_fwd_pallas`` (interpret mode) on ``quantize(x)`` and
+  ``quantize(w)`` within ``FP32_REL * max|ref|``: both round only at the
+  end of their sums, JAX's in fp32.
+* Kernel 3 (``conv_grad_w_predictor`` on int8 tensor cores) multiplies on
+  a padded grid where every tap is a shifted view of one stride phase, and
+  splits the g codes into byte planes (``conv_grad_w_predictor_grid_plain``).
+  It must equal the plain version and JAX's ``conv_grad_w_predictor_pallas``
+  (interpret mode) bit for bit, also with every code at its limit: pass 1's
+  fp32 output is the exact sum rounded once, and JAX's fp32 sums are exact
+  below 2**24, which these cases stay under.  Past the size the int32
+  version refused (batch 600 at 32 x 32) the plain version holds against
+  the JAX package's materialized-patch product within fp32 rounding.
 
 * Kernel 5 (``predictor_matmul`` on int8 tensor cores) splits every int16
   g code into a signed high byte and an unsigned low byte and sums ``256
@@ -22,10 +38,16 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels import conv as jconv  # noqa: E402
 from repro.kernels import flash_attn as jfa  # noqa: E402
 from repro.kernels import psg_matmul as jpm  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core.quant import codes, quantize  # noqa: E402
+from repro_torch.kernels import conv as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels import psg_matmul as PM  # noqa: E402
+
+FP32_REL = 1e-5
 
 
 def test_byte_split_is_exact_for_every_int16_code():
@@ -61,7 +83,9 @@ def test_split_predictor_product_equals_plain_and_jax(shape, kind):
     xm, gm = _codes(*shape, kind, seed=sum(shape))
     got = PM.predictor_matmul_split_plain(xm, gm)
     assert got.dtype == torch.int64 and got.shape == shape[1:]
-    assert torch.equal(got, PM.predictor_matmul_plain(xm, gm).long())
+    plain = PM.predictor_matmul_plain(xm, gm)
+    assert plain.dtype == torch.float32
+    assert torch.equal(got, plain.long())
     if kind == "at_limit":
         assert bool((got.abs() == shape[0] * 7 * 511).all())
     assert float(got.abs().max()) < 2 ** 24      # JAX's fp32 sum is exact
@@ -101,3 +125,92 @@ def test_split_p_forward_holds_the_kernel_contract_against_jax(shape,
     _bf16_within_one_ulp(o.float().numpy(),
                          np.asarray(jo.astype(jnp.float32)))
     assert np.max(np.abs(lse.numpy() - np.asarray(jlse))) <= 1e-5
+
+
+# (batch, hw, C, dout, k, stride) as the PSG conv runs them (pre-padded,
+# SAME): the stem (C = 3), a stride-1 and a stride-2 3x3 conv, and a 1x1
+CONVS = [(2, 8, 3, 16, 3, 1), (2, 8, 16, 16, 3, 1), (3, 9, 16, 32, 3, 2),
+         (4, 4, 32, 24, 1, 1)]
+CONV_IDS = ["stem", "stride1", "stride2", "1x1"]
+
+
+def _conv_codes(shape, seed, at_limit=False):
+    B, hw, C, dout, k, st = shape
+    r = np.random.RandomState(seed)
+    p = k // 2
+    hp = hw + 2 * p
+    ho = (hp - k) // st + 1
+    x = np.zeros((B, hp, hp, C), np.float32)
+    x[:, p:hp - p, p:hp - p] = r.randn(B, hw, hw, C)
+    gy = r.randn(B, ho, ho, dout).astype(np.float32)
+    w = (r.randn(k * k * C, dout) * 0.1).astype(np.float32)
+    if at_limit:
+        xm = torch.from_numpy((7 * np.sign(x)).astype(np.int8))
+        gm = torch.from_numpy(np.where(gy < 0, -511, 511).astype(np.int16))
+    else:
+        xm, gm = codes(torch.from_numpy(x), 4)[0], codes(torch.from_numpy(gy), 10)[0]
+    return torch.from_numpy(x), torch.from_numpy(w), xm, gm
+
+
+@pytest.mark.parametrize("shape", CONVS, ids=CONV_IDS)
+def test_int8_conv_fwd_arithmetic_holds_against_jax(shape):
+    k, st = shape[4], shape[5]
+    x, w, _, _ = _conv_codes(shape, seed=sum(shape))
+    (xc, sx), (wc, sw) = codes(x, 8), codes(w, 8)
+    assert xc.dtype == torch.int8 and wc.dtype == torch.int8
+    got = K.conv_fwd_codes_plain(xc, sx, wc, sw, k, st)
+    want = np.asarray(jconv.conv_fwd_pallas(
+        jnp.asarray(quantize(x, 8).numpy()), jnp.asarray(quantize(w, 8).numpy()),
+        k=k, stride=st, interpret=True))
+    assert got.shape == want.shape
+    assert np.max(np.abs(got.numpy() - want)) <= FP32_REL * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("at_limit", [False, True], ids=["random", "at_limit"])
+@pytest.mark.parametrize("shape", CONVS, ids=CONV_IDS)
+def test_padded_grid_predictor_equals_plain_and_jax(shape, at_limit):
+    k, st = shape[4], shape[5]
+    _, _, xm, gm = _conv_codes(shape, seed=sum(shape) + 1, at_limit=at_limit)
+    got = K.conv_grad_w_predictor_grid_plain(xm, gm, k, st)
+    plain = K.conv_grad_w_predictor_plain(xm, gm, k, st)
+    assert got.dtype == plain.dtype == torch.float32
+    assert torch.equal(got, plain)
+    exact = K._code_product(xm, gm, k, st)
+    assert float(exact.abs().max()) < 2 ** 24    # JAX's fp32 sums are exact
+    if at_limit:
+        assert float(exact.abs().max()) >= 7 * 511 * shape[0]
+    want = np.asarray(jconv.conv_grad_w_predictor_pallas(
+        jnp.asarray(xm.numpy()), jnp.asarray(gm.numpy()), k=k, stride=st))
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_padded_grid_geometry():
+    """Every tap a constant shift of one stride phase: the 3x3 stride-2 conv
+    of a 34 x 34 padded input reads 17 x 17 phases, shifted by at most one
+    row and one column."""
+    assert K.pred_grid(34, 34, 3, 1) == (34, 34, 2 * 34 + 2)
+    assert K.pred_grid(34, 34, 3, 2) == (17, 17, 17 + 1)
+    assert K.pred_grid(8, 8, 1, 1) == (8, 8, 0)
+
+
+def test_conv_predictor_past_the_old_int32_limit_against_jax_reference():
+    """Batch 600 at 32 x 32, C 3, dout 16, codes at their limits with signs
+    that make every product positive: every output is near 600 * 1024 * 7 *
+    511 = 2.2e9, past 2**31, where the int32 version raised.  The JAX
+    package's materialized-patch product (``conv_patches_ref``, one fp32
+    GEMM) sums 614,400 terms in fp32, so the two agree within fp32
+    rounding: 1e-5 of the largest magnitude."""
+    B, k = 600, 3
+    r = np.random.RandomState(600)
+    img = r.choice([-1, 1], size=(B, 1, 1, 1))
+    x = np.zeros((B, 34, 34, 3), np.int8)
+    x[:, 1:33, 1:33] = 7 * img
+    g = np.broadcast_to(511 * img, (B, 32, 32, 16)).astype(np.int16)
+    got = K.conv_grad_w_predictor_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                        k, 1)
+    assert got.dtype == torch.float32 and float(got.max()) > 2 ** 31
+    patches = jref.conv_patches_ref(jnp.asarray(x, jnp.float32), k, 1)
+    want = np.asarray(jnp.dot(patches.T, jnp.asarray(g, jnp.float32).reshape(-1, 16),
+                              precision="highest"))
+    assert np.max(np.abs(got.numpy() - want)) <= 1e-5 * np.max(np.abs(want))
