@@ -12,10 +12,11 @@ Phases, each fatal on failure:
    of phase 5);
 1b. show with ``cuobjdump -sass`` that the tensor-core kernels carry
    tensor-core instructions: IMMA in kernel 1's 8-bit kernel
-   (``conv_fwd_mma_kernel``), kernel 3 (``conv_pred_mma_kernel``) and
-   kernel 5 (``pred_mma_kernel``), HMMA in kernel 7's bf16 kernel
-   (``flash_fwd_mma_kernel``); a missing ``cuobjdump`` is reported as not
-   checked;
+   (``conv_fwd_mma_kernel``), kernel 3 (``conv_pred_mma_kernel``), kernel 5
+   (``pred_mma_kernel``) and kernel 6 (``sign_mma_kernel``), HMMA in kernel
+   7's bf16 kernel (``flash_fwd_mma_kernel``), HMMA and IMMA in kernel 9's
+   (``flash_bwd_dkv_mma_kernel``), in every instantiation; a missing
+   ``cuobjdump`` is reported as not checked;
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
    version (kernels 3 and 4 bit for bit, kernel 3 also with every code at
@@ -23,16 +24,17 @@ Phases, each fatal on failure:
    kernels 1 and 2 within ``FP32_REL`` of the reference's largest
    magnitude, kernel 1 also bit for bit against the emulation of its
    integer arithmetic) and time it with CUDA events next to the plain
-   version, a PyTorch library call and its bound, and alone on the device
-   (one call captured in a CUDA graph and replayed); then, checked and not
+   version, a PyTorch library call and its bound, and, it and the library
+   call, alone on the device (one call captured in a CUDA graph and
+   replayed; so in phases 3-4c too); then, checked and not
    counted, kernel 1 on 16-bit codes (its fp32 kernel) and kernel 3 past
    the size its int32 sums once refused (batch 640 at 32 x 32);
 3. the same for the two PSG matmul kernels (bit for bit, signs and flags
    included) at every qwen2.5-3b weight-matmul geometry with N = 8192
    tokens, plus a padded one and the ResNet-74 batch-128 im2col ones
-   (checked and timed, not counted), and kernel 5 alone with every code at
-   its limit at N = 700,000 tokens, past the size its int32 sums once
-   refused;
+   (checked and timed, not counted), and kernels 5 and 6 alone with every
+   code at its limit at N = 700,000 tokens, past the size their int32 sums
+   once refused (kernel 6's int64 product also against the exact one);
 4. the same for the three flash-attention kernels at the qwen2.5-3b
    attention geometry (batch 2, 4096 tokens, 16 heads over 2 kv heads, hd
    128, bf16, causal), a padded one (fp32: kernel 7 on the CUDA cores) and
@@ -78,6 +80,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -148,11 +151,18 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.lru_cache(maxsize=None)
+def side_stream(torch):
+    """One side stream for every warm-up: PyTorch keeps a cuBLAS workspace
+    for each stream a call runs on."""
+    return torch.cuda.Stream()
+
+
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Mean device time of one call of ``fn``: the call captured once in a
     CUDA graph (after two warm-up calls on a side stream) and replayed, so
     that no host work lies between its kernels."""
-    side = torch.cuda.Stream()
+    side = side_stream(torch)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -178,14 +188,17 @@ def site(s):
 TENSOR_CORE_KERNELS = (("conv", "conv_fwd_mma_kernel", "IMMA"),
                        ("conv", "conv_pred_mma_kernel", "IMMA"),
                        ("psg_matmul", "pred_mma_kernel", "IMMA"),
-                       ("flash_attn", "flash_fwd_mma_kernel", "HMMA"))
+                       ("psg_matmul", "sign_mma_kernel", "IMMA"),
+                       ("flash_attn", "flash_fwd_mma_kernel", "HMMA"),
+                       ("flash_attn", "flash_bwd_dkv_mma_kernel", "HMMA"),
+                       ("flash_attn", "flash_bwd_dkv_mma_kernel", "IMMA"))
 
 
 def sass_check(build):
     """Phase 1b: ``cuobjdump -sass`` of the built libraries shows IMMA in
-    the MMA kernels of kernels 1, 3 and 5 and HMMA in kernel 7's bf16
-    kernel (every instantiation).  A missing cuobjdump is reported as not
-    checked."""
+    the MMA kernels of kernels 1, 3, 5 and 6, HMMA in kernel 7's bf16
+    kernel and both in kernel 9's (every instantiation).  A missing
+    cuobjdump is reported as not checked."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -193,10 +206,13 @@ def sass_check(build):
         return {"checked": False, "why": "cuobjdump not found: tensor-core "
                 "instructions not checked"}
     out = {"checked": True}
+    sass = {}
     for lib, kernel, op in TENSOR_CORE_KERNELS:
-        text = subprocess.run([tool, "-sass", str(build.library_path(lib))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
+        if lib not in sass:
+            sass[lib] = subprocess.run(
+                [tool, "-sass", str(build.library_path(lib))],
+                capture_output=True, text=True, timeout=300, check=True).stdout
+        text = sass[lib]
         funcs = [f for f in text.split("Function : ")[1:]
                  if kernel in f.split("\n", 1)[0]]
         counts = [sum(any(w.startswith(op) for w in line.split())
@@ -204,8 +220,8 @@ def sass_check(build):
         if not funcs or not all(counts):
             fail(f"cuobjdump -sass of lib{lib}: {kernel} has no {op} "
                  f"instruction ({len(funcs)} instantiations, counts {counts})")
-        out[kernel] = {"library": lib, "instantiations": len(funcs),
-                       f"{op}_per_instantiation": counts}
+        out.setdefault(kernel, {"library": lib, "instantiations": len(funcs)})
+        out[kernel][f"{op}_per_instantiation"] = counts
     return out
 
 
@@ -216,8 +232,6 @@ def check_kernels(torch, K, shapes_all, shapes):
 
     mult = {s: shapes_all.count(s) for s in shapes}
     tot = {n: _zero_total() for n in list(REPLACES)[:4]}
-    for n in tot:
-        tot[n]["device_ms"] = 0.0
     tot["conv_fwd"]["bound_fp32_ms"] = 0.0
     details = []
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -319,7 +333,7 @@ def check_kernels(torch, K, shapes_all, shapes):
                       + sign.numel() + 4 * stats.numel(),
                       2 * macs, INT8_OPS_PER_S, mult[s]))
 
-        time_cases(torch, cases, row, tot, on_device=True)
+        time_cases(torch, cases, row, tot)
         details.append(row)
         torch.cuda.synchronize()
     details.append(conv_uncounted_checks(torch, K, g))
@@ -358,30 +372,27 @@ def conv_uncounted_checks(torch, K, g):
 
 def _zero_total():
     return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops_s=0.0,
-                max_abs_err=0.0)
+                max_abs_err=0.0, device_ms=0.0, library_device_ms=0.0)
 
 
-def time_cases(torch, cases, row, tot, on_device=False):
+def time_cases(torch, cases, row, tot):
     """Time each (kernel, plain, library) triple and add it, weighted by
-    its sites per step, to the kernel's totals; ``on_device`` also times
-    the kernel's call alone on the device (:func:`device_ms`)."""
+    its sites per step, to the kernel's totals; the kernel's call and the
+    library's are also timed alone on the device (:func:`device_ms`)."""
     for name, err, kern, plain, lib, nbytes, ops, peak, m in cases:
         r = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
              "library_ms": time_ms(torch, lib) if lib else None,
+             "device_ms": device_ms(torch, kern),
+             "library_device_ms": device_ms(torch, lib) if lib else None,
              "bytes": nbytes, "ops": ops, "max_abs_err": err,
              "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)}
-        if on_device:
-            r["device_ms"] = device_ms(torch, kern)
         row[name] = r
         t = tot[name]
         t["max_abs_err"] = max(t["max_abs_err"], err)
-        for key in ("ms", "plain_ms", "bytes") + (("device_ms",) if on_device
-                                                   else ()):
+        for key in ("ms", "plain_ms", "bytes", "device_ms"):
             t[key] += m * r[key]
-        if lib is None:
-            t["library_ms"] = None
-        else:
-            t["library_ms"] += m * r["library_ms"]
+        for key in ("library_ms", "library_device_ms"):
+            t[key] = None if lib is None else t[key] + m * r[key]
         t["ops_s"] += m * ops / peak
 
 
@@ -402,7 +413,8 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
     matmul geometry, timed; the padded geometry and the ResNet-74 im2col
     ones (``im2col``: {(N, din, dout): sites per step}) are checked and
     timed, not counted (the im2col step's sums go to ``im2col_totals``);
-    then kernel 5 alone at the worst-case magnitude (``worst_case_check``)."""
+    then kernels 5 and 6 alone at the worst-case magnitude
+    (``worst_case_check``, ``sign_worst_case_check``)."""
     from repro_torch.core.quant import codes
 
     tot = {n: _zero_total() for n in ("predictor_matmul", "psg_grad_w")}
@@ -449,6 +461,7 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
         del xm_f, gm_f
         torch.cuda.synchronize()
     details.append(worst_case_check(torch, PM))
+    details.append(sign_worst_case_check(torch, PM))
     return tot, details, im2col_tot
 
 
@@ -477,6 +490,41 @@ def worst_case_check(torch, PM, din=48, dout=160, N=700_000):
              f"{want.numel()} elements differ")
     return {"geometry": [N, din, dout], "path": "worst_case",
             "predictor_matmul": "identical", "max_abs": float(top)}
+
+
+def sign_worst_case_check(torch, PM, din=48, dout=160, N=700_000):
+    """Kernel 6 with every 8-bit x code at +-127 and every 16-bit g code at
+    +-32767, signed so that every element of the full product is +-N * 127
+    * 32767 (2.9e12 at N = 700,000: past 65,536 tokens per split and past
+    2**31); tau lies above every |pred|, so every sign comes from the full
+    product.  Its int64 product (``psg_full_product``, the same pre-pass
+    and MMA kernel) must equal the exact ``_code_product``, and its signs
+    and flags those of the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def sign(*shape):
+        return torch.randint(0, 2, shape, device="cuda", generator=gen) * 2 - 1
+
+    tok = sign(N, 1)
+    xq = (127 * tok * sign(1, din)).to(torch.int8)
+    gq = (32767 * tok * sign(1, dout)).to(torch.int16)
+    full = PM.psg_full_product(xq, gq)
+    want = PM._code_product(xq, gq).to(torch.int64)
+    if not (torch.equal(full, want)
+            and bool((want.abs() == N * 127 * 32767).all())):
+        diff = int((full != want).sum())
+        fail(f"psg_full_product at the worst case N={N}: {diff} of "
+             f"{want.numel()} elements differ")
+    pred = torch.randn(din, dout, device="cuda", generator=gen)
+    tau = 2 * pred.abs().amax()
+    s, stats = PM.psg_grad_w(pred, xq, gq, tau)
+    ps, pstats = PM.psg_grad_w_plain(pred, xq, gq, tau)
+    if not (torch.equal(s, ps) and torch.equal(stats, pstats)
+            and torch.equal(s, torch.sign(full).to(torch.int8))):
+        fail(f"psg_grad_w at the worst case N={N}: not identical")
+    return {"geometry": [N, din, dout], "path": "sign_worst_case",
+            "psg_full_product": "identical", "psg_grad_w": "identical",
+            "max_abs": int(want.abs().max())}
 
 
 # kernel 9's code products: a P or dS code flips where the kernel's q k^T
@@ -609,7 +657,7 @@ def check_flash_kernels(torch, FA, geometries):
                                       lims=lims, causal=causal),
              lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scales,
                                             lims=lims, causal=causal),
-             None, qkv + e * do.numel() + 2 * rows + 24 + 24 * k.numel(),
+             None, qkv + e * do.numel() + 2 * rows + 24 + 32 * k.numel(),
              *rate((2 * prod, mm), (4 * prod, INT8_OPS_PER_S)), sites[2])]
         time_cases(torch, cases, row, tot)
         details.append(row)
@@ -1211,11 +1259,15 @@ def main() -> None:
          "lm_main_path": lm_main, "lm_profile": lm_prof,
          "lm_flash_main_path": lm_flash_main,
          "lm_flash_profile": lm_flash_prof, "kernels": kernels,
-         "conv_device_ms": {n: tot[n]["device_ms"] for n in list(REPLACES)[:4]},
+         "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
+         "library_device_ms": {n: tot[n]["library_device_ms"]
+                               for n in REPLACES},
          "conv_fwd_bound_fp32_ms": tot["conv_fwd"]["bound_fp32_ms"],
          "note": "conv kernel times are summed over the conv sites of one "
-                 "ResNet-74 batch-128 step (conv_device_ms: the same calls "
-                 "each replayed from a CUDA graph, device time alone; "
+                 "ResNet-74 batch-128 step (device_ms, for every kernel: "
+                 "the same calls each replayed from a CUDA graph, device "
+                 "time alone; library_device_ms the same for the library "
+                 "calls; "
                  "kernel 1's bound counts its int8 codes in and fp32 y out "
                  "and its operations at the int8 rate, "
                  "conv_fwd_bound_fp32_ms the fp32 operands at the fp32 "

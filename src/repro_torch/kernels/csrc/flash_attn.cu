@@ -23,6 +23,10 @@
 //                  code products dv_msb/full = codes(P)^T codes(dO), dk_msb/
 //                  full = codes(dS)^T codes(q), summed over the query heads of
 //                  each kv head.  The codes of q and dO come in as int8/int16.
+//                  bf16 operands run on the bf16 and int8 tensor cores
+//                  (flash_bwd_dkv_mma_kernel), fp32 operands on the CUDA
+//                  cores (flash_bwd_dkv_kernel); the dtype picks, in
+//                  launch_dkv.
 //                  Replaces flash_bwd_dkv_pallas / _flash_bwd_dkv_kernel.
 // (all in the JAX package's src/repro/kernels/flash_attn.py)
 //
@@ -42,8 +46,9 @@
 //             two P v products of the split P below, 6 hd pairs at the bf16
 //             tensor-core rate;
 //   kernel 8: q k^T, dO v^T and dS k, 6 hd pairs;
-//   kernel 9: q k^T and dO v^T (fp32), and the four code products (integer
-//             multiply-adds, 8 hd pairs operations, at the int8 rate).
+//   kernel 9: q k^T and dO v^T (bf16 rate), and the four code products
+//             (integer multiply-adds, 8 hd pairs operations, at the int8
+//             rate; its byte planes run twice that).
 //
 // Kernel 7 in bf16 (flash_fwd_mma_kernel): 128 query rows a block, 8 warps of
 // 16 rows, at most 128 registers a thread so that two blocks share an SM
@@ -68,27 +73,65 @@
 // 1e-6 max|o|, lse within 1e-5).  A warp skips the kv tiles that lie wholly
 // after its rows, which would add p = 0.  Blocks go longest rows first.
 //
+// Kernel 9 in bf16 (flash_bwd_dkv_mma_kernel): one block of 16 warps per
+// (batch x kv head, 64-row kv tile), kv tiles with the most work first; it
+// loops over the g query heads of its kv head and their 64-row query tiles
+// from the diagonal on, and so writes each group-summed product once, with
+// no atomics.  Per query tile:
+//   * Scores.  Warp (rg, c) computes S^T = K Q^T and dP^T = V dO^T for kv
+//     rows 16 rg.. and query rows 16 c.. as m16n8k16 bf16 MMAs (ldmatrix
+//     from K, V, Q, dO rows in shared memory, one fresh fp32 sum per k16
+//     step, steps added round-to-nearest), then P and dS in JAX's order and
+//     their codes.  The contraction of the code products runs along the
+//     query rows, which the score accumulators hold two columns a thread of
+//     each n8 tile: those four bytes are exactly one 32-bit A register of an
+//     m16n8k32 int8 MMA whose k-slots 4t..4t+3 stand for query columns 2t,
+//     2t + 1, 8 + 2t, 9 + 2t (perm16 in tc.cuh).  So the codes go from the
+//     accumulators straight into A fragments, six of them (Pm, Pf, and the
+//     lo/hi byte planes of the 10- and 16-bit dS codes), with no transpose,
+//     through a small fragment buffer in shared memory for the warps of the
+//     other hd columns.
+//   * Exact codes.  The MMA scores differ from the sequential fp32 scores
+//     of the CUDA-core kernel (fma over d in order; the plain version's GEMM
+//     sums these sizes the same way), by at most kScoreErr |a| |b| (row
+//     norms from the wrapper).  A pair whose code quotient lies within that
+//     bound (carried to first order through exp and the grids) of a rounding
+//     boundary is queued; the queue recomputes its scores sequentially and
+//     rewrites its code bytes, with IEEE divisions.  Every other quotient is
+//     the product with the grid's reciprocal, within 1.5 * 2^-23 of the
+//     IEEE quotient, which the margin covers.  So every code equals the
+//     CUDA-core kernel's, rintf(__fdiv_rn(x, s)) of the sequential scores
+//     (0.015-0.05% of the pairs are queued at the qwen2.5-3b geometry).
+//   * Code products.  Warp (rg, c) sums, for kv rows 16 rg.. and the n8
+//     tiles c, c + 4, .. of hd, the four products over the tile's query rows
+//     on m16n8k32 int8 MMAs: B fragments by ldmatrix from K-major byte
+//     planes of the q and dO codes, which a pre-pass (kmajor_kernel with
+//     perm16) writes into scratch the wrapper allocates; the 16-bit operand
+//     goes as two byte planes (dO on the B side, dS on the A side: s8 x u8,
+//     u8 x s8, s8 x s8), the low plane's product into the product's int32
+//     sum, the high one's into a fresh sum added as 256 hi.  int32 wraps, so
+//     the sum is exact modulo 2^32 and exact while the true sum fits: the
+//     full products flush into int64 every 2^31 / (lim_x lim_g) rows (8
+//     tiles at 8 x 16 bits), the predictor ones every 2^31 / (lim_x_msb
+//     lim_g_msb) rows (9380 tiles at 4 x 10 bits, once at LM sizes), into
+//     int64 outputs the block owns.
+//   * Pipeline.  K and V stay for the block; the Q/dO tile and the code
+//     planes are single-buffered and each refilled one phase ahead, so one
+//     load overlaps the other phase.
+//
 // The rest run on the CUDA cores in fp32 and int32: a 64 x 64 score tile per
 // step for kernel 7 in fp32 and kernel 8 (a 4 x 4 register tile per thread,
 // q and k read into fp32 shared memory with 16-byte loads and transposed so
 // that every read is a float4 across a row), a 64-query x 32-kv tile for
-// kernel 9.  Blocks run the causal loop themselves: kernels 7 and 8 take one
-// block per (batch x head, query tile), longest rows first, and loop over the
-// kv tiles up to the diagonal; kernel 9 takes one block per (batch x kv head,
-// 32-row kv tile), loops over the g query heads of its kv head and over the
-// query tiles from the diagonal on, and so writes each group-summed product
-// once, with no atomics.  Every code product pairs an 8-bit with a 16-bit
-// code, so the kernel keeps the codes of query rows 2p and 2p + 1 side by side
-// in shared memory and sums two rows with one __dp2a (two 16 x 8-bit products
-// and an add).  The integer sums are exact and order-free at any S g: the
-// four products sum in int32 over whole 64-row query tiles, the full ones
-// over at most 2^31 / (lim_x lim_g) rows (512 at 8 x 16 bits), the
-// predictor ones over at most 2^31 / (lim_x_msb lim_g_msb) rows (600,320
-// at 4 x 10 bits, so at LM sizes once, at the end), and are then added into
-// their int64 outputs, which the block owns.  Later work: kernels 8 and 9
-// are still on fp32 FMAs and __dp2a; bf16 mma/wgmma for their q k^T and dO
-// v^T, int8 MMAs with byte-split 16-bit codes for kernel 9's code products;
-// wgmma and TMA for kernel 7.
+// kernel 9 in fp32.  Kernels 7 and 8 take one block per (batch x head, query
+// tile), longest rows first, and loop over the kv tiles up to the diagonal;
+// kernel 9 in fp32 loops like its bf16 kernel over 32-row kv tiles, keeps the
+// codes of query rows 2p and 2p + 1 side by side in shared memory and sums
+// two rows with one __dp2a (two 16 x 8-bit products and an add), with the
+// same int32 flush rule.  Later work: kernel 8 is still on fp32 FMAs; bf16
+// mma/wgmma for its q k^T and dO v^T; wgmma and TMA for kernels 7 and 9,
+// and warp specialization for kernel 9, whose elementwise phase and MMA
+// phase now alternate between barriers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -279,8 +322,11 @@ __device__ __forceinline__ bool visible(const Geo& G, int qi, int kj) {
 }
 
 // the JAX package's codes_tile: clip(round(x / s), -lim, lim)
+__device__ __forceinline__ int clamp_code(float xs, float lim) {  // xs = x / s
+  return (int)fminf(fmaxf(rintf(xs), -lim), lim);
+}
 __device__ __forceinline__ int code(float x, float s, float lim) {
-  return (int)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -lim), lim);
+  return clamp_code(__fdiv_rn(x, s), lim);
 }
 
 // s[i][j] = sum_d A[d][ty*4 + i] * B[d][tx*NJ + j], A pitch AP, B pitch BP
@@ -421,14 +467,14 @@ struct FwdShape {
 };
 
 // rows [row0, row0 + ROWS) of head `head` of a (B, L, n, HD) bf16 tensor into
-// shared memory at pitch HD + 8 with cp.async, zero past L
-template <int HD, int ROWS>
+// shared memory at pitch HD + 8 with cp.async, zero past L; NTH threads
+template <int HD, int ROWS, int NTH = kFwdThreads>
 __device__ __forceinline__ void cp_rows(__nv_bfloat16* dst,
                                         const __nv_bfloat16* __restrict__ src,
                                         int b, int row0, int L, int n,
                                         int head) {
   constexpr int CH = HD / 8, P = HD + 8;           // 16-byte chunks a row
-  for (int e = threadIdx.x; e < ROWS * CH; e += kFwdThreads) {
+  for (int e = threadIdx.x; e < ROWS * CH; e += NTH) {
     const int r = e / CH, c = e % CH, row = row0 + r;
     const bool ok = row < L;
     cp_async16(dst + r * P + c * 8,
@@ -878,6 +924,407 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// kernel 9, bf16 operands: on the bf16 and int8 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int DQ = 64, DK = 64;        // query rows a tile, kv rows a block
+constexpr int kDkvThreads = 512;       // 16 warps: 4 kv row groups x 4 slots
+constexpr int kPlanes = 6;             // K-major code planes of q and dO:
+                                       // qm, qf, dOm lo, hi, dOf lo, hi
+constexpr int kSets = 6;               // A operands: codes of Pm, Pf, and
+                                       // the lo, hi planes of dSm and dSf
+constexpr int kCodePitch = DQ + 16;    // bytes a plane row: 8 rows that one
+                                       // ldmatrix reads, 8 bank groups
+
+template <int HD>
+struct DkvShape {
+  static constexpr int P = HD + 8;     // bf16 row pitch: 16 bytes of pad
+  static constexpr int kTile = DK * P;                   // elements (DQ == DK)
+  static constexpr size_t kBf16 = sizeof(__nv_bfloat16) * 4 * kTile;
+  // lse, delta and the q and dO row norms of a tile; the k and v row norms
+  static constexpr size_t kRowVals = sizeof(float) * (4 * DQ + 2 * DK);
+  static constexpr size_t kCodes = (size_t)kPlanes * HD * kCodePitch;
+  static constexpr size_t kFrag = (size_t)kSets * 2 * 4 * 32 * 16;
+  // pairs whose scores are recomputed: (kv row << 8 | query row), a count
+  static constexpr size_t kQueue = sizeof(uint16_t) * DQ * DK + 16;
+  static constexpr size_t kSmem = kBf16 + kRowVals + kCodes + kFrag + kQueue;
+  static constexpr int NT = HD >= 32 ? HD / 32 : 1;      // n8 tiles a warp
+};
+
+// The scores are the sequential ones: s = fma(q_d, k_d, s) for d = 0..HD-1
+// in fp32, the order of the CUDA-core kernel above (and, at these sizes,
+// of the fp32 GEMM of the plain version).  The bf16 MMAs find them up to a
+// bound, relative to sum_d |a_d b_d| <= |a| |b|: each k16 MMA sums its 16
+// exact products from zero, and if it aligns them to the largest exponent
+// and truncates to 24 bits its error is below 17 * 2^-23 of the group's
+// largest product; the steps add in fp32 round-to-nearest (HD / 16 adds of
+// at most 2^-24 each); the sequential sum is within HD * 2^-24 of the exact
+// one.  2^-16.6 in all at hd 128; 2^-16 covers every HD <= 128.
+constexpr float kScoreErr = 0x1p-16f;
+
+// x lies within d of a rounding boundary of rintf (a half-integer)
+__device__ __forceinline__ bool near_tie(float x, float d) {
+  return 0.5f - fabsf(__fsub_rn(x, rintf(x))) <= d;
+}
+
+// the sequential fp32 sum of a_d b_d over one pair of bf16 rows
+template <int HD>
+__device__ __forceinline__ float seq_dot(const __nv_bfloat16* a,
+                                         const __nv_bfloat16* b) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; d += 2) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + d));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + d));
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+  }
+  return s;
+}
+
+// The four grids of P and dS (Pm, Pf, dSm, dSf): scale and its reciprocal
+struct Grids4 {
+  float s[4], inv[4];
+};
+
+// P and dS of one (kv row, query row) pair in JAX's order, and their
+// quotients x / s on the four grids (rintf and the clamp make the codes):
+// IEEE divisions with kExact, else products with the reciprocals, within
+// 1.5 * 2^-23 |x| of them; returns p
+template <bool kExact>
+__device__ __forceinline__ float dkv_quotients(float s, float dp, bool vis,
+                                               float lse, float dlt,
+                                               const Geo& G, const Grids4& R,
+                                               float (&x)[4]) {
+  const float p = vis ? expf(__fsub_rn(__fmul_rn(s, G.scale), lse)) : 0.f;
+  const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dlt)), G.scale);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float v = i < 2 ? p : ds;
+    x[i] = kExact ? __fdiv_rn(v, R.s[i]) : __fmul_rn(v, R.inv[i]);
+  }
+  return p;
+}
+
+// the six code bytes of a pair (Pm, Pf, dSm lo, hi, dSf lo, hi)
+__device__ __forceinline__ void dkv_code_bytes(const float (&x)[4],
+                                               const Grid9& Z,
+                                               int (&v)[6]) {
+  const int cm = clamp_code(x[2], Z.lim_gm), cf = clamp_code(x[3], Z.lim_g);
+  v[0] = clamp_code(x[0], Z.lim_xm);
+  v[1] = clamp_code(x[1], Z.lim_x);
+  v[2] = cm & 0xff;
+  v[3] = (cm >> 8) & 0xff;
+  v[4] = cf & 0xff;
+  v[5] = (cf >> 8) & 0xff;
+}
+
+// acc += a * b with b split in byte planes: lo (u8) into acc directly, hi
+// (s8) into a fresh sum folded in as 256 hi, all in wrapping int32
+__device__ __forceinline__ void fold_hi(int (&acc)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  int t[4] = {0, 0, 0, 0};
+  mma_s8s8(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = (int)((unsigned)acc[e] + ((unsigned)t[e] << 8));
+}
+
+// Block: DK kv rows of one (batch, kv head), looping over the g query heads
+// and their DQ-row query tiles from the diagonal on.  Warp w = (kv row
+// group rg = w % 4, slot c = w / 4).  Per query tile:
+//   scores: warp (rg, c) computes S^T = K Q^T and dP^T = V dO^T for kv rows
+//     16 rg.. and query rows 16 c.. on bf16 MMAs (fp32 sums), then P and dS
+//     in JAX's order and their six code sets, packed straight from the
+//     accumulators as int8 A fragments (a thread holds query columns 2t,
+//     2t + 1 of two n8 tiles: k-slots 4t..4t + 3 under perm16) into `frag`;
+//   products: warp (rg, c) sums, for kv rows 16 rg.. and the n8 tiles c, c +
+//     4, .. of hd, the four code products over the tile's query rows on int8
+//     MMAs, B fragments by ldmatrix from the K-major code planes of q and dO
+//     (kmajor_kernel with perm16, so their k-slots match).
+// The Q/dO tiles and the code planes are single-buffered and each refilled
+// one phase ahead, so a load overlaps the other phase.
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ scales,
+                         const float* __restrict__ norms,
+                         const uint8_t* __restrict__ planes, int Sp,
+                         long long* __restrict__ dvm,
+                         long long* __restrict__ dvf,
+                         long long* __restrict__ dkm,
+                         long long* __restrict__ dkf, Geo G, Grid9 Z) {
+  using Sh = DkvShape<HD>;
+  constexpr int P = Sh::P, NT = Sh::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DK][P]
+  __nv_bfloat16* Vs = Ks + Sh::kTile;
+  __nv_bfloat16* Qs = Vs + Sh::kTile;                               // [DQ][P]
+  __nv_bfloat16* dOs = Qs + Sh::kTile;
+  // [DQ] each: lse, delta, |q|, |dO| of the tile's rows; [DK] each: |k|, |v|
+  float* lse_s = reinterpret_cast<float*>(dOs + Sh::kTile);
+  float* dlt_s = lse_s + DQ;
+  float* qn_s = dlt_s + DQ;
+  float* don_s = qn_s + DQ;
+  float* kn_s = don_s + DQ;
+  float* vn_s = kn_s + DK;
+  uint8_t* cs = reinterpret_cast<uint8_t*>(vn_s + DK);   // [plane][HD][pitch]
+  uint4* frag = reinterpret_cast<uint4*>(cs + Sh::kCodes);  // [set][kc][rg][lane]
+  unsigned* frag_w = reinterpret_cast<unsigned*>(frag);
+  uint16_t* queue = reinterpret_cast<uint16_t*>(cs + Sh::kCodes + Sh::kFrag);
+  int* n_queued = reinterpret_cast<int*>(queue + DQ * DK);
+
+  // longest work first: the kv tile index major, (batch, kv head) minor
+  const int kvb = blockIdx.x / (G.B * G.nkv), bkv = blockIdx.x % (G.B * G.nkv);
+  const int b = bkv / G.nkv, kvh = bkv % G.nkv, kv0 = kvb * DK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, slot = warp / 4, t = lane % 4, gid = lane / 4;
+  Grids4 R{{Z.s_pm, Z.s_pf, scales[5], scales[4]}, {}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) R.inv[i] = 1.f / R.s[i];
+  const size_t plane_stride = (size_t)G.B * G.nh * HD * Sp;
+  // row norms: |q|, |dO| (B, nh, S) each, then |k|, |v| (B, nkv, T) each
+  const size_t n_rows_q = (size_t)G.B * G.nh * G.S;
+  const float* kvn = norms + 2 * n_rows_q;
+  const int n_q = Sp / DQ;
+  const int iq_first = G.causal ? kv0 / DQ : 0;
+  const int per_head = max(0, n_q - iq_first);
+  const int n_it = G.g * per_head;
+
+  auto head_of = [&](int it) { return kvh * G.g + it / per_head; };
+  auto q0_of = [&](int it) { return (iq_first + it % per_head) * DQ; };
+  auto load_q = [&](int it) {          // Q and dO rows, lse, delta, norms
+    const int h = head_of(it), q0 = q0_of(it);
+    cp_rows<HD, DQ, kDkvThreads>(Qs, q, b, q0, G.S, G.nh, h);
+    cp_rows<HD, DQ, kDkvThreads>(dOs, dout, b, q0, G.S, G.nh, h);
+    for (int r = threadIdx.x; r < 4 * DQ; r += kDkvThreads) {
+      const int w = r / DQ, rr = r % DQ, qi = q0 + rr;
+      const bool ok = qi < G.S;
+      const size_t idx = ((size_t)b * G.nh + h) * G.S + (ok ? qi : 0);
+      const float* src = w == 0 ? lse + idx : w == 1 ? delta + idx
+                                            : norms + (w - 2) * n_rows_q + idx;
+      cp_async4(lse_s + r, src, ok);
+    }
+  };
+  auto load_codes = [&](int it) {      // the tile's six K-major planes
+    const int h = head_of(it), q0 = q0_of(it);
+    constexpr int CH = DQ / 16;        // 16-byte chunks a plane row
+    for (int e = threadIdx.x; e < kPlanes * HD * CH; e += kDkvThreads) {
+      const int ch = e % CH, row = e / CH, pl = row / HD, d = row % HD;
+      cp_async16(cs + row * kCodePitch + ch * 16,
+                 planes + pl * plane_stride +
+                     ((size_t)(b * G.nh + h) * HD + d) * Sp + q0 + ch * 16,
+                 true);
+    }
+  };
+
+  // acc[p][jj]: product p (dv_msb, dv_full, dk_msb, dk_full) of kv rows
+  // 16 rg + gid (+ 8) and columns 8 (slot + 4 jj) + 2t (+ 1)
+  int acc[4][NT][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][jj][e] = 0;
+  // int32 partials of one product into its int64 output, then cleared
+  auto flush = [&](int (&a)[NT][4], long long* __restrict__ out) {
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      const int nt = slot + 4 * jj;
+      if (nt >= HD / 8) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = kv0 + 16 * rg + gid + 8 * (e / 2);
+        if (kj < G.T)
+          out[(((size_t)b * G.T + kj) * G.nkv + kvh) * HD + nt * 8 + 2 * t +
+              e % 2] += a[jj][e];
+        a[jj][e] = 0;
+      }
+    }
+  };
+
+  cp_rows<HD, DK, kDkvThreads>(Ks, k, b, kv0, G.T, G.nkv, kvh);
+  cp_rows<HD, DK, kDkvThreads>(Vs, v, b, kv0, G.T, G.nkv, kvh);
+  for (int r = threadIdx.x; r < 2 * DK; r += kDkvThreads) {
+    const int kj = kv0 + r % DK;
+    const bool ok = kj < G.T;
+    cp_async4(kn_s + r,
+              kvn + (size_t)(r / DK) * G.B * G.nkv * G.T +
+                  ((size_t)b * G.nkv + kvh) * G.T + (ok ? kj : 0), ok);
+  }
+  cp_async_commit();
+  if (n_it > 0) load_q(0);
+  cp_async_commit();
+  if (n_it > 0) load_codes(0);
+  cp_async_commit();
+  if (threadIdx.x == 0) *n_queued = 0;
+  int tiles_full = 0, tiles_msb = 0;
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = q0_of(it);
+    cp_async_wait<1>();                // K, V and this tile's Q, dO, rows
+    __syncthreads();
+    {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) {        // S^T = K Q^T, dP^T = V dO^T
+        const int ra = (16 * rg + lane % 16) * P + kc * 16 + (lane / 16) * 8;
+        const int rb = (16 * slot + lane % 8 + (lane / 16) * 8) * P + kc * 16 +
+                       ((lane / 8) % 2) * 8;
+        unsigned a[4], bb[4];
+        float ts[2][4], td[2][4];          // one fresh MMA sum a k16 step
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ts[j][e] = td[j][e] = 0.f;
+        ldsm_x4(a, Ks + ra);
+        ldsm_x4(bb, Qs + rb);
+        mma_bf16(ts[0], a, bb[0], bb[1]);
+        mma_bf16(ts[1], a, bb[2], bb[3]);
+        ldsm_x4(a, Vs + ra);
+        ldsm_x4(bb, dOs + rb);
+        mma_bf16(td[0], a, bb[0], bb[1]);
+        mma_bf16(td[1], a, bb[2], bb[3]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = __fadd_rn(s[j][e], ts[j][e]);
+            dp[j][e] = __fadd_rn(dp[j][e], td[j][e]);
+          }
+      }
+      // P and dS in JAX's order, their codes packed as A fragments: element
+      // (kv row gid + 8 r, query column 8 j + 2t + i) is byte 2 j + i of the
+      // register of row r.  A pair whose code quotient lies within the MMA
+      // scores' error bound of a rounding boundary goes to the queue, which
+      // recomputes its scores sequentially and rewrites its bytes.
+      unsigned pk[kSets][2];
+#pragma unroll
+      for (int x = 0; x < kSets; ++x) pk[x][0] = pk[x][1] = 0u;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = 16 * rg + gid + 8 * (e / 2);
+          const int qc = 16 * slot + 8 * j + 2 * t + e % 2;
+          const bool vis = visible(G, q0 + qc, kv0 + kr);
+          float xq[4];
+          const float p = dkv_quotients<false>(s[j][e], dp[j][e], vis,
+                                               lse_s[qc], dlt_s[qc], G, R, xq);
+          if (vis) {
+            // first order: x moves by x scale E_s through p, a dS quotient
+            // also by p scale E_dp / s through dP; 2^-19 x for the product
+            // in place of the division and the fp32 rounding of the steps
+            // between
+            const float es = kScoreErr * qn_s[qc] * kn_s[kr];
+            const float ed = kScoreErr * don_s[qc] * vn_s[kr];
+            const float rel = G.scale * es + 0x1p-19f;
+            const float pd = 1.01f * p * G.scale * ed;
+            if (near_tie(xq[0], rel * fabsf(xq[0])) ||
+                near_tie(xq[1], rel * fabsf(xq[1])) ||
+                near_tie(xq[2], rel * fabsf(xq[2]) + pd * R.inv[2]) ||
+                near_tie(xq[3], rel * fabsf(xq[3]) + pd * R.inv[3]))
+              queue[atomicAdd(n_queued, 1)] = (uint16_t)(kr << 8 | qc);
+          }
+          int vals[kSets];
+          dkv_code_bytes(xq, Z, vals);
+          const int shift = 8 * (2 * j + e % 2);
+#pragma unroll
+          for (int x = 0; x < kSets; ++x)
+            pk[x][e / 2] |= (unsigned)vals[x] << shift;
+        }
+      // this warp's query rows are k-slots 16 (slot % 2).. of k-chunk slot / 2
+#pragma unroll
+      for (int x = 0; x < kSets; ++x)
+        reinterpret_cast<uint2*>(frag + ((x * 2 + slot / 2) * 4 + rg) * 32 +
+                                 lane)[slot % 2] = make_uint2(pk[x][0], pk[x][1]);
+    }
+    __syncthreads();                   // frag and the queue written
+    // the queued pairs: sequential scores, their code bytes rewritten
+    for (int i = threadIdx.x; i < *n_queued; i += kDkvThreads) {
+      const int kr = queue[i] >> 8, qc = queue[i] & 0xff;
+      const float sv = seq_dot<HD>(Qs + qc * P, Ks + kr * P);
+      const float dv = seq_dot<HD>(dOs + qc * P, Vs + kr * P);
+      float xq[4];
+      dkv_quotients<true>(sv, dv, true, lse_s[qc], dlt_s[qc], G, R, xq);
+      int vals[kSets];
+      dkv_code_bytes(xq, Z, vals);
+      // where the producer thread put the pair (see the packing above): a
+      // byte store, so pairs that share a word do not race
+      const int r16 = kr % 16, c16 = qc % 16, sl = qc / 16;
+      const int ln = (r16 % 8) * 4 + (c16 % 8) / 2;
+      const int byte = 2 * (c16 / 8) + c16 % 2;
+#pragma unroll
+      for (int x = 0; x < kSets; ++x)
+        reinterpret_cast<uint8_t*>(
+            frag_w + (((x * 2 + sl / 2) * 4 + kr / 16) * 32 + ln) * 4 +
+            2 * (sl % 2) + r16 / 8)[byte] = (uint8_t)vals[x];
+    }
+    cp_async_wait<0>();                // this tile's code planes
+    __syncthreads();                   // Q, dO, rows and the queue free
+    if (threadIdx.x == 0) *n_queued = 0;
+    if (it + 1 < n_it) load_q(it + 1);
+    cp_async_commit();
+#pragma unroll
+    for (int kc = 0; kc < DQ / 32; ++kc) {
+      unsigned A[kSets][4];
+#pragma unroll
+      for (int x = 0; x < kSets; ++x) {
+        const uint4 w = frag[((x * 2 + kc) * 4 + rg) * 32 + lane];
+        A[x][0] = w.x; A[x][1] = w.y; A[x][2] = w.z; A[x][3] = w.w;
+      }
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) {
+        const int nt = slot + 4 * jj;
+        if (nt >= HD / 8) continue;
+        // lanes 0-15 read plane pl, lanes 16-31 plane pl + 1
+        const uint8_t* base = cs + (lane / 16) * HD * kCodePitch +
+                              (nt * 8 + lane % 8) * kCodePitch + kc * 32 +
+                              ((lane / 8) % 2) * 16;
+        unsigned bq[4], bo[4];
+        ldsm_x4(bq, base);                                   // qm, qf
+        mma_u8s8(acc[2][jj], A[2], bq[0], bq[1]);           // dk_msb
+        fold_hi(acc[2][jj], A[3], bq[0], bq[1]);
+        mma_u8s8(acc[3][jj], A[4], bq[2], bq[3]);           // dk_full
+        fold_hi(acc[3][jj], A[5], bq[2], bq[3]);
+        ldsm_x4(bo, base + 2 * HD * kCodePitch);             // dOm lo, hi
+        mma_s8u8(acc[0][jj], A[0], bo[0], bo[1]);           // dv_msb
+        fold_hi(acc[0][jj], A[0], bo[2], bo[3]);
+        ldsm_x4(bo, base + 4 * HD * kCodePitch);             // dOf lo, hi
+        mma_s8u8(acc[1][jj], A[1], bo[0], bo[1]);           // dv_full
+        fold_hi(acc[1][jj], A[1], bo[2], bo[3]);
+      }
+    }
+    __syncthreads();                   // the planes and frag are free
+    if (it + 1 < n_it) load_codes(it + 1);
+    cp_async_commit();
+    if (++tiles_full == Z.flush_full) {
+      flush(acc[1], dvf);
+      flush(acc[3], dkf);
+      tiles_full = 0;
+    }
+    if (++tiles_msb == Z.flush_msb) {
+      flush(acc[0], dvm);
+      flush(acc[2], dkm);
+      tiles_msb = 0;
+    }
+  }
+  cp_async_wait<0>();
+  flush(acc[0], dvm);
+  flush(acc[1], dvf);
+  flush(acc[2], dkm);
+  flush(acc[3], dkf);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -930,29 +1377,57 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// by dtype: bf16 on the bf16 and int8 tensor cores (the codes of q and dO
+// first written K-major into `planes`), fp32 on the CUDA cores
 template <typename T, int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* scales,
                const void* qm, const void* qf, const void* dom,
-               const void* dof, void* dvm, void* dvf, void* dkm, void* dkf,
-               Geo G, Grid9 Z, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (2 * HD * KP9 + 2 * HD * QP + 2 * BQ9)
-                      + (2 * sizeof(unsigned) + 2 * sizeof(uint16_t)) *
-                            (BQ9 / 2) * (BK9 + HD);
-  int err = prepare(flash_bwd_dkv_kernel<T, HD>, smem);
-  if (err) return err;
+               const void* dof, const void* norms, void* planes, void* dvm,
+               void* dvf, void* dkm, void* dkf, Geo G, Grid9 Z,
+               cudaStream_t st) {
   const size_t n_out = (size_t)G.B * G.T * G.nkv * HD;
+  int err;
   for (void* out : {dvm, dvf, dkm, dkf}) {
     err = (int)cudaMemsetAsync(out, 0, n_out * sizeof(long long), st);
     if (err) return err;
   }
-  dim3 grid((G.T + BK9 - 1) / BK9, G.B * G.nkv);
-  flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (const float*)scales,
-      (const int8_t*)qm, (const int8_t*)qf, (const int16_t*)dom,
-      (const int16_t*)dof, (long long*)dvm, (long long*)dvf, (long long*)dkm,
-      (long long*)dkf, G, Z);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (!planes || !norms) return (int)cudaErrorInvalidValue;
+    const int Sp = (G.S + DQ - 1) / DQ * DQ, C = G.nh * HD;
+    const size_t ps = (size_t)G.B * C * Sp;
+    uint8_t* pl = (uint8_t*)planes;
+    if ((err = kmajor<int8_t, true>((const int8_t*)qm, G.B, G.S, C, Sp, pl,
+                                    nullptr, st)) ||
+        (err = kmajor<int8_t, true>((const int8_t*)qf, G.B, G.S, C, Sp,
+                                    pl + ps, nullptr, st)) ||
+        (err = kmajor<int16_t, true>((const int16_t*)dom, G.B, G.S, C, Sp,
+                                     pl + 2 * ps, pl + 3 * ps, st)) ||
+        (err = kmajor<int16_t, true>((const int16_t*)dof, G.B, G.S, C, Sp,
+                                     pl + 4 * ps, pl + 5 * ps, st)))
+      return err;
+    const size_t smem = DkvShape<HD>::kSmem;
+    if ((err = prepare(flash_bwd_dkv_mma_kernel<HD>, smem))) return err;
+    const int blocks = (G.T + DK - 1) / DK * G.B * G.nkv;
+    flash_bwd_dkv_mma_kernel<HD><<<blocks, kDkvThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (const float*)scales,
+        (const float*)norms, pl, Sp,
+        (long long*)dvm, (long long*)dvf, (long long*)dkm, (long long*)dkf, G,
+        Z);
+  } else {
+    const size_t smem = sizeof(float) * (2 * HD * KP9 + 2 * HD * QP + 2 * BQ9)
+                        + (2 * sizeof(unsigned) + 2 * sizeof(uint16_t)) *
+                              (BQ9 / 2) * (BK9 + HD);
+    if ((err = prepare(flash_bwd_dkv_kernel<T, HD>, smem))) return err;
+    dim3 grid((G.T + BK9 - 1) / BK9, G.B * G.nkv);
+    flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (const float*)scales,
+        (const int8_t*)qm, (const int8_t*)qf, (const int16_t*)dom,
+        (const int16_t*)dof, (long long*)dvm, (long long*)dvf, (long long*)dkm,
+        (long long*)dkf, G, Z);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -998,11 +1473,16 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                  (cudaStream_t)stream)
 }
 
+// For bf16 operands: norms, the fp32 row norms |q|, |dO| (B, nh, S) and
+// |k|, |v| (B, nkv, T), one after the other; planes, scratch of 6 x B x nh x
+// hd x Sp bytes (Sp = S rounded up to 64).  Unused (may be null) for fp32.
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   const void* scales, const void* qm, const void* qf,
-                  const void* dom, const void* dof, void* dvm, void* dvf,
-                  void* dkm, void* dkf, int B, int S, int T, int nh, int nkv,
+                  const void* dom, const void* dof, const void* norms,
+                  void* planes, void* dvm,
+                  void* dvf, void* dkm, void* dkf, int B, int S, int T,
+                  int nh, int nkv,
                   int hd, int causal, int bf16, float s_pm, float s_pf,
                   int lim_x, int lim_xm, int lim_g, int lim_gm,
                   void* stream) {
@@ -1010,15 +1490,18 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Geo G = make_geo(B, S, T, nh, nkv, hd, causal);
   if (lim_x < 1 || lim_g < 1 || lim_xm < 1 || lim_gm < 1)
     return (int)cudaErrorInvalidValue;
-  // query tiles whose full products, and whose predictor products, fit an
-  // int32 sum (8 and 9380 tiles at 8 x 16 and 4 x 10 bits)
+  // query tiles (64 rows in both kernels) whose full products, and whose
+  // predictor products, fit an int32 sum (8 and 9380 tiles at 8 x 16 and 4
+  // x 10 bits)
+  static_assert(BQ9 == DQ, "one flush rule for both kernels");
   const long long flush_full = 2147483647LL / ((long long)lim_x * lim_g) / BQ9;
   const long long flush_msb = 2147483647LL / ((long long)lim_xm * lim_gm) / BQ9;
   if (flush_full < 1 || flush_msb < 1) return (int)cudaErrorInvalidValue;
   const Grid9 Z{s_pm, s_pf, (float)lim_x, (float)lim_xm, (float)lim_g,
                 (float)lim_gm, (int)flush_full, (int)flush_msb};
   FLASH_DISPATCH(launch_dkv, bf16, hd, q, k, v, dout, lse, delta, scales, qm,
-                 qf, dom, dof, dvm, dvf, dkm, dkf, G, Z, (cudaStream_t)stream)
+                 qf, dom, dof, norms, planes, dvm, dvf, dkm, dkf, G, Z,
+                 (cudaStream_t)stream)
 }
 
 }  // extern "C"

@@ -8,9 +8,10 @@
 //   psg_pred  pass 1, the predictor product of 4-bit x and 10-bit gy codes,
 //             exact in integers on the int8 tensor cores, written as fp32;
 //   psg_sign  pass 2, the full product of 8-bit x and 16-bit gy codes,
-//             exact in int64, then the Eq. (2) select against pass 1's fp32
-//             product at threshold tau (read from device memory), and one
-//             fallback flag per 128 x 128 tile of the TPU kernel's grid.
+//             exact in integers on the int8 tensor cores, then the Eq. (2)
+//             select against pass 1's fp32 product at threshold tau (read
+//             from device memory), and one fallback flag per 128 x 128 tile
+//             of the TPU kernel's grid.
 //
 // Replaces, in the JAX package's src/repro/kernels/psg_matmul.py:
 //   psg_pred  <- predictor_matmul_pallas / _pred_kernel
@@ -21,24 +22,23 @@
 // only for small N; at N = 8192 and qwen2.5-3b widths the operations bound
 // (about 0.1-0.3 ms a call).
 //
-// psg_pred runs on the int8 tensor cores (mma.sync.m16n8k32, int32 sums):
+// Both passes run one MMA kernel body (code_mma) on the int8 tensor cores
+// (mma.sync.m16n8k32, int32 sums); a template parameter picks the epilogue:
 //   * Exact integer arithmetic.  Each int16 g code is split into two byte
 //     planes, lo = g & 0xFF (u8) and hi = g >> 8 (s8), so g = 256 hi + lo for
 //     every int16 code.  Two MMAs per fragment, s8 x s8 on (x, hi) and s8 x
 //     u8 on (x, lo), sum in int32 over at most kMaxSplitTokens tokens, where
-//     neither plane can overflow (65536 * 127 * 255 < 2^31); the epilogue
-//     forms 256 sum(x hi) + sum(x lo) in int64.  Splits of the token axis
-//     meet in int64 atomics (exact and order-free) and the output is fp32:
-//     the exact integer sum rounded once (__ll2float_rn), at any N, as the
-//     JAX package's fp32 pass 1 returns it.  The two planes cost twice the
-//     operations of one int8 product, so 2x the bound is this design's own
-//     floor.
+//     neither plane can overflow for any int8 x code (65536 * 128 * 255 <
+//     2^31: the 4-bit codes of pass 1 and the 8-bit ones of pass 2 alike);
+//     the epilogue forms 256 sum(x hi) + sum(x lo) in int64.  The two planes
+//     cost twice the operations of one int8 product, so 2x the bound is this
+//     design's own floor.
 //   * Layout.  The int8 MMAs want both operands K-major, K being the token
 //     axis, but the codes arrive token-major and ldmatrix has no 8-bit
-//     transpose.  A pre-pass kernel (kmajor_kernel) writes x^T (din, Np) and
-//     the two planes of g^T (dout, Np), zero-padded to Np, a multiple of the
-//     128-token stage; the wrapper allocates them and its time counts in the
-//     kernel's (about 15% of it at the qwen2.5-3b widths).
+//     transpose.  A pre-pass kernel (kmajor_kernel, csrc/tc.cuh) writes x^T
+//     (din, Np) and the two planes of g^T (dout, Np), zero-padded to Np, a
+//     multiple of the 128-token stage; the wrapper allocates them and its
+//     time counts in the kernel's (about 15% of it at the qwen2.5-3b widths).
 //   * Pipeline.  A three-stage cp.async ring of 128-token stages; shared-memory
 //     rows are padded to 144 bytes, so the eight 16-byte rows that one
 //     ldmatrix reads fall in eight different bank groups.  The kernel is
@@ -49,19 +49,23 @@
 //   * Tiles.  128 x 128 output tiles (8 warps, 64 x 32 each: 4 x 4 MMA tiles
 //     per plane) when dout >= 128, else 128 x 32 (4 warps, 32 x 32), for the
 //     ResNet im2col widths (dout 16-64).  Where the output has fewer tiles
-//     than the card has SMs, the token axis is split across blocks, which meet
-//     in int64 atomics in scratch that the wrapper allocates, and a last
-//     pass rounds the sums to fp32.
-// psg_sign stays on the CUDA cores: a shared-memory tiled integer GEMM, 128 x
-// 128 output tile per block, 32 tokens per stage, an 8 x 8 register tile per
-// thread, the token axis split across blocks that meet in int64 atomics.  It
-// keeps its partial sums in int32 over at most 512 tokens (512 * 127 * 32767
-// < 2^31) and flushes them into an int64 product.  Later work: pass 2 on the
-// int8 tensor cores too, with the 16-bit codes split into the same two byte
-// planes; for both, wgmma fed by TMA in 128-byte swizzled layouts (a first
-// wgmma version of pass 1, on unswizzled core matrices fed by the same
-// cp.async ring, was slower than this one), and the transpose fused into the
-// loads.
+//     than the card has SMs, or N passes 65536 tokens, the token axis is
+//     split across blocks, which meet in int64 atomics in scratch that the
+//     wrapper allocates, and a last pass finishes: pass 1 rounds the sums to
+//     fp32 (ll_to_f32), pass 2 runs the select (select_kernel).
+//   * Epilogues.  Pass 1 rounds each exact int64 sum once to fp32
+//     (__ll2float_rn), at any N, as the JAX package's fp32 pass 1 returns
+//     it.  Pass 2, where the token axis is not split, selects in the
+//     epilogue: it reads pred and tau, writes the sign, and ORs the tile's
+//     "any element not confident" into the fallback flag of the TPU tile
+//     that holds the block (every CUDA block lies in exactly one: blocks are
+//     128 rows and the TPU tile is min(128, din); 128 or 32 columns and the
+//     TPU tile is 128 when dout >= 128, else all of dout).  That path needs
+//     no int64 product in device memory and no memset of one; only the
+//     flags are zeroed first.
+// Later work: wgmma fed by TMA in 128-byte swizzled layouts (a first wgmma
+// version of pass 1, on unswizzled core matrices fed by the same cp.async
+// ring, was slower than this one), and the transpose fused into the loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,53 +76,18 @@ namespace {
 
 constexpr int kSMs = 132;              // H100 SXM
 
-// ---------------------------------------------------------------------------
-// pass 1: the predictor product on the int8 tensor cores
-// ---------------------------------------------------------------------------
-
 constexpr int KT = 128;                // tokens (bytes of a K-major row) per stage
 constexpr int KPITCH = KT + 16;        // padded shared-memory row pitch, bytes
 constexpr int kStages = 3;
 constexpr int kMinStagesPerBlock = 4;  // at least 512 tokens per split
-// tokens per int32 partial: 65536 * 127 * 255 < 2^31 for either byte plane
+// tokens per int32 partial: 65536 * 128 * 255 < 2^31 for either byte plane
 constexpr int kMaxSplitTokens = 65536;
 constexpr int kMaxStagesPerBlock = kMaxSplitTokens / KT;
-constexpr int TT = 64;                 // tokens and columns of a pre-pass tile
-
-// Pre-pass: codes (N, C) token-major -> byte planes (C, Np) K-major, zero for
-// tokens N..Np.  int8 codes give one plane (their bytes); int16 codes give
-// lo = g & 0xFF and hi = g >> 8, so that g = 256 hi + lo.
-template <typename CODE>
-__global__ void __launch_bounds__(256)
-kmajor_kernel(const CODE* __restrict__ src, int N, int C, int Np,
-              uint8_t* __restrict__ lo, uint8_t* __restrict__ hi) {
-  __shared__ int tile[TT][TT + 1];     // [column][token]
-  const int n0 = blockIdx.x * TT, c0 = blockIdx.y * TT;
-  for (int e = threadIdx.x; e < TT * TT; e += 256) {
-    const int n = e / TT, c = e % TT;  // consecutive threads, consecutive columns
-    tile[c][n] = (n0 + n < N && c0 + c < C)
-                     ? (int)src[(size_t)(n0 + n) * C + c0 + c] : 0;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < TT * TT / 4; e += 256) {
-    const int c = e / (TT / 4), n = (e % (TT / 4)) * 4;  // four tokens a thread
-    if (c0 + c >= C) continue;
-    unsigned wl = 0, wh = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int v = tile[c][n + b];
-      wl |= (unsigned)(v & 0xff) << (8 * b);
-      wh |= (unsigned)((v >> 8) & 0xff) << (8 * b);   // arithmetic shift
-    }
-    const size_t off = (size_t)(c0 + c) * Np + n0 + n;
-    *reinterpret_cast<unsigned*>(lo + off) = wl;
-    if (hi) *reinterpret_cast<unsigned*>(hi + off) = wh;
-  }
-}
+constexpr int kSelectThreads = 256;
 
 // WM x WN warps, each MT x NT MMA tiles (16 x 8) of both planes
 template <int WM, int WN, int MT, int NT>
-struct PredShape {
+struct MmaShape {
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
   static constexpr int kRows = BM + 2 * BN;      // x^T, lo and hi rows a stage
@@ -126,14 +95,29 @@ struct PredShape {
   static constexpr int kSmem = kStages * kStage;
 };
 
-// out[i, j] (+)= sum over this block's tokens of x[n, i] g[n, j]
-template <int WM, int WN, int MT, int NT>
-__global__ void __launch_bounds__(WM * WN * 32)
-pred_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
-                const uint8_t* __restrict__ ghi, float* __restrict__ out,
-                long long* __restrict__ acc64, int din, int dout, int Np,
-                int stages_per_block) {
-  using Sh = PredShape<WM, WN, MT, NT>;
+// Pass 2's epilogue: the Eq. (2) select against pass 1's pred at tau, and the
+// fallback flag of the TPU tile (bm x bn of an ni x nj grid, padded up to
+// whole tiles) that holds the block.  A padded element holds g_msb = 0, which
+// is confident only when tau <= 0, exactly as in the TPU kernel.
+struct SelectArgs {
+  const float* pred;
+  const float* tau;
+  int8_t* sign;
+  int32_t* stats;
+  int bm, bn, nj;
+};
+
+// out[i, j] (+)= sum over this block's tokens of x[n, i] g[n, j]: the MMA
+// body of both passes.  With acc64 the int64 sums go there by atomics (the
+// token axis is split); else kSelect picks the epilogue: pass 1 stores fp32,
+// pass 2 selects.
+template <int WM, int WN, int MT, int NT, bool kSelect>
+__device__ __forceinline__ void code_mma(
+    const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
+    const uint8_t* __restrict__ ghi, float* __restrict__ out,
+    long long* __restrict__ acc64, const SelectArgs& sel, int din, int dout,
+    int Np, int stages_per_block) {
+  using Sh = MmaShape<WM, WN, MT, NT>;
   static_assert(NT % 2 == 0, "B fragments come in pairs of n8 tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   const int i0 = blockIdx.y * Sh::BM, j0 = blockIdx.x * Sh::BN;
@@ -223,7 +207,14 @@ pred_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
     }
   }
 
-  // epilogue: 256 hi + lo in int64, stored as fp32 or added into acc64
+  // epilogue: 256 hi + lo in int64, added into acc64, stored as fp32, or
+  // selected against pred
+  const bool fused = kSelect && !acc64;
+  const float tv = fused ? *sel.tau : 0.f;
+  // the TPU tile grid, padded up to whole tiles
+  const int rows_pad = fused ? (din + sel.bm - 1) / sel.bm * sel.bm : 0;
+  const int cols_pad = fused ? (dout + sel.bn - 1) / sel.bn * sel.bn : 0;
+  int notconf = 0;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -232,18 +223,59 @@ pred_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
       for (int c = 0; c < 4; ++c) {
         const int i = i0 + wm * MT * 16 + mt * 16 + lane / 4 + (c / 2) * 8;
         const int j = j0 + wn * NT * 8 + nt * 8 + (lane % 4) * 2 + c % 2;
-        if (i >= din || j >= dout) continue;
+        if (i >= din || j >= dout) {
+          // a padded element of the TPU tile grid (not one past it)
+          if (fused && i < rows_pad && j < cols_pad) notconf |= !(0.f >= tv);
+          continue;
+        }
         const long long v = 256LL * hi[mt][nt][c] + lo[mt][nt][c];
         const size_t idx = (size_t)i * dout + j;
-        if (!acc64) out[idx] = __ll2float_rn(v);
-        else if (v) atomic_add_ll(acc64 + idx, v);
+        if (acc64) {
+          if (v) atomic_add_ll(acc64 + idx, v);
+        } else if (!kSelect) {
+          out[idx] = __ll2float_rn(v);
+        } else {
+          const float pm = sel.pred[idx];
+          const bool conf = fabsf(pm) >= tv;
+          sel.sign[idx] = conf ? (int8_t)((pm > 0.f) - (pm < 0.f))
+                               : (int8_t)((v > 0) - (v < 0));
+          notconf |= !conf;
+        }
       }
+  if (fused) {
+    const int any = __syncthreads_or(notconf);
+    if (threadIdx.x == 0 && any)
+      atomicOr(sel.stats + (i0 / sel.bm) * sel.nj + j0 / sel.bn, 1);
+  }
 }
 
-// token splits of the predictor kernel: about two blocks per SM where the
-// output has fewer tiles than the card has SMs, and never more than
+// pass 1 (predictor) and pass 2 (sign): one body, two kernels, so that each
+// shows by its name in the SASS
+template <int WM, int WN, int MT, int NT>
+__global__ void __launch_bounds__(WM * WN * 32)
+pred_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
+                const uint8_t* __restrict__ ghi, float* __restrict__ out,
+                long long* __restrict__ acc64, int din, int dout, int Np,
+                int stages_per_block) {
+  code_mma<WM, WN, MT, NT, false>(xt, glo, ghi, out, acc64, SelectArgs{},
+                                  din, dout, Np, stages_per_block);
+}
+
+template <int WM, int WN, int MT, int NT>
+__global__ void __launch_bounds__(WM * WN * 32)
+sign_mma_kernel(const int8_t* __restrict__ xt, const uint8_t* __restrict__ glo,
+                const uint8_t* __restrict__ ghi, long long* __restrict__ acc64,
+                SelectArgs sel, int din, int dout, int Np,
+                int stages_per_block) {
+  code_mma<WM, WN, MT, NT, true>(xt, glo, ghi, nullptr, acc64, sel, din,
+                                 dout, Np, stages_per_block);
+}
+
+// token splits of the MMA kernels: about two blocks per SM where the output
+// has fewer tiles than the card has SMs, and never more than
 // kMaxStagesPerBlock stages a split (the int32 partials' bound)
-int pred_splits(int tiles, int kts) {
+int mma_splits(int tiles, int kts) {
+  if (kts <= 0) return 1;
   int splits = 1;
   if (tiles < kSMs) {
     splits = (2 * kSMs + tiles - 1) / tiles;
@@ -257,114 +289,96 @@ int pred_splits(int tiles, int kts) {
   return (kts + per - 1) / per;
 }
 
+// the MMA tiling at this width: 128 x 128 tiles, or 128 x 32 below 128
+// output columns
+constexpr bool wide(int dout) { return dout >= 128; }
+
 template <int WM, int WN, int MT, int NT>
-int pred_tiles(int din, int dout) {
-  using Sh = PredShape<WM, WN, MT, NT>;
+int mma_tiles(int din, int dout) {
+  using Sh = MmaShape<WM, WN, MT, NT>;
   return ((din + Sh::BM - 1) / Sh::BM) * ((dout + Sh::BN - 1) / Sh::BN);
 }
 
-int pred_splits_for(int din, int dout, int Np) {
-  const int tiles = dout >= 128 ? pred_tiles<2, 4, 4, 4>(din, dout)
-                                : pred_tiles<4, 1, 2, 4>(din, dout);
-  return pred_splits(tiles, Np / KT);
+int splits_for(int din, int dout, int Np) {
+  const int tiles = wide(dout) ? mma_tiles<2, 4, 4, 4>(din, dout)
+                               : mma_tiles<4, 1, 2, 4>(din, dout);
+  return mma_splits(tiles, Np / KT);
 }
 
-template <int WM, int WN, int MT, int NT>
-int launch_pred(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
-                float* out, long long* acc64, int din, int dout, int Np,
-                cudaStream_t st) {
-  using Sh = PredShape<WM, WN, MT, NT>;
+// Launch pass 1 (kSelect false) or pass 2 (true) on the K-major planes.
+// With acc64 (din x dout int64) the sums go there, zeroed first; it is
+// required where the token axis is split, and `force_acc` asks for it at any
+// split count (the int64 product alone).
+template <int WM, int WN, int MT, int NT, bool kSelect>
+int launch_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
+               float* out, long long* acc64, bool force_acc,
+               const SelectArgs& sel, int din, int dout, int Np,
+               bool* used_acc, cudaStream_t st) {
+  using Sh = MmaShape<WM, WN, MT, NT>;
   const int ti = (din + Sh::BM - 1) / Sh::BM, tj = (dout + Sh::BN - 1) / Sh::BN;
   const int kts = Np / KT;
-  const int splits = pred_splits(ti * tj, kts);
+  const int splits = mma_splits(ti * tj, kts);
   const int per = (kts + splits - 1) / splits;
+  const bool use_acc = splits > 1 || force_acc;
+  *used_acc = use_acc;
   int err;
-  if (splits > 1) {
+  if (use_acc) {
     if (!acc64) return (int)cudaErrorInvalidValue;
     err = (int)cudaMemsetAsync(acc64, 0, (size_t)din * dout * 8, st);
     if (err) return err;
   }
-  err = (int)cudaFuncSetAttribute(pred_mma_kernel<WM, WN, MT, NT>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  Sh::kSmem);
+  long long* acc = use_acc ? acc64 : nullptr;
+  if constexpr (kSelect) {
+    err = (int)cudaFuncSetAttribute(sign_mma_kernel<WM, WN, MT, NT>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    Sh::kSmem);
+    if (err) return err;
+    sign_mma_kernel<WM, WN, MT, NT>
+        <<<dim3(tj, ti, splits), Sh::kThreads, Sh::kSmem, st>>>(
+            xt, glo, ghi, acc, sel, din, dout, Np, per);
+  } else {
+    err = (int)cudaFuncSetAttribute(pred_mma_kernel<WM, WN, MT, NT>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    Sh::kSmem);
+    if (err) return err;
+    pred_mma_kernel<WM, WN, MT, NT>
+        <<<dim3(tj, ti, splits), Sh::kThreads, Sh::kSmem, st>>>(
+            xt, glo, ghi, out, acc, din, dout, Np, per);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kSelect>
+int launch_by_width(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
+                    float* out, long long* acc64, bool force_acc,
+                    const SelectArgs& sel, int din, int dout, int Np,
+                    bool* used_acc, cudaStream_t st) {
+  if (wide(dout))
+    return launch_mma<2, 4, 4, 4, kSelect>(xt, glo, ghi, out, acc64, force_acc,
+                                           sel, din, dout, Np, used_acc, st);
+  return launch_mma<4, 1, 2, 4, kSelect>(xt, glo, ghi, out, acc64, force_acc,
+                                         sel, din, dout, Np, used_acc, st);
+}
+
+// x codes (int8) and g codes (int16) token-major -> x^T and the two planes
+// of g^T, K-major, in xt (din x Np) and gt (2 x dout x Np)
+template <typename XCODE>
+int prepass(const void* xm, const void* gm, void* xt, void* gt, int N,
+            int Np, int din, int dout, cudaStream_t st) {
+  uint8_t* lo = (uint8_t*)gt;
+  uint8_t* hi = lo + (size_t)dout * Np;
+  int err = kmajor<int8_t, false>((const int8_t*)xm, 1, N, din, Np,
+                                  (uint8_t*)xt, nullptr, st);
   if (err) return err;
-  pred_mma_kernel<WM, WN, MT, NT>
-      <<<dim3(tj, ti, splits), Sh::kThreads, Sh::kSmem, st>>>(
-          xt, glo, ghi, out, splits > 1 ? acc64 : nullptr, din, dout, Np,
-          per);
-  err = (int)cudaGetLastError();
-  if (err || splits == 1) return err;
-  return ll_to_f32(acc64, out, (long long)din * dout, st);
+  return kmajor<int16_t, false>((const int16_t*)gm, 1, N, dout, Np, lo, hi,
+                                st);
 }
 
-// ---------------------------------------------------------------------------
-// pass 2: the full product on the CUDA cores, and the select
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 128, BN = 128, BK = 32, kThreads = 256;
-constexpr int kFullChunk = 512;     // tokens per int32 partial of pass 2
-
-// out[i, j] += sum_{n in this block's range} x[n, i] * g[n, j]
-template <typename OUT>
-__global__ void __launch_bounds__(kThreads)
-code_product_kernel(const int8_t* __restrict__ x, const int16_t* __restrict__ g,
-                    OUT* __restrict__ out, int N, int din, int dout,
-                    int n_per_block) {
-  __shared__ __align__(16) int xs[BK][BM];
-  __shared__ __align__(16) int gs[BK][BN];
-  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
-  const int n_begin = blockIdx.z * n_per_block;
-  const int n_end = min(N, n_begin + n_per_block);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  int acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0;
-
-  for (int n0 = n_begin; n0 < n_end; n0 += BK) {
-    for (int e = tid; e < BK * BM; e += kThreads) {
-      const int kk = e / BM, m = e % BM, n = n0 + kk, i = i0 + m;
-      xs[kk][m] = (n < n_end && i < din) ? (int)x[(size_t)n * din + i] : 0;
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int kk = e / BN, m = e % BN, n = n0 + kk, j = j0 + m;
-      gs[kk][m] = (n < n_end && j < dout) ? (int)g[(size_t)n * dout + j] : 0;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const int4 a0 = *reinterpret_cast<const int4*>(&xs[kk][ty * 4]);
-      const int4 a1 = *reinterpret_cast<const int4*>(&xs[kk][64 + ty * 4]);
-      const int4 b0 = *reinterpret_cast<const int4*>(&gs[kk][tx * 4]);
-      const int4 b1 = *reinterpret_cast<const int4*>(&gs[kk][64 + tx * 4]);
-      const int av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const int bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] += av[a] * bv[b];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int i = i0 + (a < 4 ? ty * 4 + a : 64 + ty * 4 + a - 4);
-    if (i >= din) continue;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int j = j0 + (b < 4 ? tx * 4 + b : 64 + tx * 4 + b - 4);
-      if (j < dout && acc[a][b] != 0)
-        atomic_add_ll(&out[(size_t)i * dout + j], acc[a][b]);
-    }
-  }
-}
-
-// Eq. (2) select and the fallback flags, one block per tile of the TPU
-// kernel's grid (bm = min(128, din) rows by bn = min(128, dout) columns,
-// padded up to whole tiles).  A padded element holds g_msb = 0, which is
-// confident only when tau <= 0, exactly as in the TPU kernel.
-__global__ void __launch_bounds__(kThreads)
+// Eq. (2) select and the fallback flags after a split product, one block
+// per tile of the TPU kernel's grid (bm = min(128, din) rows by bn = min(128,
+// dout) columns, padded up to whole tiles); the same rule as the fused
+// epilogue of code_mma
+__global__ void __launch_bounds__(kSelectThreads)
 select_kernel(const float* __restrict__ pred,
               const long long* __restrict__ full,
               const float* __restrict__ tau, int8_t* __restrict__ sign,
@@ -373,7 +387,7 @@ select_kernel(const float* __restrict__ pred,
   const int ti = blockIdx.y, tj = blockIdx.x;
   const float tv = *tau;
   int notconf = 0;
-  for (int e = threadIdx.x; e < bm * bn; e += kThreads) {
+  for (int e = threadIdx.x; e < bm * bn; e += kSelectThreads) {
     const int i = ti * bm + e / bn, j = tj * bn + e % bn;
     if (i < din && j < dout) {
       const size_t idx = (size_t)i * dout + j;
@@ -391,35 +405,14 @@ select_kernel(const float* __restrict__ pred,
   if (threadIdx.x == 0) stats[ti * gridDim.x + tj] = any;
 }
 
-int tokens_per_block(int N, int tiles, int cap) {
-  // about two blocks per SM of the 132, in whole stages of BK tokens
-  const int target = 132 * 2;
-  const int splits = (target + tiles - 1) / tiles;
-  int per = (N + splits - 1) / splits;
-  per = ((per + BK - 1) / BK) * BK;
-  if (per > cap) per = cap;
-  return per < BK ? BK : per;
-}
-
-template <typename OUT>
-int launch_product(const int8_t* x, const int16_t* g, OUT* out, int N, int din,
-                   int dout, int cap, cudaStream_t st) {
-  const int ti = (din + BM - 1) / BM, tj = (dout + BN - 1) / BN;
-  const int per = tokens_per_block(N, ti * tj, cap);
-  dim3 grid(tj, ti, (N + per - 1) / per);
-  code_product_kernel<OUT><<<grid, kThreads, 0, st>>>(x, g, out, N, din, dout,
-                                                      per);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// token splits psg_pred makes at this geometry; above 1 it needs the int64
-// scratch acc64 (din x dout)
-int psg_pred_splits(int Np, int din, int dout) {
-  return pred_splits_for(din, dout, Np);
+// token splits the MMA kernels make at this geometry (both passes tile
+// alike); above 1 they need the int64 scratch acc64 (din x dout)
+int psg_splits(int Np, int din, int dout) {
+  return splits_for(din, dout, Np);
 }
 
 int psg_pred(const void* xm, const void* gm, void* xt, void* gt, void* out,
@@ -428,36 +421,62 @@ int psg_pred(const void* xm, const void* gm, void* xt, void* gt, void* out,
   if (Np % KT || Np < N || N < 0) return (int)cudaErrorInvalidValue;
   if (din == 0 || dout == 0) return 0;
   if (N == 0) return (int)cudaMemsetAsync(out, 0, (size_t)din * dout * 4, st);
-  uint8_t* lo = (uint8_t*)gt;
-  uint8_t* hi = lo + (size_t)dout * Np;
-  kmajor_kernel<int8_t><<<dim3(Np / TT, (din + TT - 1) / TT), 256, 0, st>>>(
-      (const int8_t*)xm, N, din, Np, (uint8_t*)xt, nullptr);
-  kmajor_kernel<int16_t><<<dim3(Np / TT, (dout + TT - 1) / TT), 256, 0, st>>>(
-      (const int16_t*)gm, N, dout, Np, lo, hi);
-  int err = (int)cudaGetLastError();
+  int err = prepass<int8_t>(xm, gm, xt, gt, N, Np, din, dout, st);
   if (err) return err;
-  if (dout >= 128)
-    return launch_pred<2, 4, 4, 4>((const int8_t*)xt, lo, hi, (float*)out,
-                                   (long long*)acc64, din, dout, Np, st);
-  return launch_pred<4, 1, 2, 4>((const int8_t*)xt, lo, hi, (float*)out,
-                                 (long long*)acc64, din, dout, Np, st);
+  const uint8_t* lo = (const uint8_t*)gt;
+  bool used_acc = false;
+  err = launch_by_width<false>((const int8_t*)xt, lo, lo + (size_t)dout * Np,
+                               (float*)out, (long long*)acc64, false,
+                               SelectArgs{}, din, dout, Np, &used_acc, st);
+  if (err || !used_acc) return err;
+  return ll_to_f32((const long long*)acc64, (float*)out, (long long)din * dout,
+                   st);
 }
 
+// pass 2: sign (din x dout) int8 and stats (ni x nj) int32, the TPU tiles
+// being bm x bn; `full` (din x dout int64) is scratch where the tokens split
 int psg_sign(const void* pred, const void* xq, const void* gq,
-             const void* tau, void* full, void* sign, void* stats, int N,
-             int din, int dout, int bm, int bn, void* stream) {
+             const void* tau, void* xt, void* gt, void* full, void* sign,
+             void* stats, int N, int Np, int din, int dout, int bm, int bn,
+             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(full, 0, (size_t)din * dout * 8, st);
+  if (Np % KT || Np < N || N < 0 || bm < 1 || bn < 1)
+    return (int)cudaErrorInvalidValue;
+  if (din == 0 || dout == 0) return 0;
+  const int ni = (din + bm - 1) / bm, nj = (dout + bn - 1) / bn;
+  int err = prepass<int8_t>(xq, gq, xt, gt, N, Np, din, dout, st);
   if (err) return err;
-  err = launch_product<long long>((const int8_t*)xq, (const int16_t*)gq,
-                                  (long long*)full, N, din, dout, kFullChunk,
-                                  st);
+  err = (int)cudaMemsetAsync(stats, 0, (size_t)ni * nj * 4, st);
   if (err) return err;
-  dim3 grid((dout + bn - 1) / bn, (din + bm - 1) / bm);
-  select_kernel<<<grid, kThreads, 0, st>>>(
+  const uint8_t* lo = (const uint8_t*)gt;
+  const SelectArgs sel{(const float*)pred, (const float*)tau, (int8_t*)sign,
+                       (int32_t*)stats, bm, bn, nj};
+  bool used_acc = false;
+  err = launch_by_width<true>((const int8_t*)xt, lo, lo + (size_t)dout * Np,
+                              nullptr, (long long*)full, false, sel, din, dout,
+                              Np, &used_acc, st);
+  if (err || !used_acc) return err;
+  select_kernel<<<dim3(nj, ni), kSelectThreads, 0, st>>>(
       (const float*)pred, (const long long*)full, (const float*)tau,
       (int8_t*)sign, (int32_t*)stats, din, dout, bm, bn);
   return (int)cudaGetLastError();
+}
+
+// pass 2's exact int64 product alone, full (din x dout), through the same
+// pre-pass and MMA kernel: for the tests, on no training path
+int psg_full_product(const void* xq, const void* gq, void* xt, void* gt,
+                     void* full, int N, int Np, int din, int dout,
+                     void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Np % KT || Np < N || N < 0 || !full) return (int)cudaErrorInvalidValue;
+  if (din == 0 || dout == 0) return 0;
+  int err = prepass<int8_t>(xq, gq, xt, gt, N, Np, din, dout, st);
+  if (err) return err;
+  const uint8_t* lo = (const uint8_t*)gt;
+  bool used_acc = false;
+  return launch_by_width<true>((const int8_t*)xt, lo, lo + (size_t)dout * Np,
+                               nullptr, (long long*)full, true, SelectArgs{},
+                               din, dout, Np, &used_acc, st);
 }
 
 }  // extern "C"

@@ -29,15 +29,27 @@ bf16(p - p_hi)``, two bf16 MMAs that keep about 16 bits of the fp32 P the
 reference multiplies (``|p - p_hi - p_lo| <= 2**-16 p``), fed by a
 two-stage ``cp.async`` ring of 64-key tiles.  :func:`flash_attention_split_p`
 is that arithmetic in plain PyTorch.  fp32 operands run on the CUDA cores
-in fp32, as no LM path does (its activations are bf16).  Kernels 8 and 9
-are still fp32 FMAs and ``__dp2a`` integer products on the CUDA cores.
+in fp32, as no LM path does (its activations are bf16).  Kernel 8 is still
+fp32 FMAs on the CUDA cores.
 
 ``flash_bwd_dkv`` is the PSG kernel: it quantizes P and dS in-tile onto
 their grids (:func:`codes_tile`, the JAX package's operations) and sums the
 four code products of ``dv = P^T dO`` and ``dk = dS^T q`` (predictor and
-full) in integers, which is exact.  Unlike the TPU kernel, which emits one product
-per *query* head, it loops over the query heads of each kv head and emits
-the group-summed products, as its plain version does.  The Eq. (2) select
+full) in integers, which is exact.  It too picks its kernel by dtype.
+bf16 operands run on the tensor cores: ``K Q^T`` and ``V dO^T`` as bf16
+MMAs, and the code products as int8 MMAs over 64-row query tiles with the
+16-bit operand (dO, or dS) in byte planes, each product's ``256 hi + lo``
+folded into one wrapping int32 sum and added into int64 every
+:func:`dkv_flush_tiles` tiles (:func:`flash_bwd_dkv_mma_plain` is that
+arithmetic in plain PyTorch).  The codes are those of the sequential fp32
+scores of the CUDA-core kernel: a pair whose code could differ within the
+MMA scores' error bound (:func:`row_norms`) has its scores recomputed in
+that order.  The codes of q and dO reach the kernel as K-major byte
+planes, written by a pre-pass into scratch the wrapper allocates.  fp32
+operands keep the CUDA-core kernel (``__dp2a`` integer products).  Unlike
+the TPU kernel, which emits one product per *query* head, both kernels loop
+over the query heads of each kv head and emit the group-summed products,
+as the plain version does.  The Eq. (2) select
 (:func:`psg_attention_select`) runs outside, on those products, with the
 fallback tiles at the TPU kernel's ``128``-row kv tiling whatever the CUDA
 tiling is.
@@ -64,6 +76,8 @@ NEG_INF = -1e30
 FALLBACK_TILE = 128     # kv rows of one fallback tile (the TPU kernel's bk)
 HEAD_DIMS = (16, 32, 64, 128)   # the head dims the CUDA kernels are built for
 FWD_BLOCK_K = 64        # kv rows a stage of the bf16 forward kernel
+DKV_TILE = 64           # query rows a tile and kv rows a block of kernel 9
+DKV_PLANES = 6          # K-major code planes the bf16 kernel 9 reads
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
@@ -343,6 +357,126 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, *, lims,
     return tuple(t.to(torch.int64) for t in (dv_m, dv_f, dk_m, dk_f))
 
 
+def dkv_flush_tiles(lims) -> Tuple[int, int]:
+    """Query tiles of ``DKV_TILE`` rows over which kernel 9 sums its full
+    products, and its predictor products, in int32 before it adds them into
+    int64: as many as keep ``rows * lim_x * lim_g`` (and ``rows * lim_x_msb
+    * lim_g_msb``) within int32 (8 and 9380 tiles at 8 x 16 and 4 x 10
+    bits)."""
+    lim_x, lim_xm, lim_g, lim_gm = (int(v) for v in lims)
+    return ((2 ** 31 - 1) // (lim_x * lim_g) // DKV_TILE,
+            (2 ** 31 - 1) // (lim_xm * lim_gm) // DKV_TILE)
+
+
+def row_norms(q, do, k, v) -> torch.Tensor:
+    """The fp32 row norms ``|q|, |dO|`` (B, nh, S) and ``|k|, |v|`` (B, nkv,
+    T), flat, one after the other: the bf16 kernel 9 bounds its MMA scores'
+    error by them (``|s - exact| <= 2**-17 |q| |k|``)."""
+    return torch.cat([t.float().square().sum(-1).sqrt().transpose(1, 2)
+                      .reshape(-1) for t in (q, do, k, v)])
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced into int32's range, as int32 sums wrap."""
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _plane_product(a: torch.Tensor, c: torch.Tensor, a_split: bool,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """``acc + a^T c`` over one query tile in 32-row k-chunks as the int8
+    MMAs sum it, in wrapping int32: the 16-bit operand (``a`` when
+    ``a_split``, else ``c``) split into byte planes, the low plane's product
+    added first, then 256 times the high plane's."""
+    for r0 in range(0, a.shape[0], 32):
+        ak, ck = a[r0:r0 + 32], c[r0:r0 + 32]
+        hi, lo = (ak >> 8, ak & 0xFF) if a_split else (ck >> 8, ck & 0xFF)
+        lo_p = _imm(lo.T, ck) if a_split else _imm(ak.T, lo)
+        hi_p = _imm(hi.T, ck) if a_split else _imm(ak.T, hi)
+        acc = _wrap32(_wrap32(acc + lo_p) + 256 * hi_p)
+    return acc
+
+
+def _imm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Integer matrix product, through float64 (exact below 2**53; CUDA has
+    no int64 matmul)."""
+    return (a.double() @ b.double()).long()
+
+
+def flash_bwd_dkv_mma_plain(q, k, v, do, lse, delta, scales, *, lims,
+                            causal: bool = True):
+    """The bf16 kernel 9's arithmetic in plain PyTorch, on its tile
+    schedule: per (batch, kv head) and ``DKV_TILE``-row kv block, over the
+    g query heads and their ``DKV_TILE``-row query tiles from the diagonal
+    on, ``S^T = K Q^T`` and ``dP^T = V dO^T`` in fp32, P and dS in JAX's
+    order and their codes, then the four code products with the 16-bit
+    operand in byte planes (:func:`_plane_product`), each summed in
+    wrapping int32 and added into int64 every :func:`dkv_flush_tiles`
+    tiles.  Raises unless every int32 sum it adds equals the exact one.
+    Returns what :func:`flash_bwd_dkv_plain` returns; for the tests, not
+    on any path."""
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    scale = softmax_scale(hd)
+    lim_x, lim_xm, lim_g, lim_gm = lims
+    s_pm, s_pf = _f32(1.0 / lim_xm, q.device), _f32(1.0 / lim_x, q.device)
+    s_ds, s_dsm = scales[4], scales[5]
+    qm, qf, dom, dof = (c.long() for c in operand_codes(q, do, scales, lims))
+    every = dkv_flush_tiles(lims)          # full, msb
+    tile = DKV_TILE
+    outs = [torch.zeros((B, T, nkv, hd), dtype=torch.int64, device=q.device)
+            for _ in range(4)]
+    for b in range(B):
+        for kvh in range(nkv):
+            for kv0 in range(0, T, tile):
+                kt = _head(k, b, kvh)[kv0:kv0 + tile]
+                vt = _head(v, b, kvh)[kv0:kv0 + tile]
+                kj = torch.arange(kv0, kv0 + kt.shape[0], device=q.device)
+                acc = [torch.zeros((kt.shape[0], hd), dtype=torch.int64,
+                                   device=q.device) for _ in range(4)]
+                exact = [a.clone() for a in acc]
+                count = [0, 0]             # tiles since the last flush
+                for h in range(kvh * g, kvh * g + g):
+                    for q0 in range(kv0 // tile * tile if causal else 0, S,
+                                    tile):
+                        qr = slice(q0, q0 + tile)
+                        qi = torch.arange(q0, min(S, q0 + tile),
+                                          device=q.device)
+                        s_t = kt @ _head(q, b, h)[qr].T
+                        dp_t = vt @ _head(do, b, h)[qr].T
+                        valid = kj[:, None] <= qi[None, :] if causal \
+                            else torch.ones_like(s_t, dtype=torch.bool)
+                        p = torch.where(valid, torch.exp(
+                            s_t * scale - lse[b, h, qr][None, :]),
+                            torch.zeros((), device=q.device))
+                        ds = p * (dp_t - delta[b, h, qr][None, :]) * scale
+                        pairs = ((codes_tile(p, s_pm, lim_xm).long().T,
+                                  dom[b, qr, h], False),
+                                 (codes_tile(p, s_pf, lim_x).long().T,
+                                  dof[b, qr, h], False),
+                                 (codes_tile(ds, s_dsm, lim_gm).long().T,
+                                  qm[b, qr, h], True),
+                                 (codes_tile(ds, s_ds, lim_g).long().T,
+                                  qf[b, qr, h], True))
+                        for i, (a, c, split) in enumerate(pairs):
+                            acc[i] = _plane_product(a, c, split, acc[i])
+                            exact[i] += _imm(a.T, c)
+                        for kind, prods in ((0, (1, 3)), (1, (0, 2))):
+                            count[kind] += 1
+                            if count[kind] == every[kind]:
+                                _flush(outs, acc, exact, prods, b, kv0, kvh)
+                                count[kind] = 0
+                _flush(outs, acc, exact, range(4), b, kv0, kvh)
+    return tuple(outs)
+
+
+def _flush(outs, acc, exact, prods, b, kv0, kvh) -> None:
+    for i in prods:
+        if not torch.equal(acc[i], exact[i]):
+            raise OverflowError("an int32 sum of kernel 9 left int32")
+        outs[i][b, kv0:kv0 + acc[i].shape[0], kvh] += acc[i]
+        acc[i].zero_()
+        exact[i].zero_()
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -356,7 +490,7 @@ def _lib() -> ctypes.CDLL:
     lib = load("flash_attn")
     lib.flash_fwd.argtypes = [_P] * 5 + [_I] * 8 + [_P]
     lib.flash_bwd_dq.argtypes = [_P] * 7 + [_I] * 8 + [_P]
-    lib.flash_bwd_dkv.argtypes = [_P] * 15 + [_I] * 8 + [_F] * 2 \
+    lib.flash_bwd_dkv.argtypes = [_P] * 17 + [_I] * 8 + [_F] * 2 \
         + [_I] * 4 + [_P]
     for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
         fn.restype = ctypes.c_int
@@ -455,14 +589,24 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scales, *, lims,
     check_lims(lims)
     qm, qf, dom, dof = operand_codes(q, do, scales, lims)
     dev = q.device
+    bf16 = q.dtype == torch.bfloat16
     outs = [torch.empty((B, T, nkv, hd), device=dev, dtype=torch.int64)
             for _ in range(4)]
+    # the bf16 kernel's K-major code planes of q and dO, and the row norms
+    # that bound its MMA scores' error
+    planes = norms = None
+    if bf16:
+        s_pad = -(-S // DKV_TILE) * DKV_TILE
+        planes = torch.empty((DKV_PLANES, B, nh * hd, s_pad), device=dev,
+                             dtype=torch.uint8)
+        norms = row_norms(q, do, k, v)
     lim_x, lim_xm, lim_g, lim_gm = (int(x) for x in lims)
     _call(_lib().flash_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), scales.data_ptr(),
           qm.data_ptr(), qf.data_ptr(), dom.data_ptr(), dof.data_ptr(),
+          norms.data_ptr() if bf16 else 0, planes.data_ptr() if bf16 else 0,
           *(o.data_ptr() for o in outs), *_geo(B, S, T, nh, nkv, hd, causal),
-          int(q.dtype == torch.bfloat16),
+          int(bf16),
           float(np.float32(1.0 / lim_xm)), float(np.float32(1.0 / lim_x)),
           lim_x, lim_xm, lim_g, lim_gm, _stream(q))
     LAUNCHES["flash_bwd_dkv"] += 1

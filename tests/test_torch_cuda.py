@@ -8,14 +8,15 @@ on a machine with a card:
         tests/test_torch_cuda.py
 
 (``--noconftest``: the repository's conftest imports JAX.)  Kernels 3-6
-and 10 must equal their exact plain versions (kernels 3 and 5 also with
-every code at its limit and past the sizes their int32 sums once refused);
+and 10 must equal their exact plain versions (kernels 3, 5 and 6 also with
+every code at its limit, past 65,536 tokens a split and past 2**31);
 kernel 1 on 8-bit codes must equal the emulation of its integer arithmetic
 bit for bit; kernels 1, 2 and 8 sum in fp32 in another order, within
 ``1e-5 * max|ref|`` of their plain versions; kernel 7's output is within one bf16 ulp (its bf16
 kernel keeps about 16 bits of P; fp32: ``1e-5 * max|ref|``) and its lse
-within 1e-5; kernel 9's code products equal the plain version's on integer inputs and elsewhere
-differ only where a P or dS code flips at a rounding boundary.
+within 1e-5; kernel 9's code products equal the plain version's on integer inputs (its
+bf16 kernel also the emulation of its tile arithmetic, at every head dim)
+and elsewhere differ only where a P or dS code flips at a rounding boundary.
 """
 import pytest
 
@@ -117,10 +118,12 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
 # 200 x 328 grid with N not a multiple of the 32-token stage, two qwen2.5-3b
 # projections at a short sequence, two ResNet-74 im2col geometries (the stem
 # and a 16-channel 3x3 conv at batch 32) and the qwen2.5-3b k_proj width at
-# its training N (8192 tokens)
+# its training N (8192 tokens); then two with enough 128 x 128 tiles that the
+# token axis is not split (the sign kernel's fused select), one of them
+# with partly padded tiles in its last row and column
 MATMULS = [(64, 32, 48), (1000, 200, 328), (2048, 2048, 256),
            (1024, 11008, 128), (32768, 27, 16), (32768, 144, 32),
-           (8192, 2048, 256)]
+           (8192, 2048, 256), (1000, 2048, 1280), (500, 1100, 2100)]
 
 
 @pytest.mark.parametrize("s", MATMULS, ids=lambda s: "N{}_{}x{}".format(*s))
@@ -160,6 +163,37 @@ def test_predictor_kernel_is_exact_at_the_worst_case_magnitude(card, dout, N):
     assert torch.equal(pred, PM.predictor_matmul_plain(xm, gm))
     top = torch.tensor(float(N * 7 * 511), device=card)     # rounded to fp32
     assert bool((pred.abs() == top).all())
+
+
+@pytest.mark.parametrize("N,din,dout", [(700_000, 48, 160),
+                                         (700_000, 48, 32),
+                                         (65_536, 1536, 1536)],
+                         ids=["split_128x128", "split_128x32", "fused"])
+def test_sign_kernel_is_exact_at_the_worst_case_magnitude(card, N, din, dout):
+    """Every 8-bit x code at +-127 and every 16-bit g code at +-32767,
+    signed so that every element of the full product is +-N * 127 * 32767
+    (2.9e12 at N = 700,000: past 65,536 tokens per split and past 2**31;
+    1536 x 1536 at N = 65,536 runs one split, the fused select, with each
+    plane's int32 sum at its largest).  tau lies above every |pred|, so
+    every sign comes from the full product; the int64 product itself
+    (``psg_full_product``) must equal the exact one."""
+    g = torch.Generator(device=card).manual_seed(N + dout)
+    sign = lambda *s: torch.randint(0, 2, s, device=card,  # noqa: E731
+                                    generator=g) * 2 - 1
+    tok = sign(N, 1)
+    xq = (127 * tok * sign(1, din)).to(torch.int8)
+    gq = (32767 * tok * sign(1, dout)).to(torch.int16)
+    full = PM.psg_full_product(xq, gq)
+    want = PM._code_product(xq, gq).to(torch.int64)
+    assert full.dtype == torch.int64 and torch.equal(full, want)
+    assert bool((full.abs() == N * 127 * 32767).all())
+    pred = torch.randn(din, dout, device=card, generator=g)
+    tau = 2 * pred.abs().amax()
+    s, stats = PM.psg_grad_w(pred, xq, gq, tau)
+    ps, pstats = PM.psg_grad_w_plain(pred, xq, gq, tau)
+    assert torch.equal(s, ps) and torch.equal(stats, pstats)
+    assert torch.equal(s, torch.sign(full).to(torch.int8))
+    assert bool(stats.all())
 
 
 def test_psg_matmul_on_the_card_counts_its_launches(card):
@@ -294,6 +328,34 @@ def test_flash_dkv_kernel_is_bit_identical_on_integer_inputs(card, shape,
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert any(bool((w != 0).any()) for w in want)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_dkv_bf16_kernel_at_every_head_dim(card, hd, causal):
+    """The bf16 kernel 9 (bf16 and int8 tensor cores) at every head dim it
+    is built for, S = 300 (not a multiple of the 64-row tiles), g = 4: on
+    integer inputs bit for bit against the plain version and the emulation
+    of its tile arithmetic (``flash_bwd_dkv_mma_plain``), at the paper's
+    code limits and with every limit at its largest (full and predictor
+    sums both flushed into int64 every 8 query tiles)."""
+    from repro_torch.kernels import flash_attn as FA
+    shape = (1, 300, 8, 2, hd, causal)
+    q, k, v, do = _flash_data(shape, card, torch.bfloat16, integer=True)
+    lse, delta, scales = _dkv_inputs(q, k, v, do, causal)
+    for lims in ((127.0, 7.0, 32767.0, 511.0),
+                 (127.0, 127.0, 32767.0, 32767.0)):
+        FA.reset_launches()
+        got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims,
+                               causal=causal)
+        assert FA.LAUNCHES["flash_bwd_dkv"] == 1
+        want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales,
+                                      lims=lims, causal=causal)
+        emul = FA.flash_bwd_dkv_mma_plain(q, k, v, do, lse, delta, scales,
+                                          lims=lims, causal=causal)
+        for g_, w_, e_ in zip(got, want, emul):
+            assert torch.equal(g_, w_) and torch.equal(g_, e_)
+        assert all(bool((w_ != 0).any()) for w_ in want)
 
 
 def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):

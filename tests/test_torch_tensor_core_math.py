@@ -1,5 +1,5 @@
-"""The arithmetic that the tensor-core kernels 1, 3, 5 and 7 rest on, in
-plain PyTorch on the CPU, against the JAX package's kernels.
+"""The arithmetic that the tensor-core kernels 1, 3, 5, 6, 7 and 9 rest on,
+in plain PyTorch on the CPU, against the JAX package's kernels.
 
 * Kernel 1 (``conv_fwd`` on int8 tensor cores) sums the 8-bit codes
   exactly and scales once: ``(sum_t window_t(cx) @ cw_t) * (sx * sw)``
@@ -24,12 +24,31 @@ plain PyTorch on the CPU, against the JAX package's kernels.
   ``predictor_matmul_pallas`` (interpret mode) exactly, also with every code
   at its limit and N not a multiple of the 32-token MMA depth.  The JAX
   kernel sums in fp32, exact below 2**24, which every case here stays under.
+* Kernel 6 (``psg_grad_w`` on int8 tensor cores) runs kernel 5's byte-plane
+  product on the 8-bit x and 16-bit g codes, each plane in int32 over at
+  most 65,536 tokens and int64 across splits, then the Eq. (2) select and
+  the fallback flags as its fused epilogue forms them, one MMA block at a
+  time (``psg_grad_w_split_plain``).  Signs and flags must equal the plain
+  version's and JAX's ``psg_grad_w_pallas`` (interpret mode) bit for bit,
+  with codes random and at their limits, on partly padded tiles and where
+  one TPU tile spans several MMA blocks; the JAX kernel sums in fp32, exact
+  below 2**24, which the cases held against it stay under (checked).
 * Kernel 7 (``flash_fwd`` on bf16 tensor cores) rounds each fp32 P tile to
   ``p_hi + p_lo`` (two bf16) before its products with v.  Its plain
   emulation (``flash_attention_split_p``) must hold against JAX's
   ``flash_attention(..., return_lse=True, interpret=True)`` within the
   kernel's contract: o within one bf16 ulp of the larger magnitude plus
   ``1e-6 * max|o|``, lse within ``1e-5``.
+* Kernel 9 (``flash_bwd_dkv`` on bf16 and int8 tensor cores) runs its code
+  products over 64-row query tiles with the 16-bit operand in byte planes,
+  256 hi + lo folded into one wrapping int32 sum per product and flushed
+  into int64 every few tiles (``flash_bwd_dkv_mma_plain``, which checks
+  every flushed int32 sum against the exact one).  On integer inputs, where
+  every score is exact in any order, it must equal the plain version bit
+  for bit, at the paper's code limits and with every limit at its largest
+  (flushes every 8 tiles), and the JAX package's tile-replay oracle
+  (``attention_dkv_products_oracle``) at code limits whose fp32 sums stay
+  exact.
 """
 import pytest
 
@@ -214,3 +233,138 @@ def test_conv_predictor_past_the_old_int32_limit_against_jax_reference():
     want = np.asarray(jnp.dot(patches.T, jnp.asarray(g, jnp.float32).reshape(-1, 16),
                               precision="highest"))
     assert np.max(np.abs(got.numpy() - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+# (N, din, dout) of kernel 6: one TPU tile, a 200 x 328 grid whose last row
+# and column of tiles are partly padded, din below 128, and dout 48, where
+# one TPU tile (all 48 columns) spans two 32-column MMA blocks
+SIGN_SHAPES = [(77, 30, 20), (4, 200, 328), (9, 100, 200), (64, 300, 48)]
+
+
+def _sign_codes(N, din, dout, kind, seed):
+    """8-bit x and 16-bit g codes with 4-bit and 10-bit predictor codes:
+    random (g within +-300, so every plane is used and the fp32 sums of the
+    JAX kernel stay exact), or every code at +-limit with signs that make
+    every element of both products reach the largest magnitude."""
+    r = np.random.RandomState(seed)
+    if kind == "random":
+        xq = r.randint(-127, 128, size=(N, din))
+        gq = r.randint(-300, 301, size=(N, dout))
+        xm, gm = r.randint(-7, 8, size=(N, din)), r.randint(-511, 512, size=(N, dout))
+    else:
+        tok = r.choice([-1, 1], size=(N, 1))
+        xs, gs = r.choice([-1, 1], size=(1, din)), r.choice([-1, 1], size=(1, dout))
+        xq, gq, xm, gm = 127 * tok * xs, 32767 * tok * gs, 7 * tok * xs, 511 * tok * gs
+    return tuple(torch.from_numpy(a.astype(t)) for a, t in
+                 ((xm, np.int8), (gm, np.int16), (xq, np.int8), (gq, np.int16)))
+
+
+@pytest.mark.parametrize("kind", ["random", "at_limit"])
+@pytest.mark.parametrize("shape", SIGN_SHAPES,
+                         ids=lambda s: "N{}_{}x{}".format(*s))
+def test_sign_split_product_and_flags_equal_plain_and_jax(shape, kind):
+    """At the limits each token adds 127 * 32767 to every element, so 4
+    tokens keep JAX's fp32 sums exact (past one split: the next test)."""
+    N, din, dout = shape
+    if kind == "at_limit":
+        N = 4
+    xm, gm, xq, gq = _sign_codes(N, din, dout, kind, seed=N + din + dout)
+    exact = PM._code_product(xq, gq)
+    assert float(exact.abs().max()) < 2 ** 24   # JAX's fp32 sums are exact
+    if kind == "at_limit":
+        assert bool((exact.abs() == N * 127 * 32767).all())
+    pred = PM.predictor_matmul_plain(xm, gm)
+    big = pred.abs().amax()
+    for tau in (0.05 * big, torch.zeros(()), 2 * big + 1):
+        got = PM.psg_grad_w_split_plain(pred, xq, gq, tau)
+        plain = PM.psg_grad_w_plain(pred, xq, gq, tau)
+        assert got[0].dtype == torch.int8 and got[1].dtype == torch.int32
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        jsign, jstats = jpm.psg_grad_w_pallas(
+            *(jnp.asarray(t.numpy()) for t in (xm, gm, xq, gq)),
+            jnp.float32(float(tau)))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(jsign))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(jstats))
+    # tau above every |pred|: every sign from the full product, every flag on
+    assert torch.equal(got[0], torch.sign(exact).to(torch.int8))
+    assert bool(got[1].all())
+
+
+@pytest.mark.parametrize("split", [7, 65536], ids=["split7", "split65536"])
+def test_sign_split_product_past_one_split_at_the_limits(split):
+    """70,000 tokens, every code at +-limit: past one 65,536-token split;
+    the int64 product and the signs equal the plain version's whatever the
+    split, and no int32 plane partial overflows (the emulation checks)."""
+    xm, gm, xq, gq = _sign_codes(70_000, 8, 8, "at_limit", seed=70)
+    full = PM._split_product(xq, gq, split)
+    assert torch.equal(full, PM._code_product(xq, gq).long())
+    assert bool((full.abs() == 70_000 * 127 * 32767).all())
+    pred = PM.predictor_matmul_plain(xm, gm)
+    tau = 2 * pred.abs().amax()
+    got = PM.psg_grad_w_split_plain(pred, xq, gq, tau, split_tokens=split)
+    plain = PM.psg_grad_w_plain(pred, xq, gq, tau)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+def _int_attention(B, S, nh, nkv, hd, causal, seed):
+    """Small integer q, k, v, dO (every score exact in any order) as bf16,
+    with the plain forward's lse, delta and the PSG scales."""
+    r = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(r.randint(-2, 3, size=sh).astype(np.float32))
+                   .to(torch.bfloat16) for sh in ((B, S, nh, hd), (B, S, nkv, hd),
+                                                  (B, S, nkv, hd), (B, S, nh, hd)))
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal)
+    delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
+    scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8, bits_x_msb=4,
+                                     bits_g=16, bits_g_msb=10)
+    return q, k, v, do, lse, delta, scales
+
+
+# (B, S, nh, nkv, hd, causal): hd 16 with S not a multiple of the 64-row
+# tiles, the qwen2.5-3b grouping (g = 8) at hd 128, and non-causal MHA
+DKV_SHAPES = [(2, 100, 4, 2, 16, True), (1, 128, 8, 1, 128, True),
+              (1, 96, 2, 2, 64, False)]
+DKV_IDS = ["hd16_ragged", "g8_hd128", "mha_noncausal"]
+
+
+@pytest.mark.parametrize("lims", [(127.0, 7.0, 32767.0, 511.0),
+                                  (127.0, 127.0, 32767.0, 32767.0)],
+                         ids=["paper_bits", "largest_limits"])
+@pytest.mark.parametrize("shape", DKV_SHAPES, ids=DKV_IDS)
+def test_dkv_plane_schedule_equals_plain_on_integer_inputs(shape, lims):
+    """Bit for bit against the plain version; at the largest limits the
+    int32 sums flush into int64 every 8 query tiles, which the g = 8 case
+    passes (16 tiles for its first kv block)."""
+    q, k, v, do, lse, delta, scales = _int_attention(*shape, seed=sum(shape[:5]))
+    causal = shape[-1]
+    got = FA.flash_bwd_dkv_mma_plain(q, k, v, do, lse, delta, scales,
+                                     lims=lims, causal=causal)
+    want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, lims=lims,
+                                  causal=causal)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.int64 and torch.equal(g_, w_)
+    assert all(bool((w_ != 0).any()) for w_ in want)
+    assert FA.dkv_flush_tiles(lims)[0] == 8
+
+
+@pytest.mark.parametrize("shape", DKV_SHAPES, ids=DKV_IDS)
+def test_dkv_plane_schedule_equals_the_jax_tile_replay_oracle(shape):
+    """At code limits of 4 x 8 bits (predictor 3 x 6), where every fp32 sum
+    of the JAX oracle is exact (checked), the emulation's group-summed
+    products equal the oracle's bit for bit on integer inputs."""
+    q, k, v, do, lse, delta, scales = _int_attention(*shape, seed=sum(shape[:5]) + 1)
+    B, S, nh, nkv, hd, causal = shape
+    lims = (FA.qlim(4), FA.qlim(3), FA.qlim(8), FA.qlim(6))
+    got = FA.flash_bwd_dkv_mma_plain(q, k, v, do, lse, delta, scales,
+                                     lims=lims, causal=causal)
+    parts = jref.attention_dkv_products_oracle(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v, do)),
+        *(jnp.asarray(t.numpy()) for t in (lse, delta, scales)),
+        lims=lims, causal=causal)
+    for g_, part in zip(got, parts):
+        per_head = np.asarray(part, np.float64)
+        assert np.abs(per_head).sum(axis=1).max() < 2 ** 24
+        want = per_head.reshape(B, S, nkv, nh // nkv, hd).sum(axis=3)
+        np.testing.assert_array_equal(g_.numpy(), want.astype(np.int64))
+    assert all(bool((g_ != 0).any()) for g_ in got)
