@@ -12,18 +12,19 @@ Phases, each fatal on failure:
    of phase 5);
 1b. show with ``cuobjdump -sass`` that the tensor-core kernels carry
    tensor-core instructions: IMMA in kernel 1's 8-bit kernel
-   (``conv_fwd_mma_kernel``), kernel 3 (``conv_pred_mma_kernel``), kernel 5
-   (``pred_mma_kernel``) and kernel 6 (``sign_mma_kernel``), HMMA in kernel
-   7's bf16 kernel (``flash_fwd_mma_kernel``), HMMA and IMMA in kernel 9's
-   (``flash_bwd_dkv_mma_kernel``), in every instantiation; a missing
-   ``cuobjdump`` is reported as not checked;
+   (``conv_fwd_mma_kernel``), kernel 2's (``conv_dx_mma_kernel``), kernel 3
+   (``conv_pred_mma_kernel``), kernel 5 (``pred_mma_kernel``) and kernel 6
+   (``sign_mma_kernel``), HMMA in kernel 7's and kernel 8's bf16 kernels
+   (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``), HMMA and IMMA
+   in kernel 9's (``flash_bwd_dkv_mma_kernel``), in every instantiation; a
+   missing ``cuobjdump`` is reported as not checked;
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
    version (kernels 3 and 4 bit for bit, kernel 3 also with every code at
    its limit and against the emulation of its padded-grid arithmetic;
    kernels 1 and 2 within ``FP32_REL`` of the reference's largest
-   magnitude, kernel 1 also bit for bit against the emulation of its
-   integer arithmetic) and time it with CUDA events next to the plain
+   magnitude and bit for bit against the emulations of their integer
+   arithmetic, kernel 2 also with every code at its limit) and time it with CUDA events next to the plain
    version, a PyTorch library call and its bound, and, it and the library
    call, alone on the device (one call captured in a CUDA graph and
    replayed; so in phases 3-4c too); then, checked and not
@@ -39,7 +40,8 @@ Phases, each fatal on failure:
    attention geometry (batch 2, 4096 tokens, 16 heads over 2 kv heads, hd
    128, bf16, causal), a padded one (fp32: kernel 7 on the CUDA cores) and
    a non-causal one (limits in ``check_flash_kernels``), plus kernel 9 bit
-   for bit on integer inputs;
+   for bit on integer inputs and kernel 8 on inputs whose dq cancels (its
+   bf16 kernel and, on the same values in fp32, its CUDA-core kernel);
    kernel 7 is timed beside ``scaled_dot_product_attention``; then one
    qwen2.5-3b attention sub-block forward and backward, materialized softmax
    against flash kernels, timed in turns with its peak memory;
@@ -186,18 +188,20 @@ def site(s):
 
 # the tensor-core instruction each redesigned kernel must carry, by library
 TENSOR_CORE_KERNELS = (("conv", "conv_fwd_mma_kernel", "IMMA"),
+                       ("conv", "conv_dx_mma_kernel", "IMMA"),
                        ("conv", "conv_pred_mma_kernel", "IMMA"),
                        ("psg_matmul", "pred_mma_kernel", "IMMA"),
                        ("psg_matmul", "sign_mma_kernel", "IMMA"),
                        ("flash_attn", "flash_fwd_mma_kernel", "HMMA"),
+                       ("flash_attn", "flash_bwd_dq_mma_kernel", "HMMA"),
                        ("flash_attn", "flash_bwd_dkv_mma_kernel", "HMMA"),
                        ("flash_attn", "flash_bwd_dkv_mma_kernel", "IMMA"))
 
 
 def sass_check(build):
     """Phase 1b: ``cuobjdump -sass`` of the built libraries shows IMMA in
-    the MMA kernels of kernels 1, 3, 5 and 6, HMMA in kernel 7's bf16
-    kernel and both in kernel 9's (every instantiation).  A missing
+    the MMA kernels of kernels 1, 2, 3, 5 and 6, HMMA in kernel 7's and
+    kernel 8's bf16 kernels and both in kernel 9's (every instantiation).  A missing
     cuobjdump is reported as not checked."""
     import shutil
 
@@ -233,6 +237,7 @@ def check_kernels(torch, K, shapes_all, shapes):
     mult = {s: shapes_all.count(s) for s in shapes}
     tot = {n: _zero_total() for n in list(REPLACES)[:4]}
     tot["conv_fwd"]["bound_fp32_ms"] = 0.0
+    tot["conv_grad_x"]["bound_fp32_ms"] = 0.0
     details = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for s in shapes:
@@ -249,7 +254,7 @@ def check_kernels(torch, K, shapes_all, shapes):
         xq = xc.float() * sx                      # quantize(x, 8), bit for bit
         xm, _ = codes(x, 4)
         gm, _ = codes(gy, 10)
-        gc, _ = codes(gy, 16)
+        gc, sg = codes(gy, 16)
         w_oihw = wq.reshape(C, k, k, dout).permute(3, 0, 1, 2).contiguous()
         x_nchw = xq.permute(0, 3, 1, 2)          # channels-last views
         g_nchw = gq.permute(0, 3, 1, 2)
@@ -283,19 +288,35 @@ def check_kernels(torch, K, shapes_all, shapes):
                   xc.numel() + wc.numel() + 4 * y.numel() + 8, 2 * macs,
                   INT8_OPS_PER_S, mult[s])]
 
-        # kernel 2: input gradient (the stem's image needs none)
-        dx = K.conv_grad_x(gq, wq, k, st, hp, hp)
+        # kernel 2: input gradient on the g and weight codes (int8 tensor
+        # cores; the stem's image needs none)
+        dx = K.conv_grad_x(gc, sg, wc, sw, k, st, hp, hp)
         ref = K.conv_grad_x_plain(gq, wq, k, st, hp, hp)
         err = float((dx - ref).abs().max())
         if not err <= FP32_REL * float(ref.abs().max()):
             fail(f"conv_grad_x at {row['geometry']}: max abs err {err}")
+        if not torch.equal(dx, K.conv_grad_x_codes_plain(gc, sg, wc, sw, k,
+                                                         st, hp, hp)):
+            fail(f"conv_grad_x at {row['geometry']}: differs from the "
+                 "emulation of its integer arithmetic")
+        row["conv_grad_x_at_limits"] = grad_x_at_limits(torch, K, gc, wc, k,
+                                                        st, hp, g)
+        # the fp32 kernel's bound: fp32 operands, operations at the fp32 rate
+        m2 = 0 if C == 3 else mult[s]
+        row["conv_grad_x_bound_fp32_ms"] = 1e3 * max(
+            4 * (gq.numel() + wq.numel() + dx.numel()) / HBM_BYTES_PER_S,
+            2 * macs / FP32_OPS_PER_S)
+        tot["conv_grad_x"]["bound_fp32_ms"] += \
+            m2 * row["conv_grad_x_bound_fp32_ms"]
         cases.append(("conv_grad_x", err,
-                      lambda: K.conv_grad_x(gq, wq, k, st, hp, hp),
-                      lambda: K.conv_grad_x_plain(gq, wq, k, st, hp, hp),
+                      lambda: K.conv_grad_x(gc, sg, wc, sw, k, st, hp, hp),
+                      lambda: K.conv_grad_x_plain(gc.float() * sg,
+                                                  wc.float() * sw, k, st, hp,
+                                                  hp),
                       lambda: torch.nn.grad.conv2d_input(
                           (B, C, hp, hp), w_oihw, g_nchw, stride=st),
-                      4 * (gq.numel() + wq.numel() + dx.numel()), 2 * macs,
-                      FP32_OPS_PER_S, 0 if C == 3 else mult[s]))
+                      2 * gc.numel() + wc.numel() + 4 * dx.numel() + 8,
+                      2 * macs, INT8_OPS_PER_S, m2))
 
         # kernel 3: PSG predictor product (int8 tensor cores), exact
         pred = K.conv_grad_w_predictor(xm, gm, k, st)
@@ -340,9 +361,28 @@ def check_kernels(torch, K, shapes_all, shapes):
     return tot, details
 
 
+def grad_x_at_limits(torch, K, gc, wc, k, st, hp, g):
+    """Kernel 2 with every g code at +-32767 and every weight code at
+    +-127, the signs aligned a channel (3x3 dout-64 sums reach 2.4e9, past
+    int32): bit for bit its emulation.  Returns the largest |dx|."""
+    dout = gc.shape[-1]
+    sigma = torch.where(torch.randn(dout, device="cuda", generator=g) < 0,
+                        -1, 1)
+    gl = (32767 * sigma).expand(gc.shape).to(torch.int16).contiguous()
+    wl = (-127 * sigma).expand(wc.shape).to(torch.int8).contiguous()
+    sg, sw = (torch.tensor(v, device="cuda") for v in (3.1e-7, 7.9e-3))
+    dx = K.conv_grad_x(gl, sg, wl, sw, k, st, hp, hp)
+    if not torch.equal(dx, K.conv_grad_x_codes_plain(gl, sg, wl, sw, k, st,
+                                                     hp, hp)):
+        fail(f"conv_grad_x with the codes at their limits at k={k}, "
+             f"stride={st}, dout={dout}: differs from its emulation")
+    return float(dx.abs().max() / (sg * sw))
+
+
 def conv_uncounted_checks(torch, K, g):
-    """Phase 2, checked and not counted: kernel 1 on 16-bit codes (its fp32
-    kernel, within ``FP32_REL``) at a ResNet-74 body geometry, and kernel 3
+    """Phase 2, checked and not counted: kernels 1 and 2 on 12-bit codes
+    (their fp32 kernels, within ``FP32_REL``) at a ResNet-74 body geometry,
+    and kernel 3
     bit for bit at batch 640 of 32 x 32 images (C 3, dout 16, every code at
     its limit: sums up to 640 * 1024 * 7 * 511 pass 2**31)."""
     from repro_torch.core.quant import codes
@@ -355,6 +395,13 @@ def conv_uncounted_checks(torch, K, g):
     err16 = float((y - ref).abs().max())
     if xc.dtype != torch.int16 or not err16 <= FP32_REL * float(ref.abs().max()):
         fail(f"conv_fwd on int16 codes: max abs err {err16}")
+    gc, sg = codes(torch.randn(128, 16, 16, 32, device="cuda", generator=g)
+                   * 0.01, 16)
+    dx = K.conv_grad_x(gc, sg, wc, sw, 3, 1, 18, 18)
+    ref = K.conv_grad_x_plain(gc.float() * sg, wc.float() * sw, 3, 1, 18, 18)
+    err_dx16 = float((dx - ref).abs().max())
+    if not err_dx16 <= FP32_REL * float(ref.abs().max()):
+        fail(f"conv_grad_x on int16 weight codes: max abs err {err_dx16}")
     x = torch.randn(640, 34, 34, 3, device="cuda", generator=g)
     gy = torch.randn(640, 32, 32, 16, device="cuda", generator=g)
     xm = (7 * torch.sign(x)).to(torch.int8)
@@ -365,6 +412,8 @@ def conv_uncounted_checks(torch, K, g):
         fail("conv_grad_w_predictor at batch 640: not identical")
     return {"name": "checked_not_counted", "conv_fwd_int16_codes":
             {"geometry": [128, 18, 32, 32, 3, 1], "max_abs_err": err16},
+            "conv_grad_x_int16_weight_codes":
+            {"geometry": [128, 18, 32, 32, 3, 1], "max_abs_err": err_dx16},
             "conv_grad_w_predictor_batch640": {
                 "geometry": [640, 34, 3, 16, 3, 1], "identical": True,
                 "max_abs": float(want.abs().max())}}
@@ -566,6 +615,7 @@ def check_flash_kernels(torch, FA, geometries):
     import torch.nn.functional as F
 
     tot = {n: _zero_total() for n in FA.LAUNCHES}
+    tot["flash_bwd_dq"]["bound_fp32_ms"] = 0.0
     details = []
     lims = (127.0, 7.0, 32767.0, 511.0)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -598,6 +648,7 @@ def check_flash_kernels(torch, FA, geometries):
         err_dq = float((dq - dq_p).abs().max())
         if not err_dq <= FP32_REL * float(dq_p.abs().max()):
             fail(f"flash_bwd_dq at {name}: max abs err {err_dq}")
+        row["flash_bwd_dq_max_abs_ref"] = float(dq_p.abs().max())
 
         # kernel 9: the four code products
         scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8,
@@ -651,7 +702,10 @@ def check_flash_kernels(torch, FA, geometries):
              lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
                                            causal=causal),
              None, qkv + e * do.numel() + 2 * rows + 4 * dq.numel(),
-             *rate((2 * prod, mm), (prod, FP32_OPS_PER_S)), sites[1]),
+             # bf16: q k^T, dO v^T and the three dS k products of the split
+             # dS, on the tensor cores; fp32: dS k on the CUDA cores too
+             *(rate((5 * prod, mm)) if dt == "bfloat16"
+               else rate((2 * prod, mm), (prod, FP32_OPS_PER_S))), sites[1]),
             ("flash_bwd_dkv", err_kv,
              lambda: FA.flash_bwd_dkv(q, k, v, do, lse_p, delta, scales,
                                       lims=lims, causal=causal),
@@ -660,6 +714,13 @@ def check_flash_kernels(torch, FA, geometries):
              None, qkv + e * do.numel() + 2 * rows + 24 + 32 * k.numel(),
              *rate((2 * prod, mm), (4 * prod, INT8_OPS_PER_S)), sites[2])]
         time_cases(torch, cases, row, tot)
+        # the CUDA-core kernel's bound (dS k at the fp32 rate), as before
+        # the tensor-core kernel
+        row["flash_bwd_dq_bound_fp32_ms"] = 1e3 * max(
+            row["flash_bwd_dq"]["bytes"] / HBM_BYTES_PER_S,
+            2 * prod / mm + prod / FP32_OPS_PER_S)
+        tot["flash_bwd_dq"]["bound_fp32_ms"] += \
+            sites[1] * row["flash_bwd_dq_bound_fp32_ms"]
         details.append(row)
         del q, k, v, do, o, o_p, dq, dq_p, qt, kt, vt, cases
         torch.cuda.synchronize()
@@ -686,9 +747,40 @@ def check_flash_kernels(torch, FA, geometries):
         details.append({"name": f"integer_{dt}", "flash_bwd_dkv": "identical",
                         "nonzero_products": [int((w_ != 0).sum())
                                              for w_ in want]})
+    details.append(dq_cancel_check(torch, FA, geometries[0]))
     details.append(dkv_past_guard(torch, FA, gen, lims))
     details.append(split_p_adversarial(torch, FA, geometries[0], gen))
     return tot, details
+
+
+def dq_cancel_check(torch, FA, geometry):
+    """Kernel 8 at ``geometry`` (the qwen2.5-3b one) on inputs whose dq
+    cancels (``FA.dq_cancel_inputs``: keys with a common component 8 times
+    their spread): its bf16 kernel (three bf16 parts of dS) and its
+    CUDA-core kernel on the same values in fp32, each within ``FP32_REL``
+    of max|dq| of the plain version; returns each error as a share of that
+    limit (the margin is its inverse)."""
+    _, B, S, nh, nkv, hd, _, causal, _ = geometry
+    q, k, v, do = FA.dq_cancel_inputs(B, S, nh, nkv, hd, device="cuda")
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal)
+    delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
+    want = FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal)
+    limit = FP32_REL * float(want.abs().max())
+    share = {}
+    for kind, args in (("bf16_tensor_cores", (q, k, v, do)),
+                       ("fp32_cuda_cores", tuple(t.float()
+                                                 for t in (q, k, v, do)))):
+        got = FA.flash_bwd_dq(*args, lse, delta, causal=causal)
+        share[kind] = float((got - want).abs().max()) / limit
+        del got
+    out = {"name": "dq_cancel", "geometry": [B, S, nh, nkv, hd, causal],
+           "max_abs_dq": float(want.abs().max()),
+           "share_of_limit": share}
+    if not all(v <= 1.0 for v in share.values()):
+        fail(f"flash_bwd_dq on cancelling inputs: {out}")
+    del q, k, v, do, o, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def dkv_past_guard(torch, FA, gen, lims, S=9472, nh=64, hd=16):
@@ -1263,6 +1355,8 @@ def main() -> None:
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},
          "conv_fwd_bound_fp32_ms": tot["conv_fwd"]["bound_fp32_ms"],
+         "conv_grad_x_bound_fp32_ms": tot["conv_grad_x"]["bound_fp32_ms"],
+         "flash_bwd_dq_bound_fp32_ms": tot["flash_bwd_dq"]["bound_fp32_ms"],
          "note": "conv kernel times are summed over the conv sites of one "
                  "ResNet-74 batch-128 step (device_ms, for every kernel: "
                  "the same calls each replayed from a CUDA graph, device "
@@ -1271,7 +1365,10 @@ def main() -> None:
                  "kernel 1's bound counts its int8 codes in and fp32 y out "
                  "and its operations at the int8 rate, "
                  "conv_fwd_bound_fp32_ms the fp32 operands at the fp32 "
-                 "rate), PSG matmul kernel times over the "
+                 "rate; kernel 2's likewise its int16 g codes and int8 "
+                 "weight codes in and fp32 dx out, "
+                 "conv_grad_x_bound_fp32_ms the fp32 kernel's), PSG matmul "
+                 "kernel times over the "
                  "weight-matmul sites of one qwen2.5-3b 8-layer step at "
                  "N = 8192 tokens (im2col_psg_matmul_totals: the same two "
                  "kernels over the 75 im2col sites of one ResNet-74 "
@@ -1279,7 +1376,10 @@ def main() -> None:
                  "sites of one qwen2.5-3b 8-layer step at batch 2 x 4096 "
                  "(kernel 7 twice per layer; its bf16 bound counts q k^T "
                  "and the two P v products of the split P at the bf16 "
-                 "rate), with every block executed; "
+                 "rate; kernel 8's q k^T, dO v^T and the three dS k "
+                 "products of the split dS at the bf16 rate, "
+                 "flash_bwd_dq_bound_fp32_ms with dS k at the fp32 rate), "
+                 "with every block executed; "
                  "quantize times over one call at its main path's input, "
                  "the microbenchmark's x (2048 x 1024 fp32, 8 bits), the "
                  "scale's reduction included; its launches are the "

@@ -61,27 +61,30 @@ class PSGConv2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xp, w, probe, k: int, stride: int, cfg: PSGConfig):
         cfg = dispatch.pinned(cfg)
-        ctx.save_for_backward(xp, w)
         ctx.k, ctx.stride, ctx.cfg = k, stride, cfg
         # codes and scales of the 8-bit grid: the same grid as quantize, bit
-        # for bit, handed to the kernel as int8 codes
+        # for bit, handed to the kernel as int8 codes; the weight's serve
+        # the input gradient too
         xc, sx = codes(xp, cfg.bits_x)
         wc, sw = codes(w, cfg.bits_x)
+        ctx.save_for_backward(xp, w, wc, sw)
         return dispatch.conv_fwd(xc, sx, wc, sw, cfg, k=k, stride=stride)
 
     @staticmethod
     def backward(ctx, gy):
-        xp, w = ctx.saved_tensors
+        xp, w, wc, sw = ctx.saved_tensors
         k, stride, cfg = ctx.k, ctx.stride, ctx.cfg
         B, Hp, Wp, C = xp.shape
         dout = w.shape[-1]
         ho, wo = gy.shape[1], gy.shape[2]
         dxp = None
         if ctx.needs_input_grad[0]:
-            gq = quantize(gy, cfg.bits_g)
-            wq = quantize(w, cfg.bits_x)
-            dxp = dispatch.conv_grad_x(gq, wq, cfg, k=k, stride=stride,
-                                       hp=Hp, wp=Wp).to(xp.dtype)
+            # the 16-bit grid of gy, as codes and scale: gc * sg is
+            # quantize(gy, bits_g) bit for bit in fp32
+            gc, sg = codes(gy, cfg.bits_g)
+            dxp = dispatch.conv_grad_x(gc, sg, wc, sw, cfg, k=k,
+                                       stride=stride, hp=Hp,
+                                       wp=Wp).to(xp.dtype)
         sign, fallback = dispatch.conv_grad_w(xp, gy, cfg, k=k, stride=stride)
         # fp32 like the JAX package: float32(B*Ho*Wo) * (k*k*C) * dout
         macs = torch.tensor(float(B * ho * wo), dtype=torch.float32,

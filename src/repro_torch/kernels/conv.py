@@ -27,9 +27,18 @@ What bounds them on an H100, and what the design does about it:
   quarter of the bytes of fp32 operands and is bound by its bytes.  Wider
   codes (int16) run the fp32 CUDA-core kernel on ``cx sx`` and ``cw sw``;
   the codes' dtype picks the kernel.
-* ``conv_grad_x``: fp32 operands on the CUDA cores, one thread per output
-  element, bound by its operations at the fp32 rate; the gather form of the
-  transposed conv, so it needs no atomics and is deterministic.
+* ``conv_grad_x`` takes the int16 output-gradient codes and the weight
+  codes with their two fp32 scales.  8-bit weight codes run an int8
+  implicit GEMM on the tensor cores, one stride phase a block: every tap of
+  a phase reads g at a constant shift of the phase's lattice, so the block
+  stages its g rows plus halo once; the 16-bit g codes go in as two byte
+  planes (``g = 256 hi + lo``), each summed exactly in int32, and ``256 hi
+  + lo`` meets in int64, is rounded once to fp32 and multiplied by ``sg
+  sw`` (:func:`conv_grad_x_codes_plain` is that arithmetic in PyTorch).
+  It is the gather form of the transposed conv: no atomics, deterministic,
+  bound by its bytes.  Wider weight codes (int16) run the fp32 CUDA-core
+  kernel on ``gc sg`` and ``wc sw``, one thread per dx element; the weight
+  codes' dtype picks the kernel.
 * ``conv_grad_w_predictor`` runs on the int8 tensor cores: a pre-pass writes
   the x codes channel-major on a padded grid (per stride phase) and the two
   byte planes of the g codes (``g = 256 hi + lo``) on the same grid, where
@@ -62,7 +71,7 @@ import torch
 
 FALLBACK_BLOCK = 128   # dout block of one fallback flag (the TPU kernels' tile)
 PRED_BLOCK = 256       # positions a pre-pass block of the predictor kernel
-FWD_K_STEP = 32        # K bytes an MMA step of the forward kernel
+FWD_K_STEP = 32        # K bytes an MMA step of the forward and dx kernels
 
 LAUNCHES: Dict[str, int] = {"conv_fwd": 0, "conv_grad_x": 0,
                             "conv_grad_w_predictor": 0, "conv_grad_w": 0}
@@ -123,10 +132,12 @@ def _lib() -> ctypes.CDLL:
     lib.conv_fwd.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
     lib.conv_fwd_codes.argtypes = [_P] * 6 + [_I] * 12 + [_P]
     lib.conv_grad_x.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
+    lib.conv_grad_x_codes.argtypes = [_P] * 6 + [_I] * 12 + [_P]
     lib.conv_grad_w_pred.argtypes = [_P] * 4 + [_I] * 13 + [_P]
     lib.conv_grad_w_sign.argtypes = [_P] * 7 + [_I] * 11 + [_P]
     for fn in (lib.conv_fwd, lib.conv_fwd_codes, lib.conv_grad_x,
-               lib.conv_grad_w_pred, lib.conv_grad_w_sign):
+               lib.conv_grad_x_codes, lib.conv_grad_w_pred,
+               lib.conv_grad_w_sign):
         fn.restype = ctypes.c_int
     return lib
 
@@ -216,6 +227,34 @@ def conv_grad_x_plain(gq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
             _window(dx, ki, kj, stride, ho, wo).add_(
                 gq.float() @ wt[:, ki, kj].T)
     return dx
+
+
+def conv_grad_x_codes_plain(gc: torch.Tensor, sg: torch.Tensor,
+                            wc: torch.Tensor, sw: torch.Tensor, k: int,
+                            stride: int, hp: int, wp: int) -> torch.Tensor:
+    """The input-gradient kernel's arithmetic on int16 g codes and 8-bit
+    weight codes: the per-tap scatter-add of ``gc @ wc_t^T`` summed exactly
+    (float64, exact below 2**53, as the kernel's int32 byte-plane sums and
+    their int64 ``256 hi + lo`` are exact), rounded to fp32 once and
+    multiplied by the fp32 ``sg * sw``.  Bit-identical to the kernel."""
+    B, ho, wo, dout = gc.shape
+    C = wc.shape[0] // (k * k)
+    w64 = wc.double().reshape(C, k, k, dout)
+    acc = gc.new_zeros((B, hp, wp, C), dtype=torch.float64)
+    for ki in range(k):
+        for kj in range(k):
+            _window(acc, ki, kj, stride, ho, wo).add_(
+                gc.double() @ w64[:, ki, kj].T)
+    return acc.float() * (sg * sw)
+
+
+def conv_grad_x_k_bytes(k: int, stride: int, dout: int) -> int:
+    """K bytes of the dx kernel's largest stride phase, ``(0, 0)``: its
+    ``ceil(k / s)**2`` taps times dout rounded up to 16, rounded up to the
+    32-byte MMA step.  Each byte plane sums in int32 over at most this many
+    products, which stays exact below 65,536."""
+    taps = (-(-k // stride)) ** 2
+    return -(-taps * -(-dout // 16) * 16 // FWD_K_STEP) * FWD_K_STEP
 
 
 def _code_product(x: torch.Tensor, g: torch.Tensor, k: int,
@@ -347,27 +386,62 @@ def conv_fwd(xc: torch.Tensor, sx: torch.Tensor, wc: torch.Tensor,
     return y
 
 
-def conv_grad_x(gq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
-                hp: int, wp: int) -> torch.Tensor:
-    """``(B, Ho, Wo, dout)`` fp32 x ``(k*k*C, dout)`` fp32 -> ``dx (B, hp,
-    wp, C)`` fp32, the gradient of :func:`conv_fwd` with respect to its
-    padded input."""
-    if not _on_cuda(gq, wq):
-        return conv_grad_x_plain(gq, wq, k, stride, hp, wp)
-    _check(gq, "gq", torch.float32, 4)
-    _check(wq, "wq", torch.float32, 2)
-    B, ho, wo, dout = gq.shape
-    C = wq.shape[0] // (k * k)
-    if wq.shape != (k * k * C, dout) or conv_out_hw(hp, wp, k, stride) != (ho, wo):
-        raise ValueError(f"inconsistent shapes gq {tuple(gq.shape)}, wq "
-                         f"{tuple(wq.shape)}, k={k}, stride={stride}, "
+def conv_grad_x(gc: torch.Tensor, sg: torch.Tensor, wc: torch.Tensor,
+                sw: torch.Tensor, k: int, stride: int, hp: int,
+                wp: int) -> torch.Tensor:
+    """``(B, Ho, Wo, dout)`` g codes with scale ``sg`` x ``(k*k*C, dout)``
+    weight codes with scale ``sw`` -> ``dx (B, hp, wp, C)`` fp32, the
+    gradient of :func:`conv_fwd` with respect to its padded input, on the
+    quantized operands ``gc * sg`` and ``wc * sw`` (the scales fp32 0-d
+    tensors).  int8 weight codes run the int8 tensor-core kernel on the g
+    codes' byte planes (int8 g codes are widened to int16), int16 weight
+    codes the fp32 kernel."""
+    if not _on_cuda(gc, sg, wc, sw):
+        return conv_grad_x_plain(gc.float() * sg, wc.float() * sw, k, stride,
+                                 hp, wp)
+    if gc.dtype not in (torch.int8, torch.int16):
+        raise ValueError(f"gc: expected int8 or int16 codes, got {gc.dtype}")
+    if wc.dtype not in (torch.int8, torch.int16):
+        raise ValueError(f"wc: expected int8 or int16 codes, got {wc.dtype}")
+    _check(gc, "gc", gc.dtype, 4)
+    _check(wc, "wc", wc.dtype, 2)
+    _check(sg, "sg", torch.float32, 0)
+    _check(sw, "sw", torch.float32, 0)
+    B, ho, wo, dout = gc.shape
+    C = wc.shape[0] // (k * k)
+    if wc.shape != (k * k * C, dout) or conv_out_hw(hp, wp, k, stride) != (ho, wo):
+        raise ValueError(f"inconsistent shapes gc {tuple(gc.shape)}, wc "
+                         f"{tuple(wc.shape)}, k={k}, stride={stride}, "
                          f"input {hp}x{wp}")
-    # (k*k, dout, C): the layout the kernel reads with coalesced loads
-    wt = wq.reshape(C, k * k, dout).permute(1, 2, 0).contiguous()
-    dx = torch.empty((B, hp, wp, C), device=gq.device, dtype=torch.float32)
+    dx = torch.empty((B, hp, wp, C), device=gc.device, dtype=torch.float32)
     lib = _lib()
-    _call(lib.conv_grad_x, gq.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, ho,
-          wo, dout, C, k, stride, hp, wp, _stream(gq))
+    if wc.dtype == torch.int16:
+        gq = (gc.float() * sg).contiguous()
+        # (k*k, dout, C): the layout the kernel reads with coalesced loads
+        wt = (wc.float() * sw).reshape(C, k * k, dout).permute(1, 2, 0) \
+            .contiguous()
+        _call(lib.conv_grad_x, gq.data_ptr(), wt.data_ptr(), dx.data_ptr(), B,
+              ho, wo, dout, C, k, stride, hp, wp, _stream(gc))
+    else:
+        if -(-wp // stride) > 128:
+            raise ValueError(f"input width {wp} at stride {stride}: the int8 "
+                             "conv dx kernel takes at most 128 positions a "
+                             "phase row")
+        kp = conv_grad_x_k_bytes(k, stride, dout)
+        if kp > 65536:
+            raise ValueError(f"k={k}, stride={stride}, dout={dout}: {kp} K "
+                             "bytes a phase, past the 65536 that keep the "
+                             "int32 byte-plane sums exact")
+        gc = gc.to(torch.int16)
+        bn = 16 if C <= 16 else 32 if C <= 32 else 64
+        rows = -(-C // bn) * bn
+        # scratch for the kernel's phase weights (s*s, rows, kp)
+        wt = torch.empty((stride * stride, rows, kp), device=gc.device,
+                         dtype=torch.int8)
+        _call(lib.conv_grad_x_codes, gc.data_ptr(), wc.data_ptr(),
+              wt.data_ptr(), sg.data_ptr(), sw.data_ptr(), dx.data_ptr(), B,
+              ho, wo, dout, C, k, stride, hp, wp, kp, rows,
+              int(gc.data_ptr() % 16 == 0), _stream(gc))
     LAUNCHES["conv_grad_x"] += 1
     return dx
 

@@ -9,19 +9,24 @@
 // Replaces, in the JAX package's src/repro/kernels/conv.py:
 //   conv_fwd_codes      <- conv_fwd_pallas / _conv_fwd_kernel (8-bit codes)
 //   conv_fwd            <- the same, on fp32 operands (wider codes)
-//   conv_grad_x         <- conv_grad_x_pallas / _conv_grad_x_kernel
+//   conv_grad_x_codes   <- conv_grad_x_pallas / _conv_grad_x_kernel (8-bit w)
+//   conv_grad_x         <- the same, on fp32 operands (wider weight codes)
 //   conv_grad_w_pred    <- conv_grad_w_predictor_pallas / _conv_pred_kernel
 //   conv_grad_w_sign    <- conv_grad_w_pallas / _conv_grad_w_kernel
 //
 // Bounds on an H100 at the CIFAR ResNet shapes.  The forward on 8-bit codes
 // is bound by its bytes (int8 codes in, fp32 y out) far above its operations
 // at the int8 rate; on fp32 operands by its operations at the fp32 rate.
-// The input gradient is fp32, bound by its operations.  The integer
-// weight-gradient passes, counted at the int8 rate, are bound by their bytes.
+// The input gradient on codes (int16 g codes and int8 weight codes in, fp32
+// dx out) is bound by its bytes, its two byte-plane products at the int8
+// rate far below them; on fp32 operands by its operations at the fp32 rate.
+// The integer weight-gradient passes, counted at the int8 rate, are bound by
+// their bytes.
 // No im2col tensor is ever written: the k x k gather happens in shared
 // memory or in the index arithmetic, as in the TPU kernels.
 //
-// The forward on 8-bit codes (conv_fwd_mma_kernel) and the PSG predictor
+// The forward on 8-bit codes (conv_fwd_mma_kernel), the input gradient on
+// 8-bit weight codes (conv_dx_mma_kernel) and the PSG predictor
 // (conv_pred_mma_kernel) run int8 mma.sync.m16n8k32 with int32 sums on the
 // tensor cores; the rest run on the CUDA cores.
 //
@@ -41,6 +46,28 @@
 // stem's 3) gather their A bytes one by one through a per-byte table, with K
 // zero-padded to 32.  The epilogue multiplies the fp32 of the sum by sx sw,
 // read on the device, and stores fp32 NHWC.
+//
+// conv_dx_mma_kernel: dx = (sum over the taps that reach a position of
+// g_window gc w_t^T) (sg sw), the transposed conv as a gather (no scatter,
+// no atomics).  dx splits into s x s stride phases (pi, pj); a phase's
+// positions (pi + s u, pj + s v) form a lattice on which each of its taps
+// (ki = pi + s a, kj = pj + s b) reads g at (u - a, v - b): a stride-1
+// implicit GEMM with M the lattice positions, N the dx channels and K the
+// phase's taps x dout, and a block owns one phase (blockIdx.z).  The block
+// stages its lattice rows of g plus amax = (k - 1) / s halo rows and
+// columns once (cp.async, zero outside the output extent, int16 codes as
+// they lie in memory) and runs every tap from shared memory, a table giving
+// each 16-channel K group its offset, as the forward does.  The 16-bit codes
+// go to the int8 MMAs as byte planes, g = 256 hi + lo (lo u8, hi s8):
+// ldmatrix reads 16 channels of 16 positions as 16-bit pairs and
+// __byte_perm packs the low bytes and the high bytes of channels 2t, 2t + 1,
+// 8 + 2t and 9 + 2t into one A register each (perm16 order; the weight
+// pre-pass writes w^T of each phase in the same channel order).  Each plane
+// sums in int32, exact (K 255 127 < 2^31), and the epilogue rounds the
+// int64 256 hi + lo once to fp32 (__ll2float_rn) and multiplies by sg sw:
+// at a 3 x 3 conv with dout 64 and every code at its limit the sum reaches
+// 576 x 32767 x 127 = 2.4e9, past int32, so the planes never fold into one
+// int32 sum.
 //
 // conv_pred_mma_kernel: out[c k^2 + t, o] = sum_n x_msb[window_t(n), c]
 // g_msb[n, o], the exact integer sum rounded once to fp32.  K is the
@@ -332,7 +359,8 @@ int launch_fwd_mma(const int8_t* x, const int8_t* wt, const float* sx,
 }
 
 // ---------------------------------------------------------------------------
-// input gradient: the gather form of the transposed conv.  One thread per
+// input gradient on fp32 operands (weight codes wider than 8 bits): the
+// gather form of the transposed conv.  One thread per
 // dx element sums the taps with (p - ki) = 0 (mod s) and (q - kj) = 0 (mod
 // s); that covers the stride phases of the TPU kernel with no scatter and no
 // atomics, so the result is deterministic.  The weight comes tap-major and
@@ -370,6 +398,260 @@ __global__ void conv_grad_x_kernel(const float* __restrict__ g,
     }
   }
   dx[idx] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// input gradient on the codes: int8 implicit GEMM on the tensor cores, one
+// stride phase a block
+// ---------------------------------------------------------------------------
+
+struct DxPlan {
+  int B, Ho, Wo, dout, C, k, s, hp, wp;
+  int nu, nv;       // the phase lattice: ceil(hp / s) x ceil(wp / s)
+  int amax;         // (k - 1) / s: halo rows and columns of the staged g
+  int Wg;           // staged g columns: nv + amax
+  int pitch;        // staged bytes a g pixel: 32 ceil(dout / 16) + 16
+  int dout16;       // dout rounded up to 16: K entries a tap
+  int Kp;           // row pitch of the phase weights, >= every phase's K
+  int R, NI, tpi;   // lattice rows and images a tile, tiles an image group
+  int rin;          // staged g rows an image: R + amax
+  int slab;         // staged bytes an image: rin Wg pitch
+  int gbytes;       // NI slab
+  int wpitch;       // shared row pitch of the weight tile
+  int copy16;       // dout % 8 == 0 and gc 16-byte aligned: cp.async rows
+};
+
+// taps of phase (pi, pj): ki = pi + s a, kj = pj + s b, a < na, b < nb
+__host__ __device__ __forceinline__ int phase_taps(int k, int s, int p) {
+  return p < k ? (k - p + s - 1) / s : 0;
+}
+// K bytes of a phase: its taps x dout16, rounded up to the 32-byte MMA depth
+__host__ __device__ __forceinline__ int phase_k(const DxPlan& P, int z) {
+  const int n = phase_taps(P.k, P.s, z / P.s) * phase_taps(P.k, P.s, z % P.s);
+  return (n * P.dout16 + 31) / 32 * 32;
+}
+
+// wt[z][n][kk], phase z = pi s + pj: K entry kk = ta dout16 + oo is tap ta =
+// a nb + b of the phase (ki = pi + s a, kj = pj + s b) and output channel o
+// = 16 (oo / 16) + perm16(oo % 16), the order in which the A fragments
+// (packed by __byte_perm from ldmatrix of the int16 g rows) hold the
+// channels; zero past the phase's taps, past dout and past C
+__global__ void wt_dx_kernel(const int8_t* __restrict__ wc,
+                             int8_t* __restrict__ wt, DxPlan P, int rows) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long per = (long long)rows * P.Kp;
+  if (i >= (long long)P.s * P.s * per) return;
+  const int z = (int)(i / per), n = (int)(i % per / P.Kp);
+  const int kk = (int)(i % P.Kp);
+  const int pi = z / P.s, pj = z % P.s;
+  const int na = phase_taps(P.k, P.s, pi), nb = phase_taps(P.k, P.s, pj);
+  const int ta = kk / P.dout16, oo = kk % P.dout16;
+  const int o = (oo & ~15) + perm16(oo & 15);
+  int8_t v = 0;
+  if (n < P.C && ta < na * nb && o < P.dout) {
+    const int ki = pi + P.s * (ta / nb), kj = pj + P.s * (ta % nb);
+    v = wc[((size_t)n * P.k * P.k + ki * P.k + kj) * P.dout + o];
+  }
+  wt[i] = v;
+}
+
+// dx tile (16 lattice positions a warp of one stride phase) x (8 NT dx
+// channels); K = the phase's taps x dout in 32-byte steps.  A is the int16
+// g codes, staged once per block (lattice rows plus the amax halo rows and
+// columns, zero outside the output extent) and read by ldmatrix as 16-bit
+// pairs; __byte_perm splits each register pair into the u8 low and s8 high
+// byte planes of four channels (2t, 2t + 1, 8 + 2t, 9 + 2t: perm16), so
+// that each plane is one int8 A fragment.  Two MMAs a step (lo u8 x w s8,
+// hi s8 x w s8), int32 sums exact per plane; the epilogue forms 256 hi + lo
+// in int64, rounds it once to fp32 and multiplies by sg sw.
+template <int NT>
+__global__ void __launch_bounds__(256)
+conv_dx_mma_kernel(const int16_t* __restrict__ g,
+                   const int8_t* __restrict__ wt,   // (s^2, rows, Kp)
+                   const float* __restrict__ sg, const float* __restrict__ sw,
+                   float* __restrict__ dx, DxPlan P, int rows) {
+  constexpr int BN = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* gs = smem;                              // staged g
+  unsigned char* zero = gs + P.gbytes;                   // 32 zero bytes
+  unsigned char* ws = zero + 32;                         // BN x wpitch
+  int* koff = reinterpret_cast<int*>(ws + BN * P.wpitch);  // K offsets
+  const int nthreads = blockDim.x;
+  const int tile = blockIdx.x, j0 = blockIdx.y * BN, z = blockIdx.z;
+  const int pi = z / P.s, pj = z % P.s;
+  const int nb = phase_taps(P.k, P.s, pj);
+  const int ntaps = phase_taps(P.k, P.s, pi) * nb;
+  const int Kz = phase_k(P, z);
+  const int b0 = (tile / P.tpi) * P.NI, u0 = (tile % P.tpi) * P.R;
+  const int rowb = P.Wg * P.pitch;
+
+  // stage g: lattice rows u0 - amax .. u0 + R - 1, columns -amax .. nv - 1
+  const int chunks = P.pitch / 16 - 1;      // 16-byte pieces of a pixel read
+  const int dchunks = P.dout / 8;           // of them, holding g codes
+  for (int img = 0; img < P.NI; ++img) {
+    const int b = b0 + img;
+    if (b >= P.B) break;
+    unsigned char* dst = gs + img * P.slab;
+    if (P.copy16) {
+      const int n = P.rin * P.Wg * chunks;
+      for (int e = threadIdx.x; e < n; e += nthreads) {
+        const int ch = e % chunks, px = e / chunks;
+        const int oh = u0 - P.amax + px / P.Wg, ow = px % P.Wg - P.amax;
+        const bool ok = ch < dchunks && oh >= 0 && oh < P.Ho && ow >= 0 &&
+                        ow < P.Wo;
+        const int16_t* src =
+            ok ? g + (((size_t)b * P.Ho + oh) * P.Wo + ow) * P.dout + ch * 8 : g;
+        cp_async16(dst + px * P.pitch + ch * 16, src, ok);
+      }
+    } else {
+      const int n = P.rin * P.Wg * P.dout16;
+      for (int e = threadIdx.x; e < n; e += nthreads) {
+        const int o = e % P.dout16, px = e / P.dout16;
+        const int oh = u0 - P.amax + px / P.Wg, ow = px % P.Wg - P.amax;
+        const bool ok = o < P.dout && oh >= 0 && oh < P.Ho && ow >= 0 &&
+                        ow < P.Wo;
+        reinterpret_cast<int16_t*>(dst + px * P.pitch)[o] =
+            ok ? g[(((size_t)b * P.Ho + oh) * P.Wo + ow) * P.dout + o] : 0;
+      }
+    }
+  }
+  const int kg = Kz / 16;
+  for (int e = threadIdx.x; e < BN * kg; e += nthreads) {
+    const int r = e / kg, c = e % kg;
+    cp_async16(ws + r * P.wpitch + c * 16,
+               wt + ((size_t)z * rows + j0 + r) * P.Kp + c * 16, true);
+  }
+  cp_async_commit();
+  for (int e = threadIdx.x; e < kg; e += nthreads) {
+    const int ta = e * 16 / P.dout16, cc = e * 16 % P.dout16;
+    int off = -1;
+    if (ta < ntaps) {
+      const int a = ta / nb, bb = ta % nb;
+      off = ((P.amax - a) * P.Wg + P.amax - bb) * P.pitch + cc * 2;
+    }
+    koff[e] = off;
+  }
+  if (threadIdx.x < 8) reinterpret_cast<unsigned*>(zero)[threadIdx.x] = 0u;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int RW = P.R * P.nv;
+  // the lattice position m of the tile: its staged offset (at tap a = b =
+  // amax) and whether it is a dx position
+  auto pos = [&](int m, int& b, int& p, int& q) {
+    const int img = m / RW, r = (m / P.nv) % P.R, v = m % P.nv;
+    b = b0 + img, p = pi + P.s * (u0 + r), q = pj + P.s * v;
+    const bool ok = img < P.NI && b < P.B && u0 + r < P.nu && p < P.hp &&
+                    q < P.wp;
+    return ok ? img * P.slab + r * rowb + v * P.pitch : -1;
+  };
+  const int m0 = warp * 16;
+  int lo[NT][4], hi[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) lo[n][c] = hi[n][c] = 0;
+
+  int b_, p_, q_;
+  const int pa = max(0, pos(m0 + lane % 16, b_, p_, q_));
+  const int half = (lane / 16) * 16;       // lanes 16-31: channels 8-15
+  for (int ks = 0; ks < Kz / 32; ++ks) {
+    unsigned r[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = koff[2 * ks + h];
+      ldsm_x4(r[h], (off < 0 ? zero : gs + pa + off) + half);
+    }
+    unsigned al[4], ah[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      al[2 * h] = __byte_perm(r[h][0], r[h][2], 0x6420);
+      al[2 * h + 1] = __byte_perm(r[h][1], r[h][3], 0x6420);
+      ah[2 * h] = __byte_perm(r[h][0], r[h][2], 0x7531);
+      ah[2 * h + 1] = __byte_perm(r[h][1], r[h][3], 0x7531);
+    }
+#pragma unroll
+    for (int np = 0; np < NT; np += 2) {
+      const int row = np * 8 + lane % 8 + (lane / 16) * 8;
+      unsigned bf[4];
+      ldsm_x4(bf, ws + row * P.wpitch + ks * 32 + ((lane / 8) % 2) * 16);
+      mma_u8s8(lo[np], al, bf[0], bf[1]);
+      mma_s8s8(hi[np], ah, bf[0], bf[1]);
+      mma_u8s8(lo[np + 1], al, bf[2], bf[3]);
+      mma_s8s8(hi[np + 1], ah, bf[2], bf[3]);
+    }
+  }
+
+  // epilogue: fp32 of the exact 256 hi + lo, times sg sw, NHWC
+  const float scale = __fmul_rn(*sg, *sw);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int b, p, q;
+    if (pos(m0 + lane / 4 + h * 8, b, p, q) < 0) continue;
+    float* row = dx + (((size_t)b * P.hp + p) * P.wp + q) * P.C;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = j0 + n * 8 + (lane % 4) * 2;
+      const float v0 = __fmul_rn(
+          __ll2float_rn(256LL * hi[n][2 * h] + lo[n][2 * h]), scale);
+      const float v1 = __fmul_rn(
+          __ll2float_rn(256LL * hi[n][2 * h + 1] + lo[n][2 * h + 1]), scale);
+      if (c + 1 < P.C && P.C % 2 == 0) {
+        *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+      } else {
+        if (c < P.C) row[c] = v0;
+        if (c + 1 < P.C) row[c + 1] = v1;
+      }
+    }
+  }
+}
+
+// tile plan of the input gradient on codes: warps (2, 4 or 8; 16 lattice
+// positions each), lattice rows and images a tile, shared bytes; false when
+// no plan fits
+bool plan_dx(DxPlan& P, int bn, int& warps, size_t& smem) {
+  if (P.nv > 128) return false;
+  const long long tiles_n = (long long)(P.C + bn - 1) / bn * P.s * P.s;
+  auto tile = [&](int w) {          // the tile of w warps; the block count
+    const int bmp = 16 * w;
+    if (P.nu * P.nv <= bmp) {
+      P.R = P.nu, P.NI = bmp / (P.nu * P.nv), P.tpi = 1;
+    } else {
+      P.R = bmp / P.nv, P.NI = 1, P.tpi = (P.nu + P.R - 1) / P.R;
+    }
+    return (long long)(P.B + P.NI - 1) / P.NI * P.tpi * tiles_n;
+  };
+  // the most warps that still give about two blocks per SM
+  for (warps = 8; warps > 2 && 16 * (warps / 2) >= P.nv; warps /= 2)
+    if (tile(warps) >= 2 * kSMs) break;
+  tile(warps);
+  P.rin = P.R + P.amax;
+  P.slab = P.rin * P.Wg * P.pitch;
+  const long long gb = (long long)P.NI * P.slab;
+  P.gbytes = (int)gb;
+  P.wpitch = smem_pitch(P.Kp);
+  smem = (size_t)P.gbytes + 32 + (size_t)bn * P.wpitch +
+         sizeof(int) * (size_t)(P.Kp / 16);
+  return gb < (1LL << 30) && smem <= 227 * 1024;
+}
+
+template <int NT>
+int launch_dx_mma(const int16_t* g, const int8_t* wt, const float* sg,
+                  const float* sw, float* dx, DxPlan P, int rows,
+                  cudaStream_t st) {
+  int warps;
+  size_t smem;
+  if (!plan_dx(P, 8 * NT, warps, smem)) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(conv_dx_mma_kernel<NT>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
+  if (err) return err;
+  const int tiles = (P.B + P.NI - 1) / P.NI * P.tpi;
+  dim3 grid(tiles, (P.C + 8 * NT - 1) / (8 * NT), P.s * P.s);
+  conv_dx_mma_kernel<NT><<<grid, warps * 32, smem, st>>>(g, wt, sg, sw, dx, P,
+                                                          rows);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -753,6 +1035,45 @@ int conv_grad_x(const void* g, const void* wt, void* dx, int B, int Ho, int Wo,
       (const float*)g, (const float*)wt, (float*)dx, B, Ho, Wo, dout, C, k, s,
       Hp, Wp);
   return (int)cudaGetLastError();
+}
+
+// gc (B, Ho, Wo, dout) int16 codes, wc (k^2 C, dout) int8 patch-major codes,
+// sg, sw fp32 scalars on the device; wt scratch of s^2 rows Kp bytes for the
+// phase weights, rows = C rounded up to the dx channel tile bn (16 for C <=
+// 16, 32 for C <= 32, else 64), Kp = ceil(k / s)^2 taps x dout rounded up to
+// 16, rounded up to 32 (the K bytes of phase (0, 0), the largest)
+int conv_grad_x_codes(const void* gc, const void* wc, void* wt,
+                      const void* sg, const void* sw, void* dx, int B,
+                      int Ho, int Wo, int dout, int C, int k, int s, int hp,
+                      int wp, int Kp, int rows, int aligned, void* stream) {
+  if ((long long)B * hp * wp * C == 0) return 0;
+  const int bn = C <= 16 ? 16 : C <= 32 ? 32 : 64;
+  DxPlan P{};
+  P.B = B, P.Ho = Ho, P.Wo = Wo, P.dout = dout, P.C = C, P.k = k, P.s = s;
+  P.hp = hp, P.wp = wp;
+  P.nu = (hp + s - 1) / s, P.nv = (wp + s - 1) / s;
+  P.amax = (k - 1) / s, P.Wg = P.nv + P.amax;
+  P.dout16 = (dout + 15) / 16 * 16, P.pitch = 2 * P.dout16 + 16;
+  P.Kp = Kp;
+  P.copy16 = aligned && dout % 8 == 0;
+  // int32 sums of each byte plane stay exact: Kp 255 127 < 2^31
+  if (s < 1 || Kp != phase_k(P, 0) || Kp > 65536 ||
+      rows != (C + bn - 1) / bn * bn)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)s * s * rows * Kp;
+  if (n > 0) {
+    wt_dx_kernel<<<blocks_for(n), kThreads, 0, st>>>((const int8_t*)wc,
+                                                    (int8_t*)wt, P, rows);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const int16_t* gp = (const int16_t*)gc;
+  const int8_t* wp8 = (const int8_t*)wt;
+  const float *fg = (const float*)sg, *fw = (const float*)sw;
+  if (bn == 16) return launch_dx_mma<2>(gp, wp8, fg, fw, (float*)dx, P, rows, st);
+  if (bn == 32) return launch_dx_mma<4>(gp, wp8, fg, fw, (float*)dx, P, rows, st);
+  return launch_dx_mma<8>(gp, wp8, fg, fw, (float*)dx, P, rows, st);
 }
 
 // xm (B, Hp, Wp, C) int8, gm (B, Ho, Wo, dout) int16 codes; out (k^2 C,

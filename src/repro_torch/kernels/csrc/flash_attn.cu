@@ -16,7 +16,10 @@
 //                  picks the kernel, in launch_fwd.
 //                  Replaces flash_attention / _flash_kernel.
 //   flash_bwd_dq   kernel 8: P = exp(s - lse), dS = (P (dP - delta)) scale,
-//                  dq = dS k in fp32.
+//                  dq = dS k in fp32.  bf16 operands run on the bf16 tensor
+//                  cores (flash_bwd_dq_mma_kernel), fp32 operands on the CUDA
+//                  cores (flash_bwd_dq_kernel); the dtype picks, in
+//                  launch_dq.
 //                  Replaces flash_bwd_dq_pallas / _flash_bwd_dq_kernel.
 //   flash_bwd_dkv  kernel 9, the PSG kernel: P and dS quantized in-tile onto
 //                  their grids, rintf(__fdiv_rn(x, s)) clamped, and the four
@@ -45,7 +48,9 @@
 //   kernel 7: q k^T and P v, 4 hd pairs operations; in bf16, q k^T and the
 //             two P v products of the split P below, 6 hd pairs at the bf16
 //             tensor-core rate;
-//   kernel 8: q k^T, dO v^T and dS k, 6 hd pairs;
+//   kernel 8: q k^T, dO v^T and dS k, 6 hd pairs; in bf16, q k^T, dO v^T
+//             and the three dS k products of the split dS, 10 hd pairs at
+//             the bf16 tensor-core rate;
 //   kernel 9: q k^T and dO v^T (bf16 rate), and the four code products
 //             (integer multiply-adds, 8 hd pairs operations, at the int8
 //             rate; its byte planes run twice that).
@@ -72,6 +77,24 @@
 // tests/test_torch_tensor_core_math.py hold the contract: one bf16 ulp plus
 // 1e-6 max|o|, lse within 1e-5).  A warp skips the kv tiles that lie wholly
 // after its rows, which would add p = 0.  Blocks go longest rows first.
+//
+// Kernel 8 in bf16 (flash_bwd_dq_mma_kernel): 64 query rows a block, 4 warps
+// of 16 rows, two blocks an SM, 64-key stages through kernel 7's two-stage
+// cp.async ring of K and V, longest rows first.  S = Q K^T and dP = dO V^T
+// run as bf16 MMAs with one fresh fp32 sum a k16 step, added round-to-
+// nearest, as kernel 9's scores do; P and dS follow in registers in JAX's
+// order.  dq = dS K needs more than kernel 7's split: every row of dS sums
+// to about zero (delta = rowsum(dO o)), so where the keys share a common
+// component dq cancels, and a relative error of 2^-16 in dS (two bf16
+// parts) exceeds 1e-5 max|dq| (flash_attn.dq_cancel_inputs).  dS is split in
+// three bf16 parts, hi = bf16(dS), mid = bf16(dS - hi), lo = bf16(dS - hi -
+// mid), about 24 bits, fp32's own precision; the parts are packed straight
+// from the score accumulators as A fragments (no trip through shared
+// memory) against K as the B operand (ldmatrix.trans from the tile that fed
+// S), three MMAs per fragment.  The twelve MMAs of a key tile sum into a
+// fresh accumulator that is added into dq round-to-nearest, so the tensor
+// cores' truncating sums never run over more than one tile.  Bound: the
+// bf16 rate over its 10 hd pairs operations.
 //
 // Kernel 9 in bf16 (flash_bwd_dkv_mma_kernel): one block of 16 warps per
 // (batch x kv head, 64-row kv tile), kv tiles with the most work first; it
@@ -128,10 +151,9 @@
 // kernel 9 in fp32 loops like its bf16 kernel over 32-row kv tiles, keeps the
 // codes of query rows 2p and 2p + 1 side by side in shared memory and sums
 // two rows with one __dp2a (two 16 x 8-bit products and an add), with the
-// same int32 flush rule.  Later work: kernel 8 is still on fp32 FMAs; bf16
-// mma/wgmma for its q k^T and dO v^T; wgmma and TMA for kernels 7 and 9,
-// and warp specialization for kernel 9, whose elementwise phase and MMA
-// phase now alternate between barriers.
+// same int32 flush rule.  Later work: wgmma and TMA for kernels 7-9, and
+// warp specialization for kernel 9, whose elementwise phase and MMA phase
+// now alternate between barriers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -656,7 +678,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// kernel 8: dq
+// kernel 8, fp32 operands: dq on the CUDA cores
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
@@ -732,6 +754,200 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* row = dq + (((size_t)b * G.S + qi) * G.nh + h) * HD;
 #pragma unroll
     for (int jj = 0; jj < CPT; ++jj) row[col<HD>(tx, jj)] = acc[i][jj];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 8, bf16 operands: on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int DQ8 = 64;                // query rows a block
+constexpr int kDqThreads = 128;        // 4 warps, 16 query rows each
+
+template <int HD>
+struct DqShape {
+  static constexpr int P = HD + 8;     // bf16 row pitch: 16 bytes of pad
+  static constexpr int kQ = DQ8 * P, kKV = FK * P;           // elements
+  static constexpr size_t kSmem = sizeof(__nv_bfloat16) * (2 * kQ + 4 * kKV);
+};
+
+// x = hi + mid + lo + r, each part the bf16 rounding of what the parts
+// before it left (every subtraction exact in fp32), |r| <= 2^-24 |x| or so;
+// two columns a register, the lower column in the low half
+__device__ __forceinline__ void split3(float a, float b, unsigned& hi,
+                                       unsigned& mid, unsigned& lo) {
+  const __nv_bfloat16 ah = __float2bfloat16_rn(a), bh = __float2bfloat16_rn(b);
+  const float ra = __fsub_rn(a, __bfloat162float(ah));
+  const float rb = __fsub_rn(b, __bfloat162float(bh));
+  const __nv_bfloat16 am = __float2bfloat16_rn(ra), bm = __float2bfloat16_rn(rb);
+  hi = pack_bf16(ah, bh);
+  mid = pack_bf16(am, bm);
+  lo = pack_bf16(__float2bfloat16_rn(__fsub_rn(ra, __bfloat162float(am))),
+                 __float2bfloat16_rn(__fsub_rn(rb, __bfloat162float(bm))));
+}
+
+// Warp w owns query rows q0 + 16 w .. + 15; a thread holds rows gid = lane /
+// 4 and gid + 8 of them, and columns 2 (lane % 4) and + 1 of every 8-column
+// tile of the score tiles S, dP (FK / 8 tiles) and of dq (HD / 8 tiles).
+// Per 64-key tile: S = Q K^T and dP = dO V^T on bf16 MMAs, one fresh fp32
+// sum a k16 step added round-to-nearest (as kernel 9 does), P and dS in
+// registers in JAX's order, then dq += dS K with dS split into three bf16
+// parts packed straight from the score accumulators as A fragments, K the B
+// operand by ldmatrix.trans from the tile that fed S; the tile's twelve
+// MMAs a column tile sum into a fresh accumulator, added into dq
+// round-to-nearest.
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, 2)   // two blocks an SM
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, Geo G) {
+  using Sh = DqShape<HD>;
+  constexpr int P = Sh::P, NS = FK / 8, NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [DQ8][P]
+  __nv_bfloat16* dOs = Qs + Sh::kQ;              // [DQ8][P]
+  __nv_bfloat16* Ks = dOs + Sh::kQ;              // [2][FK][P], a ring
+  __nv_bfloat16* Vs = Ks + 2 * Sh::kKV;          // [2][FK][P]
+  const int iq = gridDim.x - 1 - blockIdx.x;     // longest rows first
+  const int b = blockIdx.y / G.nh, h = blockIdx.y % G.nh, kvh = h / G.g;
+  const int q0 = iq * DQ8, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w0 = q0 + warp * 16;                 // the warp's first row
+  const int rows[2] = {w0 + lane / 4, w0 + lane / 4 + 8};
+  const int t_end = G.causal ? min(G.T, q0 + DQ8) : G.T;
+  const int n_tiles = (t_end + FK - 1) / FK;
+
+  cp_rows<HD, DQ8, kDqThreads>(Qs, q, b, q0, G.S, G.nh, h);
+  cp_rows<HD, DQ8, kDqThreads>(dOs, dout, b, q0, G.S, G.nh, h);
+  cp_rows<HD, FK, kDqThreads>(Ks, k, b, 0, G.T, G.nkv, kvh);
+  cp_rows<HD, FK, kDqThreads>(Vs, v, b, 0, G.T, G.nkv, kvh);
+  cp_async_commit();
+  float lse_r[2], dlt_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t idx = ((size_t)b * G.nh + h) * G.S + rows[r];
+    lse_r[r] = rows[r] < G.S ? lse[idx] : 0.f;
+    dlt_r[r] = rows[r] < G.S ? delta[idx] : 0.f;
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * FK;
+    if (it + 1 < n_tiles) {            // prefetch the next kv tile
+      const int nxt = (it + 1) & 1;
+      cp_rows<HD, FK, kDqThreads>(Ks + nxt * Sh::kKV, k, b, k0 + FK, G.T,
+                                  G.nkv, kvh);
+      cp_rows<HD, FK, kDqThreads>(Vs + nxt * Sh::kKV, v, b, k0 + FK, G.T,
+                                  G.nkv, kvh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // a warp whose rows all lie before the tile's first key would only add
+    // dS = 0: skipping it changes no bit
+    if (w0 < G.S && (!G.causal || k0 <= w0 + 15)) {
+      const __nv_bfloat16* Kt = Ks + (it & 1) * Sh::kKV;
+      const __nv_bfloat16* Vt = Vs + (it & 1) * Sh::kKV;
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) {          // S = Q K^T, dP = dO V^T
+        const int ra = (warp * 16 + lane % 16) * P + kc * 16 + (lane / 16) * 8;
+        unsigned aq[4], ad[4];
+        ldsm_x4(aq, Qs + ra);
+        ldsm_x4(ad, dOs + ra);
+#pragma unroll
+        for (int np = 0; np < NS; np += 2) {
+          const int rb = (np * 8 + lane % 8 + (lane / 16) * 8) * P + kc * 16 +
+                         ((lane / 8) % 2) * 8;
+          unsigned bk[4], bv[4];
+          ldsm_x4(bk, Kt + rb);
+          ldsm_x4(bv, Vt + rb);
+          float ts[2][4] = {}, td[2][4] = {};    // one fresh sum a k16 step
+          mma_bf16(ts[0], aq, bk[0], bk[1]);
+          mma_bf16(ts[1], aq, bk[2], bk[3]);
+          mma_bf16(td[0], ad, bv[0], bv[1]);
+          mma_bf16(td[1], ad, bv[2], bv[3]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[np + j][e] = __fadd_rn(s[np + j][e], ts[j][e]);
+              dp[np + j][e] = __fadd_rn(dp[np + j][e], td[j][e]);
+            }
+        }
+      }
+      // P = exp(s scale - lse), 0 where masked; dS = (P (dP - delta)) scale,
+      // in place of s
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const float p =
+              visible(G, rows[e / 2], kj)
+                  ? expf(__fsub_rn(__fmul_rn(s[n][e], G.scale), lse_r[e / 2]))
+                  : 0.f;
+          s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], dlt_r[e / 2])),
+                              G.scale);
+        }
+      // dq += dS K: the accumulators of key tiles 2 kc and 2 kc + 1 are the
+      // A fragment of key chunk kc, in three bf16 parts
+      unsigned ah[FK / 16][4], am[FK / 16][4], al[FK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < FK / 16; ++kc) {
+        split3(s[2 * kc][0], s[2 * kc][1], ah[kc][0], am[kc][0], al[kc][0]);
+        split3(s[2 * kc][2], s[2 * kc][3], ah[kc][1], am[kc][1], al[kc][1]);
+        split3(s[2 * kc + 1][0], s[2 * kc + 1][1], ah[kc][2], am[kc][2],
+               al[kc][2]);
+        split3(s[2 * kc + 1][2], s[2 * kc + 1][3], ah[kc][3], am[kc][3],
+               al[kc][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < NO; np += 2) {
+        float t[2][4] = {};                  // one fresh sum a key tile
+#pragma unroll
+        for (int kc = 0; kc < FK / 16; ++kc) {
+          unsigned bb[4];
+          ldsm_x4_t(bb, Kt + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * P +
+                            np * 8 + (lane / 16) * 8);
+          mma_bf16(t[0], al[kc], bb[0], bb[1]);
+          mma_bf16(t[0], am[kc], bb[0], bb[1]);
+          mma_bf16(t[0], ah[kc], bb[0], bb[1]);
+          mma_bf16(t[1], al[kc], bb[2], bb[3]);
+          mma_bf16(t[1], am[kc], bb[2], bb[3]);
+          mma_bf16(t[1], ah[kc], bb[2], bb[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[np + j][e] = __fadd_rn(acc[np + j][e], t[j][e]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before its refill
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= G.S) continue;
+    float* row = dq + (((size_t)b * G.S + rows[r]) * G.nh + h) * HD;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(row + n * 8 + (lane % 4) * 2) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
@@ -1362,18 +1578,29 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// by dtype: bf16 on the tensor cores, fp32 on the CUDA cores
 template <typename T, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, Geo G,
               cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * (2 * HD * QP + 2 * HD * KP + BK * HD + BK * QP);
-  int err = prepare(flash_bwd_dq_kernel<T, HD>, smem);
-  if (err) return err;
-  dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
-  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (float*)dq, G);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const size_t smem = DqShape<HD>::kSmem;
+    int err = prepare(flash_bwd_dq_mma_kernel<HD>, smem);
+    if (err) return err;
+    dim3 grid((G.S + DQ8 - 1) / DQ8, G.B * G.nh);
+    flash_bwd_dq_mma_kernel<HD><<<grid, kDqThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (float*)dq, G);
+  } else {
+    const size_t smem =
+        sizeof(float) * (2 * HD * QP + 2 * HD * KP + BK * HD + BK * QP);
+    int err = prepare(flash_bwd_dq_kernel<T, HD>, smem);
+    if (err) return err;
+    dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
+    flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (float*)dq, G);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -153,14 +153,17 @@ def conv_fwd(xc: torch.Tensor, sx: torch.Tensor, wc: torch.Tensor,
                         plain=backend == BACKEND_PLAIN)
 
 
-def conv_grad_x(gq: torch.Tensor, wq: torch.Tensor, cfg: Optional[PSGConfig],
-                *, k: int, stride: int, hp: int, wp: int) -> torch.Tensor:
-    """Conv input gradient on pre-quantized operands, ``(B, hp, wp, C)``
-    fp32."""
-    backend = backend_for(cfg, gq, wq)
+def conv_grad_x(gc: torch.Tensor, sg: torch.Tensor, wc: torch.Tensor,
+                sw: torch.Tensor, cfg: Optional[PSGConfig], *, k: int,
+                stride: int, hp: int, wp: int) -> torch.Tensor:
+    """Conv input gradient on quantized operands given as codes and fp32
+    0-d scales, ``(B, hp, wp, C)`` fp32: the implicit-GEMM kernel, its tap
+    loop, or the col2im oracle on ``reference``, each on ``gc * sg`` and
+    ``wc * sw``."""
+    backend = backend_for(cfg, gc, wc)
     if backend == BACKEND_REFERENCE:
-        return ref.conv_grad_x_ref(gq, wq, k, stride, hp, wp)
-    return ops.conv_grad_x(gq, wq, k, stride, hp, wp,
+        return ref.conv_grad_x_ref(gc, sg, wc, sw, k, stride, hp, wp)
+    return ops.conv_grad_x(gc, sg, wc, sw, k, stride, hp, wp,
                            plain=backend == BACKEND_PLAIN)
 
 

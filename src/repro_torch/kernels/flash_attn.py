@@ -29,8 +29,18 @@ bf16(p - p_hi)``, two bf16 MMAs that keep about 16 bits of the fp32 P the
 reference multiplies (``|p - p_hi - p_lo| <= 2**-16 p``), fed by a
 two-stage ``cp.async`` ring of 64-key tiles.  :func:`flash_attention_split_p`
 is that arithmetic in plain PyTorch.  fp32 operands run on the CUDA cores
-in fp32, as no LM path does (its activations are bf16).  Kernel 8 is still
-fp32 FMAs on the CUDA cores.
+in fp32, as no LM path does (its activations are bf16).
+
+``flash_bwd_dq`` picks its kernel by dtype too.  bf16 operands run on the
+bf16 tensor cores: ``q k^T`` and ``dO v^T`` as bf16 MMAs (one fresh fp32
+sum a 16-wide step, added round-to-nearest), P and dS in registers in JAX's
+order, and ``dq = dS k`` with dS split into three bf16 parts (hi, mid, lo:
+about 24 bits, as fp32 keeps), three MMAs against each k fragment, each
+64-key tile's sum added into dq round-to-nearest.  Two parts would not do:
+every row of dS sums to about zero, so where the keys share a common
+component (:func:`dq_cancel_inputs`) dq cancels and a 2**-16 error in dS
+passes the contract's ``1e-5 * max|dq|``.  :func:`flash_bwd_dq_split_plain`
+is that arithmetic in plain PyTorch.  fp32 operands run on the CUDA cores.
 
 ``flash_bwd_dkv`` is the PSG kernel: it quantizes P and dS in-tile onto
 their grids (:func:`codes_tile`, the JAX package's operations) and sums the
@@ -302,6 +312,66 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True
     return dq
 
 
+def split_bf16(x: torch.Tensor, terms: int) -> Tuple[torch.Tensor, ...]:
+    """``x`` (fp32) as ``terms`` bf16 parts, each the bf16 rounding of what
+    the parts before it left (the subtractions are exact in fp32), as fp32
+    tensors: two parts keep about 16 bits of x, three about 24."""
+    parts, rest = [], x
+    for _ in range(terms):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return tuple(parts)
+
+
+def flash_bwd_dq_split_plain(q, k, v, do, lse, delta, *, causal: bool = True,
+                             terms: int = 3) -> torch.Tensor:
+    """The bf16 kernel 8's arithmetic in plain PyTorch: P and dS in fp32 in
+    JAX's order (:func:`flash_bwd_dq_plain`), dS split into ``terms`` bf16
+    parts (:func:`split_bf16`; the kernel takes three), ``dq = sum_i part_i
+    k`` with fp32 products and sums.  For the tests, not on any path."""
+    B, S, T, nh, nkv, g, hd = _dims(q, k)
+    scale = softmax_scale(hd)
+    valid = _valid(S, T, causal, q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for h in range(nh):
+            kb = _head(k, b, h // g)
+            p = _p_tile(_head(q, b, h), kb, lse[b, h], valid, scale)
+            dp = _head(do, b, h) @ _head(v, b, h // g).T
+            ds = p * (dp - delta[b, h][:, None]) * scale
+            dq[b, :, h] = sum(part @ kb for part in split_bf16(ds, terms))
+    return dq
+
+
+def dq_cancel_inputs(B: int, S: int, nh: int, nkv: int, hd: int, *,
+                     seed: int = 0, common: float = 8.0,
+                     q_scale: float = 0.125, dtype=torch.bfloat16,
+                     device=None) -> Tuple[torch.Tensor, ...]:
+    """``(q, k, v, dO)`` on which dq cancels: the keys of each (batch, kv
+    head) share a common component ``c`` of ``common`` times their spread
+    (``k = common sqrt(hd) c + eps``, ``|c| = 1``, eps standard normal).
+    Every row of dS sums to about zero, so ``c sum_j dS_j`` drops out of dq
+    while an error in dS of relative size r leaves about ``common sqrt(hd)
+    r |dS|`` in it.  q (``q_scale`` times a standard normal, a diffuse
+    softmax) has its component along its kv head's c removed, so the scores
+    and their rounding stay those of inputs without c.  From a numpy seed;
+    for the tests and the card checks, not on any path."""
+    r = np.random.RandomState(seed)
+    g = nh // nkv
+    q = r.randn(B, S, nh, hd) * q_scale
+    c = r.randn(B, 1, nkv, hd)
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    cq = np.repeat(c, g, axis=2)
+    q -= (q * cq).sum(-1, keepdims=True) * cq
+    k = common * math.sqrt(hd) * c + r.randn(B, S, nkv, hd)
+    v = r.randn(B, S, nkv, hd)
+    do = r.randn(B, S, nh, hd) * 0.1
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                           dtype=dtype)
+                 for a in (q, k, v, do))
+
+
 def check_lims(lims) -> None:
     """Raise unless the codes fit the CUDA kernel's int8/int16 operands.
     The kernel sums every product in int32 over at most ``(2**31 - 1) //
@@ -558,7 +628,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True
                  ) -> torch.Tensor:
-    """Kernel 8: dq ``(B, S, nh, hd)`` fp32, recomputed from lse."""
+    """Kernel 8: dq ``(B, S, nh, hd)`` fp32, recomputed from lse.  On the
+    card bf16 operands run the tensor-core kernel (dS split into three bf16
+    parts, :func:`flash_bwd_dq_split_plain`) and fp32 operands the
+    CUDA-core kernel; the dtype picks, never a failure."""
     if not _on_cuda(q, k, v, do, lse, delta):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal)
     B, S, T, nh, nkv, g, hd = _check_qkv(q, k, v)

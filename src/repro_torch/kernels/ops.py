@@ -41,12 +41,17 @@ def conv_fwd(xc: torch.Tensor, sx: torch.Tensor, wc: torch.Tensor,
     return K.conv_fwd(xc.contiguous(), sx, wc.contiguous(), sw, k, stride)
 
 
-def conv_grad_x(gq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
-                hp: int, wp: int, plain: bool = False) -> torch.Tensor:
-    """Input gradient on pre-quantized operands, ``(B, hp, wp, C)`` fp32."""
-    fn = K.conv_grad_x_plain if plain else K.conv_grad_x
-    return fn(gq.float().contiguous(), wq.float().contiguous(), k, stride,
-              hp, wp)
+def conv_grad_x(gc: torch.Tensor, sg: torch.Tensor, wc: torch.Tensor,
+                sw: torch.Tensor, k: int, stride: int, hp: int, wp: int,
+                plain: bool = False) -> torch.Tensor:
+    """Input gradient on the codes and scales of the output gradient and of
+    a patch-major weight: ``(B, hp, wp, C)`` fp32, the transposed conv of
+    ``gc * sg`` and ``wc * sw``."""
+    if plain:
+        return K.conv_grad_x_plain(gc.float() * sg, wc.float() * sw, k,
+                                   stride, hp, wp)
+    return K.conv_grad_x(gc.contiguous(), sg, wc.contiguous(), sw, k, stride,
+                         hp, wp)
 
 
 def conv_grad_w(xp: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig, k: int,

@@ -117,12 +117,15 @@ def conv_fwd_ref(xp: torch.Tensor, w: torch.Tensor, k: int, stride: int
     return y.reshape(B, ho, wo, -1)
 
 
-def conv_grad_x_ref(gq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
-                    hp: int, wp: int) -> torch.Tensor:
-    """Per-tap col2im scatter-add input gradient, accumulated in fp32
-    whatever the operand dtype (k*k taps summed in bf16 lose their low
-    bits): the same arithmetic as ``kernels/conv.conv_grad_x_plain``."""
-    return conv_grad_x_plain(gq.float(), wq.float(), k, stride, hp, wp)
+def conv_grad_x_ref(gc: torch.Tensor, sg: torch.Tensor, wc: torch.Tensor,
+                    sw: torch.Tensor, k: int, stride: int, hp: int,
+                    wp: int) -> torch.Tensor:
+    """Per-tap col2im scatter-add input gradient of the quantized operands
+    ``gc * sg`` and ``wc * sw`` (codes and fp32 0-d scales), accumulated in
+    fp32 (k*k taps summed in bf16 would lose their low bits): the same
+    arithmetic as ``kernels/conv.conv_grad_x_plain``."""
+    return conv_grad_x_plain(gc.float() * sg, wc.float() * sw, k, stride, hp,
+                             wp)
 
 
 def conv_grad_w_ref(xp: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig,

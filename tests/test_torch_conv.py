@@ -82,9 +82,11 @@ def test_conv_fwd_plain_matches_jax(s):
 @pytest.mark.parametrize("s", CASES)
 def test_conv_grad_x_plain_matches_jax(s):
     xp, w, gy, k, stride = _data(s)
+    (gc, sg), (wc, sw) = codes(torch.from_numpy(gy), 16), codes(torch.from_numpy(w), 8)
     gq = quantize(torch.from_numpy(gy), 16)
     wq = quantize(torch.from_numpy(w), 8)
-    dx = K.conv_grad_x(gq, wq, k, stride, xp.shape[1], xp.shape[2])
+    assert torch.equal(gc.float() * sg, gq) and torch.equal(wc.float() * sw, wq)
+    dx = K.conv_grad_x(gc, sg, wc, sw, k, stride, xp.shape[1], xp.shape[2])
     ref = jops.conv_grad_x(jnp.asarray(gq.numpy()), jnp.asarray(wq.numpy()),
                            k, stride, xp.shape[1], xp.shape[2], interpret=True)
     _close(dx.numpy(), ref)

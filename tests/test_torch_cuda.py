@@ -10,9 +10,11 @@ on a machine with a card:
 (``--noconftest``: the repository's conftest imports JAX.)  Kernels 3-6
 and 10 must equal their exact plain versions (kernels 3, 5 and 6 also with
 every code at its limit, past 65,536 tokens a split and past 2**31);
-kernel 1 on 8-bit codes must equal the emulation of its integer arithmetic
-bit for bit; kernels 1, 2 and 8 sum in fp32 in another order, within
-``1e-5 * max|ref|`` of their plain versions; kernel 7's output is within one bf16 ulp (its bf16
+kernels 1 and 2 on 8-bit weight codes must equal the emulations of their
+integer arithmetic bit for bit (kernel 2 also with every code at its limit,
+its sums past int32); kernels 1, 2 and 8 sum in fp32 in another order than
+their plain versions, within ``1e-5 * max|ref|`` of them (kernel 8 in bf16
+also on inputs whose dq cancels); kernel 7's output is within one bf16 ulp (its bf16
 kernel keeps about 16 bits of P; fp32: ``1e-5 * max|ref|``) and its lse
 within 1e-5; kernel 9's code products equal the plain version's on integer inputs (its
 bf16 kernel also the emulation of its tile arithmetic, at every head dim)
@@ -66,12 +68,38 @@ def _close(a, ref):
 def test_fwd_and_grad_x_kernels_match_plain(card, s):
     x, w, gy, k, st, hp = _data(s, card)
     (xc, sx), (wc, sw) = codes(x, 8), codes(w, 8)
+    gc, sg = codes(gy, 16)
     xq, wq, gq = quantize(x, 8), quantize(w, 8), quantize(gy, 16)
     y = K.conv_fwd(xc, sx, wc, sw, k, st)
     _close(y, K.conv_fwd_plain(xq, wq, k, st))
     assert torch.equal(y, K.conv_fwd_codes_plain(xc, sx, wc, sw, k, st))
-    _close(K.conv_grad_x(gq, wq, k, st, hp, hp),
-           K.conv_grad_x_plain(gq, wq, k, st, hp, hp))
+    dx = K.conv_grad_x(gc, sg, wc, sw, k, st, hp, hp)
+    _close(dx, K.conv_grad_x_plain(gq, wq, k, st, hp, hp))
+    assert torch.equal(dx, K.conv_grad_x_codes_plain(gc, sg, wc, sw, k, st,
+                                                     hp, hp))
+
+
+@pytest.mark.parametrize("s", CASES)
+def test_grad_x_kernel_is_exact_with_codes_at_their_limits(card, s):
+    """Every g code at +-32767 and every weight code at +-127, the signs
+    aligned a channel, so that the 3x3 dout-64 sums reach 576 * 32767 *
+    127 = 2.4e9, past int32: bit for bit the emulation, within 1e-5 of the
+    fp32 plain version."""
+    _, _, gy, k, st, hp = _data(s, card)
+    g = torch.Generator(device=card).manual_seed(s.cout)
+    sigma = torch.where(torch.randn(s.cout, device=card, generator=g) < 0,
+                        -1, 1)
+    for sign in (1, -1):
+        gc = (sign * 32767 * sigma).expand(gy.shape).to(torch.int16) \
+            .contiguous()
+        wc = (127 * sigma).expand(k * k * s.cin, s.cout).to(torch.int8) \
+            .contiguous()
+        sg, sw = (torch.tensor(v, device=card) for v in (3.1e-7, 7.9e-3))
+        dx = K.conv_grad_x(gc, sg, wc, sw, k, st, hp, hp)
+        assert torch.equal(dx, K.conv_grad_x_codes_plain(gc, sg, wc, sw, k,
+                                                         st, hp, hp))
+        _close(dx, K.conv_grad_x_plain(gc.float() * sg, wc.float() * sw, k,
+                                       st, hp, hp))
 
 
 @pytest.mark.parametrize("s", CASES)
@@ -529,6 +557,31 @@ def test_conv_fwd_on_int16_codes_runs_the_fp32_kernel(card):
     y = K.conv_fwd(xc, sx, wc, sw, 3, 1)
     assert K.LAUNCHES["conv_fwd"] == 1
     _close(y, K.conv_fwd_plain(xc.float() * sx, wc.float() * sw, 3, 1))
+
+
+def test_conv_grad_x_on_int16_weight_codes_runs_the_fp32_kernel(card):
+    g = torch.Generator(device=card).manual_seed(4)
+    w = torch.randn(288, 32, device=card, generator=g) * 0.1
+    gy = torch.randn(8, 16, 16, 32, device=card, generator=g) * 0.01
+    (gc, sg), (wc, sw) = codes(gy, 16), codes(w, 12)
+    assert wc.dtype == torch.int16
+    _close(K.conv_grad_x(gc, sg, wc, sw, 3, 1, 18, 18),
+           K.conv_grad_x_plain(gc.float() * sg, wc.float() * sw, 3, 1, 18, 18))
+
+
+def test_flash_dq_bf16_kernel_on_cancelling_inputs(card):
+    """Kernel 8 on ``dq_cancel_inputs`` at the qwen2.5-3b attention
+    geometry (batch 2 x 4096, 16 heads over 2 kv heads, hd 128, causal):
+    the tensor-core kernel (three bf16 parts of dS) and the CUDA-core kernel
+    (on the same values in fp32) within ``1e-5 * max|dq|`` of the plain
+    version."""
+    from repro_torch.kernels import flash_attn as FA
+    q, k, v, do = FA.dq_cancel_inputs(2, 4096, 16, 2, 128, device=card)
+    lse, delta, _ = _dkv_inputs(q, k, v, do, True)
+    want = FA.flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    _close(FA.flash_bwd_dq(q, k, v, do, lse, delta), want)
+    _close(FA.flash_bwd_dq(q.float(), k.float(), v.float(), do.float(), lse,
+                           delta), want)
 
 
 def test_flash_dkv_kernel_past_its_old_int32_limit(card):

@@ -133,8 +133,10 @@ def test_cuda_pin_on_cpu_tensors_raises():
              lambda: dispatch.conv_fwd(x.to(torch.int8), torch.tensor(1.0),
                                        w.to(torch.int8), torch.tensor(1.0),
                                        CFG, k=3, stride=1),
-             lambda: dispatch.conv_grad_x(gy, w, CFG, k=3, stride=1, hp=6,
-                                          wp=6),
+             lambda: dispatch.conv_grad_x(gy.to(torch.int16),
+                                          torch.tensor(1.0),
+                                          w.to(torch.int8), torch.tensor(1.0),
+                                          CFG, k=3, stride=1, hp=6, wp=6),
              lambda: dispatch.conv_grad_w(x, gy, CFG, k=3, stride=1),
              lambda: dispatch.attention_fwd(q, q, q, CFG)]
     for call in calls:

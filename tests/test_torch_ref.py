@@ -18,6 +18,7 @@ import numpy as np  # noqa: E402
 from repro.core.config import PSGConfig as JPSG  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core.config import PSGConfig  # noqa: E402
+from repro_torch.core.quant import codes  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 CFG, JCFG = PSGConfig(enabled=True), JPSG(enabled=True)
@@ -88,8 +89,11 @@ def test_conv_oracles(k, stride):
         jref.conv_patches_ref(jxp, k, stride))
     _close(tref.conv_fwd_ref(xp, w, k, stride),
            jref.conv_fwd_ref(jxp, jw, k, stride))
-    _close(tref.conv_grad_x_ref(gy, w, k, stride, hp, hp),
-           jref.conv_grad_x_ref(jgy, jw, k, stride, hp, hp))
+    (gc, sg), (wc, sw) = codes(gy, 16), codes(w, 8)
+    _close(tref.conv_grad_x_ref(gc, sg, wc, sw, k, stride, hp, hp),
+           jref.conv_grad_x_ref(jnp.asarray((gc.float() * sg).numpy()),
+                                jnp.asarray((wc.float() * sw).numpy()), k,
+                                stride, hp, hp))
     _eq(tref.conv_grad_w_ref(xp, gy, CFG, k, stride),
         jref.conv_grad_w_ref(jxp, jgy, JCFG, k, stride))
     _eq(tref.conv_fallback_ratio_ref(xp, gy, CFG, k, stride),
@@ -97,11 +101,15 @@ def test_conv_oracles(k, stride):
 
 
 def test_conv_grad_x_ref_accumulates_bf16_in_fp32():
-    hp, ((_, w, gy), (_, jw, jgy)) = _conv_inputs(3, 2)
-    got = tref.conv_grad_x_ref(gy.to(torch.bfloat16), w, 3, 2, hp, hp)
+    """The codes of a bf16 output gradient: the oracle sums their grid
+    values in fp32, as JAX's oracle sums any operand dtype."""
+    hp, ((_, w, gy), _) = _conv_inputs(3, 2)
+    (gc, sg), (wc, sw) = codes(gy.to(torch.bfloat16), 16), codes(w, 8)
+    got = tref.conv_grad_x_ref(gc, sg, wc, sw, 3, 2, hp, hp)
     assert got.dtype == torch.float32
-    _close(got, jref.conv_grad_x_ref(jgy.astype(jnp.bfloat16), jw, 3, 2,
-                                     hp, hp))
+    _close(got, jref.conv_grad_x_ref(jnp.asarray((gc.float() * sg).numpy()),
+                                     jnp.asarray((wc.float() * sw).numpy()),
+                                     3, 2, hp, hp))
 
 
 def _attn_inputs(B, S, nh, nkv, hd):

@@ -1,5 +1,5 @@
-"""The arithmetic that the tensor-core kernels 1, 3, 5, 6, 7 and 9 rest on,
-in plain PyTorch on the CPU, against the JAX package's kernels.
+"""The arithmetic that the tensor-core kernels 1-3 and 5-9 rest on, in
+plain PyTorch on the CPU, against the JAX package's kernels.
 
 * Kernel 1 (``conv_fwd`` on int8 tensor cores) sums the 8-bit codes
   exactly and scales once: ``(sum_t window_t(cx) @ cw_t) * (sx * sw)``
@@ -7,6 +7,12 @@ in plain PyTorch on the CPU, against the JAX package's kernels.
   ``conv_fwd_pallas`` (interpret mode) on ``quantize(x)`` and
   ``quantize(w)`` within ``FP32_REL * max|ref|``: both round only at the
   end of their sums, JAX's in fp32.
+* Kernel 2 (``conv_grad_x`` on int8 tensor cores) sums the 16-bit g codes
+  and 8-bit weight codes exactly, each byte plane of g in int32 and ``256
+  hi + lo`` in int64, and scales once (``conv_grad_x_codes_plain``).  It
+  must hold against JAX's ``conv_grad_x_pallas`` (interpret mode) on the
+  scaled codes within ``FP32_REL * max|ref|``, and equal the int64 sum
+  rounded once where every code is at its limit and the sums pass int32.
 * Kernel 3 (``conv_grad_w_predictor`` on int8 tensor cores) multiplies on
   a padded grid where every tap is a shifted view of one stride phase, and
   splits the g codes into byte planes (``conv_grad_w_predictor_grid_plain``).
@@ -39,6 +45,11 @@ in plain PyTorch on the CPU, against the JAX package's kernels.
   ``flash_attention(..., return_lse=True, interpret=True)`` within the
   kernel's contract: o within one bf16 ulp of the larger magnitude plus
   ``1e-6 * max|o|``, lse within ``1e-5``.
+* Kernel 8 (``flash_bwd_dq`` on bf16 tensor cores) splits the fp32 dS into
+  three bf16 parts before its products with k
+  (``flash_bwd_dq_split_plain``).  It must hold against JAX's
+  ``flash_bwd_dq_pallas`` (interpret mode) within ``FP32_REL * max|dq|``,
+  also on ``dq_cancel_inputs``, where dq cancels and two parts do not.
 * Kernel 9 (``flash_bwd_dkv`` on bf16 and int8 tensor cores) runs its code
   products over 64-row query tiles with the 16-bit operand in byte planes,
   256 hi + lo folded into one wrapping int32 sum per product and flushed
@@ -368,3 +379,140 @@ def test_dkv_plane_schedule_equals_the_jax_tile_replay_oracle(shape):
         want = per_head.reshape(B, S, nkv, nh // nkv, hd).sum(axis=3)
         np.testing.assert_array_equal(g_.numpy(), want.astype(np.int64))
     assert all(bool((g_ != 0).any()) for g_ in got)
+
+
+# (batch, hw, C, dout, k, stride) of the input gradient: k 1 and 3, stride 1
+# and 2, dout 16 / 32 / 64; the 1x1 stride-2 one leaves the odd positions
+# without a tap (a stride phase with no K)
+DX_CONVS = [(2, 8, 16, 16, 3, 1), (2, 8, 16, 32, 3, 2), (1, 6, 32, 64, 3, 1),
+            (2, 4, 32, 64, 1, 1), (2, 8, 16, 32, 1, 2), (1, 9, 8, 64, 3, 2)]
+DX_IDS = ["3x3s1_d16", "3x3s2_d32", "3x3s1_d64", "1x1s1_d64", "1x1s2_d32",
+          "3x3s2_d64_odd"]
+
+
+def _dx_operands(shape, seed):
+    B, hw, C, dout, k, st = shape
+    r = np.random.RandomState(seed)
+    hp = hw + 2 * (k // 2)
+    ho = (hp - k) // st + 1
+    gy = torch.from_numpy((r.randn(B, ho, ho, dout) * 0.01).astype(np.float32))
+    w = torch.from_numpy((r.randn(k * k * C, dout) * 0.1).astype(np.float32))
+    return codes(gy, 16), codes(w, 8), hp
+
+
+@pytest.mark.parametrize("shape", DX_CONVS, ids=DX_IDS)
+def test_int8_conv_grad_x_arithmetic_holds_against_jax(shape):
+    """Kernel 2 on codes: the exact integer sum rounded once and scaled
+    (``conv_grad_x_codes_plain``) against JAX's ``conv_grad_x_pallas``
+    (interpret mode) on ``gc * sg`` and ``wc * sw``, which sums in fp32:
+    within ``FP32_REL * max|ref|``."""
+    k, st = shape[4], shape[5]
+    (gc, sg), (wc, sw), hp = _dx_operands(shape, seed=sum(shape))
+    assert gc.dtype == torch.int16 and wc.dtype == torch.int8
+    got = K.conv_grad_x_codes_plain(gc, sg, wc, sw, k, st, hp, hp)
+    want = np.asarray(jconv.conv_grad_x_pallas(
+        jnp.asarray((gc.float() * sg).numpy()),
+        jnp.asarray((wc.float() * sw).numpy()), k=k, stride=st, hp=hp, wp=hp,
+        interpret=True))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.max(np.abs(got.numpy() - want)) <= FP32_REL * np.max(np.abs(want))
+    # the plain version on the scaled codes is the same function
+    plain = K.conv_grad_x_plain(gc.float() * sg, wc.float() * sw, k, st, hp, hp)
+    assert float((got - plain).abs().max()) <= FP32_REL * float(
+        plain.abs().max())
+
+
+@pytest.mark.parametrize("sign", [1, -1], ids=["positive", "negative"])
+def test_int8_conv_grad_x_is_exact_past_int32_with_codes_at_their_limits(sign):
+    """A 3x3 conv with dout 64, every g code at +-32767 and every weight
+    code at +-127 with the signs aligned: each interior dx sums 576 products
+    of 32767 * 127 to 2.4e9, past int32.  The byte planes of g (``hi = g >>
+    8``, ``lo = g & 0xFF``) each sum exactly in int32, ``256 hi + lo`` meets
+    in int64, and ``conv_grad_x_codes_plain`` equals the int64 sum rounded
+    once to fp32 and scaled, bit for bit."""
+    B, hw, C, dout, k = 2, 5, 16, 64, 3
+    hp = hw + 2
+    r = np.random.RandomState(7)
+    sigma = np.where(r.randn(dout) < 0, -1, 1)            # one sign a channel
+    gc = torch.from_numpy(np.broadcast_to(sign * 32767 * sigma,
+                                          (B, hw, hw, dout)).astype(np.int16))
+    wc = torch.from_numpy(np.broadcast_to(127 * sigma, (k * k * C, dout))
+                          .astype(np.int8))
+    sg, sw = torch.tensor(3.1e-7), torch.tensor(7.9e-3)
+    exact = torch.zeros((B, hp, hp, C), dtype=torch.int64)
+    planes = [torch.zeros_like(exact), torch.zeros_like(exact)]
+    w64 = wc.long().reshape(C, k, k, dout)
+    g64 = gc.long()
+    for ki in range(k):
+        for kj in range(k):
+            wt = w64[:, ki, kj].T
+            exact[:, ki:ki + hw, kj:kj + hw] += g64 @ wt
+            planes[0][:, ki:ki + hw, kj:kj + hw] += (g64 >> 8) @ wt
+            planes[1][:, ki:ki + hw, kj:kj + hw] += (g64 & 0xFF) @ wt
+    assert int(exact.abs().max()) == 576 * 32767 * 127 > 2 ** 31
+    assert all(int(p.abs().max()) < 2 ** 31 for p in planes)
+    assert torch.equal(256 * planes[0] + planes[1], exact)
+    got = K.conv_grad_x_codes_plain(gc, sg, wc, sw, k, 1, hp, hp)
+    assert torch.equal(got, exact.float() * (sg * sw))
+
+
+# (B, S, nh, nkv, hd) of kernel 8: GQA at hd 16 below one 64-key tile, and
+# GQA at hd 128 over three 64-key tiles (JAX's kernel: two 128-row blocks)
+DQ_SHAPES = [(2, 40, 4, 2, 16), (1, 192, 4, 2, 128)]
+
+
+def _dq_inputs(shape, causal, kind):
+    B, S, nh, nkv, hd = shape
+    if kind == "cancel":
+        q, k, v, do = FA.dq_cancel_inputs(B, S, nh, nkv, hd, seed=S + hd)
+    else:
+        r = np.random.RandomState(S + hd + causal)
+        q, k, v, do = (torch.from_numpy(
+            (r.randn(B, S, n, hd) * f).astype(np.float32)).to(torch.bfloat16)
+            for n, f in ((nh, 1.0), (nkv, 1.0), (nkv, 1.0), (nh, 0.1)))
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal)
+    delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("kind", ["random", "cancel"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", DQ_SHAPES, ids=["hd16", "hd128"])
+def test_split_ds_dq_holds_the_kernel_contract_against_jax(shape, causal,
+                                                           kind):
+    """Kernel 8 in bf16: dS in three bf16 parts (``flash_bwd_dq_split_plain``)
+    against JAX's ``flash_bwd_dq_pallas`` (interpret mode) on the same bf16
+    inputs, lse and delta: within ``FP32_REL * max|dq|``, also on inputs
+    whose dq cancels (``dq_cancel_inputs``)."""
+    q, k, v, do, lse, delta = _dq_inputs(shape, causal, kind)
+    got = FA.flash_bwd_dq_split_plain(q, k, v, do, lse, delta, causal=causal)
+    to_j = lambda t: jnp.asarray(t.float().numpy()).astype(  # noqa: E731
+        jnp.bfloat16)
+    want = np.asarray(jfa.flash_bwd_dq_pallas(
+        to_j(q), to_j(k), to_j(v), to_j(do), jnp.asarray(lse.numpy()),
+        jnp.asarray(delta.numpy()), causal=causal, interpret=True))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.max(np.abs(got.numpy() - want)) <= FP32_REL * np.max(np.abs(want))
+
+
+def test_dq_cancel_inputs_need_the_third_part():
+    """On ``dq_cancel_inputs`` a two-part split of dS (16 bits) leaves dq
+    more than ``FP32_REL * max|dq|`` from the plain version, the three-part
+    split of the kernel stays within a tenth of it."""
+    q, k, v, do, lse, delta = _dq_inputs((1, 256, 4, 2, 128), True, "cancel")
+    plain = FA.flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    err = {t: float((FA.flash_bwd_dq_split_plain(q, k, v, do, lse, delta,
+                                                 terms=t) - plain).abs().max())
+           / (FP32_REL * float(plain.abs().max())) for t in (2, 3)}
+    assert err[2] > 1.0 and err[3] < 0.1, err
+
+
+def test_three_bf16_parts_keep_fp32_precision():
+    x = torch.from_numpy(np.random.RandomState(3).randn(4096)
+                         .astype(np.float32)) * 10.0 ** torch.arange(
+        -4, 4, 0.001953125)[:4096]
+    for terms, bits in ((2, 16), (3, 24)):
+        parts = FA.split_bf16(x, terms)
+        assert all(torch.equal(p, p.to(torch.bfloat16).float()) for p in parts)
+        rest = (x.double() - sum(p.double() for p in parts)).abs()
+        assert bool((rest <= 2.0 ** -bits * x.double().abs()).all())
