@@ -13,15 +13,17 @@ Phases, each fatal on failure:
 1b. show with ``cuobjdump -sass`` that the tensor-core kernels carry
    tensor-core instructions: IMMA in kernel 1's 8-bit kernel
    (``conv_fwd_mma_kernel``), kernel 2's (``conv_dx_mma_kernel``), kernel 3
-   (``conv_pred_mma_kernel``), kernel 5 (``pred_mma_kernel``) and kernel 6
-   (``sign_mma_kernel``), HMMA in kernel 7's and kernel 8's bf16 kernels
-   (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``), HMMA and IMMA
+   (``conv_pred_mma_kernel``), kernel 4 (``conv_sign_mma_kernel``), kernel 5
+   (``pred_mma_kernel``) and kernel 6 (``sign_mma_kernel``), HMMA in
+   kernel 7's and kernel 8's bf16 kernels (``flash_fwd_mma_kernel``,
+   ``flash_bwd_dq_mma_kernel``), HMMA and IMMA
    in kernel 9's (``flash_bwd_dkv_mma_kernel``), in every instantiation; a
    missing ``cuobjdump`` is reported as not checked;
 2. run each of the four conv kernels at every ResNet-74 batch-128 conv
    geometry the training path gives it, hold it against its plain PyTorch
-   version (kernels 3 and 4 bit for bit, kernel 3 also with every code at
-   its limit and against the emulation of its padded-grid arithmetic;
+   version (kernels 3 and 4 bit for bit, also against the emulations of
+   their padded-grid arithmetic, kernel 3 also with every code at its limit,
+   kernel 4 also at tau 0 and above every |pred|;
    kernels 1 and 2 within ``FP32_REL`` of the reference's largest
    magnitude and bit for bit against the emulations of their integer
    arithmetic, kernel 2 also with every code at its limit) and time it with CUDA events next to the plain
@@ -35,7 +37,9 @@ Phases, each fatal on failure:
    tokens, plus a padded one and the ResNet-74 batch-128 im2col ones
    (checked and timed, not counted), and kernels 5 and 6 alone with every
    code at its limit at N = 700,000 tokens, past the size their int32 sums
-   once refused (kernel 6's int64 product also against the exact one);
+   once refused (kernel 6's int64 product also against the exact one), and
+   kernel 4 likewise at the ResNet-74 stage-1 conv (147,968 grid positions,
+   past one 65,536-position split) at both extreme taus;
 4. the same for the three flash-attention kernels at the qwen2.5-3b
    attention geometry (batch 2, 4096 tokens, 16 heads over 2 kv heads, hd
    128, bf16, causal), a padded one (fp32: kernel 7 on the CUDA cores) and
@@ -45,12 +49,15 @@ Phases, each fatal on failure:
    kernel 7 is timed beside ``scaled_dot_product_attention``; then one
    qwen2.5-3b attention sub-block forward and backward, materialized softmax
    against flash kernels, timed in turns with its peak memory;
-4c. the same for the quantize kernel (bit for bit) at the input of its main
-   path, the kernel microbenchmark's x (2048 x 1024 fp32, 8 bits), the one
-   its times in the ``kernels`` line are of; also at the qwen2.5-3b
-   weight-matmul operands (N = 8192), a ResNet-74 batch-128 activation and
-   the JAX package's test shapes at 2 to 16 bits; timed beside
-   ``fake_quantize_per_tensor_affine``;
+4c. the same for the quantize kernels (bit for bit, the scale too) at the
+   input of their main path, the kernel microbenchmark's x (2048 x 1024
+   fp32, 8 bits), the one their times in the ``kernels`` line are of; also
+   at the qwen2.5-3b weight-matmul operands (N = 8192), a ResNet-74
+   batch-128 activation, the JAX package's test shapes at 2 to 16 bits and
+   inputs holding a NaN, an inf, only zeros or only -0.0; timed beside
+   ``fake_quantize_per_tensor_affine``, the reduction and the pass also
+   alone on the device, and the kernels one call launches counted by the
+   profiler;
 4d. the dispatch layer: ``dispatch.psg_grad_w`` at the ResNet-74 im2col
    geometries of the kernel microbenchmark under the ``cuda``, ``plain``
    and ``reference`` backends (kernels launched under ``cuda`` alone; equal
@@ -114,6 +121,7 @@ SOURCES.update({n: FLASH_SOURCE for n in list(REPLACES)[6:9]})
 SOURCES.update(quantize=QUANT_SOURCE)
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6                 # the L2 cache
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # bf16 tensor cores (products of bf16 inputs)
 INT8_OPS_PER_S = 1979e12        # the fastest integer rate of the card
@@ -160,10 +168,12 @@ def side_stream(torch):
     return torch.cuda.Stream()
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of one call of ``fn``: the call captured once in a
-    CUDA graph (after two warm-up calls on a side stream) and replayed, so
-    that no host work lies between its kernels."""
+def device_ms(torch, fn, reps: int = 20, calls: int = 1) -> float:
+    """Mean device time of one call of ``fn``: ``calls`` calls captured
+    once in a CUDA graph (after two warm-up calls on a side stream) and
+    replayed, so that no host work lies between its kernels.  With one
+    call a graph, a call of a few microseconds takes at least the host's
+    time to replay the graph; twenty a graph spread that time."""
     side = side_stream(torch)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -172,8 +182,9 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return time_ms(torch, graph.replay, reps)
+        for _ in range(calls):
+            fn()
+    return time_ms(torch, graph.replay, reps) / calls
 
 
 def site(s):
@@ -190,6 +201,7 @@ def site(s):
 TENSOR_CORE_KERNELS = (("conv", "conv_fwd_mma_kernel", "IMMA"),
                        ("conv", "conv_dx_mma_kernel", "IMMA"),
                        ("conv", "conv_pred_mma_kernel", "IMMA"),
+                       ("conv", "conv_sign_mma_kernel", "IMMA"),
                        ("psg_matmul", "pred_mma_kernel", "IMMA"),
                        ("psg_matmul", "sign_mma_kernel", "IMMA"),
                        ("flash_attn", "flash_fwd_mma_kernel", "HMMA"),
@@ -200,7 +212,7 @@ TENSOR_CORE_KERNELS = (("conv", "conv_fwd_mma_kernel", "IMMA"),
 
 def sass_check(build):
     """Phase 1b: ``cuobjdump -sass`` of the built libraries shows IMMA in
-    the MMA kernels of kernels 1, 2, 3, 5 and 6, HMMA in kernel 7's and
+    the MMA kernels of kernels 1-6, HMMA in kernel 7's and
     kernel 8's bf16 kernels and both in kernel 9's (every instantiation).  A missing
     cuobjdump is reported as not checked."""
     import shutil
@@ -339,12 +351,19 @@ def check_kernels(torch, K, shapes_all, shapes):
                       xm.numel() + 2 * gm.numel() + 4 * pred.numel(),
                       2 * macs, INT8_OPS_PER_S, mult[s]))
 
-        # kernel 4: PSG select on the fp32 predictor, exact
-        tau = 0.05 * pred.float().abs().amax()
-        sign, stats = K.conv_grad_w(pred, xc, gc, tau, k, st)
-        psign, pstats = K.conv_grad_w_plain(pred, xc, gc, tau, k, st)
-        if not (torch.equal(sign, psign) and torch.equal(stats, pstats)):
-            fail(f"conv_grad_w at {row['geometry']}: not identical")
+        # kernel 4: PSG select on the fp32 predictor, exact; also at the
+        # two extreme taus (every sign from pred, every sign from the full
+        # product) and against the emulation of its grid arithmetic
+        big = pred.float().abs().amax()
+        for tau in (torch.zeros((), device="cuda"), 2 * big + 1, 0.05 * big):
+            sign, stats = K.conv_grad_w(pred, xc, gc, tau, k, st)
+            psign, pstats = K.conv_grad_w_plain(pred, xc, gc, tau, k, st)
+            gsign, gstats = K.conv_grad_w_grid_plain(pred, xc, gc, tau, k, st)
+            if not (torch.equal(sign, psign) and torch.equal(stats, pstats)
+                    and torch.equal(sign, gsign)
+                    and torch.equal(stats, gstats)):
+                fail(f"conv_grad_w at {row['geometry']}, tau {float(tau)}: "
+                     "not identical")
         row["fallback_flags"] = float(stats.float().mean())
         cases.append(("conv_grad_w", 0.0,
                       lambda: K.conv_grad_w(pred, xc, gc, tau, k, st),
@@ -511,6 +530,7 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
         torch.cuda.synchronize()
     details.append(worst_case_check(torch, PM))
     details.append(sign_worst_case_check(torch, PM))
+    details.append(conv_sign_worst_case_check(torch))
     return tot, details, im2col_tot
 
 
@@ -574,6 +594,46 @@ def sign_worst_case_check(torch, PM, din=48, dout=160, N=700_000):
     return {"geometry": [N, din, dout], "path": "sign_worst_case",
             "psg_full_product": "identical", "psg_grad_w": "identical",
             "max_abs": int(want.abs().max())}
+
+
+def conv_sign_worst_case_check(torch, B=128, hw=32, C=16, dout=16):
+    """Kernel 4 at the ResNet-74 stage-1 conv (batch 128, 3x3, 16 -> 16:
+    147,968 grid positions, past one 65,536-position split) with every
+    8-bit x code at +-127 and every 16-bit g code at +-32767, signed per
+    image and per channel or column so that every element of the full
+    product is +-(its tap's positions) * 127 * 32767 (up to 5.5e11, past
+    2**31); at tau above every |pred| every sign comes from the full product
+    and every flag is set, at tau 0 every sign from pred and no flag.  Signs
+    and flags must equal the plain version's, and at the high tau the signs
+    of the exact product."""
+    from repro_torch.kernels import conv as K
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def sign(*shape):
+        return torch.randint(0, 2, shape, device="cuda", generator=gen) * 2 - 1
+
+    img = sign(B, 1, 1, 1)
+    xq = torch.zeros(B, hw + 2, hw + 2, C, device="cuda", dtype=torch.int8)
+    xq[:, 1:-1, 1:-1] = (127 * img * sign(1, 1, 1, C)).to(torch.int8)
+    gq = (32767 * img * sign(1, 1, 1, dout)).expand(B, hw, hw, dout) \
+        .to(torch.int16).contiguous()
+    exact = K._code_product(xq, gq, 3, 1)
+    pred = torch.randn(9 * C, dout, device="cuda", generator=gen)
+    out = {"geometry": [B, hw + 2, C, dout, 3, 1], "path": "conv_sign_worst_case",
+           "grid_positions": B * (hw + 2) ** 2,
+           "max_abs": float(exact.abs().max())}
+    for name, tau in (("tau_above_pred", 2 * pred.abs().amax()),
+                      ("tau_zero", torch.zeros((), device="cuda"))):
+        s, stats = K.conv_grad_w(pred, xq, gq, tau, 3, 1)
+        ps, pstats = K.conv_grad_w_plain(pred, xq, gq, tau, 3, 1)
+        want = torch.sign(exact if name == "tau_above_pred" else pred)
+        if not (torch.equal(s, ps) and torch.equal(stats, pstats)
+                and torch.equal(s, want.to(torch.int8))
+                and bool((stats == int(name == "tau_above_pred")).all())):
+            fail(f"conv_grad_w at the worst case, {name}: not identical")
+        out[name] = "identical"
+    return out
 
 
 # kernel 9's code products: a P or dS code flips where the kernel's q k^T
@@ -889,10 +949,11 @@ def quant_geometries(m):
     kernel microbenchmark quantizes, kernel 10's main path (``bench_x``, x
     of ``bench_kernels.psg_operands`` in full mode, fp32 at 8 bits).
     Checked and timed, not counted: the qwen2.5-3b weight-matmul operands
-    at N = 8192 (x, w and gy of the d_ff matmuls) and a ResNet-74 batch-128
-    activation, which the training paths quantize in PyTorch
-    (``core/quant``); checked only: the JAX package's test shapes at 2-16
-    bits and inputs that are not 16-byte aligned."""
+    at N = 8192 (x, w and gy of the d_ff matmuls; gy, 180 MB of bf16, is
+    above the 50 MB L2) and a ResNet-74 batch-128 activation, which the
+    training paths quantize in PyTorch (``core/quant``); checked only: the
+    JAX package's test shapes at 2-16 bits, inputs that are not 16-byte
+    aligned and inputs holding a NaN, an inf, only zeros or only -0.0."""
     n = LM_BATCH * LM_SEQ
     geos = [("bench_x", (2048, 1024), "float32", 8, 1),
             ("qwen_x", (n, m.d_model), "bfloat16", 8, 0),
@@ -905,59 +966,115 @@ def quant_geometries(m):
                          "float32", bits, 0))
     geos.append(("unaligned", (1000,), "float32", 8, 0))
     geos.append(("unaligned_bf16", (7, 300), "bfloat16", 8, 0))
+    for dt in ("float32", "bfloat16"):
+        for special in ("nan", "inf", "zero", "negzero"):
+            geos.append((f"{special}_{dt}", (3, 1000), dt, 8, 0))
     return geos
 
 
-def check_quant_kernel(torch, Q, geometries):
-    """Phase 4c: kernel 10 bit for bit against its plain version, timed
-    beside it and beside ``fake_quantize_per_tensor_affine`` (which takes
-    fp32 and bf16 on the card); the times include the scale's reduction in
-    all three."""
-    from repro_torch.core.quant import qscale
+def quant_input(torch, name, shape, dtype, gen):
+    """The input of one quantize geometry (``quant_geometries``)."""
     from repro_torch.launch.bench_kernels import psg_operands
 
+    n = math.prod(shape)
+    if name == "bench_x":       # the microbenchmark's own input
+        x = psg_operands(False, "cuda")[0]
+        assert tuple(x.shape) == shape and x.dtype == dtype
+        return x
+    if name.startswith("unaligned"):    # a view 4 or 2 bytes in
+        x = torch.randn(n + 1, device="cuda", generator=gen).to(dtype)
+        return x[1:].view(shape)
+    x = (torch.randn(shape, device="cuda", generator=gen) * 3.0).to(dtype)
+    special = name.split("_")[0]
+    if special in ("zero", "negzero"):
+        x.fill_(-0.0 if special == "negzero" else 0.0)
+    elif special in ("nan", "inf"):
+        x.view(-1)[n // 2] = float(special)
+    return x
+
+
+def launches_per_call(torch, fn) -> int:
+    """Device kernels that one call of ``fn`` launches, counted by the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def check_quant_kernel(torch, Q, geometries):
+    """Phase 4c: kernel 10 bit for bit against its plain version (its scale
+    against ``qscale``), timed beside it and beside
+    ``fake_quantize_per_tensor_affine`` (which takes fp32 and bf16 on the
+    card); the times include the scale's reduction in all three.  Above
+    1M elements the reduction (``absmax``) and the pass
+    (``quantize_scaled``) are also timed apart, eager and alone on the
+    device, and at the counted geometry the kernels of one call are
+    counted."""
+    from repro_torch.core.quant import qscale
+
     tot = {"quantize": _zero_total()}
+    tot["quantize"]["bound_single_read_ms"] = 0.0
     details = []
     gen = torch.Generator(device="cuda").manual_seed(4)
     bits_view = {"float32": torch.int32, "bfloat16": torch.int16}
     for name, shape, dt, bits, m in geometries:
         dtype = getattr(torch, dt)
         n = math.prod(shape)
-        if name == "bench_x":       # the microbenchmark's own input
-            x = psg_operands(False, "cuda")[0]
-            assert tuple(x.shape) == shape and x.dtype == dtype
-        elif name.startswith("unaligned"):    # a view 4 or 2 bytes in
-            x = torch.randn(n + 1, device="cuda", generator=gen).to(dtype)
-            x = x[1:].view(shape)
-        else:
-            x = (torch.randn(shape, device="cuda", generator=gen)
-                 * 3.0).to(dtype)
-        out = Q.quantize(x, bits)
-        ref = Q.quantize_plain(x, qscale(x, bits), bits)
+        x = quant_input(torch, name, shape, dtype, gen)
+        out, s = Q.quantize_with_scale(x, bits)
+        want_s = qscale(x, bits)
+        if out.shape != x.shape or not torch.equal(s.view(torch.int32),
+                                                   want_s.view(torch.int32)):
+            fail(f"quantize at {name}: scale {float(s)} against qscale's "
+                 f"{float(want_s)}")
+        ref = Q.quantize_plain(x, want_s, bits)
         iv = bits_view[dt]
-        if out.shape != x.shape or not torch.equal(out.view(iv), ref.view(iv)):
+        if not torch.equal(out.view(iv), ref.view(iv)):
             diff = int((out.view(iv) != ref.view(iv)).sum())
             fail(f"quantize at {name}: {diff} of {n} elements differ")
+        row = {"geometry": [list(shape), dt, bits], "name": name,
+               "calls_counted": m, "scale": float(s)}
+        if not math.isfinite(float(s)) or float(x.float().abs().max()) == 0:
+            details.append(row)        # special values: checked only
+            continue
         lim = int(2 ** (bits - 1) - 1)
         zp = torch.zeros(1, dtype=torch.int32, device="cuda")
-        row = {"geometry": [list(shape), dt, bits], "name": name,
-               "calls_counted": m}
-        if n >= 2 ** 20:    # the elementwise pass alone, on a scale computed before
-            s = qscale(x, bits)
+        if n >= 2 ** 20:    # the reduction and the pass apart
+            row["reduce_ms"] = time_ms(torch, lambda: Q.absmax(x))
             row["pass_only_ms"] = time_ms(
                 torch, lambda: Q.quantize_scaled(x, s, bits))
+            for key, fn in (("reduce", lambda: Q.absmax(x)),
+                            ("pass", lambda: Q.quantize_scaled(x, s, bits)),
+                            ("call", lambda: Q.quantize(x, bits))):
+                row[f"{key}_device_ms_graph20"] = device_ms(torch, fn,
+                                                            calls=20)
             row["library_pass_only_ms"] = time_ms(
                 torch, lambda: torch.fake_quantize_per_tensor_affine(
                     x, s.reshape(1), zp, -lim, lim))
-        # bytes: one read of x, one write of the output, the scale; about
-        # four operations an element (divide, round, clamp, multiply)
+            row["launches_per_call"] = launches_per_call(
+                torch, lambda: Q.quantize(x, bits))
+        # bytes: one read of x, one write of the output, the scale, and a
+        # second read of x where x is above the L2 (the amax must read all
+        # of x before any output is written); about four operations an
+        # element (divide, round, clamp, multiply)
+        nx = x.element_size() * n
+        nbytes = 2 * nx + 4 + (nx if nx > L2_BYTES else 0)
+        row["bound_single_read_ms"] = 1e3 * max(
+            (2 * nx + 4) / HBM_BYTES_PER_S, 4 * n / FP32_OPS_PER_S)
+        tot["quantize"]["bound_single_read_ms"] += \
+            m * row["bound_single_read_ms"]
         time_cases(torch, [("quantize", 0.0,
                             lambda: Q.quantize(x, bits),
                             lambda: Q.quantize_plain(x, qscale(x, bits), bits),
                             lambda: torch.fake_quantize_per_tensor_affine(
                                 x, qscale(x, bits).reshape(1), zp, -lim, lim),
-                            2 * x.element_size() * n + 4, 4 * n,
-                            FP32_OPS_PER_S, m)], row, tot)
+                            nbytes, 4 * n, FP32_OPS_PER_S, m)], row, tot)
         details.append(row)
         del x, out, ref
     torch.cuda.synchronize()
@@ -1357,6 +1474,8 @@ def main() -> None:
          "conv_fwd_bound_fp32_ms": tot["conv_fwd"]["bound_fp32_ms"],
          "conv_grad_x_bound_fp32_ms": tot["conv_grad_x"]["bound_fp32_ms"],
          "flash_bwd_dq_bound_fp32_ms": tot["flash_bwd_dq"]["bound_fp32_ms"],
+         "quantize_bound_single_read_ms":
+             tot["quantize"]["bound_single_read_ms"],
          "note": "conv kernel times are summed over the conv sites of one "
                  "ResNet-74 batch-128 step (device_ms, for every kernel: "
                  "the same calls each replayed from a CUDA graph, device "
@@ -1382,7 +1501,10 @@ def main() -> None:
                  "with every block executed; "
                  "quantize times over one call at its main path's input, "
                  "the microbenchmark's x (2048 x 1024 fp32, 8 bits), the "
-                 "scale's reduction included; its launches are the "
+                 "scale's reduction included; its bound counts a second "
+                 "read of x where x is above the 50 MB L2 "
+                 "(quantize_bound_single_read_ms: one read, the bound "
+                 "before the reduction was a kernel); its launches are the "
                  "microbenchmark CLI's (the other geometries are in "
                  "quant_geometries, not counted)",
          "total_s": time.perf_counter() - t_start}, indent=1))

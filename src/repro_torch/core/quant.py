@@ -5,8 +5,8 @@ The grids must equal the JAX package's bit for bit: the scale is
 ``round(x / s)`` in fp32 with round-half-to-even (``torch.round``, like
 ``jnp.round``).  The division is a correctly rounded fp32 quotient wherever
 it runs: here by a 0-d tensor, in the kernels by ``__fdiv_rn``
-(``kernels/quant.py`` is the elementwise pass of :func:`quantize` as a
-kernel).
+(``kernels/quant.py`` is :func:`quantize` as two kernels, the scale's
+reduction and the elementwise pass).
 """
 from __future__ import annotations
 

@@ -48,11 +48,14 @@ What bounds them on an H100, and what the design does about it:
   exact integers at any size (int32 partials over at most 65536 positions,
   int64 across them) and come out as fp32, rounded once, as the JAX
   package's fp32 pass 1.
-* ``conv_grad_w``: the full 8x16-bit code product in int64 on the CUDA
-  cores, split across blocks that meet in integer atomics, which are exact,
-  so the result does not depend on the order.  It takes pass 1's fp32
-  product as its predictor instead of recomputing it, and reads ``tau`` from
-  device memory: no host round trip between the passes.
+* ``conv_grad_w`` runs kernel 3's pre-pass and MMA body on the 8-bit x
+  codes and the 16-bit g codes (each byte plane's int32 sum exact over the
+  65,536 positions of a split, the splits meeting in int64 atomics, which
+  are exact and order-free), then a select kernel runs the Eq. (2) select
+  and the flags (:func:`conv_grad_w_grid_plain` is that arithmetic in
+  PyTorch).  It takes pass 1's fp32 product as its predictor instead of
+  recomputing it, and reads ``tau`` from device memory: no host round trip
+  between the passes.
 
 The plain versions accumulate kernels 1 and 2 in fp32 on the scaled codes
 (the operands the JAX package's kernels take), and multiply the integer
@@ -70,7 +73,10 @@ from typing import Dict, Tuple
 import torch
 
 FALLBACK_BLOCK = 128   # dout block of one fallback flag (the TPU kernels' tile)
-PRED_BLOCK = 256       # positions a pre-pass block of the predictor kernel
+PRED_BLOCK = 256       # positions of a weight-gradient pre-pass block
+# positions a split of the weight-gradient kernels sums at most: each byte
+# plane's int32 partial stays exact (65536 * 127 * 255 < 2**31)
+MAX_SPLIT_POSITIONS = 65536
 FWD_K_STEP = 32        # K bytes an MMA step of the forward and dx kernels
 
 LAUNCHES: Dict[str, int] = {"conv_fwd": 0, "conv_grad_x": 0,
@@ -134,7 +140,7 @@ def _lib() -> ctypes.CDLL:
     lib.conv_grad_x.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
     lib.conv_grad_x_codes.argtypes = [_P] * 6 + [_I] * 12 + [_P]
     lib.conv_grad_w_pred.argtypes = [_P] * 4 + [_I] * 13 + [_P]
-    lib.conv_grad_w_sign.argtypes = [_P] * 7 + [_I] * 11 + [_P]
+    lib.conv_grad_w_sign.argtypes = [_P] * 7 + [_I] * 15 + [_P]
     for fn in (lib.conv_fwd, lib.conv_fwd_codes, lib.conv_grad_x,
                lib.conv_grad_x_codes, lib.conv_grad_w_pred,
                lib.conv_grad_w_sign):
@@ -278,37 +284,54 @@ def conv_grad_w_predictor_plain(xm: torch.Tensor, gm: torch.Tensor, k: int,
     return _code_product(xm, gm, k, stride).to(torch.float32)
 
 
-def conv_grad_w_predictor_grid_plain(xm: torch.Tensor, gm: torch.Tensor,
-                                     k: int, stride: int) -> torch.Tensor:
-    """The predictor kernel's arithmetic: the x codes of each stride phase
-    and the byte planes of the g codes (``hi = g >> 8``, ``lo = g & 0xFF``)
-    on the padded grid of :func:`pred_grid`, every tap a shifted view of
-    one phase, ``256 x^T hi + x^T lo`` summed exactly (float64) and rounded
-    to fp32."""
-    B, Hp, Wp, C = xm.shape
-    dout = gm.shape[-1]
+def _grid_product(x: torch.Tensor, g: torch.Tensor, k: int, stride: int,
+                  split: int = MAX_SPLIT_POSITIONS) -> torch.Tensor:
+    """The weight-gradient kernels' product: the x codes of each stride
+    phase and the byte planes of the g codes (``hi = g >> 8``, ``lo = g &
+    0xFF``) on the padded grid of :func:`pred_grid`, every tap a shifted
+    view of one phase, each plane summed over at most ``split`` grid
+    positions (checked: every such partial fits the kernels' int32) and
+    ``256 x^T hi + x^T lo`` summed exactly (float64, exact below 2**53),
+    patch-major ``(k*k*C, dout)``."""
+    B, Hp, Wp, C = x.shape
+    dout = g.shape[-1]
     ho, wo = conv_out_hw(Hp, Wp, k, stride)
     hq, wq, halo = pred_grid(Hp, Wp, k, stride)
     q = B * hq * wq
-    g = gm.new_zeros((B, hq, wq, dout))
-    g[:, :ho, :wo] = gm
-    g = g.reshape(q, dout)
-    hi, lo = (g >> 8).double(), (g & 0xFF).double()
+    gg = g.new_zeros((B, hq, wq, dout))
+    gg[:, :ho, :wo] = g
+    gg = gg.reshape(q, dout)
+    hi, lo = (gg >> 8).double(), (gg & 0xFF).double()
     phases = {}
     for pi in range(stride):
         for pj in range(stride):
-            ph = xm[:, pi::stride, pj::stride]
-            grid = xm.new_zeros((B, hq, wq, C))
+            ph = x[:, pi::stride, pj::stride]
+            grid = x.new_zeros((B, hq, wq, C))
             grid[:, :ph.shape[1], :ph.shape[2]] = ph
             flat = grid.reshape(q, C).double()
             phases[pi, pj] = torch.cat([flat, flat.new_zeros((halo, C))])
-    out = torch.empty((C, k, k, dout), dtype=torch.float64, device=xm.device)
+    out = torch.zeros((C, k, k, dout), dtype=torch.float64, device=x.device)
     for ki in range(k):
         for kj in range(k):
             shift = (ki // stride) * wq + kj // stride
             xs = phases[ki % stride, kj % stride][shift:shift + q]
-            out[:, ki, kj] = 256 * (xs.T @ hi) + xs.T @ lo
-    return out.reshape(k * k * C, dout).to(torch.float32)
+            for n0 in range(0, q, split):
+                xt = xs[n0:n0 + split].T
+                ph_hi, ph_lo = xt @ hi[n0:n0 + split], xt @ lo[n0:n0 + split]
+                for part in (ph_hi, ph_lo):
+                    if part.numel() and float(part.abs().max()) >= 2 ** 31:
+                        raise OverflowError("an int32 plane partial of the "
+                                            "weight-gradient kernels would "
+                                            "overflow")
+                out[:, ki, kj] += 256 * ph_hi + ph_lo
+    return out.reshape(k * k * C, dout)
+
+
+def conv_grad_w_predictor_grid_plain(xm: torch.Tensor, gm: torch.Tensor,
+                                     k: int, stride: int) -> torch.Tensor:
+    """The predictor kernel's arithmetic: :func:`_grid_product` rounded to
+    fp32 once."""
+    return _grid_product(xm, gm, k, stride).to(torch.float32)
 
 
 def _fallback_stats(notconf: torch.Tensor, tau: torch.Tensor,
@@ -325,15 +348,34 @@ def _fallback_stats(notconf: torch.Tensor, tau: torch.Tensor,
     return nc.reshape(C, k * k, nj, bn_).any(3).any(0).to(torch.int32)
 
 
+def _select(pred: torch.Tensor, full: torch.Tensor, tau: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (2): ``sign(pred)`` where ``|pred| >= tau``, else
+    ``sign(full)``; returns the int8 signs and the confident mask."""
+    pm = pred.float()
+    conf = pm.abs() >= tau
+    sign = torch.where(conf, torch.sign(pm).double(), torch.sign(full))
+    return sign.to(torch.int8), conf
+
+
 def conv_grad_w_plain(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
                       tau: torch.Tensor, k: int, stride: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. (2) select over the predictor product and the full product."""
-    full = _code_product(xq, gq, k, stride)
-    pm = pred.float()
-    conf = pm.abs() >= tau
-    sign = torch.where(conf, torch.sign(pm).double(), torch.sign(full))
-    return sign.to(torch.int8), _fallback_stats(~conf, tau, k)
+    sign, conf = _select(pred, _code_product(xq, gq, k, stride), tau)
+    return sign, _fallback_stats(~conf, tau, k)
+
+
+def conv_grad_w_grid_plain(pred: torch.Tensor, xq: torch.Tensor,
+                           gq: torch.Tensor, tau: torch.Tensor, k: int,
+                           stride: int, split: int = MAX_SPLIT_POSITIONS
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sign kernel's arithmetic: :func:`_grid_product` on the 8-bit x
+    and 16-bit g codes (each byte plane's partial over at most ``split``
+    grid positions checked against int32), then the Eq. (2) select and the
+    flags of the select kernel.  For the tests, not on any path."""
+    sign, conf = _select(pred, _grid_product(xq, gq, k, stride, split), tau)
+    return sign, _fallback_stats(~conf, tau, k)
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +500,28 @@ def _check_codes(x: torch.Tensor, g: torch.Tensor, k: int, stride: int
     return B, Hp, Wp, C, ho, wo, g.shape[3]
 
 
+def _wgrad_scratch(x: torch.Tensor, B: int, Hp: int, Wp: int, C: int,
+                   dout: int, k: int, stride: int
+                   ) -> Tuple[torch.Tensor, int, int, int, int]:
+    """Scratch of the weight-gradient kernels, in one allocation, with
+    ``(Hq, Wq, Np, NpX)`` of their padded grid.  The layout
+    (``WgradScratch`` in ``csrc/conv.cu``): the int64 sums, padded to 128
+    bytes, then the x copies ``(s*s, C, NpX)`` and the g planes ``(2,
+    dout, Np)``."""
+    if k > 3:
+        raise ValueError(f"k={k}: the weight-gradient kernels take kernels up "
+                         "to 3x3")
+    hq, wq, halo = pred_grid(Hp, Wp, k, stride)
+    n_pad = max(1, -(-B * hq * wq // PRED_BLOCK)) * PRED_BLOCK
+    # x rows reach a chunk plus its halo (and one word) past the last stage
+    x_pad = -(-(n_pad + halo + 4 + 15) // PRED_BLOCK) * PRED_BLOCK
+    acc = -(-8 * k * k * C * dout // 128) * 128
+    scratch = torch.empty(acc + stride * stride * C * x_pad
+                          + 2 * dout * n_pad, device=x.device,
+                          dtype=torch.uint8)
+    return scratch, hq, wq, n_pad, x_pad
+
+
 def conv_grad_w_predictor(xm: torch.Tensor, gm: torch.Tensor, k: int,
                           stride: int) -> torch.Tensor:
     """PSG pass 1: ``sum_n window(x_msb)^T g_msb`` patch-major ``(k*k*C,
@@ -465,20 +529,9 @@ def conv_grad_w_predictor(xm: torch.Tensor, gm: torch.Tensor, k: int,
     if not _on_cuda(xm, gm):
         return conv_grad_w_predictor_plain(xm, gm, k, stride)
     B, Hp, Wp, C, ho, wo, dout = _check_codes(xm, gm, k, stride)
-    if k > 3:
-        raise ValueError(f"k={k}: the predictor kernel takes kernels up to "
-                         "3x3")
-    hq, wq, halo = pred_grid(Hp, Wp, k, stride)
-    n_pad = -(-B * hq * wq // PRED_BLOCK) * PRED_BLOCK
-    # x rows reach a chunk plus its halo (and one word) past the last stage
-    x_pad = -(-(n_pad + halo + 4 + 15) // PRED_BLOCK) * PRED_BLOCK
-    dev = xm.device
-    out = torch.empty((k * k * C, dout), device=dev, dtype=torch.float32)
-    # the int64 sums (padded to 128 bytes), the x copies (s*s, C, x_pad) and
-    # the g planes (2, dout, n_pad), in one allocation
-    acc_bytes = -(-8 * k * k * C * dout // 128) * 128
-    scratch = torch.empty(acc_bytes + stride * stride * C * x_pad
-                          + 2 * dout * n_pad, device=dev, dtype=torch.uint8)
+    scratch, hq, wq, n_pad, x_pad = _wgrad_scratch(xm, B, Hp, Wp, C, dout, k,
+                                                   stride)
+    out = torch.empty((k * k * C, dout), device=xm.device, dtype=torch.float32)
     _call(_lib().conv_grad_w_pred, xm.data_ptr(), gm.data_ptr(),
           scratch.data_ptr(), out.data_ptr(), B, Hp, Wp, C, ho, wo, dout, k,
           stride, hq, wq, n_pad, x_pad, _stream(xm))
@@ -489,10 +542,10 @@ def conv_grad_w_predictor(xm: torch.Tensor, gm: torch.Tensor, k: int,
 def conv_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
                 tau: torch.Tensor, k: int, stride: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """PSG pass 2: the full 8x16-bit code product (int64) and the Eq. (2)
+    """PSG pass 2: the full 8x16-bit code product (exact) and the Eq. (2)
     select against pass 1's fp32 ``pred`` at threshold ``tau`` (fp32 0-d,
-    read on the device).  Returns ``(sign (k*k*C, dout) int8 patch-major, fallback
-    flags (k*k, ceil(dout/128)) int32)``."""
+    read on the device).  Returns ``(sign (k*k*C, dout) int8 patch-major,
+    fallback flags (k*k, ceil(dout/128)) int32)``."""
     if not _on_cuda(pred, xq, gq, tau):
         return conv_grad_w_plain(pred, xq, gq, tau, k, stride)
     B, Hp, Wp, C, ho, wo, dout = _check_codes(xq, gq, k, stride)
@@ -501,13 +554,13 @@ def conv_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
     if pred.shape != (k * k * C, dout):
         raise ValueError(f"pred {tuple(pred.shape)} != {(k * k * C, dout)}")
     bn_, nj = fallback_blocks(dout)
-    dev = xq.device
-    full = torch.empty((k * k * C, dout), device=dev, dtype=torch.int64)
-    sign = torch.empty((k * k * C, dout), device=dev, dtype=torch.int8)
-    stats = torch.empty((k * k, nj), device=dev, dtype=torch.int32)
-    lib = _lib()
-    _call(lib.conv_grad_w_sign, pred.data_ptr(), xq.data_ptr(), gq.data_ptr(),
-          tau.data_ptr(), full.data_ptr(), sign.data_ptr(), stats.data_ptr(),
-          B, Hp, Wp, C, ho, wo, dout, k, stride, bn_, nj, _stream(xq))
+    scratch, hq, wq, n_pad, x_pad = _wgrad_scratch(xq, B, Hp, Wp, C, dout, k,
+                                                   stride)
+    sign = torch.empty((k * k * C, dout), device=xq.device, dtype=torch.int8)
+    stats = torch.empty((k * k, nj), device=xq.device, dtype=torch.int32)
+    _call(_lib().conv_grad_w_sign, pred.data_ptr(), xq.data_ptr(),
+          gq.data_ptr(), tau.data_ptr(), scratch.data_ptr(), sign.data_ptr(),
+          stats.data_ptr(), B, Hp, Wp, C, ho, wo, dout, k, stride, hq, wq,
+          n_pad, x_pad, bn_, nj, _stream(xq))
     LAUNCHES["conv_grad_w"] += 1
     return sign, stats

@@ -26,9 +26,10 @@
 // memory or in the index arithmetic, as in the TPU kernels.
 //
 // The forward on 8-bit codes (conv_fwd_mma_kernel), the input gradient on
-// 8-bit weight codes (conv_dx_mma_kernel) and the PSG predictor
-// (conv_pred_mma_kernel) run int8 mma.sync.m16n8k32 with int32 sums on the
-// tensor cores; the rest run on the CUDA cores.
+// 8-bit weight codes (conv_dx_mma_kernel) and both PSG weight-gradient
+// passes (conv_pred_mma_kernel, conv_sign_mma_kernel) run int8
+// mma.sync.m16n8k32 with int32 sums on the tensor cores; only the forward
+// and the input gradient on 16-bit weight codes run on the CUDA cores.
 //
 // conv_fwd_mma_kernel: y = (sum_t window_t(cx) cw_t) (sx sw), exact in int32
 // (at most 127^2 k^2 C, below 2^24 at ResNet widths, so also exact as fp32)
@@ -87,6 +88,20 @@
 // position axis meet in int64 atomics (exact and order-free), and a last
 // pass rounds them to fp32 (__ll2float_rn).  The padded grid costs 1.13x
 // to 1.56x the positions of the valid outputs at the ResNet stages.
+//
+// conv_sign_mma_kernel: PSG pass 2, the same body (conv_code_mma) on the
+// 8-bit x codes and the byte planes of the 16-bit g codes (each plane's
+// int32 sum stays exact over 65536 positions a split: 65536 * 127 * 255 and
+// 65536 * 128 * 128 < 2^31); the splits meet in int64 atomics, and
+// conv_select_kernel then runs the Eq. (2) select and the fallback flags
+// over the whole output at once.  At the ResNet-74 batch-128 sites the
+// position axis always splits (12,800 to 147,968 grid positions against
+// about two blocks per SM), so no block holds a finished sum to select in
+// its own epilogue.  A select in the epilogue of the last block of each
+// output tile to arrive (an arrival count after a __threadfence) was
+// slower on an H100: one block selected a whole 32 x 32 x 9 tile, and
+// every block waited on its fence.  The x pre-pass zeroes the sums and
+// the g pre-pass the flags, so a call is four launches and no memset.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -663,6 +678,8 @@ constexpr int kPredStages = 3;
 constexpr int kMaxSplitStages = 65536 / PT;   // int32 partials' bound
 constexpr int kMinSplitStages = 2;
 constexpr int GT = 256;            // positions of a pre-pass block
+constexpr int kSelectThreads = 256;
+constexpr int kSelectUnroll = 8;   // elements a thread of the select per round
 
 // Pre-pass: codes (B, Hs, Ws, C) position-major -> byte planes (C, Np)
 // K-major on the padded grid of B x Hq x Wq positions, one plane set per
@@ -673,14 +690,20 @@ constexpr int GT = 256;            // positions of a pre-pass block
 // and hi = g >> 8.  A block takes GT consecutive positions, one thread each,
 // which reads its position's channels (16-byte loads where the row allows),
 // and then writes 16 channels x GT positions per round through shared
-// memory, 16 positions of one channel a thread.
+// memory, 16 positions of one channel a thread.  The grid also zeroes the
+// nzero words at `zero` (the passes' int64 sums, kernel 4's flags), so that
+// they need no memset of their own.
 template <typename CODE>
 __global__ void __launch_bounds__(GT)
 grid_kmajor_kernel(const CODE* __restrict__ src, int C, int Np, int B,
                    int Hq, int Wq, int Hs, int Ws, int s, int vec,
-                   uint8_t* __restrict__ lo, uint8_t* __restrict__ hi) {
+                   uint8_t* __restrict__ lo, uint8_t* __restrict__ hi,
+                   unsigned* __restrict__ zero, int nzero) {
   __shared__ CODE tile[16][GT + 16];   // [channel][position]
   const int n0 = blockIdx.x * GT, t = threadIdx.x;
+  for (int i = (blockIdx.z * gridDim.x + blockIdx.x) * GT + t; i < nzero;
+       i += gridDim.z * gridDim.x * GT)
+    zero[i] = 0;
   const int pi = blockIdx.z / s, pj = blockIdx.z % s;
   lo += (size_t)blockIdx.z * C * Np;
   const int per_img = Hq * Wq, P = n0 + t;
@@ -748,14 +771,15 @@ struct PredTile {
   }
 };
 
-// out64[c k^2 + t, o] += sum over this block's positions of the tap-t
-// shifted x codes times the g planes (256 hi + lo)
+// The MMA body of both weight-gradient passes: out64[c k^2 + t, o] += sum
+// over this block's positions of the tap-t shifted x codes times the g
+// planes (256 hi + lo)
 template <int MT, int NP>
-__global__ void __launch_bounds__(288)
-conv_pred_mma_kernel(const int8_t* __restrict__ xt,     // (s^2, C, NpX)
-                     const uint8_t* __restrict__ glo,   // (dout, Np)
-                     const uint8_t* __restrict__ ghi,
-                     long long* __restrict__ out64, PredPlan P) {
+__device__ __forceinline__ void conv_code_mma(
+    const int8_t* __restrict__ xt,     // (s^2, C, NpX)
+    const uint8_t* __restrict__ glo,   // (dout, Np)
+    const uint8_t* __restrict__ ghi, long long* __restrict__ out64,
+    const PredPlan& P) {
   using T = PredTile<MT, NP>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int i0 = blockIdx.y * T::MB, j0 = blockIdx.x * T::NB;
@@ -865,8 +889,28 @@ conv_pred_mma_kernel(const int8_t* __restrict__ xt,     // (s^2, C, NpX)
       }
 }
 
+// kernel 3 (pass 1) and kernel 4 (pass 2): one body, two kernels, so that
+// each shows by its name in the SASS
 template <int MT, int NP>
-int launch_pred_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
+__global__ void __launch_bounds__(288)
+conv_pred_mma_kernel(const int8_t* __restrict__ xt,
+                     const uint8_t* __restrict__ glo,
+                     const uint8_t* __restrict__ ghi,
+                     long long* __restrict__ out64, PredPlan P) {
+  conv_code_mma<MT, NP>(xt, glo, ghi, out64, P);
+}
+
+template <int MT, int NP>
+__global__ void __launch_bounds__(288)
+conv_sign_mma_kernel(const int8_t* __restrict__ xt,
+                     const uint8_t* __restrict__ glo,
+                     const uint8_t* __restrict__ ghi,
+                     long long* __restrict__ full, PredPlan P) {
+  conv_code_mma<MT, NP>(xt, glo, ghi, full, P);
+}
+
+template <int MT, int NP, bool kSign>
+int launch_code_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
                     long long* out64, PredPlan P, cudaStream_t st) {
   using T = PredTile<MT, NP>;
   const int ti = (P.C + T::MB - 1) / T::MB, tj = (P.dout + T::NB - 1) / T::NB;
@@ -880,108 +924,128 @@ int launch_pred_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
   splits = (kts + P.stages_per_split - 1) / P.stages_per_split;
   const size_t smem = (size_t)kPredStages * T::stage_bytes(P);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(conv_pred_mma_kernel<MT, NP>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem);
+  auto kernel = kSign ? conv_sign_mma_kernel<MT, NP>
+                      : conv_pred_mma_kernel<MT, NP>;
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const int threads = 32 * P.k * P.k * P.ksplit;
-  conv_pred_mma_kernel<MT, NP><<<dim3(tj, ti, splits), threads, smem, st>>>(
-      xt, glo, ghi, out64, P);
+  kernel<<<dim3(tj, ti, splits), threads, smem, st>>>(xt, glo, ghi, out64, P);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// PSG pass 2: the full 8 x 16-bit product in int64 on the CUDA cores, then the
-// select.  Block (t, tile, split): one filter tap, one TC x TO output tile,
-// one contiguous range of positions.  Each strip of TP positions is staged in
-// shared memory; a thread owns one channel and four output columns.  Partial
-// sums of a strip fit int32 (TP * 127 * 32767 < 2^31); the splits meet in
-// int64 atomics, which are exact and order-free: the result is the same on
-// every run.
-// ---------------------------------------------------------------------------
-constexpr int TC = 32, TO = 32, TP = 64;
-
-__global__ void wgrad_full_kernel(const int8_t* __restrict__ x,
-                                  const int16_t* __restrict__ g,
-                                  long long* __restrict__ out, int B, int Hp,
-                                  int Wp, int C, int Ho, int Wo, int dout,
-                                  int k, int s, int n_per_split) {
-  __shared__ int xs[TP][TC];
-  __shared__ int gs[TP][TO + 1];
-  const int t = blockIdx.x, kk = k * k, ki = t / k, kj = t % k;
-  const int tiles_o = (dout + TO - 1) / TO;
-  const int c0 = (blockIdx.y / tiles_o) * TC, o0 = (blockIdx.y % tiles_o) * TO;
-  const int N = B * Ho * Wo;
-  const int n_begin = blockIdx.z * n_per_split;
-  const int n_end = min(N, n_begin + n_per_split);
-  const int tid = threadIdx.x;
-  const int tc = tid / (TO / 4), to = (tid % (TO / 4)) * 4;
-  long long acc[4] = {0, 0, 0, 0};
-  for (int n0 = n_begin; n0 < n_end; n0 += TP) {
-    for (int i = tid; i < TP * TC; i += kThreads) {
-      int pp = i / TC, cc = i % TC, n = n0 + pp, c = c0 + cc;
-      int v = 0;
-      if (n < n_end && c < C) {
-        int ow = n % Wo, r = n / Wo, oh = r % Ho, b = r / Ho;
-        v = x[(((size_t)b * Hp + oh * s + ki) * Wp + ow * s + kj) * C + c];
-      }
-      xs[pp][cc] = v;
-    }
-    for (int i = tid; i < TP * TO; i += kThreads) {
-      int pp = i / TO, oo = i % TO, n = n0 + pp, o = o0 + oo;
-      gs[pp][oo] = (n < n_end && o < dout) ? (int)g[(size_t)n * dout + o] : 0;
-    }
-    __syncthreads();
-    int part[4] = {0, 0, 0, 0};
-#pragma unroll 8
-    for (int pp = 0; pp < TP; ++pp) {
-      int xv = xs[pp][tc];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) part[j] += xv * gs[pp][to + j];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] += part[j];
-    __syncthreads();
-  }
-  const int c = c0 + tc;
-  if (c >= C) return;
-  for (int j = 0; j < 4; ++j) {
-    int o = o0 + to + j;
-    if (o < dout) atomic_add_ll(&out[((size_t)c * kk + t) * dout + o], acc[j]);
-  }
+// the MMA tile by width: 32 channels above 16, 32 dout columns above 16
+template <bool kSign>
+int launch_by_width(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
+                    long long* out64, const PredPlan& P, cudaStream_t st) {
+  const bool m2 = P.C > 16, n2 = P.dout > 16;
+  if (m2 && n2) return launch_code_mma<2, 2, kSign>(xt, glo, ghi, out64, P, st);
+  if (m2) return launch_code_mma<2, 1, kSign>(xt, glo, ghi, out64, P, st);
+  if (n2) return launch_code_mma<1, 2, kSign>(xt, glo, ghi, out64, P, st);
+  return launch_code_mma<1, 1, kSign>(xt, glo, ghi, out64, P, st);
 }
 
-// Eq. (2) select: sign(g_msb) where |g_msb| >= tau, else sign(g_full); one
-// fallback flag per (tap, bn-wide dout block).  Columns the TPU kernel
-// padded up to a whole block hold g_msb = 0 and count as fallback whenever
-// tau > 0; the flag of the last block reproduces that.
-__global__ void psg_select_kernel(const float* __restrict__ pred,
-                                  const long long* __restrict__ full,
-                                  const float* __restrict__ tau,
-                                  int8_t* __restrict__ sign,
-                                  int32_t* __restrict__ stats, int rows,
-                                  int dout, int kk, int bn, int nj) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)rows * dout) return;
-  const int o = (int)(idx % dout), row = (int)(idx / dout), t = row % kk;
+// Eq. (2) select after the product: sign(pred) where |pred| >= tau, else
+// sign(full), and one fallback flag per (tap, bn-wide dout block), zeroed
+// before.  Block (j, y) takes the columns of flag block j in rows [y R, y R
+// + R) (row = c k^2 + tap), kSelectUnroll elements a thread per round with
+// every load issued before any store, ORs per tap "any element not
+// confident" in shared memory and sets each such flag with one atomicOr.
+// Columns the TPU kernel padded up to a whole block hold g_msb = 0 and
+// count as fallback whenever tau > 0: the blocks of the last column set
+// every tap's flag there.
+__global__ void __launch_bounds__(kSelectThreads)
+conv_select_kernel(const float* __restrict__ pred,
+                   const long long* __restrict__ full,
+                   const float* __restrict__ tau, int8_t* __restrict__ sign,
+                   int32_t* __restrict__ stats, int rows, int dout, int kk,
+                   int bn, int R) {
+  __shared__ unsigned taps;    // bit t: tap t holds an element not confident
+  if (threadIdx.x == 0) taps = 0;
+  __syncthreads();
   const float tv = *tau;
-  const float pm = pred[idx];
-  const bool conf = fabsf(pm) >= tv;
-  const long long v = full[idx];
-  sign[idx] = conf ? (int8_t)((pm > 0.f) - (pm < 0.f))
-                   : (int8_t)((v > 0) - (v < 0));
-  if (!conf) atomicOr(&stats[t * nj + o / bn], 1);
-  if (row < kk && o == 0 && dout % bn != 0 && !(0.f >= tv))
-    atomicOr(&stats[row * nj + nj - 1], 1);
+  const int j = blockIdx.x, nj = gridDim.x, c0 = j * bn;
+  const int bw = min(bn, dout - c0), r0 = blockIdx.y * R;
+  const int n = min(R, rows - r0) * bw;
+  unsigned mask = 0;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kSelectUnroll * kSelectThreads) {
+    float pm[kSelectUnroll];
+    long long v[kSelectUnroll];
+#pragma unroll
+    for (int u = 0; u < kSelectUnroll; ++u) {
+      const int e = e0 + u * kSelectThreads;
+      if (e < n) {
+        const size_t idx = (size_t)(r0 + e / bw) * dout + c0 + e % bw;
+        pm[u] = pred[idx];
+        v[u] = full[idx];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSelectUnroll; ++u) {
+      const int e = e0 + u * kSelectThreads;
+      if (e >= n) break;
+      const int row = r0 + e / bw;
+      const bool conf = fabsf(pm[u]) >= tv;
+      sign[(size_t)row * dout + c0 + e % bw] =
+          conf ? (int8_t)((pm[u] > 0.f) - (pm[u] < 0.f))
+               : (int8_t)((v[u] > 0) - (v[u] < 0));
+      if (!conf) mask |= 1u << (row % kk);
+    }
+  }
+  if (j == nj - 1 && dout % bn && !(0.f >= tv)) mask = (1u << kk) - 1;
+  if (mask) atomicOr(&taps, mask);
+  __syncthreads();
+  if (threadIdx.x < kk && (taps >> threadIdx.x & 1))
+    atomicOr(stats + threadIdx.x * nj + j, 1);
 }
 
-int n_per_split(int N, int blocks_xy) {
-  // about eight blocks per SM of the 132, in whole strips
-  int target = kSMs * 8;
-  int splits = (target + blocks_xy - 1) / blocks_xy;
-  int per = (N + splits - 1) / splits;
-  per = ((per + TP - 1) / TP) * TP;
-  return per < TP ? TP : per;
+// The plan and the scratch layout of both passes: the int64 sums (8 k^2 C
+// dout bytes, rounded up to 128), then the x copies (s^2, C, NpX) and the g
+// planes (2, dout, Np); kernels/conv.py computes the same sizes
+// (_wgrad_scratch)
+struct WgradScratch {
+  long long* acc;
+  int8_t* xt;
+  uint8_t *lo, *hi;
+  int acc_words;      // the sums, in 4-byte words
+};
+
+int wgrad_plan(int B, int C, int dout, int k, int s, int Hq, int Wq, int Np,
+               int NpX, void* scratch, PredPlan& P, WgradScratch& S) {
+  if (k > 3 || s < 1 || Np % GT || NpX % GT || (long long)B * Hq * Wq > Np)
+    return (int)cudaErrorInvalidValue;
+  const int halo = ((k - 1) / s) * Wq + (k - 1) / s;
+  P = PredPlan{};
+  P.C = C, P.dout = dout, P.k = k, P.s = s, P.Np = Np, P.NpX = NpX, P.Wq = Wq;
+  P.xw = (PT + halo + 4 + 15) / 16 * 16;   // + 4: the funnel shift's next word
+  P.xpitch = smem_pitch(P.xw);
+  P.ksplit = k * k >= 4 ? 1 : 4 / (k * k);
+  if (Np + P.xw - PT > NpX) return (int)cudaErrorInvalidValue;
+  const size_t acc_b = ((size_t)k * k * C * dout * 8 + 127) / 128 * 128;
+  S.acc = (long long*)scratch;
+  S.xt = (int8_t*)scratch + acc_b;
+  S.lo = (uint8_t*)S.xt + (size_t)s * s * C * NpX;
+  S.hi = S.lo + (size_t)dout * Np;
+  S.acc_words = (int)(acc_b / 4);
+  return 0;
+}
+
+// both pre-passes: x codes per stride phase, the g codes' byte planes; the
+// first also zeroes the int64 sums, the second zs words at sp
+int wgrad_prepass(const void* x, const void* g, int B, int Hp, int Wp, int C,
+                  int Ho, int Wo, int dout, int s, int Hq, int Wq,
+                  const PredPlan& P, const WgradScratch& S, unsigned* sp,
+                  int zs, cudaStream_t st) {
+  // 16-byte loads of a position's channels where every row is 16-byte aligned
+  const int vx = C % 16 == 0 && (uintptr_t)x % 16 == 0;
+  const int vg = dout % 8 == 0 && (uintptr_t)g % 16 == 0;
+  grid_kmajor_kernel<int8_t><<<dim3(P.NpX / GT, 1, s * s), GT, 0, st>>>(
+      (const int8_t*)x, C, P.NpX, B, Hq, Wq, Hp, Wp, s, vx, (uint8_t*)S.xt,
+      nullptr, (unsigned*)S.acc, S.acc_words);
+  grid_kmajor_kernel<int16_t><<<dim3(P.Np / GT, 1, 1), GT, 0, st>>>(
+      (const int16_t*)g, dout, P.Np, B, Hq, Wq, Ho, Wo, 1, vg, S.lo, S.hi, sp,
+      zs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1077,10 +1141,8 @@ int conv_grad_x_codes(const void* gc, const void* wc, void* wt,
 }
 
 // xm (B, Hp, Wp, C) int8, gm (B, Ho, Wo, dout) int16 codes; out (k^2 C,
-// dout) fp32; scratch of A + s^2 C NpX + 2 dout Np bytes, A = 8 k^2 C dout
-// rounded up to 128, which holds the int64 sums, the x copies (s^2, C, NpX)
-// and the g planes (2, dout, Np), with Np and NpX as kernels/conv.py
-// computes them
+// dout) fp32; scratch as WgradScratch lays it out, with Np and NpX as
+// kernels/conv.py computes them
 int conv_grad_w_pred(const void* xm, const void* gm, void* scratch, void* out,
                      int B, int Hp, int Wp, int C, int Ho, int Wo, int dout,
                      int k, int s, int Hq, int Wq, int Np, int NpX,
@@ -1088,64 +1150,45 @@ int conv_grad_w_pred(const void* xm, const void* gm, void* scratch, void* out,
   cudaStream_t st = (cudaStream_t)stream;
   const size_t n_out = (size_t)k * k * C * dout;
   if (n_out == 0) return 0;
-  if (k > 3 || s < 1 || Np % GT || NpX % GT || (long long)B * Hq * Wq > Np)
-    return (int)cudaErrorInvalidValue;
-  const int halo = ((k - 1) / s) * Wq + (k - 1) / s;
-  PredPlan P{};
-  P.C = C, P.dout = dout, P.k = k, P.s = s, P.Np = Np, P.NpX = NpX, P.Wq = Wq;
-  P.xw = (PT + halo + 4 + 15) / 16 * 16;   // + 4: the funnel shift's next word
-  P.xpitch = smem_pitch(P.xw);
-  P.ksplit = k * k >= 4 ? 1 : 4 / (k * k);
-  if (Np + P.xw - PT > NpX) return (int)cudaErrorInvalidValue;
-  long long* acc = (long long*)scratch;
-  uint8_t* xt = (uint8_t*)scratch + (n_out * 8 + 127) / 128 * 128;
-  uint8_t* lo = xt + (size_t)s * s * C * NpX;
-  uint8_t* hi = lo + (size_t)dout * Np;
-  int err = (int)cudaMemsetAsync(acc, 0, n_out * 8, st);
+  PredPlan P;
+  WgradScratch S;
+  int err = wgrad_plan(B, C, dout, k, s, Hq, Wq, Np, NpX, scratch, P, S);
+  if (!err)
+    err = wgrad_prepass(xm, gm, B, Hp, Wp, C, Ho, Wo, dout, s, Hq, Wq, P, S,
+                        nullptr, 0, st);
+  if (!err) err = launch_by_width<false>(S.xt, S.lo, S.hi, S.acc, P, st);
   if (err) return err;
-  // 16-byte loads of a position's channels where every row is 16-byte aligned
-  const int vx = C % 16 == 0 && (uintptr_t)xm % 16 == 0;
-  const int vg = dout % 8 == 0 && (uintptr_t)gm % 16 == 0;
-  grid_kmajor_kernel<int8_t><<<dim3(NpX / GT, 1, s * s), GT, 0, st>>>(
-      (const int8_t*)xm, C, NpX, B, Hq, Wq, Hp, Wp, s, vx, xt, nullptr);
-  grid_kmajor_kernel<int16_t><<<dim3(Np / GT, 1, 1), GT, 0, st>>>(
-      (const int16_t*)gm, dout, Np, B, Hq, Wq, Ho, Wo, 1, vg, lo, hi);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const bool m2 = C > 16, n2 = dout > 16;
-  const int8_t* x8 = (const int8_t*)xt;
-  if (m2 && n2) err = launch_pred_mma<2, 2>(x8, lo, hi, acc, P, st);
-  else if (m2) err = launch_pred_mma<2, 1>(x8, lo, hi, acc, P, st);
-  else if (n2) err = launch_pred_mma<1, 2>(x8, lo, hi, acc, P, st);
-  else err = launch_pred_mma<1, 1>(x8, lo, hi, acc, P, st);
-  if (err) return err;
-  return ll_to_f32(acc, (float*)out, (long long)n_out, st);
+  return ll_to_f32(S.acc, (float*)out, (long long)n_out, st);
 }
 
+// pred (k^2 C, dout) fp32, xq (B, Hp, Wp, C) int8 and gq (B, Ho, Wo, dout)
+// int16 codes, tau one fp32 value on the device; sign (k^2 C, dout) int8,
+// stats (k^2, nj) int32 flags of bn-wide dout blocks; scratch as for
+// conv_grad_w_pred.  Four launches: the two pre-passes (which zero the sums
+// and the flags), the MMA kernel and the select.
 int conv_grad_w_sign(const void* pred, const void* xq, const void* gq,
-                     const void* tau, void* full, void* sign, void* stats,
+                     const void* tau, void* scratch, void* sign, void* stats,
                      int B, int Hp, int Wp, int C, int Ho, int Wo, int dout,
-                     int k, int s, int bn, int nj, void* stream) {
+                     int k, int s, int Hq, int Wq, int Np, int NpX, int bn,
+                     int nj, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = k * k * C;
   if ((long long)rows * dout == 0) return 0;
-  int err = (int)cudaMemsetAsync(full, 0, (size_t)rows * dout * 8, st);
-  if (!err) err = (int)cudaMemsetAsync(stats, 0, (size_t)k * k * nj * 4, st);
+  if (bn < 1 || nj != (dout + bn - 1) / bn) return (int)cudaErrorInvalidValue;
+  PredPlan P;
+  WgradScratch S;
+  int err = wgrad_plan(B, C, dout, k, s, Hq, Wq, Np, NpX, scratch, P, S);
+  if (!err)
+    err = wgrad_prepass(xq, gq, B, Hp, Wp, C, Ho, Wo, dout, s, Hq, Wq, P, S,
+                        (unsigned*)stats, k * k * nj, st);
+  if (!err) err = launch_by_width<true>(S.xt, S.lo, S.hi, S.acc, P, st);
   if (err) return err;
-  const int tiles = ((C + TC - 1) / TC) * ((dout + TO - 1) / TO);
-  const int N = B * Ho * Wo;
-  if (N > 0) {
-    const int per = n_per_split(N, k * k * tiles);
-    dim3 grid(k * k, tiles, (N + per - 1) / per);
-    wgrad_full_kernel<<<grid, kThreads, 0, st>>>(
-        (const int8_t*)xq, (const int16_t*)gq, (long long*)full, B, Hp, Wp, C,
-        Ho, Wo, dout, k, s, per);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  psg_select_kernel<<<blocks_for((long long)rows * dout), kThreads, 0, st>>>(
-      (const float*)pred, (const long long*)full, (const float*)tau,
-      (int8_t*)sign, (int32_t*)stats, rows, dout, k * k, bn, nj);
+  // rows a select block: about kSelectUnroll elements a thread
+  const int bw = bn < dout ? bn : dout;
+  const int R = (kSelectUnroll * kSelectThreads + bw - 1) / bw;
+  conv_select_kernel<<<dim3(nj, (rows + R - 1) / R), kSelectThreads, 0, st>>>(
+      (const float*)pred, S.acc, (const float*)tau, (int8_t*)sign,
+      (int32_t*)stats, rows, dout, k * k, bn, R);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,11 @@ on a machine with a card:
         tests/test_torch_cuda.py
 
 (``--noconftest``: the repository's conftest imports JAX.)  Kernels 3-6
-and 10 must equal their exact plain versions (kernels 3, 5 and 6 also with
-every code at its limit, past 65,536 tokens a split and past 2**31);
+and 10 must equal their exact plain versions (kernels 3-6 also with every
+code at its limit, past 65,536 positions or tokens a split and past 2**31;
+kernels 3 and 4 also the emulations of their padded-grid arithmetic;
+kernel 10 also on NaN, inf and zero inputs and above the L2, its scale
+``qscale``'s bit for bit);
 kernels 1 and 2 on 8-bit weight codes must equal the emulations of their
 integer arithmetic bit for bit (kernel 2 also with every code at its limit,
 its sums past int32); kernels 1, 2 and 8 sum in fp32 in another order than
@@ -140,6 +143,10 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):              # codes of two widths
         K.conv_fwd(x.to(torch.int8), one,
                    torch.zeros(18, 3, device=card, dtype=torch.int16), one, 3, 1)
+    x5 = torch.zeros(1, 6, 6, 2, device=card, dtype=torch.int8)
+    g5 = torch.zeros(1, 2, 2, 3, device=card, dtype=torch.int16)
+    with pytest.raises(ValueError, match="up to 3x3"):   # k above 3
+        K.conv_grad_w(torch.zeros(50, 3, device=card), x5, g5, one, 5, 1)
 
 
 # (N, din, dout) of the PSG matmul kernels: tiles smaller than 128, a padded
@@ -535,6 +542,59 @@ def test_tensor_core_conv_kernels_at_resnet74_geometries(card, s):
                        K.conv_grad_w_predictor_plain(xl, gl, k, st))
 
 
+@pytest.mark.parametrize("s", RESNET74, ids=[
+    f"{s.kind}_{s.hw}x{s.cin}-{s.cout}k{s.k}s{s.stride}" for s in RESNET74])
+def test_conv_sign_kernel_at_resnet74_geometries(card, s):
+    """Kernel 4 on int8 tensor cores: signs and flags bit for bit its plain
+    version and the emulation of its padded-grid arithmetic, at tau 0
+    (every sign from pred), beta max|pred| and above every |pred| (every
+    sign from the full product)."""
+    x, _, gy, k, st, _ = _data(s, card)
+    xm, _ = codes(x, 4)
+    gm, _ = codes(gy, 10)
+    xq, _ = codes(x, 8)
+    gq, _ = codes(gy, 16)
+    pred = K.conv_grad_w_predictor(xm, gm, k, st)
+    big = pred.abs().amax()
+    for tau in (torch.zeros((), device=card), 0.05 * big, 2 * big + 1):
+        sign, stats = K.conv_grad_w(pred, xq, gq, tau, k, st)
+        psign, pstats = K.conv_grad_w_plain(pred, xq, gq, tau, k, st)
+        gsign, gstats = K.conv_grad_w_grid_plain(pred, xq, gq, tau, k, st)
+        assert torch.equal(sign, psign) and torch.equal(stats, pstats)
+        assert torch.equal(sign, gsign) and torch.equal(stats, gstats)
+
+
+@pytest.mark.parametrize("dout", [16, 160])
+def test_conv_sign_kernel_is_exact_at_the_worst_case(card, dout):
+    """Batch 128 at 32 x 32 (147,968 grid positions, past one 65,536-position
+    split), every x code at +-127 and every g code at +-32767, signed per
+    image and per channel or column: every element of the full product is
+    +-(its tap's positions) * 127 * 32767, past 2**31.  At tau above every
+    |pred| the signs are those of the exact product and every flag is set;
+    at tau 0 the signs are pred's and no flag is set."""
+    g = torch.Generator(device=card).manual_seed(dout)
+
+    def sign(*shape):
+        return torch.randint(0, 2, shape, device=card, generator=g) * 2 - 1
+
+    B, C = 128, 16
+    img = sign(B, 1, 1, 1)
+    xq = torch.zeros(B, 34, 34, C, device=card, dtype=torch.int8)
+    xq[:, 1:-1, 1:-1] = (127 * img * sign(1, 1, 1, C)).to(torch.int8)
+    gq = (32767 * img * sign(1, 1, 1, dout)).expand(B, 32, 32, dout) \
+        .to(torch.int16).contiguous()
+    full = K._code_product(xq, gq, 3, 1)
+    assert float(full.abs().min()) > 2 ** 31
+    pred = torch.randn(9 * C, dout, device=card, generator=g)
+    for tau, want in ((2 * pred.abs().amax(), full),
+                      (torch.zeros((), device=card), pred)):
+        s_, stats = K.conv_grad_w(pred, xq, gq, tau, 3, 1)
+        ps, pstats = K.conv_grad_w_plain(pred, xq, gq, tau, 3, 1)
+        assert torch.equal(s_, ps) and torch.equal(stats, pstats)
+        assert torch.equal(s_, torch.sign(want).to(torch.int8))
+        assert bool((stats == int(want is full)).all())
+
+
 def test_conv_predictor_past_its_old_int32_limit(card):
     """Batch 640 of 32 x 32 images, every code at its limit: the sums reach
     640 * 1024 * 7 * 511 > 2**31, where the int32 version raised."""
@@ -611,3 +671,47 @@ def test_flash_fwd_holds_its_contract_on_a_split_p_adversarial_v(card):
     o_p, lse_p = FA.flash_attention_plain(q, k, v)
     _bf16_close(o.float(), o_p.float())
     assert float((lse - lse_p).abs().max()) <= 1e-5
+
+
+def _quant_special(kind, shape, dtype, dev, g):
+    x = (torch.randn(shape, device=dev, generator=g) * 3).to(dtype)
+    if kind in ("zero", "neg_zero"):
+        x.fill_(-0.0 if kind == "neg_zero" else 0.0)
+    elif kind != "random":
+        x.view(-1)[x.numel() // 3] = {"nan": float("nan"), "inf": float("inf"),
+                                      "neg_inf": -float("inf")}[kind]
+    return x
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["nan", "inf", "neg_inf", "zero", "neg_zero",
+                                  "random"])
+def test_quantize_kernel_on_special_values_and_above_l2(card, kind, dt):
+    """Kernel 10 (the scale's reduction and the pass) bit for bit
+    ``quantize_plain(x, qscale(x, bits))``, its scale ``qscale``'s, on
+    inputs holding a NaN, an inf, only zeros or only -0.0, at a small
+    shape, an unaligned view and the qwen2.5-3b gy shape (8192 x 11008,
+    180 MB in bf16, above the 50 MB L2)."""
+    from repro_torch.core.quant import qscale
+    from repro_torch.kernels import quant as Q
+    dtype = getattr(torch, dt)
+    view = torch.int32 if dt == "float32" else torch.int16
+    g = torch.Generator(device=card).manual_seed(11)
+    shapes = [(7, 300), (8192, 11008)] if kind in ("nan", "random") \
+        else [(7, 300)]
+    for shape in shapes:
+        for offset in (0, 1):
+            base = _quant_special(kind, (shape[0] * shape[1] + offset,),
+                                  dtype, card, g)
+            x = base[offset:].view(shape)
+            for bits in (8, 16):
+                Q.reset_launches()
+                out, s = Q.quantize_with_scale(x, bits)
+                assert Q.LAUNCHES["quantize"] == 1
+                want_s = qscale(x, bits)
+                assert torch.equal(s.view(torch.int32), want_s.view(torch.int32))
+                want = Q.quantize_plain(x, want_s, bits)
+                assert torch.equal(out.view(view), want.view(view))
+                assert torch.equal(Q.quantize(x, bits).view(view),
+                                   want.view(view))
+            del base, x, out, want

@@ -22,6 +22,20 @@ plain PyTorch on the CPU, against the JAX package's kernels.
   below 2**24, which these cases stay under.  Past the size the int32
   version refused (batch 600 at 32 x 32) the plain version holds against
   the JAX package's materialized-patch product within fp32 rounding.
+* Kernel 4 (``conv_grad_w`` on int8 tensor cores) runs kernel 3's
+  padded-grid product on the 8-bit x and 16-bit g codes, each byte plane in
+  int32 over at most 65,536 positions and int64 across splits, then the
+  Eq. (2) select and the flags (``conv_grad_w_grid_plain``).  Signs and flags must equal the plain
+  version's and JAX's ``conv_grad_w_pallas`` (interpret mode) bit for bit
+  at k 1 and 3, stride 1 and 2, dout 16, 64 and 160 (a padded last flag
+  block) and tau 0, ``beta max|pred|`` and above every |pred|; the JAX
+  kernel sums in fp32, exact below 2**24, which these cases stay under
+  (checked).  With every code at its limit past one 65,536-position split
+  the sums pass 2**31 and are held against the float64 plain version only.
+* Kernel 10's scale (``quantize``'s reduction, ``scale_plain``) must equal
+  ``qscale`` bit for bit on inputs holding a NaN, an inf, only zeros and
+  only -0.0, and its output JAX's ``quantize_pallas`` (interpret mode): NaN
+  where it is NaN, the same zeros with the same signs.
 
 * Kernel 5 (``predictor_matmul`` on int8 tensor cores) splits every int16
   g code into a signed high byte and an unsigned low byte and sums ``256
@@ -61,6 +75,8 @@ plain PyTorch on the CPU, against the JAX package's kernels.
   (``attention_dkv_products_oracle``) at code limits whose fp32 sums stay
   exact.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -72,10 +88,12 @@ from repro.kernels import conv as jconv  # noqa: E402
 from repro.kernels import flash_attn as jfa  # noqa: E402
 from repro.kernels import psg_matmul as jpm  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.core.quant import codes, quantize  # noqa: E402
+from repro_torch.core.quant import codes, qscale, quantize  # noqa: E402
 from repro_torch.kernels import conv as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels import psg_matmul as PM  # noqa: E402
+from repro_torch.kernels import quant as Q  # noqa: E402
+from repro.kernels import quant as jquant  # noqa: E402
 
 FP32_REL = 1e-5
 
@@ -244,6 +262,141 @@ def test_conv_predictor_past_the_old_int32_limit_against_jax_reference():
     want = np.asarray(jnp.dot(patches.T, jnp.asarray(g, jnp.float32).reshape(-1, 16),
                               precision="highest"))
     assert np.max(np.abs(got.numpy() - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+# (batch, hw, C, dout, k, stride) of kernel 4: the stem; a stride-2 3x3 conv
+# at dout 64; a 1x1 stride-2 conv at dout 16; a 1x1 and a 3x3 conv at dout
+# 160 (flag blocks of 128, the last padded)
+SIGN_CONVS = [(2, 8, 3, 16, 3, 1), (2, 8, 16, 64, 3, 2), (3, 6, 24, 16, 1, 2),
+              (2, 4, 40, 160, 1, 1), (1, 6, 20, 160, 3, 1)]
+SIGN_CONV_IDS = ["stem_d16", "3x3s2_d64", "1x1s2_d16", "1x1s1_d160",
+                 "3x3s1_d160"]
+
+
+def _sign_conv_codes(shape, seed):
+    """4-bit and 8-bit x codes, 10-bit and 16-bit g codes (g within +-300,
+    so that every byte plane is used and JAX's fp32 sums stay exact)."""
+    B, hw, C, dout, k, st = shape
+    r = np.random.RandomState(seed)
+    p = k // 2
+    hp = hw + 2 * p
+    ho = (hp - k) // st + 1
+    inner = (slice(None), slice(p, hp - p), slice(p, hp - p))
+    xm, xq = np.zeros((B, hp, hp, C), np.int8), np.zeros((B, hp, hp, C), np.int8)
+    xm[inner] = r.randint(-7, 8, size=(B, hw, hw, C))
+    xq[inner] = r.randint(-127, 128, size=(B, hw, hw, C))
+    gm = r.randint(-511, 512, size=(B, ho, ho, dout)).astype(np.int16)
+    gq = r.randint(-300, 301, size=(B, ho, ho, dout)).astype(np.int16)
+    return tuple(torch.from_numpy(a) for a in (xm, gm, xq, gq))
+
+
+@pytest.mark.parametrize("tau_kind", ["zero", "beta", "above"])
+@pytest.mark.parametrize("shape", SIGN_CONVS, ids=SIGN_CONV_IDS)
+def test_conv_sign_grid_arithmetic_equals_plain_and_jax(shape, tau_kind):
+    k, st = shape[4], shape[5]
+    xm, gm, xq, gq = _sign_conv_codes(shape, seed=sum(shape))
+    exact = K._code_product(xq.abs(), gq.abs(), k, st)
+    assert float(exact.max()) < 2 ** 24          # JAX's fp32 sums are exact
+    pred = K.conv_grad_w_predictor_plain(xm, gm, k, st)
+    big = pred.abs().amax()
+    tau = {"zero": torch.zeros(()), "beta": 0.05 * big,
+           "above": 2 * big + 1}[tau_kind]
+    got = K.conv_grad_w_grid_plain(pred, xq, gq, tau, k, st)
+    plain = K.conv_grad_w_plain(pred, xq, gq, tau, k, st)
+    assert got[0].dtype == torch.int8 and got[1].dtype == torch.int32
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    jsign, jstats = jconv.conv_grad_w_pallas(
+        *(jnp.asarray(t.numpy()) for t in (xm, gm, xq, gq)),
+        jnp.float32(float(tau)), k=k, stride=st)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jsign))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jstats))
+    if tau_kind == "above":     # every sign from the full product, every flag
+        full = K._code_product(xq, gq, k, st)
+        assert torch.equal(got[0], torch.sign(full).to(torch.int8))
+        assert bool(got[1].all())
+    if tau_kind == "zero":      # every sign from pred, no flag
+        assert torch.equal(got[0], torch.sign(pred).to(torch.int8))
+        assert not bool(got[1].any())
+
+
+@pytest.mark.parametrize("tau_kind", ["zero", "beta", "above"])
+def test_conv_sign_grid_past_one_split_at_the_limits(tau_kind):
+    """Batch 70 at 32 x 32, C 3, dout 16: 80,920 grid positions, past one
+    65,536-position split; every x code at +-127 and every g code at
+    +-32767, signed per image and per channel or column, so that every
+    element of the full product is +-(its tap's positions) * 127 * 32767,
+    past 2**31.  The signs and flags equal the float64 plain version's
+    whatever the split, and no int32 plane partial overflows (the emulation
+    checks)."""
+    B, C, dout = 70, 3, 16
+    r = np.random.RandomState(70)
+    img = r.choice([-1, 1], size=(B, 1, 1, 1))
+    x = np.zeros((B, 34, 34, C), np.int8)
+    x[:, 1:33, 1:33] = 127 * img * r.choice([-1, 1], size=(1, 1, 1, C))
+    g = np.broadcast_to(32767 * img * r.choice([-1, 1], size=(1, 1, 1, dout)),
+                        (B, 32, 32, dout)).astype(np.int16)
+    xq, gq = torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(g))
+    assert B * 34 * 34 > K.MAX_SPLIT_POSITIONS
+    full = K._code_product(xq, gq, 3, 1)
+    assert float(full.abs().min()) > 2 ** 31
+    assert torch.equal(K._grid_product(xq, gq, 3, 1), full)
+    pred = torch.from_numpy(r.randn(9 * C, dout).astype(np.float32))
+    big = pred.abs().amax()
+    tau = {"zero": torch.zeros(()), "beta": 0.5 * big,
+           "above": 2 * big}[tau_kind]
+    for split in (K.MAX_SPLIT_POSITIONS, 7 * 1024):
+        got = K.conv_grad_w_grid_plain(pred, xq, gq, tau, 3, 1, split=split)
+        plain = K.conv_grad_w_plain(pred, xq, gq, tau, 3, 1)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+QUANT_SPECIAL = ["nan", "inf", "neg_inf", "zero", "neg_zero"]
+
+
+def _special(kind, dtype):
+    x = (np.random.RandomState(len(kind)).randn(7, 300) * 3).astype(np.float32)
+    if kind in ("zero", "neg_zero"):
+        x[:] = -0.0 if kind == "neg_zero" else 0.0
+    else:
+        x[3, 100] = {"nan": np.nan, "inf": np.inf, "neg_inf": -np.inf}[kind]
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", QUANT_SPECIAL)
+def test_quantize_scale_on_special_values_equals_qscale_and_jax(kind, dtype):
+    x = _special(kind, dtype)
+    for bits in (4, 8, 16):
+        s, want = Q.scale_plain(x, bits), qscale(x, bits)
+        assert s.dtype == torch.float32 and s.dim() == 0
+        if kind == "nan":       # a NaN's payload is the arithmetic unit's
+            assert math.isnan(float(s)) and math.isnan(float(want))
+        else:
+            assert torch.equal(s.view(torch.int32), want.view(torch.int32))
+        if kind in ("inf", "neg_inf"):
+            assert float(s) == math.inf
+        if kind in ("zero", "neg_zero"):
+            assert float(s) == np.float32(1e-12) / np.float32(2 ** (bits - 1) - 1)
+        out, s_out = Q.quantize_with_scale(x, bits)
+        assert torch.equal(s_out.view(torch.int32), s.view(torch.int32))
+        assert torch.equal(out, Q.quantize(x, bits).view(out.shape)) or \
+            kind in ("nan", "inf", "neg_inf")
+        ref = Q.quantize_plain(x, want, bits).float().numpy()
+        jout = np.asarray(jquant.quantize_pallas(
+            jnp.asarray(x.float().numpy()).astype(
+                jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32),
+            bits, interpret=True).astype(jnp.float32))
+        got = out.float().numpy()
+        num = ~np.isnan(got)
+        for a in (ref, jout):
+            np.testing.assert_array_equal(np.isnan(a), ~num)
+            np.testing.assert_array_equal(got[num], a[num])
+            np.testing.assert_array_equal(np.signbit(got[num]),
+                                          np.signbit(a[num]))
+        if kind != "neg_zero":
+            continue
+        assert bool(np.signbit(got).all()) and not bool(np.any(got))
 
 
 # (N, din, dout) of kernel 6: one TPU tile, a 200 x 328 grid whose last row
