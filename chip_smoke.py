@@ -77,9 +77,32 @@ Phases, each fatal on failure:
    executed step (device time by kernel, idle share); then the same with
    the im2col convs (``fused_conv=False``: the PSG matmul kernels and no
    conv kernel) and with PSG off (``--e2train off``: no kernel at all);
-7. the same for qwen2.5-3b at full width, 8 of its 36 layers, batch 2 x
-   sequence 4096 (``build_lm_trainer``), once through the materialized
-   softmax and once through the flash kernels (``fused_attention=True``).
+6b. eval: after ResNet-74's fused run, held-out accuracy
+   (``training/evaluate.py``) and predict time on the card with the live
+   and the SWA weights (``eval_params``), each against a CPU predict on
+   copies within ``EVAL_REL``, and the SWA model's BatchNorm recalibration
+   over two training batches on the card and on the CPU (statistics within
+   ``BN_REL``, SLU decisions equal);
+7. the same as 6 for qwen2.5-3b at full width, 8 of its 36 layers, batch 2
+   x sequence 4096 (``build_lm_trainer``), once through the materialized
+   softmax and once through the flash kernels (``fused_attention=True``);
+   then the flash model's held-out accuracy and predict time (SWA weights),
+   and the reduced qwen2.5-3b's logits on the card against the CPU within
+   ``LM_EVAL_REL``;
+8. the flash LM path at batch 8 x 4096 in 4 microbatches of 2 x 4096
+   (``microbatches=4``), as in 7, with every kernel's launches checked
+   against the executed sub-blocks of its 4 forward passes per step, and
+   the flash path's likewise;
+9. one ``microbatches=2`` step on the card against the CPU (ResNet-14 as
+   in 5, the reduced qwen2.5-3b on the flash kernels), and the reduced LM's
+   ``m=2`` step against its ``m=1`` step under ``sgdm`` on the card within
+   ``MB_REL``;
+10. resume: the JAX package's kill-and-restart through the port's launcher
+   (ResNet-74, ``--e2train full``, fused convs, ``--ckpt-every 1``): a
+   ``Supervisor`` world of two workers on the card whose last rank dies at
+   step 6 of 10, shrunk to one that resumes from the last intact
+   checkpoint, beside two uninterrupted runs; the three final checkpoints
+   must be equal bit for bit (checkpoints in a temporary directory).
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -1147,16 +1170,21 @@ def cli_check(torch, mods):
     return {"rows": rows, "launches": launches, "wall_s": wall}
 
 
-def reference_check(torch, e2train="full", fused_conv=None):
+def reference_check(torch, e2train="full", fused_conv=None, microbatches=1):
     """Phase 5: one train step of a small ResNet on the card and on the CPU
     from the same parameters, batch and SLU decisions, under an
-    ``--e2train`` preset and ``fused_conv``."""
+    ``--e2train`` preset, ``fused_conv`` and ``microbatches`` (the injected
+    decisions hold for every microbatch)."""
+    import dataclasses
+
     from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
     from repro_torch.launch.train import E2TRAIN, experiment
     from repro_torch.training.train_step import init_train_state, make_train_step
 
     exp = experiment(depth=14, width=8, batch=8, steps=4,
                      e2=E2TRAIN[e2train], fused_conv=fused_conv)
+    exp = exp.replace(train=dataclasses.replace(exp.train,
+                                                microbatches=microbatches))
     batch = make_image_batch(GaussianImageTask(snr=2.0), 0, 0, 0, 8, "cpu")
     keep = [True] * 6
     out = {}
@@ -1187,10 +1215,11 @@ def compare_steps(mc, pc, mg, pg):
             "param_agreement": agree}
 
 
-def lm_reference_check(torch, fused_attention=None):
+def lm_reference_check(torch, fused_attention=None, microbatches=1):
     """Phase 5: one train step of the reduced qwen2.5-3b on the card and on
     the CPU from the same parameters and batch; SLU decisions come from the
-    same step key on both.  ``fused_attention`` is the PSG config's."""
+    same step key on both.  ``fused_attention`` is the PSG config's,
+    ``microbatches`` the train config's."""
     import copy
 
     from repro_torch.data.synthetic import MarkovLMTask, make_lm_batch
@@ -1199,7 +1228,8 @@ def lm_reference_check(torch, fused_attention=None):
     from repro_torch.training.train_step import make_train_step, train_state_for
 
     exp = lm_experiment(LM_ARCH, smoke=True, steps=4,
-                        fused_attention=fused_attention)
+                        fused_attention=fused_attention,
+                        microbatches=microbatches)
     tc = exp.train
     batch = make_lm_batch(MarkovLMTask(vocab=exp.model.vocab_size), tc.seed,
                           0, 0, tc.global_batch, tc.seq_len, "cpu")
@@ -1326,7 +1356,319 @@ def run_path(torch, name, build, mods, kernels, **kw):
           flush=True)
     prof = profile_step(torch, trainer)
     print(json.dumps({"phase": f"{name}_profile", **prof}), flush=True)
-    return main, prof
+    return trainer, main, prof
+
+
+EVAL_REL = 1e-5        # ResNet predict logits, card against CPU, of max |logit|
+# the LM's softmax rounds its probabilities to bf16 (the JAX package's
+# _softmax_lowp): a probability within an fp32 rounding of a bf16 boundary
+# rounds one way on the card and the other on the CPU, a step of 2^-8 of it
+LM_EVAL_REL = 1e-3
+BN_REL = 1e-4          # recalibrated BatchNorm statistics, of max |buffer|
+MB_REL = 1e-5          # LM m=2 against m=1 under sgdm, of max |parameter|
+RECAL_BATCHES = 2
+LM_MICRO = 4           # microbatches of the microbatched LM path
+RESUME_STEPS, RESUME_KILL = 10, 6
+
+
+def rel_err(a, ref) -> float:
+    """max |a - ref| over max |ref|, in float64 on the host."""
+    a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
+    return float((a - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def heldout_card(torch, exp, model):
+    """Held-out accuracy (``evaluate.accuracy``) of ``model`` on the card,
+    ms per held-out batch of its predict (after one warm-up), and the
+    logits of held-out batch 0."""
+    from repro_torch.tasks import get_task
+    from repro_torch.training import evaluate
+
+    predict = get_task(exp.task).make_predict(exp)
+    batches = [evaluate.heldout_batch(exp, i, "cuda")
+               for i in range(evaluate.HELDOUT_BATCHES)]
+    predict(model, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = [predict(model, b) for b in batches]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    acc = evaluate.accuracy(exp, model, "cuda")
+    return {"accuracy": acc, "ms_per_heldout_batch": ms}, logits[0], batches[0]
+
+
+def card_against_cpu(torch, exp, model, what, limit=EVAL_REL):
+    """``model``'s held-out accuracy and predict time on the card, and its
+    held-out batch-0 logits against a CPU predict on a copy (the padded
+    vocabulary's masked columns left out)."""
+    import copy
+
+    from repro_torch.tasks import get_task
+
+    out, logits, batch = heldout_card(torch, exp, model)
+    cpu = get_task(exp.task).make_predict(exp)(
+        copy.deepcopy(model).to("cpu"), {k: v.cpu() for k, v in batch.items()})
+    n = exp.model.vocab_size
+    err = rel_err(logits[..., :n], cpu[..., :n])
+    if not err <= limit:
+        fail(f"{what}: card logits differ from the CPU's by {err:.3g} of "
+             f"max |logit| (limit {limit})")
+    same = float((logits[..., :n].argmax(-1).cpu() == cpu[..., :n].argmax(-1))
+                 .float().mean())
+    return {**out, "logits_rel_err_vs_cpu": err, "argmax_agreement": same}
+
+
+def eval_check(torch, trainer):
+    """Phase eval (ResNet-74, after the main path's run): held-out accuracy
+    and predict time on the card with the live weights and with the SWA
+    weights (``eval_params``), each held against a CPU predict on copies of
+    the same parameters and BatchNorm statistics; then the SWA model's
+    BatchNorm recalibration over training batches on the card and on the
+    CPU (statistics within ``BN_REL``, SLU decisions equal)."""
+    import copy
+
+    from repro_torch.core import rng
+    from repro_torch.training.train_step import (eval_params,
+                                                 recalibrate_model_state)
+
+    exp, state = trainer.exp, trainer.state
+    live = card_against_cpu(torch, exp, state.model, "live weights")
+    swa_model = eval_params(state, exp)
+    if swa_model is state.model:
+        fail("eval_params returned the live model with SWA on")
+    swa = card_against_cpu(torch, exp, swa_model, "SWA weights")
+    batches = [trainer.make_batch(s, trainer.shard)
+               for s in range(RECAL_BATCHES)]
+    key = rng.PRNGKey(exp.train.seed)
+    decided, bufs, models, recal_ms = {}, {}, {}, 0.0
+    for dev in ("cuda", "cpu"):
+        bs = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+        probe = copy.deepcopy(swa_model).to(dev)
+        with torch.no_grad():     # a train-mode forward decides as recal does
+            decided[dev] = [probe(b["image"], key=rng.fold_in(key, i))[1]
+                            ["slu_executed"].tolist()
+                            for i, b in enumerate(bs)]
+        models[dev] = copy.deepcopy(swa_model).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bufs[dev] = recalibrate_model_state(exp, models[dev], bs)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            recal_ms = 1e3 * (time.perf_counter() - t0)
+    if decided["cuda"] != decided["cpu"]:
+        fail(f"recalibration's SLU decisions differ: card {decided['cuda']}, "
+             f"CPU {decided['cpu']}")
+    err = max(rel_err(bufs["cuda"][k], bufs["cpu"][k]) for k in bufs["cpu"])
+    if not err <= BN_REL:
+        fail(f"recalibrated statistics differ by {err:.3g} (limit {BN_REL})")
+    recal = card_against_cpu(torch, exp, models["cuda"], "recalibrated SWA")
+    return {"live": live, "swa": swa, "recalibrated_swa": recal,
+            "recalibration_batches": RECAL_BATCHES,
+            "recalibration_ms": recal_ms, "bn_rel_err_vs_cpu": err,
+            "slu_executed": decided["cuda"], "card": card_line(),
+            "limits": {"logits": EVAL_REL, "bn": BN_REL}}
+
+
+def lm_eval_check(torch, trainer):
+    """Phase eval (LM): held-out accuracy and predict time of the trained
+    8-layer qwen2.5-3b's SWA weights on the card; then the reduced
+    qwen2.5-3b's logits on the card against the CPU (a full-width CPU
+    forward is too slow for this script)."""
+    import copy
+
+    from repro_torch.launch.train import lm_experiment
+    from repro_torch.tasks import get_task
+    from repro_torch.training.train_step import eval_params
+
+    exp = trainer.exp
+    full = heldout_card(torch, exp, eval_params(trainer.state, exp))[0]
+    small = lm_experiment(LM_ARCH, smoke=True, steps=4)
+    model = get_task("lm").init(small, 0, "cpu")
+    reduced = card_against_cpu(torch, small, copy.deepcopy(model).to("cuda"),
+                               "reduced LM", LM_EVAL_REL)
+    return {"full_width": full, "reduced": reduced, "card": card_line(),
+            "limit": LM_EVAL_REL}
+
+
+def lm_microbatch_equivalence(torch):
+    """The reduced qwen2.5-3b under ``sgdm`` with PSG off on the card: one
+    ``microbatches=2`` step against one ``microbatches=1`` step from the
+    same parameters and batch (every row holds as many valid labels)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data.synthetic import MarkovLMTask, make_lm_batch
+    from repro_torch.launch.train import E2TRAIN, lm_experiment
+    from repro_torch.tasks import get_task
+    from repro_torch.training.train_step import make_train_step, train_state_for
+
+    base = lm_experiment(LM_ARCH, smoke=True, steps=4, e2=E2TRAIN["off"])
+    if base.train.optimizer != "sgdm":
+        fail(f"the reduced LM trains with {base.train.optimizer}, not sgdm")
+    tc = base.train
+    batch = make_lm_batch(MarkovLMTask(vocab=base.model.vocab_size), tc.seed,
+                          0, 0, tc.global_batch, tc.seq_len, "cuda")
+    model = get_task("lm").init(base, 0, "cuda")
+    out = {}
+    for m in (1, 2):
+        exp = base.replace(train=dataclasses.replace(tc, microbatches=m))
+        state, met = make_train_step(exp)(
+            train_state_for(exp, copy.deepcopy(model)), batch)
+        out[m] = (float(met["loss"]), dict(state.model.named_parameters()))
+    err = max(rel_err(out[2][1][k], p) for k, p in out[1][1].items())
+    if not err <= MB_REL:
+        fail(f"LM m=2 step differs from its m=1 step by {err:.3g} (limit "
+             f"{MB_REL})")
+    return {"param_rel_err": err, "loss_m1": out[1][0], "loss_m2": out[2][0]}
+
+
+def sub_block_launches(main, m):
+    """The flash LM path's launches as its executed sub-blocks account for
+    them: per executed attention sub-block kernel 7 twice (the forward and
+    its recompute), kernels 8 and 9 once, kernels 5 and 6 four times (q, k,
+    v, o); per executed MLP sub-block kernels 5 and 6 three times (up, gate,
+    down).  The executed sub-blocks come from the SLU execution ratios of
+    the ``executed * m`` forward passes; fails unless every count holds."""
+    passes = main["executed"] * m
+    subs = round(sum(main["slu_exec_ratio"]) * 2 * LM_LAYERS * m)
+    got = main["launches"]
+    attn = got["flash_bwd_dq"]
+    mlp = subs - attn
+    want = {"flash_fwd": 2 * attn, "flash_bwd_dq": attn,
+            "flash_bwd_dkv": attn, "predictor_matmul": 4 * attn + 3 * mlp,
+            "psg_grad_w": 4 * attn + 3 * mlp}
+    if any(got[k] != v for k, v in want.items()) or not (
+            2 * passes <= min(attn, mlp) <= max(attn, mlp)
+            <= LM_LAYERS * passes):
+        fail(f"launches {got} do not match {passes} passes of {attn} "
+             f"attention and {mlp} MLP sub-blocks: {want}")
+    return {"passes": passes, "attention_sub_blocks": attn,
+            "mlp_sub_blocks": mlp,
+            "launches_per_pass": {k: got[k] / passes for k in want},
+            "launches_per_executed_step": {k: got[k] / main["executed"]
+                                           for k in want}}
+
+
+def _log_value(path, prefix, index=0):
+    """The ``index``-th number on the last line of a log starting with
+    ``prefix`` (``None`` if there is none)."""
+    import re
+    try:
+        lines = [ln for ln in Path(path).read_text().splitlines()
+                 if ln.startswith(prefix)]
+    except OSError:
+        return None
+    nums = re.findall(r"[-+]?\d+(?:\.\d+)?", lines[-1]) if lines else []
+    return float(nums[index]) if len(nums) > index else None
+
+
+def resume_check(torch):
+    """Phase resume: the JAX package's kill-and-restart through the port's
+    launcher on the card (ResNet-74, width 16, batch 128, ``--e2train
+    full``, fused convs, ``--ckpt-every 1``, ``RESUME_STEPS`` nominal
+    steps): a ``Supervisor`` world of two workers whose rank 1 dies at step
+    ``RESUME_KILL``, shrunk to one that resumes from the last intact
+    checkpoint; beside it, two uninterrupted runs.  The two uninterrupted
+    final checkpoints must be equal bit for bit, and the resumed one equal
+    to them.  Checkpoints go to a temporary directory."""
+    import shlex
+    import subprocess
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.ft import faults
+    from repro_torch.ft.checkpoint import latest_intact_step
+    from repro_torch.ft.supervisor import Supervisor
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def launcher(log, *args):
+        argv = [sys.executable, "-m", "repro_torch.launch.train",
+                "--depth", str(DEPTH), "--width", str(WIDTH), "--batch",
+                str(BATCH), "--e2train", "full", "--fused-conv", "on",
+                "--steps", str(RESUME_STEPS), "--ckpt-every", "1", *args]
+        return ["sh", "-c", f'exec "$@" > {shlex.quote(log)} 2>&1', "sh",
+                *argv]
+
+    with tempfile.TemporaryDirectory() as d:
+        dirs = {n: os.path.join(d, n) for n in ("ckpt", "scratch", "ref1",
+                                                 "ref2")}
+        logs = {n: os.path.join(d, f"{n}.log") for n in ("ref1", "ref2")}
+        t0 = time.perf_counter()
+        refs = {n: subprocess.Popen(launcher(logs[n], "--ckpt", dirs[n]),
+                                    env=env) for n in ("ref1", "ref2")}
+        ref_wall = {}
+
+        def reap(name, proc):       # each run's own wall, while others run
+            proc.wait(timeout=600)
+            ref_wall[name] = time.perf_counter() - t0
+
+        reapers = [threading.Thread(target=reap, args=item)
+                   for item in refs.items()]
+        for th in reapers:
+            th.start()
+
+        def make_cmd(world, rank, resume):
+            name = f"world{world}_rank{rank}"
+            logs[name] = os.path.join(d, f"{name}.log")
+            # the last rank owns the supervised stream and is the one
+            # killed first, so the restart resumes from the middle of the
+            # run whatever the other rank's pace
+            args = ["--ckpt", dirs["ckpt"] if rank == world - 1
+                    else dirs["scratch"]]
+            if resume is not None:
+                args.append("--resume")
+            elif world > 1 and rank == world - 1:
+                args += ["--ft-kill-at-step", str(RESUME_KILL)]
+            return launcher(logs[name], *args)
+
+        sup = Supervisor(make_cmd, world=2, ckpt_dir=dirs["ckpt"], env=env,
+                         worker_timeout_s=600)
+        attempts = sup.run()
+        for th in reapers:
+            th.join()
+        for n, p in refs.items():
+            if p.returncode != 0:
+                fail(f"uninterrupted run {n} exited {p.returncode}: "
+                     + Path(logs[n]).read_text()[-2000:])
+        if [a.world for a in attempts] != [2, 1] or \
+                faults.KILL_EXIT_CODE not in attempts[0].exit_codes or \
+                attempts[1].resume_step is None:
+            fail(f"kill-and-restart went otherwise: {sup.summary()}")
+        last = RESUME_STEPS - 1
+        if latest_intact_step(dirs["ckpt"]) != last:
+            fail(f"the resumed run's last intact step is "
+                 f"{latest_intact_step(dirs['ckpt'])}, not {last}")
+        final = {n: dict(np.load(os.path.join(dirs[n], f"step_{last:08d}.npz")))
+                 for n in ("ckpt", "ref1", "ref2")}
+
+        def differing(a, b):
+            if set(a) != set(b):
+                fail(f"checkpoint key sets differ: {sorted(set(a) ^ set(b))}")
+            return {k: float(np.max(np.abs(a[k].astype(np.float64)
+                                           - b[k].astype(np.float64))))
+                    for k in a if not np.array_equal(a[k], b[k])}
+
+        refs_diff = differing(final["ref1"], final["ref2"])
+        resumed_diff = differing(final["ckpt"], final["ref1"])
+        if refs_diff:
+            fail(f"two uninterrupted card runs differ in {len(refs_diff)} "
+                 f"keys: {sorted(refs_diff.items())[:5]}")
+        if resumed_diff:
+            fail(f"the resumed run differs from the uninterrupted one in "
+                 f"{len(resumed_diff)} keys: {sorted(resumed_diff.items())[:5]}")
+        workers = {n: {"wall_s": _log_value(log, "wall"),
+                       "saves": _log_value(log, "checkpoints:"),
+                       "save_ms_each": _log_value(log, "checkpoints:", 1),
+                       "resumed_from": _log_value(log, "resumed from")}
+                   for n, log in logs.items()}
+        return {"attempts": [a.to_dict() for a in attempts],
+                "resume_step": attempts[1].resume_step,
+                "keys": len(final["ref1"]), "bitwise_equal": True,
+                "uninterrupted_process_wall_s": ref_wall, "workers": workers,
+                "card": card_line()}
 
 
 def main() -> None:
@@ -1407,34 +1749,60 @@ def main() -> None:
     print(json.dumps({"phase": "lm_flash_reference", **lm_flash_ref}),
           flush=True)
 
-    main, prof = run_path(
+    trainer, main, prof = run_path(
         torch, "main_path",
         lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda"),
         mods, list(K.LAUNCHES))
+    ev = eval_check(torch, trainer)
+    print(json.dumps({"phase": "eval", **ev}), flush=True)
+    del trainer
     im2col_main, im2col_prof = run_path(
         torch, "im2col_main_path",
         lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda",
                                     fused_conv=False),
-        mods, list(PM.LAUNCHES), absent=list(K.LAUNCHES), execute=3)
+        mods, list(PM.LAUNCHES), absent=list(K.LAUNCHES), execute=3)[1:]
     off_main, off_prof = run_path(
         torch, "psg_off_main_path",
         lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda",
                                     e2=E2TRAIN["off"]),
         mods, [], absent=[n for mod in mods for n in mod.LAUNCHES],
-        execute=3, smd=False)
+        execute=3, smd=False)[1:]
     lm_main, lm_prof = run_path(
         torch, "lm_main_path",
         lambda steps: build_lm_trainer(LM_ARCH, num_layers=LM_LAYERS,
                                        batch=LM_BATCH, seq=LM_SEQ,
                                        steps=steps, device="cuda"),
-        mods, list(PM.LAUNCHES))
-    lm_flash_main, lm_flash_prof = run_path(
+        mods, list(PM.LAUNCHES))[1:]
+    lm_trainer, lm_flash_main, lm_flash_prof = run_path(
         torch, "lm_flash_main_path",
         lambda steps: build_lm_trainer(LM_ARCH, num_layers=LM_LAYERS,
                                        batch=LM_BATCH, seq=LM_SEQ,
                                        steps=steps, device="cuda",
                                        fused_attention=True),
         mods, list(PM.LAUNCHES) + list(FA.LAUNCHES))
+    lm_ev = lm_eval_check(torch, lm_trainer)
+    print(json.dumps({"phase": "lm_eval", **lm_ev}), flush=True)
+    del lm_trainer
+    lm_mb_main, lm_mb_prof = run_path(
+        torch, "lm_microbatch_main_path",
+        lambda steps: build_lm_trainer(LM_ARCH, num_layers=LM_LAYERS,
+                                       batch=LM_MICRO * LM_BATCH, seq=LM_SEQ,
+                                       steps=steps, device="cuda",
+                                       fused_attention=True,
+                                       microbatches=LM_MICRO),
+        mods, list(PM.LAUNCHES) + list(FA.LAUNCHES), execute=3)[1:]
+    lm_mb_launches = {"lm_flash_main_path": sub_block_launches(lm_flash_main, 1),
+                      "lm_microbatch_main_path": sub_block_launches(
+                          lm_mb_main, LM_MICRO)}
+    print(json.dumps({"phase": "lm_microbatch_launches", **lm_mb_launches}),
+          flush=True)
+    mb_ref = {"resnet": reference_check(torch, microbatches=2),
+              "lm": lm_reference_check(torch, fused_attention=True,
+                                       microbatches=2),
+              "lm_sgdm_m2_vs_m1": lm_microbatch_equivalence(torch)}
+    print(json.dumps({"phase": "microbatch_reference", **mb_ref}), flush=True)
+    resume = resume_check(torch)
+    print(json.dumps({"phase": "resume", **resume}), flush=True)
 
     kernels = []
     for name in REPLACES:
@@ -1467,7 +1835,12 @@ def main() -> None:
          "psg_off_profile": off_prof,
          "lm_main_path": lm_main, "lm_profile": lm_prof,
          "lm_flash_main_path": lm_flash_main,
-         "lm_flash_profile": lm_flash_prof, "kernels": kernels,
+         "lm_flash_profile": lm_flash_prof, "eval": ev, "lm_eval": lm_ev,
+         "lm_microbatch_main_path": lm_mb_main,
+         "lm_microbatch_profile": lm_mb_prof,
+         "lm_microbatch_launches": lm_mb_launches,
+         "microbatch_reference": mb_ref, "resume": resume,
+         "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},

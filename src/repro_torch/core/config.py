@@ -208,7 +208,7 @@ class E2TrainConfig:
 class TrainConfig:
     global_batch: int = 256
     seq_len: int = 4096
-    microbatches: int = 1             # only 1 is implemented
+    microbatches: int = 1             # gradient accumulation (train_step)
     lr: float = 0.1
     schedule: str = "step"            # step | cosine | constant
     warmup_steps: int = 0
@@ -217,7 +217,7 @@ class TrainConfig:
     decay_factor: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 1e-4
-    optimizer: str = "sgdm"           # sgdm | signsgd | psg
+    optimizer: str = "sgdm"           # sgdm | signsgd | psg | adamw
     grad_clip: float = 0.0
     remat: str = "block"              # none | block (full is not ported)
     seed: int = 0

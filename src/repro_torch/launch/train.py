@@ -10,6 +10,10 @@ the energy report.
         --batch 2 --seq 4096 --steps 8
     python -m repro_torch.launch.train --depth 74 --e2train off \\
         --fused-conv off --steps 8
+    python -m repro_torch.launch.train --depth 8 --width 8 --batch 4 \\
+        --steps 6 --device cpu --ckpt /tmp/ck --ckpt-every 2
+    python -m repro_torch.launch.train --depth 8 --width 8 --batch 4 \\
+        --steps 10 --device cpu --ckpt /tmp/ck --resume
 
 The counterparts of ``examples/train_e2e.py --task cifar_cnn`` and of
 ``repro.launch.train --arch ... --e2train ...`` in the JAX package, with a
@@ -29,12 +33,25 @@ PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` and
 (``kernels/dispatch.py``: ``auto`` unless ``REPRO_TORCH_KERNEL_BACKEND``
 pins another), with a warning on stderr when a pin runs the plain versions
 or the oracles on the card.
+
+Checkpoints and fault tolerance follow the JAX launcher: ``--ckpt DIR``
+saves a final checkpoint (and one after every ``--ckpt-every`` steps) in the
+JAX package's format; ``--resume`` restores the newest intact one, prints
+``resumed from intact step N (counter at M)`` and runs what is left of the
+``--steps`` budget (the total nominal steps, so a resumed run ends where an
+uninterrupted one does); ``--deadline-s`` turns a step over the deadline
+into a forced drop of the next one; ``--ft-kill-at-step`` hard-kills the
+process when the data path reaches that step (``ft/faults.kill_at_step``,
+for tests).  The process exits 1 when the final save failed.  The summary
+ends with the held-out accuracy (``training/evaluate.py``) of the SWA
+weights when SWA is on, else of the live ones.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -46,9 +63,11 @@ from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
                                      SLUConfig, SMDConfig, TrainConfig)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.psg import fused_conv_active
-from repro_torch.data.synthetic import (GaussianImageTask, MarkovLMTask,
-                                        make_image_batch, make_lm_batch)
+from repro_torch.data.synthetic import make_image_batch, make_lm_batch
+from repro_torch.ft import faults
+from repro_torch.ft.checkpoint import latest_intact_step, restore_checkpoint
 from repro_torch.kernels import dispatch
+from repro_torch.training import evaluate
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
 
@@ -93,29 +112,33 @@ def experiment(depth: int, width: int, batch: int, steps: int,
 def build_trainer(depth: int = 74, width: int = 16, batch: int = 128,
                   steps: int = 8, device=None, seed: int = 0,
                   e2: E2TrainConfig = FULL_E2,
-                  fused_conv: Optional[bool] = None) -> Trainer:
-    """The ResNet trainer the CLI runs: model from ``seed``, data seed 0."""
+                  fused_conv: Optional[bool] = None, **trainer_kw) -> Trainer:
+    """The ResNet trainer the CLI runs: model from ``seed``, data seed 0;
+    ``trainer_kw`` go to :class:`Trainer` (checkpoints, deadline)."""
     dev = resolve_device(device)
     _fp32_is_fp32()
     exp = experiment(depth, width, batch, steps, e2, fused_conv)
     state = init_train_state(exp, seed=seed, device=dev)
-    img_task = GaussianImageTask(num_classes=10, snr=2.0)
+    img_task = evaluate.data_task(exp)
 
     def make_batch(step, shard):
         return make_image_batch(img_task, 0, step, shard, batch, dev)
 
-    return Trainer(exp, state, make_batch, device=dev)
+    return Trainer(exp, state, make_batch, device=dev, **trainer_kw)
 
 
 def lm_experiment(arch: str, num_layers: Optional[int] = None,
                   batch: Optional[int] = None, seq: Optional[int] = None,
                   steps: int = 8, smoke: bool = False,
                   fused_attention: Optional[bool] = None,
-                  e2: E2TrainConfig = FULL_E2) -> Experiment:
+                  e2: E2TrainConfig = FULL_E2,
+                  microbatches: int = 1) -> Experiment:
     """``arch`` under ``e2`` (an :data:`E2TRAIN` preset; with PSG on, the
     ``psg`` optimizer at lr 0.03); ``smoke`` reduces it to toy dimensions
     first, ``num_layers`` cuts the depth, ``batch``/``seq`` default to the
-    experiment's, and ``fused_attention`` is ``PSGConfig.fused_attention``."""
+    experiment's, ``fused_attention`` is ``PSGConfig.fused_attention`` and
+    ``microbatches`` is ``TrainConfig.microbatches`` (``batch`` is the
+    whole step's)."""
     exp = get_experiment(arch)
     if smoke:
         exp = reduce_experiment(exp)
@@ -124,7 +147,7 @@ def lm_experiment(arch: str, num_layers: Optional[int] = None,
     tcfg = dataclasses.replace(
         exp.train, total_steps=steps,
         global_batch=batch or exp.train.global_batch,
-        seq_len=seq or exp.train.seq_len)
+        seq_len=seq or exp.train.seq_len, microbatches=microbatches)
     e2 = dataclasses.replace(e2, psg=dataclasses.replace(
         e2.psg, fused_attention=fused_attention))
     return exp.replace(model=model, e2=e2, train=_for_e2(tcfg, e2),
@@ -137,22 +160,24 @@ def build_lm_trainer(arch: str = "qwen2_5_3b",
                      steps: int = 8, device=None, seed: int = 0,
                      smoke: bool = False,
                      fused_attention: Optional[bool] = None,
-                     e2: E2TrainConfig = FULL_E2) -> Trainer:
+                     e2: E2TrainConfig = FULL_E2, microbatches: int = 1,
+                     **trainer_kw) -> Trainer:
     """The LM trainer the CLI runs: model from ``seed`` on ``device``,
-    Markov-chain tokens from the experiment's seed."""
+    Markov-chain tokens from the experiment's seed; ``trainer_kw`` go to
+    :class:`Trainer`."""
     dev = resolve_device(device)
     _fp32_is_fp32()
     exp = lm_experiment(arch, num_layers, batch, seq, steps, smoke,
-                        fused_attention, e2)
+                        fused_attention, e2, microbatches)
     state = init_train_state(exp, seed=seed, device=dev)
     tc = exp.train
-    task = MarkovLMTask(vocab=exp.model.vocab_size)
+    task = evaluate.data_task(exp)
 
     def make_batch(step, shard):
         return make_lm_batch(task, tc.seed, step, shard, tc.global_batch,
                              tc.seq_len, dev)
 
-    return Trainer(exp, state, make_batch, device=dev)
+    return Trainer(exp, state, make_batch, device=dev, **trainer_kw)
 
 
 def kernel_backend(trainer: Trainer) -> str:
@@ -168,7 +193,10 @@ def kernel_backend(trainer: Trainer) -> str:
     return backend
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+def run(argv: Optional[Sequence[str]] = None) -> Trainer:
+    """Parse ``argv``, build, resume, train and report; returns the
+    trainer (``main`` turns it into an exit code)."""
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--task", choices=["cifar_cnn", "lm"], default="cifar_cnn")
     ap.add_argument("--arch", default="qwen2_5_3b",
@@ -197,18 +225,35 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     ap.add_argument("--seq", type=int, default=None,
                     help="LM sequence length (default: the experiment's)")
     ap.add_argument("--steps", type=int, default=8,
-                    help="nominal steps (SMD drops about half)")
+                    help="total nominal steps (SMD drops about half); a "
+                         "resumed run executes the rest")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises without a card)")
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="checkpoint directory (a final save at the end)")
+    ap.add_argument("--ckpt-every", type=int, default=0, metavar="N",
+                    help="also save after every N-th nominal step")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest intact checkpoint in --ckpt")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-step straggler deadline: a step over it arms "
+                         "an SMD-style forced drop (0 = off)")
+    ap.add_argument("--ft-kill-at-step", type=int, default=None,
+                    metavar="STEP",
+                    help="fault injection: hard-kill (os._exit) this "
+                         "process when the data path reaches STEP "
+                         "(ft/faults.kill_at_step; testing only)")
     args = ap.parse_args(argv)
     e2 = E2TRAIN[args.e2train]
     psg_cfg = e2.psg if e2.psg.enabled else None
+    ft = dict(checkpoint_dir=args.ckpt, checkpoint_every=args.ckpt_every,
+              deadline_s=args.deadline_s)
     if args.task == "lm":
         fused = FUSED[args.fused_attention]
         trainer = build_lm_trainer(args.arch, batch=args.batch, seq=args.seq,
                                    steps=args.steps, device=args.device,
                                    smoke=args.smoke, fused_attention=fused,
-                                   e2=e2)
+                                   e2=e2, **ft)
         tc = trainer.exp.train
         attn = "flash" if psg_cfg and fused else "materialized"
         print(f"model {trainer.exp.model.name} ({trainer.exp.model.num_layers}"
@@ -220,7 +265,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         batch = args.batch or 128
         trainer = build_trainer(args.depth, args.width, batch, args.steps,
                                 args.device, e2=e2,
-                                fused_conv=FUSED[args.fused_conv])
+                                fused_conv=FUSED[args.fused_conv], **ft)
         conv = "fused" if fused_conv_active(trainer.exp.e2.psg
                                             if psg_cfg else None) \
             else "im2col"
@@ -228,18 +273,54 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
               f"{args.width}, batch {batch}, {conv} conv, --e2train "
               f"{args.e2train}, kernel backend {kernel_backend(trainer)}) "
               f"on {trainer.device}")
-    hist = trainer.run(args.steps, log_every=1)
+    if args.ft_kill_at_step is not None:
+        trainer.make_batch = faults.kill_at_step(trainer.make_batch,
+                                                 args.ft_kill_at_step)
+    start = 0
+    if args.resume and args.ckpt and latest_intact_step(args.ckpt) is not None:
+        # integrity-verified: falls back past torn or corrupt saves
+        _, step = restore_checkpoint(args.ckpt, trainer.state)
+        start = trainer.state.step      # the next nominal step
+        print(f"resumed from intact step {step} (counter at {start})")
+    hist = trainer.run(max(args.steps - start, 0), log_every=1)
     if hist:
         fb = trainer.measured_psg_fallback()
-        print(f"\nfinal loss {np.mean([h['loss'] for h in hist[-5:]]):.4f}; "
+        print(f"\nfinal loss {np.mean([h['loss'] for h in hist[-5:]]):.4f} "
+              f"(mean of the last {min(len(hist), 5)} executed steps' task "
+              f"loss); last total_loss {hist[-1]['total_loss']:.4f}; "
               f"executed {trainer.executed_steps}, "
-              f"SMD-dropped {trainer.dropped_steps}; measured PSG fallback "
+              f"SMD-dropped {trainer.dropped_steps} (straggler-dropped "
+              f"{trainer.straggler_dropped_steps}); measured PSG fallback "
               + ("none (PSG off)" if fb is None else f"{fb:.3f}"))
         print(f"throughput: {trainer.steps_per_s():.3f} executed steps/s "
               "(per-step loop; the first step includes the kernel build)")
-        print("\n" + trainer.energy_report(steps=args.steps).summary())
+        print("\n" + trainer.energy_report(steps=args.steps - start)
+              .summary())
+    if trainer.save_s:
+        print(f"checkpoints: {len(trainer.save_s)} saves, "
+              f"{1e3 * float(np.mean(trainer.save_s)):.2f} ms each on the "
+              f"training loop (mean; the write is async), to {args.ckpt}")
+    acc = evaluate.evaluate(trainer)
+    swa = "SWA" if trainer.state.swa is not None else "live"
+    n = evaluate.HELDOUT_BATCHES
+    shape = f"{evaluate.IMAGE_BATCH} images" if args.task == "cifar_cnn" \
+        else f"{evaluate.TOKEN_BATCH} x {evaluate.TOKEN_SEQ} tokens"
+    print(f"held-out accuracy {acc:.4f} ({n} batches of {shape}, {swa} "
+          f"weights, trainer's BatchNorm statistics)")
+    print(f"wall {time.perf_counter() - t_start:.2f} s")
     return trainer
 
 
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """The CLI: 0, or 1 when the final checkpoint did not land (a run whose
+    state was not persisted must not exit green)."""
+    trainer = run(argv)
+    if trainer.save_errors:
+        print(f"final save FAILED: {sorted(trainer.save_errors)}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -3,7 +3,8 @@
 The counterpart of the ResNet half of the JAX package's
 ``models/resnet.py``.  Parameters are ``nn.Parameter``s; the BatchNorm
 running statistics are buffers, updated in place by a train-mode forward
-and never seen by the optimizer.  Each stage holds one transition block
+and never seen by the optimizer; an eval-mode forward (``model.eval()``)
+normalizes with them and runs every block, the SLU gate unevaluated.  Each stage holds one transition block
 (with a 1x1 stride-2 ``down`` shortcut where the width changes; such a
 block is never gated) and ``n - 1`` identity blocks, run by a Python loop.
 
@@ -67,7 +68,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode: normalize with the batch statistics and move the
-        running statistics toward them."""
+        running statistics toward them.  Eval mode: normalize with the
+        running statistics and leave them."""
+        if not self.training:
+            return (x - self.mean) * torch.rsqrt(self.var + BN_EPS) \
+                * self.scale + self.bias
         mu = x.mean(dim=(0, 1, 2))
         var = x.var(dim=(0, 1, 2), correction=0)
         with torch.no_grad():
@@ -117,16 +122,18 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None,
                 keep: Optional[Sequence[bool]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Train-mode forward, x: (B, 32, 32, 3) -> (logits, aux{slu_*}).
+        """x: (B, 32, 32, 3) -> (logits, aux{slu_*}).
 
         ``key`` is the step's threefry key (``fold_in(PRNGKey(seed),
         step)``, default ``PRNGKey(0)``) and keys the SLU draws; ``keep``
         (tests only) overrides them with one decision per block, in network
-        order.
+        order.  In eval mode (``self.training`` false) the BatchNorms use
+        their running statistics and every block runs ungated, as in the
+        JAX package's ``train=False``.
         """
         slu_cfg = self.e2.slu
         key = rng.PRNGKey(0) if key is None else key
-        slu_on = self.slu_gate is not None
+        slu_on = self.slu_gate is not None and self.training
         n_blocks = 3 * self.n
         one = torch.ones((), device=x.device)
         h = F.relu(self.stem_bn(self.stem(x)))

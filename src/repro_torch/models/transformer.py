@@ -84,18 +84,21 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, key: Optional[rng.Key] = None,
                 remat: str = "block"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Train-mode forward, tokens (B, S) -> (fp32 logits (B, S, V),
-        aux{slu_cost, slu_executed (L, 2), slu_keep_probs (2L,)}).
+        """tokens (B, S) -> (fp32 logits (B, S, V), aux{slu_cost,
+        slu_executed (L, 2), slu_keep_probs (2L,)}).
 
         ``key`` is the step's threefry key (``fold_in(PRNGKey(seed),
-        step)``, default ``PRNGKey(0)``)."""
+        step)``, default ``PRNGKey(0)``).  In eval mode (``self.training``
+        false) every sub-block runs ungated and nothing is checkpointed:
+        the JAX package's ``lm_fwd(train=False, remat="none")``."""
         cfg, slu_cfg = self.cfg, self.e2.slu
         key = rng.PRNGKey(0) if key is None else key
         dt = getattr(torch, cfg.dtype)
         x = self.embed[tokens].to(dt)
         S = x.shape[1]
         n = cfg.num_layers
-        gate = self.slu_gate
+        gate = self.slu_gate if self.training else None
+        remat = remat if self.training else "none"
         gst = gate.init_state() if gate is not None else None
         ctx = psg.snapshot()
         kps, exs = [], []

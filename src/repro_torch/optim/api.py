@@ -31,4 +31,9 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
                                   momentum=momentum,
                                   weight_decay=cfg.weight_decay)
         return Optimizer(signsgd.signsgd_init, apply, cfg.optimizer)
+    if cfg.optimizer == "adamw":
+        def apply(params, grads, state, step):
+            sgd.adamw_apply(params, grads, state, sched(step),
+                            weight_decay=cfg.weight_decay)
+        return Optimizer(sgd.adamw_init, apply, "adamw")
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")

@@ -1,5 +1,6 @@
 """Stochastic Weight Averaging: a running mean of the parameters from
-``start_step`` on (the paper stabilizes PSG with it, §4.1)."""
+``start_step`` on (the paper stabilizes PSG with it, §4.1);
+:func:`swa_params` gives the average to evaluate with."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -21,3 +22,11 @@ def swa_update(state: Dict[str, Any], params: Dict[str, torch.Tensor],
     w = 1.0 / state["count"]
     for k, a in state["avg"].items():
         a += w * (params[k].float() - a)
+
+
+def swa_params(state: Dict[str, Any], like: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """The average cast to each parameter's dtype, as new tensors (never the
+    average's own storage)."""
+    return {k: a.to(dtype=like[k].dtype, copy=True)
+            for k, a in state["avg"].items()}

@@ -8,13 +8,18 @@ family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets) and
   ``(total_loss, metrics)`` with 0-d tensor metrics; ``key`` is the step's
   threefry key (``core/rng.py``), ``keep`` a test hook that injects SLU
   decisions where the task takes one.
+* ``make_predict(exp) -> predict(model, batch)`` — eval-mode logits:
+  stored statistics, no RNG, no SLU, no PSG (the plain products); under
+  ``torch.no_grad()``, and the model is left in the mode it was found in.
 * ``cost(exp) -> TableCostModel`` — the per-layer op counts the energy
   ledger prices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.core.config import Experiment
 from repro_torch.core.cost import TableCostModel
@@ -25,7 +30,8 @@ class Task:
     name: str
     init: Callable
     make_loss: Callable
-    cost: Callable[[Experiment], TableCostModel]
+    make_predict: Optional[Callable] = None
+    cost: Optional[Callable[[Experiment], TableCostModel]] = None
 
 
 _REGISTRY: Dict[str, Task] = {}
@@ -47,9 +53,31 @@ def get_task(name: str) -> Task:
                        f"{sorted(_REGISTRY)}") from None
 
 
+def task_names() -> Tuple[str, ...]:
+    _ensure_builtin()
+    return tuple(sorted(_REGISTRY))
+
+
 def cost_model(exp: Experiment) -> TableCostModel:
-    """The experiment's per-layer cost model, resolved through its task."""
-    return get_task(exp.task).cost(exp)
+    """The experiment's per-layer cost model, resolved through its task; a
+    task without one cannot be priced, and that is an error."""
+    task = get_task(exp.task)
+    if task.cost is None:
+        raise ValueError(f"task {task.name!r} registered no cost model; "
+                         "energy accounting cannot price this experiment")
+    return task.cost(exp)
+
+
+def eval_logits(model, *args, **kwargs):
+    """``model(*args, **kwargs)[0]`` in eval mode under ``torch.no_grad()``,
+    the model's mode restored after."""
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model(*args, **kwargs)[0]
+    finally:
+        model.train(was)
 
 
 def _ensure_builtin() -> None:

@@ -5,7 +5,7 @@ from __future__ import annotations
 from repro_torch.core.config import Experiment
 from repro_torch.core.cost import cnn_cost
 from repro_torch.models import resnet as R
-from repro_torch.tasks import Task, register
+from repro_torch.tasks import Task, eval_logits, register
 
 
 def _init(exp: Experiment, seed: int = 0, device=None) -> R.ResNet:
@@ -22,6 +22,13 @@ def _make_loss(exp: Experiment):
     return loss
 
 
+def _make_predict(exp: Experiment):
+    def predict(model, batch):
+        return eval_logits(model, batch["image"])
+    return predict
+
+
 CIFAR_CNN_TASK = register(Task(name="cifar_cnn", init=_init,
                                make_loss=_make_loss,
+                               make_predict=_make_predict,
                                cost=lambda exp: cnn_cost(exp.model)))

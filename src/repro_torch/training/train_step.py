@@ -1,4 +1,5 @@
-"""Train step: loss and gradients under PSG, sign vote, optimizer, SWA.
+"""Train step: loss and gradients under PSG, microbatch accumulation, sign
+vote, optimizer, SWA; and the weights and BatchNorm state to evaluate with.
 
 ``make_train_step(exp)`` returns ``train_step(state, batch, keep=None) ->
 (state, metrics)``, the counterpart of the JAX package's
@@ -8,18 +9,27 @@
   the step's MAC-weighted ``psg_fallback_ratio`` (``core/psg.py``);
 * the task's SLU draws are keyed on ``fold_in(PRNGKey(seed), step)``, the
   JAX package's step key (``core/rng.py``);
+* with ``microbatches = m > 1`` the batch splits as ``(m, B/m, ...)`` and
+  microbatch ``i`` runs with the key ``fold_in(step_key, i)``, its
+  backward before the next forward; the gradients and the probe gradients
+  sum, the BatchNorm statistics thread through the microbatches in order,
+  the gradient is divided by ``m`` (with PSG, the re-sign below makes it
+  the vote over microbatches), and the loss and metrics are the mean over
+  microbatches;
 * with PSG on, every gradient is re-signed (``majority_vote_tree``):
   norms, embeddings, classifier and gate included;
 * the optimizer updates the parameters in place, then SWA averages them;
 * the BatchNorm statistics (ResNet) are buffers of the model, updated by
   the forward; the optimizer never sees them.  The LM holds none.
 
-Only ``microbatches == 1`` is implemented.
+:func:`eval_params` and :func:`recalibrate_model_state` are the JAX
+package's evaluation helpers on the port's modules.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,7 +39,7 @@ from repro_torch.core import rng
 from repro_torch.core.config import Experiment
 from repro_torch.core.device import resolve_device
 from repro_torch.optim import make_optimizer, majority_vote_tree
-from repro_torch.optim.swa import swa_init, swa_update
+from repro_torch.optim.swa import swa_init, swa_params, swa_update
 from repro_torch.tasks import get_task
 
 
@@ -58,30 +68,67 @@ def train_state_for(exp: Experiment, model: nn.Module) -> TrainState:
     return TrainState(model, make_optimizer(exp.train).init(params), swa, 0)
 
 
+def split_microbatches(batch: Dict[str, torch.Tensor], m: int
+                       ) -> Sequence[Dict[str, torch.Tensor]]:
+    """``batch`` as ``m`` microbatches of ``B / m`` rows, in order."""
+    if m == 1:
+        return [batch]
+    rows = {v.shape[0] for v in batch.values()}
+    if len(rows) != 1 or next(iter(rows)) % m:
+        raise ValueError(f"microbatches={m} does not divide the batch "
+                         f"(rows {sorted(rows)})")
+    parts = {k: v.chunk(m) for k, v in batch.items()}
+    return [{k: parts[k][i] for k in batch} for i in range(m)]
+
+
 def make_train_step(exp: Experiment):
     e2, tc = exp.e2, exp.train
-    if tc.microbatches != 1:
-        raise NotImplementedError("microbatch accumulation is not ported yet")
+    m = max(tc.microbatches, 1)
     task_loss = get_task(exp.task).make_loss(exp)
     opt = make_optimizer(tc)
     psg_cfg = e2.psg if e2.psg.enabled else None
     swa_start = int(tc.total_steps * e2.psg.swa_start_frac)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   keep: Optional[Sequence[bool]] = None
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        names, params = zip(*state.model.named_parameters())
-        device = params[0].device
-        probe = psgmod.zero_probe(device) if psg_cfg is not None else None
+    def grad_step(model, names, params, batch, key, keep):
+        """Loss, metrics, gradients and probe gradient of one (micro)batch."""
+        probe = psgmod.zero_probe(params[0].device) \
+            if psg_cfg is not None else None
         with psgmod.enable(psg_cfg, probe=probe):
-            key = rng.fold_in(rng.PRNGKey(tc.seed), state.step)
-            loss, metrics = task_loss(state.model, batch, key, keep)
+            loss, metrics = task_loss(model, batch, key, keep)
         inputs = list(params) + ([probe] if probe is not None else [])
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
         probe_g = grads.pop() if probe is not None else None
-        grads = dict(zip(names, grads))
+        return loss.detach(), metrics, dict(zip(names, grads)), probe_g
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   keep: Optional[Sequence[bool]] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """``keep`` (tests only) injects the ResNet's SLU decisions, the
+        same for every microbatch."""
+        names, params = zip(*state.model.named_parameters())
+        device = params[0].device
+        key = rng.fold_in(rng.PRNGKey(tc.seed), state.step)
+        if m == 1:
+            loss, metrics, grads, probe_g = grad_step(
+                state.model, names, params, batch, key, keep)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            losses, mets, grads, probe_g = [], [], None, None
+            for i, mb in enumerate(split_microbatches(batch, m)):
+                l, mt, g, pg = grad_step(state.model, names, params, mb,
+                                         rng.fold_in(key, i), keep)
+                grads = g if grads is None else \
+                    {k: grads[k] + g[k] for k in names}
+                if pg is not None:
+                    probe_g = pg if probe_g is None else probe_g + pg
+                losses.append(l)
+                mets.append({k: v.detach() for k, v in mt.items()})
+            grads = {k: g / m for k, g in grads.items()}
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([mt[k] for mt in mets]).mean()
+                       for k in mets[0]}
         if psg_cfg is not None:
             grads = majority_vote_tree(grads)
         gn = torch.zeros((), device=device)
@@ -93,8 +140,7 @@ def make_train_step(exp: Experiment):
         opt.apply(param_d, grads, state.opt, state.step)
         if state.swa is not None:
             swa_update(state.swa, param_d, state.step, swa_start)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["total_loss"] = loss.detach()
+        metrics["total_loss"] = loss
         metrics["grad_norm"] = gn
         if probe_g is not None:
             metrics["psg_fallback_ratio"] = psgmod.probe_fallback_ratio(probe_g)
@@ -102,3 +148,51 @@ def make_train_step(exp: Experiment):
         return state, metrics
 
     return train_step
+
+
+def eval_params(state: TrainState, exp: Experiment) -> nn.Module:
+    """The model to evaluate with: with SWA on, a copy of the model holding
+    the SWA average cast to each parameter's dtype (sharing no storage with
+    the live parameters or the average; the BatchNorm buffers are copies of
+    the live ones); otherwise the live model itself.
+
+    As in the JAX package, the BatchNorm statistics tracked the raw
+    trajectory, not the average: recalibrate them on the copy
+    (:func:`recalibrate_model_state`) to evaluate SWA weights by the book.
+    """
+    if state.swa is None:
+        return state.model
+    model = copy.deepcopy(state.model)
+    avg = swa_params(state.swa, dict(model.named_parameters()))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(avg[name])
+    return model
+
+
+@torch.no_grad()
+def recalibrate_model_state(exp: Experiment, model: nn.Module,
+                            batches: Iterable[Dict[str, torch.Tensor]],
+                            key: Optional[rng.Key] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """Re-estimate ``model``'s BatchNorm statistics in place by train-mode
+    forwards over ``batches`` (SWA's BN recalibration) and return them.
+
+    Batch ``i`` runs with the key ``fold_in(key, i)`` (``key`` defaults to
+    ``PRNGKey(seed)``), so its SLU draws are the JAX package's; outside
+    ``psg.enable``, so the convs are the plain products, as in the
+    reference.  A no-op for the LM, which holds no buffers.  The model is
+    left in the mode it was found in.
+    """
+    if not any(True for _ in model.buffers()):
+        return {}
+    loss = get_task(exp.task).make_loss(exp)
+    key = rng.PRNGKey(exp.train.seed) if key is None else key
+    was = model.training
+    model.train()
+    try:
+        for i, batch in enumerate(batches):
+            loss(model, batch, rng.fold_in(key, i))
+    finally:
+        model.train(was)
+    return {k: b.detach().clone() for k, b in model.named_buffers()}

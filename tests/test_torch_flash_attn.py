@@ -391,7 +391,7 @@ def test_one_flash_train_step_matches_jax(seq):
 
 def test_cli_trains_through_the_flash_path_on_the_cpu(capsys):
     from repro_torch.launch import train
-    trainer = train.main(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
+    trainer = train.run(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
                           "--fused-attention", "on", "--steps", "3",
                           "--device", "cpu"])
     out = capsys.readouterr().out

@@ -193,7 +193,7 @@ def test_e2train_presets_follow_the_jax_cli(preset):
                                                 ("slu", "on", "im2col"),
                                                 ("full", "auto", "fused")])
 def test_cli_e2train_and_fused_conv_on_the_cpu(capsys, e2train, fused, conv):
-    trainer = train.main(["--depth", "8", "--width", "4", "--batch", "2",
+    trainer = train.run(["--depth", "8", "--width", "4", "--batch", "2",
                           "--steps", "2", "--device", "cpu", "--e2train",
                           e2train, "--fused-conv", fused])
     out = capsys.readouterr().out

@@ -53,13 +53,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(exp, state, lambda step, shard: None)
     with pytest.raises(RuntimeError, match="CUDA"):
-        train.main(["--depth", "8", "--width", "4", "--batch", "2",
+        train.run(["--depth", "8", "--width", "4", "--batch", "2",
                     "--steps", "1"])
 
 
 def test_cli_runs_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import train
-    trainer = train.main(["--depth", "8", "--width", "4", "--batch", "2",
+    trainer = train.run(["--depth", "8", "--width", "4", "--batch", "2",
                           "--steps", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert trainer.executed_steps + trainer.dropped_steps == 3
@@ -72,13 +72,13 @@ def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         train.build_lm_trainer("qwen2_5_3b", smoke=True, steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
-        train.main(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
+        train.run(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
                     "--steps", "1"])
 
 
 def test_lm_cli_runs_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import train
-    trainer = train.main(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
+    trainer = train.run(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
                           "--seq", "12", "--steps", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert trainer.exp.task == "lm" and trainer.exp.train.seq_len == 12
