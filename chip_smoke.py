@@ -102,7 +102,26 @@ Phases, each fatal on failure:
    ``Supervisor`` world of two workers on the card whose last rank dies at
    step 6 of 10, shrunk to one that resumes from the last intact
    checkpoint, beside two uninterrupted runs; the three final checkpoints
-   must be equal bit for bit (checkpoints in a temporary directory).
+   must be equal bit for bit (checkpoints in a temporary directory);
+11. chunked: ``slu_decide`` (the port's own kernel, ``graph_cond.cu``)
+   against its plain version on 10**6 random (u, p) pairs, the boundary
+   cases and the main path's 0-d shape; ResNet-74 (fused convs, width 16,
+   batch 128) through the per-step loop and through
+   ``Trainer(chunk_steps=4)`` from the same init over the same nominal
+   steps (16 executed), losses, SLU flags, counts, parameters, BatchNorm
+   statistics and the SWA average equal bit for bit, every launch counter
+   zeroed just before the chunked run (one captured CUDA graph whose
+   gated blocks are IF nodes set by ``slu_decide``; kernels 1-4 and
+   ``slu_decide`` launched into it), ms per executed step of both (the
+   first chunk apart), the replays' device time, capture time, peak
+   memory, ``host_batch_ms`` and the idle share of two profiled chunks
+   (and of as many per-step steps), compared bit for bit again after; one
+   more chunk under
+   ``torch.cuda.set_sync_debug_mode("error")``; the im2col and PSG-off
+   paths the same at 8 executed steps, and so the flash qwen2.5-3b
+   (8 layers, batch 2 x 4096), whose kernel 7 launches show the remat
+   recompute inside the captured backward; and ``launch.train
+   --chunk-steps 4``.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -126,6 +145,10 @@ CONV_SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
 PSG_SOURCE = "src/repro_torch/kernels/csrc/psg_matmul.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
 QUANT_SOURCE = "src/repro_torch/kernels/csrc/quant.cu"
+GRAPH_COND_SOURCE = "src/repro_torch/kernels/csrc/graph_cond.cu"
+# no TPU kernel: slu_decide takes the place of the keep draw that the JAX
+# package's chunked step runs under lax.cond
+SLU_DECISION = "src/repro/models/resnet.py:205"
 REPLACES = {   # the wrapper in the JAX package that reaches pl.pallas_call
     "conv_fwd": "src/repro/kernels/conv.py:245",
     "conv_grad_x": "src/repro/kernels/conv.py:274",
@@ -1215,7 +1238,7 @@ def compare_steps(mc, pc, mg, pg):
             "param_agreement": agree}
 
 
-def lm_reference_check(torch, fused_attention=None, microbatches=1):
+def lm_reference_check(torch, fused_attention, microbatches=1):
     """Phase 5: one train step of the reduced qwen2.5-3b on the card and on
     the CPU from the same parameters and batch; SLU decisions come from the
     same step key on both.  ``fused_attention`` is the PSG config's,
@@ -1671,6 +1694,308 @@ def resume_check(torch):
                 "card": card_line()}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the chunked loop (one captured CUDA graph, SLU on the card)
+# ---------------------------------------------------------------------------
+
+CHUNK_K = 4
+CHUNK_EXECUTED = 16         # executed steps of the fused path in each mode
+CHUNK_SMALL_EXECUTED = 8    # the im2col, PSG-off and LM paths
+
+
+def nominal_steps(executed: int, smd: bool = True) -> int:
+    """The nominal steps (SMD seed 0, p = 0.5) that execute ``executed``."""
+    from repro_torch.core.smd import smd_keep_host
+
+    steps, kept = 0, 0
+    while kept < executed:
+        kept += smd_keep_host(0, steps, 0.5) if smd else 1
+        steps += 1
+    return steps
+
+
+def same_runs(torch, a, b, what: str) -> dict:
+    """Fail unless trainers ``a`` (per step) and ``b`` (chunked) agree bit
+    for bit: losses, SLU flags, counts, parameters, buffers, SWA."""
+    for key in ("loss", "total_loss", "slu_executed"):
+        if [h[key] for h in a.history] != [h[key] for h in b.history]:
+            fail(f"{what}: {key} differs between the per-step and the "
+                 f"chunked loop: {[h[key] for h in a.history]} against "
+                 f"{[h[key] for h in b.history]}")
+    counts = [(t.executed_steps, t.dropped_steps, t.state.step)
+              for t in (a, b)]
+    if counts[0] != counts[1]:
+        fail(f"{what}: executed/dropped/step {counts[0]} against {counts[1]}")
+    tensors = []
+    for name, fn in (("parameters", "named_parameters"),
+                     ("buffers", "named_buffers")):
+        pa = dict(getattr(a.state.model, fn)())
+        pb = dict(getattr(b.state.model, fn)())
+        bad = [n for n in pa if not torch.equal(pa[n], pb[n])]
+        if bad:
+            fail(f"{what}: {len(bad)} {name} differ, e.g. {bad[:3]}")
+        tensors.append(len(pa))
+    if a.state.swa is not None:
+        bad = [n for n, v in a.state.swa["avg"].items()
+               if not torch.equal(v, b.state.swa["avg"][n])]
+        if bad or a.state.swa["count"] != b.state.swa["count"]:
+            fail(f"{what}: the SWA average differs ({bad[:3]})")
+    return {"bitwise_equal": True, "parameters": tensors[0],
+            "buffers": tensors[1], "executed": a.executed_steps,
+            "dropped": a.dropped_steps}
+
+
+def slu_decide_check(torch, GC):
+    """``slu_decide`` against its plain version: at the main path's shape
+    (0-d), on 10**6 random (u, p) pairs and on the boundary cases (p = u,
+    one ulp either side, 0, 1, the ``min_keep_prob`` floor, NaN), forced
+    and not; timed at the main path's shape beside ``torch.lt``."""
+    from repro_torch.core.config import SLUConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    u = torch.rand(10 ** 6, device="cuda", generator=gen)
+    p = torch.rand(10 ** 6, device="cuda", generator=gen)
+    ub = torch.rand(64, device="cuda", generator=gen)
+    one, zero = torch.ones_like(ub), torch.zeros_like(ub)
+    floor = torch.full_like(ub, SLUConfig().min_keep_prob)
+    pb = [ub, torch.nextafter(ub, one), torch.nextafter(ub, zero), zero, one,
+          floor, torch.full_like(ub, float("nan"))]
+    cases = [(u, p)] + [(ub, q) for q in pb] + [(floor, floor)]
+    worst = 0.0
+    for uu, pp in cases:
+        for force in (False, True):
+            got = GC.slu_decide(uu, pp, force)
+            want = GC.slu_decide_plain(uu, pp, force)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"slu_decide differs from its plain version (force "
+                     f"{force}) in {int((got != want).sum())} of "
+                     f"{got.numel()} elements")
+            worst = max(worst, float((got - want).abs().max()))
+    u0, p0 = u[0].clone(), p[0].clone()
+    if not torch.equal(GC.slu_decide(u0, p0), GC.slu_decide_plain(u0, p0)):
+        fail("slu_decide differs from its plain version at the 0-d shape")
+    timed = {"ms": time_ms(torch, lambda: GC.slu_decide(u0, p0)),
+             "device_ms": device_ms(torch, lambda: GC.slu_decide(u0, p0)),
+             "plain_ms": time_ms(torch,
+                                 lambda: GC.slu_decide_plain(u0, p0)),
+             "library_ms": time_ms(torch, lambda: torch.lt(u0, p0)),
+             "library_device_ms": device_ms(torch, lambda: torch.lt(u0, p0)),
+             "ms_1e6": time_ms(torch, lambda: GC.slu_decide(u, p)),
+             "bound_ms_1e6": 1e3 * 12 * u.numel() / HBM_BYTES_PER_S}
+    # u and p read, the flag written, 4 bytes each, at the main path's shape
+    timed["bound_ms"] = 1e3 * 12 / HBM_BYTES_PER_S
+    return {"max_abs_err": worst, "pairs": u.numel(),
+            "boundary_cases": len(cases) - 1, **timed}
+
+
+def profile_run(torch, trainer, executed: int) -> dict:
+    """The next nominal steps that execute ``executed`` steps under
+    torch.profiler: the device's busy time (union of device events) and
+    idle share over the run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps, kept = 0, 0
+    while kept < executed:
+        kept += trainer.keeps(trainer.state.step + steps)
+        steps += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(steps)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    busy_us, end = 0.0, float("-inf")
+    for e in dev:
+        t0, t1 = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    busy = busy_us / 1e3 if dev else None
+    return {"executed": executed, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms if dev else None}
+
+
+def chunked_pair(torch, build, mods, kernels, executed, what, smd=True,
+                 profile=False):
+    """The same nominal steps from the same init through the per-step loop
+    and through ``Trainer(chunk_steps=CHUNK_K)``, compared bit for bit, with
+    every launch counter zeroed just before the chunked run and read just
+    after (the launches of the warm-up and of the capture: a replay runs
+    the captured kernels without their wrappers).  A chunked step's time is
+    its chunk's interval on the device's clock after the first chunk
+    (``Trainer`` ``wall_s``); the per-step loop's excludes the batch draw,
+    as in phase 6."""
+    import gc
+    steps = nominal_steps(executed, smd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per = build(steps, 1)
+    per.run(steps)
+    torch.cuda.synchronize()
+    per_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    chunked = build(steps, CHUNK_K)
+    reset_all(mods)
+    chunked.run(steps)
+    torch.cuda.synchronize()
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"{what}: kernel {name} was not launched in the chunked run")
+    out = same_runs(torch, per, chunked, what)
+    cf = chunked._chunk_fn
+    if cf.graph is None or (smd and cf.cond.nodes == 0):
+        fail(f"{what}: the chunked run holds no graph with IF nodes")
+    later = chunked.history[CHUNK_K:]
+    dev = [h["device_s"] for h in later if "device_s" in h]
+    ph = per.history
+    out.update({
+        "nominal_steps": steps, "launches": launches,
+        "per_step_ms_per_executed_step_first": 1e3 * ph[0]["wall_s"],
+        "per_step_ms_per_executed_step":
+            1e3 * sum(h["wall_s"] for h in ph[1:]) / (len(ph) - 1),
+        "per_step_peak_memory_gb": per_peak,
+        "chunked_ms_per_executed_step_first_chunk":
+            1e3 * sum(h["wall_s"] for h in chunked.history[:CHUNK_K])
+            / CHUNK_K,
+        "chunked_ms_per_executed_step":
+            1e3 * sum(h["wall_s"] for h in later) / len(later),
+        "chunked_device_ms_per_replayed_step": 1e3 * sum(dev) / len(dev),
+        "chunked_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "warmup_step_s": cf.warmup_s, "capture_s": cf.capture_s,
+        "if_nodes": cf.cond.nodes,
+        "losses": [h["loss"] for h in chunked.history]})
+    if profile:
+        out["chunked_profile"] = profile_run(torch, chunked, 2 * CHUNK_K)
+        out["per_step_profile"] = profile_run(torch, per, 2 * CHUNK_K)
+        same_runs(torch, per, chunked, f"{what} (after the profiled runs)")
+    return per, chunked, out
+
+
+def release(trainer) -> None:
+    """Drop a chunked trainer's graph and its bodies' memory pool."""
+    trainer._chunk_fn.release()
+
+
+def sync_free_chunk(torch, trainer) -> dict:
+    """One more chunk through the trainer's captured graph under
+    ``torch.cuda.set_sync_debug_mode("error")``: a read back to the host
+    anywhere in the chunk raises."""
+    import numpy as np
+
+    from repro_torch.training.loop import stack_batches
+    st = trainer.state.step
+    batches = stack_batches([trainer.make_host_batch(st + i, 0)
+                             for i in range(CHUNK_K)])
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.state, met = trainer._chunk_fn(
+            trainer.state, batches, np.ones(CHUNK_K, np.int64))
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    losses = met["loss"].tolist()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"the sync-checked chunk gave losses {losses}")
+    return {"steps": CHUNK_K, "losses": losses, "sync_debug_mode": "error"}
+
+
+def chunked_cli(torch) -> dict:
+    """``launch.train --chunk-steps 4`` on the card for a few steps."""
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--depth",
+         str(DEPTH), "--steps", "16", "--chunk-steps", str(CHUNK_K),
+         "--log-every", "4"], capture_output=True, text=True, timeout=600,
+        cwd=ROOT, env=env)
+    if proc.returncode != 0 or f"chunked K={CHUNK_K}" not in proc.stdout:
+        fail(f"launch.train --chunk-steps {CHUNK_K} exited "
+             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("throughput:"))
+    ms = re.search(r"([0-9.]+) ms per executed step after", line)
+    return {"wall_s": time.perf_counter() - t0, "throughput_line": line,
+            "ms_per_executed_step": float(ms.group(1)) if ms else None}
+
+
+def chunked_check(torch, mods, GC):
+    """Phase 11: the chunked loop on the card."""
+    from repro_torch.data.synthetic import host_image_batch
+    from repro_torch.kernels import conv as K
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch.train import (E2TRAIN, build_lm_trainer,
+                                          build_trainer, experiment)
+    from repro_torch.training import evaluate
+
+    versions = GC.cuda_versions()
+    if min(versions.values()) < 12040:
+        fail(f"conditional graph nodes need CUDA 12.4, have {versions}")
+    decide = slu_decide_check(torch, GC)
+    print(json.dumps({"phase": "slu_decide", **decide}), flush=True)
+    task = evaluate.data_task(experiment(DEPTH, WIDTH, BATCH, 1))
+    host_image_batch(task, 0, 0, 0, BATCH, pin=True)    # the pinned pool
+    t0 = time.perf_counter()
+    for step in range(1, 4):
+        host_image_batch(task, 0, step, 0, BATCH, pin=True)
+    host_batch_ms = 1e3 * (time.perf_counter() - t0) / 3
+    fused_per, fused, main = chunked_pair(
+        torch, lambda steps, k: build_trainer(DEPTH, WIDTH, BATCH, steps,
+                                              device="cuda", chunk_steps=k),
+        mods, list(K.LAUNCHES) + ["slu_decide"], CHUNK_EXECUTED,
+        "fused ResNet-74", profile=True)
+    main["host_batch_ms"] = host_batch_ms
+    main["sync_free_chunk"] = sync_free_chunk(torch, fused)
+    release(fused)
+    del fused_per, fused
+    _, chunked, im2col = chunked_pair(
+        torch, lambda steps, k: build_trainer(DEPTH, WIDTH, BATCH, steps,
+                                              device="cuda", chunk_steps=k,
+                                              fused_conv=False),
+        mods, list(PM.LAUNCHES) + ["slu_decide"], CHUNK_SMALL_EXECUTED,
+        "im2col ResNet-74")
+    release(chunked)
+    _, chunked, off = chunked_pair(
+        torch, lambda steps, k: build_trainer(DEPTH, WIDTH, BATCH, steps,
+                                              device="cuda", chunk_steps=k,
+                                              e2=E2TRAIN["off"]),
+        mods, [], CHUNK_SMALL_EXECUTED, "PSG-off ResNet-74", smd=False)
+    release(chunked)
+    del chunked
+    _, chunked, lm = chunked_pair(
+        torch, lambda steps, k: build_lm_trainer(
+            LM_ARCH, num_layers=LM_LAYERS, batch=LM_BATCH, seq=LM_SEQ,
+            steps=steps, device="cuda", fused_attention=True, chunk_steps=k),
+        mods, list(PM.LAUNCHES) + list(FA.LAUNCHES) + ["slu_decide"],
+        CHUNK_SMALL_EXECUTED, "flash qwen2.5-3b")
+    # remat="block": kernel 7 runs in each attention sub-block's forward and
+    # again in its backward's recompute, so the eager warm-up launches it
+    # twice per executed attention sub-block and the capture twice per
+    # layer, the recompute inside the backward's IF node
+    warm = chunked.history[0]["slu_executed"]
+    want = 2 * int(sum(warm[0::2])) + 2 * LM_LAYERS
+    if lm["launches"]["flash_fwd"] != want:
+        fail(f"flash_fwd launched {lm['launches']['flash_fwd']} times in the "
+             f"chunked LM run, not {want}: the recompute is not where the "
+             "captured backward should hold it")
+    lm["flash_fwd_launches_expected"] = want
+    release(chunked)
+    del chunked
+    cli = chunked_cli(torch)
+    return {"cuda_versions": versions, "slu_decide": decide,
+            "fused": main, "im2col": im2col, "psg_off": off, "lm": lm,
+            "cli": cli, "card": card_line()}
+
+
 def main() -> None:
     try:
         import torch
@@ -1696,6 +2021,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels import conv as K
     from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import graph_cond as GC
     from repro_torch.kernels import psg_matmul as PM
     from repro_torch.kernels import quant as Q
     from repro_torch.launch.train import E2TRAIN, build_lm_trainer, build_trainer
@@ -1743,7 +2069,7 @@ def main() -> None:
     print(json.dumps({"phase": "reference_im2col", **ref_im2col}), flush=True)
     ref_off = reference_check(torch, e2train="off")
     print(json.dumps({"phase": "reference_psg_off", **ref_off}), flush=True)
-    lm_ref = lm_reference_check(torch)
+    lm_ref = lm_reference_check(torch, fused_attention=False)
     print(json.dumps({"phase": "lm_reference", **lm_ref}), flush=True)
     lm_flash_ref = lm_reference_check(torch, fused_attention=True)
     print(json.dumps({"phase": "lm_flash_reference", **lm_flash_ref}),
@@ -1771,7 +2097,8 @@ def main() -> None:
         torch, "lm_main_path",
         lambda steps: build_lm_trainer(LM_ARCH, num_layers=LM_LAYERS,
                                        batch=LM_BATCH, seq=LM_SEQ,
-                                       steps=steps, device="cuda"),
+                                       steps=steps, device="cuda",
+                                       fused_attention=False),
         mods, list(PM.LAUNCHES))[1:]
     lm_trainer, lm_flash_main, lm_flash_prof = run_path(
         torch, "lm_flash_main_path",
@@ -1803,6 +2130,10 @@ def main() -> None:
     print(json.dumps({"phase": "microbatch_reference", **mb_ref}), flush=True)
     resume = resume_check(torch)
     print(json.dumps({"phase": "resume", **resume}), flush=True)
+    chunked = chunked_check(torch, mods + (GC,), GC)
+    print(json.dumps({"phase": "chunked", **{k: v for k, v in chunked.items()
+                                             if k != "slu_decide"}}),
+          flush=True)
 
     kernels = []
     for name in REPLACES:
@@ -1819,6 +2150,14 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"]})
+    d = chunked["slu_decide"]
+    kernels.append({
+        "name": "slu_decide", "route": "cuda", "source": GRAPH_COND_SOURCE,
+        "replaces": SLU_DECISION, "launches":
+            chunked["fused"]["launches"]["slu_decide"],
+        "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+        "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": "bytes", "library_ms": d["library_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1840,7 +2179,7 @@ def main() -> None:
          "lm_microbatch_profile": lm_mb_prof,
          "lm_microbatch_launches": lm_mb_launches,
          "microbatch_reference": mb_ref, "resume": resume,
-         "kernels": kernels,
+         "chunked": chunked, "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},

@@ -179,9 +179,9 @@ class PSGConfig:
     # transformer self-attention (resolved by fused_attention_active):
     # True runs the flash kernels with the PSG dk/dv backward
     # (kernels/flash_attn.py), False the materialized softmax
-    # (models/layers.py).  None = auto = the materialized softmax, which is
-    # what the JAX package resolves to on the TPU; its auto on the CPU
-    # backends picks the flash kernels.
+    # (models/layers.py).  None = auto = the flash kernels, as the JAX
+    # package resolves it on every backend but Mosaic (which the port does
+    # not have).
     fused_attention: Optional[bool] = None
 
     def __post_init__(self):
@@ -189,12 +189,14 @@ class PSGConfig:
 
 
 def fused_attention_active(cfg: Optional[PSGConfig]) -> bool:
-    """Resolve a config's ``fused_attention``: no config (PSG off) is
-    inactive, an explicit ``True``/``False`` wins, and ``None`` means the
-    materialized softmax."""
-    if cfg is None or cfg.fused_attention is None:
+    """Resolve a config's ``fused_attention`` as the JAX package's
+    ``core/psg.fused_attention_active`` does: no config (PSG off) is
+    inactive, an explicit ``True``/``False`` wins, and ``None`` (auto)
+    means the flash kernels (the JAX package's auto on every backend but
+    Mosaic, which the port has no counterpart of)."""
+    if cfg is None:
         return False
-    return cfg.fused_attention
+    return True if cfg.fused_attention is None else cfg.fused_attention
 
 
 @dataclass(frozen=True)

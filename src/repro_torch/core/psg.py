@@ -86,9 +86,11 @@ class PSGConv2d(torch.autograd.Function):
                                        stride=stride, hp=Hp,
                                        wp=Wp).to(xp.dtype)
         sign, fallback = dispatch.conv_grad_w(xp, gy, cfg, k=k, stride=stride)
-        # fp32 like the JAX package: float32(B*Ho*Wo) * (k*k*C) * dout
-        macs = torch.tensor(float(B * ho * wo), dtype=torch.float32,
-                            device=gy.device) * (k * k * C) * dout
+        # fp32 like the JAX package: float32(B*Ho*Wo) * (k*k*C) * dout; a
+        # fill on the device, never a copy from host memory (which a captured
+        # step may not hold)
+        macs = torch.full((), float(B * ho * wo), dtype=torch.float32,
+                          device=gy.device) * (k * k * C) * dout
         dprobe = torch.stack([fallback * macs, macs])
         return dxp, sign.to(w.dtype), dprobe, None, None, None
 
@@ -116,8 +118,8 @@ class PSGMatmul(torch.autograd.Function):
             dx = (gq @ quantize(w, cfg.bits_x).T.to(gq.dtype)).to(x2.dtype)
         sign, fallback = dispatch.psg_grad_w(x2, gy, cfg)
         # fp32 like the JAX package: float32(N) * din * dout
-        macs = torch.tensor(float(x2.shape[0]), dtype=torch.float32,
-                            device=gy.device) * x2.shape[1] * gy.shape[1]
+        macs = torch.full((), float(x2.shape[0]), dtype=torch.float32,
+                          device=gy.device) * x2.shape[1] * gy.shape[1]
         dprobe = torch.stack([fallback * macs, macs])
         return dx, sign.to(w.dtype), dprobe, None
 
@@ -147,8 +149,8 @@ class PSGAttention(torch.autograd.Function):
         T = k.shape[1]
         pairs = S * (S + 1) // 2 if (ctx.causal and S == T) else S * T
         # fp32 like the JAX package: float32(2 * B * nh * hd) * pairs
-        macs = torch.tensor(float(2 * B * nh * hd), dtype=torch.float32,
-                            device=gy.device) * pairs
+        macs = torch.full((), float(2 * B * nh * hd), dtype=torch.float32,
+                          device=gy.device) * pairs
         dprobe = torch.stack([fallback * macs, macs])
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dprobe, None,
                 None)

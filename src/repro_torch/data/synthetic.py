@@ -12,7 +12,10 @@ Every batch is a pure function of ``(seed, step, shard)`` drawn with
 ``core/rng.py``, which reproduces ``jax.random``: labels and tokens equal
 the JAX package's, and image noise equals it within a few ulp
 (``rng.normal``).  Batches are drawn on the host and moved to ``device``;
-a dropped step draws nothing.
+a dropped step draws nothing.  ``host_image_batch`` and ``host_lm_batch``
+make the same batches as CPU tensors, pinned on request, for the prefetch
+thread of the chunked loop (``data/pipeline.py``), which must not issue a
+copy to the card.
 """
 from __future__ import annotations
 
@@ -42,15 +45,33 @@ class GaussianImageTask:
         return r.randn(self.num_classes, self.hw, self.hw, 3).astype(np.float32)
 
 
-def make_image_batch(task: GaussianImageTask, seed: int, step: int, shard: int,
-                     batch: int, device) -> Dict[str, torch.Tensor]:
-    """``{"image": (batch, hw, hw, 3) fp32, "label": (batch,) int64}``."""
+def _host(arrays: Dict[str, np.ndarray], pin: bool
+          ) -> Dict[str, torch.Tensor]:
+    out = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    return {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+
+def _image_arrays(task: GaussianImageTask, seed: int, step: int, shard: int,
+                  batch: int) -> Dict[str, np.ndarray]:
     k0, k1 = rng.split(_batch_key(seed, step, shard))
     labels = rng.randint(k0, (batch,), 0, task.num_classes)
     noise = rng.normal(k1, (batch, task.hw, task.hw, 3))
     images = np.float32(task.snr) * task.means()[labels] + noise
-    return {"image": torch.from_numpy(images).to(device),
-            "label": torch.from_numpy(labels.astype(np.int64)).to(device)}
+    return {"image": images, "label": labels.astype(np.int64)}
+
+
+def host_image_batch(task: GaussianImageTask, seed: int, step: int,
+                     shard: int, batch: int, pin: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """:func:`make_image_batch` as CPU tensors (pinned with ``pin``)."""
+    return _host(_image_arrays(task, seed, step, shard, batch), pin)
+
+
+def make_image_batch(task: GaussianImageTask, seed: int, step: int, shard: int,
+                     batch: int, device) -> Dict[str, torch.Tensor]:
+    """``{"image": (batch, hw, hw, 3) fp32, "label": (batch,) int64}``."""
+    return {k: v.to(device) for k, v in
+            host_image_batch(task, seed, step, shard, batch).items()}
 
 
 @dataclass(frozen=True)
@@ -83,6 +104,14 @@ def make_lm_batch(task: MarkovLMTask, seed: int, step: int, shard: int,
     chain steps after a random start token; tokens are steps ``0 .. seq-2``
     padded with 0, labels steps ``1 .. seq-1`` padded with -1 (ignored by
     the loss)."""
+    return {k: v.to(device) for k, v in
+            host_lm_batch(task, seed, step, shard, batch, seq).items()}
+
+
+def host_lm_batch(task: MarkovLMTask, seed: int, step: int, shard: int,
+                  batch: int, seq: int, pin: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """:func:`make_lm_batch` as CPU tensors (pinned with ``pin``)."""
     if seq < 2:
         raise ValueError(f"an LM batch needs seq >= 2, got {seq}")
     k0, k1, k2 = rng.split(_batch_key(seed, step, shard), 3)
@@ -97,5 +126,4 @@ def make_lm_batch(task: MarkovLMTask, seed: int, step: int, shard: int,
     tokens = np.zeros((batch, seq), np.int64)
     labels = np.full((batch, seq), -1, np.int64)
     tokens[:, :-1], labels[:, :-1] = toks[:, :-1], toks[:, 1:]
-    return {"tokens": torch.from_numpy(tokens).to(device),
-            "labels": torch.from_numpy(labels).to(device)}
+    return _host({"tokens": tokens, "labels": labels}, pin)

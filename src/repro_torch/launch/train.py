@@ -14,6 +14,7 @@ the energy report.
         --steps 6 --device cpu --ckpt /tmp/ck --ckpt-every 2
     python -m repro_torch.launch.train --depth 8 --width 8 --batch 4 \\
         --steps 10 --device cpu --ckpt /tmp/ck --resume
+    python -m repro_torch.launch.train --depth 74 --steps 24 --chunk-steps 4
 
 The counterparts of ``examples/train_e2e.py --task cifar_cnn`` and of
 ``repro.launch.train --arch ... --e2train ...`` in the JAX package, with a
@@ -27,8 +28,10 @@ otherwise the experiment's own (the CIFAR ResNet: SGD with momentum, lr
 kernels, ``off`` the materialized im2col on the PSG matmul kernels.
 ``--smoke`` cuts the LM to toy dimensions (``configs.reduce_experiment``);
 ``--fused-attention on`` trains the LM through the flash kernels with the
-PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` and
-``auto`` through the materialized softmax.  Runs on the card unless
+PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` through
+the materialized softmax, and ``auto`` (the default) leaves ``None`` to
+``core/config.fused_attention_active``, which picks the flash kernels as
+the JAX package's auto does.  Runs on the card unless
 ``--device cpu`` is given.  The header line names the kernel backend
 (``kernels/dispatch.py``: ``auto`` unless ``REPRO_TORCH_KERNEL_BACKEND``
 pins another), with a warning on stderr when a pin runs the plain versions
@@ -42,7 +45,11 @@ JAX package's format; ``--resume`` restores the newest intact one, prints
 uninterrupted one does); ``--deadline-s`` turns a step over the deadline
 into a forced drop of the next one; ``--ft-kill-at-step`` hard-kills the
 process when the data path reaches that step (``ft/faults.kill_at_step``,
-for tests).  The process exits 1 when the final save failed.  The summary
+for tests).  The process exits 1 when the final save failed.
+``--chunk-steps K`` runs the chunked loop (the JAX launcher's flag): on the
+card the train step is captured once into a CUDA graph and a chunk is K
+replays of it, and the throughput line adds the ms per executed step after
+the first chunk; ``--log-every N`` prints every N-th step's loss.  The summary
 ends with the held-out accuracy (``training/evaluate.py``) of the SWA
 weights when SWA is on, else of the live ones.
 """
@@ -60,10 +67,12 @@ import torch
 from repro_torch.configs import get_experiment, reduce_experiment
 from repro_torch.configs.paper_cnns import cnn_model, cnn_train
 from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
-                                     SLUConfig, SMDConfig, TrainConfig)
+                                     SLUConfig, SMDConfig, TrainConfig,
+                                     fused_attention_active)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.psg import fused_conv_active
-from repro_torch.data.synthetic import make_image_batch, make_lm_batch
+from repro_torch.data.synthetic import (host_image_batch, host_lm_batch,
+                                       make_image_batch, make_lm_batch)
 from repro_torch.ft import faults
 from repro_torch.ft.checkpoint import latest_intact_step, restore_checkpoint
 from repro_torch.kernels import dispatch
@@ -124,7 +133,12 @@ def build_trainer(depth: int = 74, width: int = 16, batch: int = 128,
     def make_batch(step, shard):
         return make_image_batch(img_task, 0, step, shard, batch, dev)
 
-    return Trainer(exp, state, make_batch, device=dev, **trainer_kw)
+    def make_host_batch(step, shard):
+        return host_image_batch(img_task, 0, step, shard, batch,
+                                pin=dev.type == "cuda")
+
+    return Trainer(exp, state, make_batch, device=dev,
+                   make_host_batch=make_host_batch, **trainer_kw)
 
 
 def lm_experiment(arch: str, num_layers: Optional[int] = None,
@@ -136,7 +150,10 @@ def lm_experiment(arch: str, num_layers: Optional[int] = None,
     """``arch`` under ``e2`` (an :data:`E2TRAIN` preset; with PSG on, the
     ``psg`` optimizer at lr 0.03); ``smoke`` reduces it to toy dimensions
     first, ``num_layers`` cuts the depth, ``batch``/``seq`` default to the
-    experiment's, ``fused_attention`` is ``PSGConfig.fused_attention`` and
+    experiment's, ``fused_attention`` is ``PSGConfig.fused_attention``
+    (``True`` the flash kernels, ``False`` the materialized softmax,
+    ``None`` auto, which resolves to the flash kernels as in the JAX
+    package) and
     ``microbatches`` is ``TrainConfig.microbatches`` (``batch`` is the
     whole step's)."""
     exp = get_experiment(arch)
@@ -177,7 +194,12 @@ def build_lm_trainer(arch: str = "qwen2_5_3b",
         return make_lm_batch(task, tc.seed, step, shard, tc.global_batch,
                              tc.seq_len, dev)
 
-    return Trainer(exp, state, make_batch, device=dev, **trainer_kw)
+    def make_host_batch(step, shard):
+        return host_lm_batch(task, tc.seed, step, shard, tc.global_batch,
+                             tc.seq_len, pin=dev.type == "cuda")
+
+    return Trainer(exp, state, make_batch, device=dev,
+                   make_host_batch=make_host_batch, **trainer_kw)
 
 
 def kernel_backend(trainer: Trainer) -> str:
@@ -191,6 +213,21 @@ def kernel_backend(trainer: Trainer) -> str:
               + ("plain versions" if backend == "plain" else "oracles")
               + " on the card in place of the kernels", file=sys.stderr)
     return backend
+
+
+def chunk_summary(trainer: Trainer) -> str:
+    """The chunked loop's ms per executed step after the first chunk (wall,
+    and device time between the replays' CUDA events where measured)."""
+    k = trainer.chunk_steps
+    later = trainer.history[k:]
+    if not later:
+        return "no chunk after the first"
+    wall = 1e3 * float(np.mean([h["wall_s"] for h in later]))
+    dev = [h["device_s"] for h in later if "device_s" in h]
+    out = f"{wall:.2f} ms per executed step after the first chunk"
+    if dev:
+        out += f" (device {1e3 * float(np.mean(dev)):.2f} ms)"
+    return out
 
 
 def run(argv: Optional[Sequence[str]] = None) -> Trainer:
@@ -208,8 +245,10 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
                          "one of them alone, or off")
     ap.add_argument("--fused-attention", choices=list(FUSED), default="auto",
                     help="PSGConfig.fused_attention (--task lm): on = the "
-                         "flash kernels, off and auto = the materialized "
-                         "softmax")
+                         "flash kernels, off = the materialized softmax; "
+                         "auto leaves it to "
+                         "core/config.fused_attention_active, which picks "
+                         "the flash kernels as the JAX package's auto does")
     ap.add_argument("--fused-conv", choices=list(FUSED), default="auto",
                     help="PSGConfig.fused_conv (--task cifar_cnn): on = "
                          "the implicit-GEMM conv kernels, off = the "
@@ -238,6 +277,14 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     ap.add_argument("--deadline-s", type=float, default=0.0,
                     help="per-step straggler deadline: a step over it arms "
                          "an SMD-style forced drop (0 = off)")
+    ap.add_argument("--chunk-steps", type=int, default=1, metavar="K",
+                    help="executed steps per dispatch: K > 1 runs the "
+                         "chunked loop (training/loop.py; on the card one "
+                         "captured CUDA graph replayed K times), with "
+                         "prefetched host batches and one metrics sync "
+                         "per chunk")
+    ap.add_argument("--log-every", type=int, default=1, metavar="N",
+                    help="print every N-th nominal step's loss (0 = none)")
     ap.add_argument("--ft-kill-at-step", type=int, default=None,
                     metavar="STEP",
                     help="fault injection: hard-kill (os._exit) this "
@@ -247,7 +294,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     e2 = E2TRAIN[args.e2train]
     psg_cfg = e2.psg if e2.psg.enabled else None
     ft = dict(checkpoint_dir=args.ckpt, checkpoint_every=args.ckpt_every,
-              deadline_s=args.deadline_s)
+              deadline_s=args.deadline_s, chunk_steps=args.chunk_steps)
     if args.task == "lm":
         fused = FUSED[args.fused_attention]
         trainer = build_lm_trainer(args.arch, batch=args.batch, seq=args.seq,
@@ -255,7 +302,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
                                    smoke=args.smoke, fused_attention=fused,
                                    e2=e2, **ft)
         tc = trainer.exp.train
-        attn = "flash" if psg_cfg and fused else "materialized"
+        attn = "flash" if fused_attention_active(
+            trainer.exp.e2.psg if psg_cfg else None) else "materialized"
         print(f"model {trainer.exp.model.name} ({trainer.exp.model.num_layers}"
               f" layers, d_model {trainer.exp.model.d_model}, batch "
               f"{tc.global_batch} x seq {tc.seq_len}, {attn} attention, "
@@ -276,13 +324,15 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     if args.ft_kill_at_step is not None:
         trainer.make_batch = faults.kill_at_step(trainer.make_batch,
                                                  args.ft_kill_at_step)
+        trainer.make_host_batch = faults.kill_at_step(
+            trainer.make_host_batch, args.ft_kill_at_step)
     start = 0
     if args.resume and args.ckpt and latest_intact_step(args.ckpt) is not None:
         # integrity-verified: falls back past torn or corrupt saves
         _, step = restore_checkpoint(args.ckpt, trainer.state)
         start = trainer.state.step      # the next nominal step
         print(f"resumed from intact step {step} (counter at {start})")
-    hist = trainer.run(max(args.steps - start, 0), log_every=1)
+    hist = trainer.run(max(args.steps - start, 0), log_every=args.log_every)
     if hist:
         fb = trainer.measured_psg_fallback()
         print(f"\nfinal loss {np.mean([h['loss'] for h in hist[-5:]]):.4f} "
@@ -292,8 +342,15 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
               f"SMD-dropped {trainer.dropped_steps} (straggler-dropped "
               f"{trainer.straggler_dropped_steps}); measured PSG fallback "
               + ("none (PSG off)" if fb is None else f"{fb:.3f}"))
-        print(f"throughput: {trainer.steps_per_s():.3f} executed steps/s "
-              "(per-step loop; the first step includes the kernel build)")
+        if args.chunk_steps > 1:
+            print(f"throughput: {trainer.steps_per_s():.3f} executed steps/s "
+                  f"(chunked K={args.chunk_steps}; the first chunk includes "
+                  "the kernel build, the warm-up step and the capture); "
+                  + chunk_summary(trainer))
+        else:
+            print(f"throughput: {trainer.steps_per_s():.3f} executed steps/s "
+                  "(per-step loop; the first step includes the kernel "
+                  "build)")
         print("\n" + trainer.energy_report(steps=args.steps - start)
               .summary())
     if trainer.save_s:

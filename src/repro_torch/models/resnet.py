@@ -11,9 +11,12 @@ block is never gated) and ``n - 1`` identity blocks, run by a Python loop.
 A gated block draws ``keep ~ Bernoulli(p)`` from the gate's probability
 with the JAX package's key, ``fold_in(step_rng, block)`` (``core/rng.py``),
 forced on for the first and last block, so the decisions are the JAX
-package's.  The decision is taken on the host, so each gated block costs
-one device-to-host read of ``p``.  A skipped block passes its
-input and its BatchNorm state through unchanged and launches no kernel.
+package's: ``core/slu.gated_residual`` compares the block's uniform, drawn
+on the host ahead of the step, with ``p``.  Eagerly the comparison is on
+the host (one read of ``p`` per gated block); inside a captured CUDA graph
+it is on the card and the block is an IF node (``kernels/graph_cond.py``).
+A skipped block passes its input and its BatchNorm state through unchanged
+and launches no kernel of its branch.
 
 Every conv is ``psg.conv2d``: the implicit-GEMM kernels when the active
 PSG config's ``fused_conv`` resolves on (``psg.fused_conv_active``),
@@ -22,16 +25,20 @@ otherwise the JAX package's materialized im2col through ``psg.matmul``
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import psg, rng
 from repro_torch.core.config import E2TrainConfig
-from repro_torch.core.slu import Gate, GateState
+from repro_torch.core.slu import Gate, GateState, gated_residual, \
+    resnet_uniforms
 from repro_torch.models.layers import dense_init
+
+Uniforms = Union[np.ndarray, torch.Tensor]
 
 BN_MOMENTUM = 0.9           # running-stat EMA decay per executed train step
 BN_EPS = 1e-5
@@ -120,21 +127,26 @@ class ResNet(nn.Module):
             if self.e2.slu.enabled else None
 
     def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None,
-                keep: Optional[Sequence[bool]] = None
+                keep: Optional[Sequence[bool]] = None,
+                slu_u: Optional[Uniforms] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x: (B, 32, 32, 3) -> (logits, aux{slu_*}).
 
         ``key`` is the step's threefry key (``fold_in(PRNGKey(seed),
-        step)``, default ``PRNGKey(0)``) and keys the SLU draws; ``keep``
-        (tests only) overrides them with one decision per block, in network
-        order.  In eval mode (``self.training`` false) the BatchNorms use
-        their running statistics and every block runs ungated, as in the
-        JAX package's ``train=False``.
+        step)``, default ``PRNGKey(0)``) and keys the SLU draws; ``slu_u``
+        gives their uniforms instead (``core/slu.resnet_uniforms`` of that
+        key, one per block in network order; a CUDA tensor inside a captured
+        step); ``keep`` (tests only) overrides the decisions with one per
+        block, in network order.  In eval mode (``self.training`` false)
+        the BatchNorms use their running statistics and every block runs
+        ungated, as in the JAX package's ``train=False``.
         """
         slu_cfg = self.e2.slu
-        key = rng.PRNGKey(0) if key is None else key
         slu_on = self.slu_gate is not None and self.training
         n_blocks = 3 * self.n
+        if slu_on and slu_u is None and keep is None:
+            slu_u = resnet_uniforms(rng.PRNGKey(0) if key is None else key,
+                                    n_blocks)
         one = torch.ones((), device=x.device)
         h = F.relu(self.stem_bn(self.stem(x)))
         gst: Optional[GateState] = self.slu_gate.init_state() if slu_on else None
@@ -146,44 +158,42 @@ class ResNet(nn.Module):
                     stride = 2 if stage > 0 else 1
                     h = F.relu(blk.down(h, stride) + blk.branch(h, stride))
                     kps.append(one)
-                    exs.append(1.0)
+                    exs.append(one)
                     continue
                 if not slu_on:
                     h = F.relu(h + blk.branch(h, 1))
                     kps.append(one)
-                    exs.append(1.0)
+                    exs.append(one)
                     continue
                 pkeep, gst = self.slu_gate(h, gst)
-                if keep is not None:
-                    run = bool(keep[glob])
-                else:
-                    force = slu_cfg.never_skip_first_last and \
-                        glob in (0, n_blocks - 1)
-                    run = force or bool(rng.bernoulli(
-                        rng.fold_in(key, glob), float(pkeep.detach())))
-                if run:
-                    g_st = 1.0 + pkeep - pkeep.detach()   # straight-through
-                    h = h + g_st * blk.branch(h, 1)
+                force = slu_cfg.never_skip_first_last and \
+                    glob in (0, n_blocks - 1)
+                h, ex = gated_residual(
+                    lambda t, blk=blk: blk.branch(t, 1), h, pkeep,
+                    None if slu_u is None else slu_u[glob], force,
+                    modules=(blk,),
+                    keep=None if keep is None else bool(keep[glob]))
                 h = F.relu(h)
                 kps.append(pkeep)
-                exs.append(float(run))
+                exs.append(ex)
         pooled = h.mean(dim=(1, 2))
         logits = pooled @ self.fc_w + self.fc_b
         kps_t = torch.stack(kps)
         aux = {"slu_cost": kps_t.mean() if slu_on else one,
-               "slu_executed": torch.tensor(exs, device=x.device),
+               "slu_executed": torch.stack(exs),
                "slu_keep_probs": kps_t}
         return logits, aux
 
 
 def resnet_loss(model: ResNet, batch: Dict[str, torch.Tensor],
                 key: Optional[rng.Key] = None,
-                keep: Optional[Sequence[bool]] = None
+                keep: Optional[Sequence[bool]] = None,
+                slu_u: Optional[Uniforms] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy + SLU FLOPs regularizer (Eq. 1); returns ``(total,
     metrics)``.  The BatchNorm state is updated in place on ``model``."""
     e2 = model.e2
-    logits, aux = model(batch["image"], key=key, keep=keep)
+    logits, aux = model(batch["image"], key=key, keep=keep, slu_u=slu_u)
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, batch["label"].long()[:, None]).mean()
     total = nll + e2.slu.alpha * aux["slu_cost"] if e2.slu.enabled else nll

@@ -32,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import psg, rng
 from repro_torch.core.config import BLOCK_ATTN, E2TrainConfig, ModelConfig
 from repro_torch.core.energy import block_fwd_flops
-from repro_torch.core.slu import Gate, flops_regularizer, gated_residual
+from repro_torch.core.slu import Gate, flops_regularizer, gated_residual, \
+    lm_uniforms
 from repro_torch.models import layers as L
 
 
@@ -82,13 +83,15 @@ class TransformerLM(nn.Module):
             if self.e2.slu.enabled else None
 
     def forward(self, tokens: torch.Tensor, key: Optional[rng.Key] = None,
-                remat: str = "block"
+                remat: str = "block", slu_u=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens (B, S) -> (fp32 logits (B, S, V), aux{slu_cost,
         slu_executed (L, 2), slu_keep_probs (2L,)}).
 
         ``key`` is the step's threefry key (``fold_in(PRNGKey(seed),
-        step)``, default ``PRNGKey(0)``).  In eval mode (``self.training``
+        step)``, default ``PRNGKey(0)``); ``slu_u`` gives the uniforms of
+        its SLU draws instead (``core/slu.lm_uniforms`` of that key; a CUDA
+        tensor inside a captured step).  In eval mode (``self.training``
         false) every sub-block runs ungated and nothing is checkpointed:
         the JAX package's ``lm_fwd(train=False, remat="none")``."""
         cfg, slu_cfg = self.cfg, self.e2.slu
@@ -100,21 +103,24 @@ class TransformerLM(nn.Module):
         gate = self.slu_gate if self.training else None
         remat = remat if self.training else "none"
         gst = gate.init_state() if gate is not None else None
-        ctx = psg.snapshot()
+        if gate is not None and slu_u is None:
+            slu_u = lm_uniforms(key, n)
         kps, exs = [], []
         for i, blk in enumerate(self.layers):
-            r1, r2 = rng.split(rng.fold_in(rng.fold_in(key, i), 0))
             force = slu_cfg.never_skip_first_last and i in (0, n - 1)
-            for fn, r in ((_mixer(blk, cfg, ctx), r1), (_ffn(blk, cfg, ctx), r2)):
+            subs = ((_mixer(blk, cfg), (blk.ln1, blk.attn)),
+                    (_ffn(blk, cfg), (blk.ln2, blk.mlp)))
+            for j, (fn, mods) in enumerate(subs):
                 if remat == "block":
                     fn = _checkpointed(fn)
                 if gate is None:
                     x = x + fn(x)
                     kps.append(torch.ones((), device=x.device))
-                    exs.append(1.0)
+                    exs.append(torch.ones((), device=x.device))
                     continue
                 p, gst = gate(x, gst)
-                x, ex = gated_residual(fn, x, p, r, force)
+                x, ex = gated_residual(fn, x, p, slu_u[2 * i + j], force,
+                                       modules=mods)
                 kps.append(p)
                 exs.append(ex)
         x = self.final_norm(x)
@@ -131,23 +137,30 @@ class TransformerLM(nn.Module):
         else:
             slu_cost = torch.ones((), device=x.device)
         aux = {"slu_cost": slu_cost, "slu_keep_probs": kps_t,
-               "slu_executed": torch.tensor(exs, device=x.device
-                                            ).reshape(n, 2)}
+               "slu_executed": torch.stack(exs).reshape(n, 2)}
         return logits, aux
 
 
-def _mixer(blk: Block, cfg: ModelConfig, ctx):
+def _in_context(body):
+    """``body`` under the PSG context of its first call, also when a
+    checkpoint recomputes it later, outside that context (the gated
+    residual runs a sub-block under its own alias of the probe)."""
+    ctx = []
+
     def fn(h):
-        with psg.enable(*ctx):
-            return L.attention_fwd(blk.attn, blk.ln1(h), cfg)
+        if not ctx:
+            ctx.append(psg.snapshot())
+        with psg.enable(*ctx[0]):
+            return body(h)
     return fn
 
 
-def _ffn(blk: Block, cfg: ModelConfig, ctx):
-    def fn(h):
-        with psg.enable(*ctx):
-            return L.mlp_fwd(blk.mlp, blk.ln2(h), cfg)
-    return fn
+def _mixer(blk: Block, cfg: ModelConfig):
+    return _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg))
+
+
+def _ffn(blk: Block, cfg: ModelConfig):
+    return _in_context(lambda h: L.mlp_fwd(blk.mlp, blk.ln2(h), cfg))
 
 
 def _checkpointed(fn):
@@ -157,13 +170,13 @@ def _checkpointed(fn):
 
 
 def lm_loss(model: TransformerLM, batch: Dict[str, torch.Tensor],
-            key: Optional[rng.Key] = None, remat: str = "block"
+            key: Optional[rng.Key] = None, remat: str = "block", slu_u=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked next-token cross-entropy (``logsumexp - label logit`` over
     labels >= 0) plus ``alpha * slu_cost`` (Eq. 1); returns ``(total,
     metrics)``."""
     cfg, e2 = model.cfg, model.e2
-    logits, aux = model(batch["tokens"], key=key, remat=remat)
+    logits, aux = model(batch["tokens"], key=key, remat=remat, slu_u=slu_u)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     ll = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]

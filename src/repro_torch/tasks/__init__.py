@@ -4,10 +4,13 @@ family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets) and
 
 * ``init(exp, seed, device) -> nn.Module`` — parameters and buffers
   (BatchNorm running statistics) on ``device``.
-* ``make_loss(exp) -> loss(model, batch, key, keep=None)`` returning
-  ``(total_loss, metrics)`` with 0-d tensor metrics; ``key`` is the step's
-  threefry key (``core/rng.py``), ``keep`` a test hook that injects SLU
-  decisions where the task takes one.
+* ``make_loss(exp) -> loss(model, batch, key, keep=None, slu_u=None)``
+  returning ``(total_loss, metrics)`` with 0-d tensor metrics; ``key`` is
+  the step's threefry key (``core/rng.py``), ``slu_u`` the uniforms of its
+  SLU draws where they were drawn ahead (``slu_uniforms``), ``keep`` a test
+  hook that injects SLU decisions where the task takes one.
+* ``slu_uniforms(exp, key) -> np.ndarray`` — the fp32 uniforms of a step's
+  SLU keep draws, one per gated position in network order.
 * ``make_predict(exp) -> predict(model, batch)`` — eval-mode logits:
   stored statistics, no RNG, no SLU, no PSG (the plain products); under
   ``torch.no_grad()``, and the model is left in the mode it was found in.
@@ -31,6 +34,7 @@ class Task:
     init: Callable
     make_loss: Callable
     make_predict: Optional[Callable] = None
+    slu_uniforms: Optional[Callable] = None
     cost: Optional[Callable[[Experiment], TableCostModel]] = None
 
 

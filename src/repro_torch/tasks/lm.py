@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from repro_torch.core.config import Experiment
 from repro_torch.core.cost import lm_cost
+from repro_torch.core.slu import lm_uniforms
 from repro_torch.models import transformer as T
 from repro_torch.tasks import Task, eval_logits, register
 
@@ -15,12 +16,16 @@ def _init(exp: Experiment, seed: int = 0, device=None) -> T.TransformerLM:
 def _make_loss(exp: Experiment):
     remat = exp.train.remat
 
-    def loss(model, batch, key, keep=None):
+    def loss(model, batch, key, keep=None, slu_u=None):
         if keep is not None:
             raise ValueError("the LM draws its SLU decisions from the step "
                              "key; it takes no injected keep mask")
-        return T.lm_loss(model, batch, key, remat=remat)
+        return T.lm_loss(model, batch, key, remat=remat, slu_u=slu_u)
     return loss
+
+
+def _slu_uniforms(exp: Experiment, key):
+    return lm_uniforms(key, exp.model.num_layers)
 
 
 def _make_predict(exp: Experiment):
@@ -31,5 +36,6 @@ def _make_predict(exp: Experiment):
 
 LM_TASK = register(Task(name="lm", init=_init, make_loss=_make_loss,
                         make_predict=_make_predict,
+                        slu_uniforms=_slu_uniforms,
                         cost=lambda exp: lm_cost(exp.model,
                                                  exp.train.seq_len)))

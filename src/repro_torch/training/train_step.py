@@ -2,7 +2,8 @@
 vote, optimizer, SWA; and the weights and BatchNorm state to evaluate with.
 
 ``make_train_step(exp)`` returns ``train_step(state, batch, keep=None) ->
-(state, metrics)``, the counterpart of the JAX package's
+(state, metrics)`` (a :class:`TrainStep`, whose host and device halves the
+chunked loop drives apart), the counterpart of the JAX package's
 ``training/train_step.py``:
 
 * the loss runs under ``psg.enable(cfg, probe)``; the probe's gradient is
@@ -19,6 +20,9 @@ vote, optimizer, SWA; and the weights and BatchNorm state to evaluate with.
 * with PSG on, every gradient is re-signed (``majority_vote_tree``):
   norms, embeddings, classifier and gate included;
 * the optimizer updates the parameters in place, then SWA averages them;
+  the learning rate, AdamW's bias corrections and SWA's weight are
+  float32 scalars computed on the host and handed to the device as a
+  tensor, the same in every mode;
 * the BatchNorm statistics (ResNet) are buffers of the model, updated by
   the forward; the optimizer never sees them.  The LM holds none.
 
@@ -31,6 +35,7 @@ import copy
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,7 +44,8 @@ from repro_torch.core import rng
 from repro_torch.core.config import Experiment
 from repro_torch.core.device import resolve_device
 from repro_torch.optim import make_optimizer, majority_vote_tree
-from repro_torch.optim.swa import swa_init, swa_params, swa_update
+from repro_torch.optim.swa import (swa_average, swa_init, swa_params,
+                                   swa_weight)
 from repro_torch.tasks import get_task
 
 
@@ -81,73 +87,161 @@ def split_microbatches(batch: Dict[str, torch.Tensor], m: int
     return [{k: parts[k][i] for k in batch} for i in range(m)]
 
 
-def make_train_step(exp: Experiment):
-    e2, tc = exp.e2, exp.train
-    m = max(tc.microbatches, 1)
-    task_loss = get_task(exp.task).make_loss(exp)
-    opt = make_optimizer(tc)
-    psg_cfg = e2.psg if e2.psg.enabled else None
-    swa_start = int(tc.total_steps * e2.psg.swa_start_frac)
+class TrainStep:
+    """One training step, split into what the host decides and what the
+    device does, so that a CUDA graph can hold the device half:
 
-    def grad_step(model, names, params, batch, key, keep):
-        """Loss, metrics, gradients and probe gradient of one (micro)batch."""
+    * ``host_inputs(state)`` -> ``(u, scal)``: the step's SLU uniforms, fp32
+      ``(m, n)`` (one row per microbatch, drawn with the keys the model
+      would draw with; ``None`` without SLU), and its float32 scalars
+      ``[swa weight, lr, ...]`` (the optimizer's, ``optim/api.py``), from
+      ``state.step`` and the host counters;
+    * ``device_step(state, batch, u, scal)`` -> ``(metrics, slu_executed)``:
+      the loss, gradients, optimizer update and SWA average on the
+      device, in place; ``u`` and ``scal`` host arrays or tensors, the
+      0-d metrics and the stacked SLU flags device tensors; it reads no
+      value back when ``u`` and ``scal`` are CUDA tensors inside a capture;
+    * ``advance(state)``: the host counters (``state.step``, AdamW's and
+      SWA's counts) after the step.
+
+    ``step(state, batch, keep=None) -> (metrics, slu_executed)`` runs the
+    three in a row, and so does calling the object, ``train_step(state,
+    batch, keep=None) -> (state, metrics)``; ``keep`` (tests only) injects
+    the ResNet's SLU decisions, the same for every microbatch.
+    """
+
+    def __init__(self, exp: Experiment):
+        e2, tc = exp.e2, exp.train
+        self.exp = exp
+        self.m = max(tc.microbatches, 1)
+        self.task = get_task(exp.task)
+        self.task_loss = self.task.make_loss(exp)
+        self.opt = make_optimizer(tc)
+        self.psg_cfg = e2.psg if e2.psg.enabled else None
+        self.swa_start = int(tc.total_steps * e2.psg.swa_start_frac)
+        self.slu = e2.slu.enabled and self.task.slu_uniforms is not None
+
+    # -- host -------------------------------------------------------------
+
+    def step_key(self, step: int) -> rng.Key:
+        return rng.fold_in(rng.PRNGKey(self.exp.train.seed), step)
+
+    def host_inputs(self, state: TrainState
+                    ) -> Tuple[Optional[np.ndarray], np.ndarray]:
+        key = self.step_key(state.step)
+        u = None
+        if self.slu:
+            keys = [key] if self.m == 1 else \
+                [rng.fold_in(key, i) for i in range(self.m)]
+            u = np.stack([self.task.slu_uniforms(self.exp, k) for k in keys])
+        w = 0.0
+        if state.swa is not None:
+            w, _ = swa_weight(state.swa["count"], state.step, self.swa_start)
+        scal = np.array([w, *self.opt.scalars(state.opt, state.step)],
+                        np.float32)
+        return u, scal
+
+    def advance(self, state: TrainState) -> None:
+        if state.swa is not None:
+            _, state.swa["count"] = swa_weight(state.swa["count"], state.step,
+                                               self.swa_start)
+        self.opt.advance(state.opt)
+        state.step += 1
+
+    # -- device -----------------------------------------------------------
+
+    def _grad_step(self, model, names, params, batch, key, keep, u):
+        """Loss, metrics, gradients, probe gradient and SLU flags of one
+        (micro)batch."""
         probe = psgmod.zero_probe(params[0].device) \
-            if psg_cfg is not None else None
-        with psgmod.enable(psg_cfg, probe=probe):
-            loss, metrics = task_loss(model, batch, key, keep)
+            if self.psg_cfg is not None else None
+        seen = []
+        hook = model.register_forward_hook(
+            lambda mod, args, out: seen.append(out[1]["slu_executed"]))
+        try:
+            with psgmod.enable(self.psg_cfg, probe=probe):
+                loss, metrics = self.task_loss(model, batch, key, keep,
+                                               slu_u=u)
+        finally:
+            hook.remove()
         inputs = list(params) + ([probe] if probe is not None else [])
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
         probe_g = grads.pop() if probe is not None else None
-        return loss.detach(), metrics, dict(zip(names, grads)), probe_g
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (loss.detach(), metrics, dict(zip(names, grads)), probe_g,
+                seen[-1].reshape(-1))
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   keep: Optional[Sequence[bool]] = None
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """``keep`` (tests only) injects the ResNet's SLU decisions, the
-        same for every microbatch."""
+    def device_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                    u, scal, keep: Optional[Sequence[bool]] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        m, tc = self.m, self.exp.train
         names, params = zip(*state.model.named_parameters())
         device = params[0].device
-        key = rng.fold_in(rng.PRNGKey(tc.seed), state.step)
+        key = self.step_key(state.step)
+        row = (lambda i: None) if u is None else (lambda i: u[i])
         if m == 1:
-            loss, metrics, grads, probe_g = grad_step(
-                state.model, names, params, batch, key, keep)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            loss, metrics, grads, probe_g, flags = self._grad_step(
+                state.model, names, params, batch, key, keep, row(0))
         else:
-            losses, mets, grads, probe_g = [], [], None, None
+            losses, mets, flag_l, grads, probe_g = [], [], [], None, None
             for i, mb in enumerate(split_microbatches(batch, m)):
-                l, mt, g, pg = grad_step(state.model, names, params, mb,
-                                         rng.fold_in(key, i), keep)
+                l, mt, g, pg, fl = self._grad_step(
+                    state.model, names, params, mb, rng.fold_in(key, i),
+                    keep, row(i))
                 grads = g if grads is None else \
                     {k: grads[k] + g[k] for k in names}
                 if pg is not None:
                     probe_g = pg if probe_g is None else probe_g + pg
                 losses.append(l)
-                mets.append({k: v.detach() for k, v in mt.items()})
+                mets.append(mt)
+                flag_l.append(fl)
             grads = {k: g / m for k, g in grads.items()}
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([mt[k] for mt in mets]).mean()
                        for k in mets[0]}
-        if psg_cfg is not None:
+            flags = torch.cat(flag_l)
+        if self.psg_cfg is not None:
             grads = majority_vote_tree(grads)
         gn = torch.zeros((), device=device)
-        if tc.grad_clip > 0 and psg_cfg is None:
-            gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+        if tc.grad_clip > 0 and self.psg_cfg is None:
+            gn = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                for g in grads.values()))
             scale = torch.clamp_max(tc.grad_clip / (gn + 1e-9), 1.0)
             grads = {k: g * scale for k, g in grads.items()}
         param_d = dict(zip(names, params))
-        opt.apply(param_d, grads, state.opt, state.step)
+        self.opt.update(param_d, grads, state.opt, list(scal[1:]))
         if state.swa is not None:
-            swa_update(state.swa, param_d, state.step, swa_start)
+            swa_average(state.swa, param_d, scal[0])
         metrics["total_loss"] = loss
         metrics["grad_norm"] = gn
         if probe_g is not None:
-            metrics["psg_fallback_ratio"] = psgmod.probe_fallback_ratio(probe_g)
-        state.step += 1
-        return state, metrics
+            metrics["psg_fallback_ratio"] = \
+                psgmod.probe_fallback_ratio(probe_g)
+        return metrics, flags
 
-    return train_step
+    def step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+             keep: Optional[Sequence[bool]] = None
+             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """One whole step: ``(metrics, slu_executed)``."""
+        u, scal = self.host_inputs(state)
+        device = next(state.model.parameters()).device
+        out = self.device_step(state, batch, u,
+                               torch.from_numpy(scal).to(device), keep)
+        self.advance(state)
+        return out
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 keep: Optional[Sequence[bool]] = None
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        return state, self.step(state, batch, keep)[0]
+
+
+def make_train_step(exp: Experiment) -> TrainStep:
+    """``train_step(state, batch, keep=None) -> (state, metrics)``
+    (:class:`TrainStep`)."""
+    return TrainStep(exp)
 
 
 def eval_params(state: TrainState, exp: Experiment) -> nn.Module:

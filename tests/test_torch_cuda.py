@@ -715,3 +715,34 @@ def test_quantize_kernel_on_special_values_and_above_l2(card, kind, dt):
                 assert torch.equal(Q.quantize(x, bits).view(view),
                                    want.view(view))
             del base, x, out, want
+
+
+def test_slu_decide_kernel_matches_plain(card):
+    from repro_torch.kernels import graph_cond
+    gen = torch.Generator(device=card).manual_seed(0)
+    u = torch.rand(4099, device=card, generator=gen)
+    p = torch.rand(4099, device=card, generator=gen)
+    p[:64] = u[:64]
+    for force in (False, True):
+        got = graph_cond.slu_decide(u, p, force)
+        torch.cuda.synchronize()
+        assert torch.equal(got, graph_cond.slu_decide_plain(u, p, force))
+
+
+def test_graphed_chunk_matches_per_step(card):
+    """The chunked loop on the card (one captured graph, gated blocks as
+    IF nodes) equals the per-step loop bit for bit."""
+    from repro_torch.launch.train import build_trainer
+    runs = []
+    for k in (1, 4):
+        tr = build_trainer(depth=14, width=8, batch=16, steps=16,
+                           device=card, chunk_steps=k)
+        tr.run(16)
+        runs.append(tr)
+    a, b = runs
+    for key in ("step", "total_loss", "slu_executed"):
+        assert [h[key] for h in a.history] == [h[key] for h in b.history]
+    assert b._chunk_fn.cond.nodes > 0
+    for (n, x), (_, y) in zip(a.state.model.state_dict().items(),
+                              b.state.model.state_dict().items()):
+        assert torch.equal(x, y), n

@@ -66,7 +66,7 @@ BWD_SHAPES = [(1, 256, 4, 2, 128, True), (1, 192, 4, 2, 128, True),
               (2, 300, 8, 8, 32, True), (1, 128, 4, 4, 64, False)]
 SHAPE_IDS = ["lm", "padded", "mha", "noncausal"]
 DTYPES = ["float32", "bfloat16"]
-CFG = tc.PSGConfig(enabled=True)
+CFG = tc.PSGConfig(enabled=True, fused_attention=False)
 JCFG = jc.PSGConfig(enabled=True, backend="interpret", fused_attention=True)
 LIMS = (FA.qlim(8), FA.qlim(4), FA.qlim(16), FA.qlim(10))
 
@@ -303,10 +303,10 @@ def test_attention_needs_an_active_config():
 
 
 def test_fused_attention_resolution():
-    """Explicit True/False wins; None (auto) and no config are the
-    materialized path."""
+    """Explicit True/False wins; None (auto) is the flash path, as in the
+    JAX package off Mosaic; no config is the materialized path."""
     assert tc.fused_attention_active(None) is False
-    assert tc.fused_attention_active(tc.PSGConfig(enabled=True)) is False
+    assert tc.fused_attention_active(tc.PSGConfig(enabled=True)) is True
     assert tc.fused_attention_active(
         tc.PSGConfig(enabled=True, fused_attention=True)) is True
     assert tc.fused_attention_active(

@@ -97,3 +97,14 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                                              "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chunked_loop_modules_stand_alone():
+    """The chunked loop's modules are among the files checked above and
+    import without a card."""
+    for rel in ("training/loop.py", "data/pipeline.py",
+                "kernels/graph_cond.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+    from repro_torch.data import pipeline  # noqa: F401
+    from repro_torch.kernels import graph_cond  # noqa: F401
+    from repro_torch.training import loop  # noqa: F401

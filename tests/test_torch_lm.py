@@ -75,6 +75,7 @@ def _configs(smd: bool = False, remat: str = "none"):
                tc.E2TrainConfig(smd=tc.SMDConfig(enabled=smd),
                                 slu=tc.SLUConfig(enabled=True),
                                 psg=tc.PSGConfig(enabled=True,
+                                                 fused_attention=False,
                                                  swa_start_frac=0.0)))
     return jexp, texp
 

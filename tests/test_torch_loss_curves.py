@@ -104,7 +104,7 @@ def lm_curves():
     """``(port losses, JAX losses, the JAX losses' largest move when every
     parameter moves one ulp)`` of the PSG LM, step by step."""
     texp = lm_experiment("qwen2_5_3b", steps=STEPS, smoke=True,
-                         e2=E2TRAIN["psg"])
+                         e2=E2TRAIN["psg"], fused_attention=False)
     tc = texp.train
     assert (tc.optimizer, tc.lr) == ("psg", 0.03)
     jbase = jreduce(jget("qwen2_5_3b"))
