@@ -121,7 +121,21 @@ Phases, each fatal on failure:
    paths the same at 8 executed steps, and so the flash qwen2.5-3b
    (8 layers, batch 2 x 4096), whose kernel 7 launches show the remat
    recompute inside the captured backward; and ``launch.train
-   --chunk-steps 4``.
+   --chunk-steps 4``;
+12. mobilenetv2 (published widths, batch 128, ``--e2train full``): kernels
+   1-4 at each of its 21 conv geometries against their plain versions as
+   in phase 2 (times summed over its 36 sites, ``mobilenetv2_geometries``
+   in chip_smoke.json), and its 17 depthwise convs (plain PyTorch) against
+   and beside ``F.conv2d(groups=C)``; one step at batch 8 on the card
+   against the CPU with PSG off (loss, updates) and on (loss only: one
+   flipped 8-bit code reaches every later one); the fused trainer for at least 4 executed
+   steps with 36/35/36/36 launches of kernels 1-4 per executed step and no
+   ``slu_decide``, profiled; held-out predict on the card against the CPU
+   (live and SWA weights); the im2col path (kernels 5-6, no 1-4); the
+   per-step loop against the chunked loop (K=4, no IF node) bit for bit
+   over 8 executed steps, one more chunk under
+   ``set_sync_debug_mode("error")``; ``launch.train --cnn mobilenetv2`` and
+   ``launch.bench_cnn --fast --steps 8``.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -287,8 +301,9 @@ def sass_check(build):
     return out
 
 
-def check_kernels(torch, K, shapes_all, shapes):
-    """Phase 2: every kernel against its plain version, with times."""
+def check_kernels(torch, K, shapes_all, shapes, uncounted=True):
+    """Phase 2: every kernel against its plain version, with times (and,
+    with ``uncounted``, :func:`conv_uncounted_checks`)."""
     import torch.nn.functional as F
     from repro_torch.core.quant import codes, quantize
 
@@ -422,7 +437,8 @@ def check_kernels(torch, K, shapes_all, shapes):
         time_cases(torch, cases, row, tot)
         details.append(row)
         torch.cuda.synchronize()
-    details.append(conv_uncounted_checks(torch, K, g))
+    if uncounted:
+        details.append(conv_uncounted_checks(torch, K, g))
     return tot, details
 
 
@@ -1820,7 +1836,7 @@ def profile_run(torch, trainer, executed: int) -> dict:
 
 
 def chunked_pair(torch, build, mods, kernels, executed, what, smd=True,
-                 profile=False):
+                 profile=False, gated=None):
     """The same nominal steps from the same init through the per-step loop
     and through ``Trainer(chunk_steps=CHUNK_K)``, compared bit for bit, with
     every launch counter zeroed just before the chunked run and read just
@@ -1828,7 +1844,9 @@ def chunked_pair(torch, build, mods, kernels, executed, what, smd=True,
     the captured kernels without their wrappers).  A chunked step's time is
     its chunk's interval on the device's clock after the first chunk
     (``Trainer`` ``wall_s``); the per-step loop's excludes the batch draw,
-    as in phase 6."""
+    as in phase 6.  The captured graph must hold IF nodes where the model
+    has gated blocks under SLU (``gated``, default ``smd``) and none
+    where it has none."""
     import gc
     steps = nominal_steps(executed, smd)
     gc.collect()
@@ -1849,8 +1867,11 @@ def chunked_pair(torch, build, mods, kernels, executed, what, smd=True,
             fail(f"{what}: kernel {name} was not launched in the chunked run")
     out = same_runs(torch, per, chunked, what)
     cf = chunked._chunk_fn
-    if cf.graph is None or (smd and cf.cond.nodes == 0):
+    gated = smd if gated is None else gated
+    if cf.graph is None or (gated and cf.cond.nodes == 0):
         fail(f"{what}: the chunked run holds no graph with IF nodes")
+    if gated is False and cf.cond.nodes:
+        fail(f"{what}: {cf.cond.nodes} IF nodes in a model without gates")
     later = chunked.history[CHUNK_K:]
     dev = [h["device_s"] for h in later if "device_s" in h]
     ph = per.history
@@ -1996,6 +2017,242 @@ def chunked_check(torch, mods, GC):
             "cli": cli, "card": card_line()}
 
 
+MBV2_BATCH = 128
+MBV2_EXECUTED = 4           # executed steps of MobileNetV2's fused main path
+# kernel launches per executed step: 36 conv sites, the stem's image has no
+# input gradient
+MBV2_LAUNCHES = {"conv_fwd": 36, "conv_grad_x": 35,
+                 "conv_grad_w_predictor": 36, "conv_grad_w": 36}
+# eval-mode logits, card against CPU: plain fp32 products through 52
+# BatchNorms and 17 depthwise convs, summed in other orders (measured 6e-7)
+MBV2_EVAL_REL = 1e-4
+# with PSG on, one flipped 8-bit code reaches every later code: a 1e-6
+# relative change of the image moves the step's loss by 4.3% at batch 2 on
+# the CPU (tests/test_torch_mobilenet.py), so only the loss is compared
+MBV2_PSG_LOSS_REL = 0.05
+# with PSG off each parameter's update within 0.1 of its norm, or within
+# 1e-5 where the gradient is zero up to rounding (each bn3.bias): the fp32
+# gradient's own conditioning at small batch (tests/test_torch_mobilenet.py)
+MBV2_UPDATE_REL, MBV2_UPDATE_ABS = 0.1, 1e-5
+
+
+def kernel_totals(tot):
+    """Each conv kernel's summed times over a step's sites with its bound."""
+    out = {}
+    for name, t in tot.items():
+        bytes_ms = 1e3 * t["bytes"] / HBM_BYTES_PER_S
+        ops_ms = 1e3 * t["ops_s"]
+        out[name] = {k: t[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "library_ms", "library_device_ms",
+                                        "max_abs_err")}
+        out[name].update(bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms
+                         else "operations")
+    return out
+
+
+def depthwise_times(torch):
+    """MobileNetV2's 17 depthwise convs at batch 128 (``models/resnet.
+    depthwise``, plain PyTorch, as the JAX package computes them outside
+    any kernel): forward against ``F.conv2d(groups=C)`` on the same
+    values within ``FP32_REL``, and forward plus backward timed beside that
+    library call, summed over the blocks."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.cost import mbv2_layout
+    from repro_torch.models.resnet import depthwise
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    hw, out = 32, {"ms": 0.0, "library_ms": 0.0, "max_rel_err": 0.0}
+    for _, hidden, _, stride, _ in mbv2_layout():
+        x = torch.randn(MBV2_BATCH, hw, hw, hidden, device="cuda",
+                        generator=g, requires_grad=True)
+        w = torch.randn(9, hidden, device="cuda", generator=g,
+                        requires_grad=True)
+        gy = torch.randn(MBV2_BATCH, hw // stride, hw // stride, hidden,
+                         device="cuda", generator=g)
+        w4 = w.detach().t().reshape(hidden, 1, 3, 3).requires_grad_(True)
+
+        def lib():
+            return F.conv2d(x.permute(0, 3, 1, 2), w4, stride=stride,
+                            padding=1, groups=hidden).permute(0, 2, 3, 1)
+
+        err = rel_err(depthwise(x, w, stride), lib())
+        if not err <= FP32_REL:
+            fail(f"depthwise at {hw}x{hidden}, stride {stride}: {err:.3g} "
+                 "of max |y| from F.conv2d(groups=C)")
+        out["max_rel_err"] = max(out["max_rel_err"], err)
+        out["ms"] += time_ms(torch, lambda: torch.autograd.backward(
+            depthwise(x, w, stride), gy))
+        out["library_ms"] += time_ms(torch, lambda: torch.autograd.backward(
+            lib(), gy))
+        hw //= stride
+    return out
+
+
+def mobilenet_reference_check(torch):
+    """Phase 12: one MobileNetV2 train step at batch 8 on the card and on
+    the CPU from the same init and batch.  PSG off (``sgdm``, fp32): the
+    loss within 1e-4 and each parameter's update within
+    ``MBV2_UPDATE_REL`` of its norm or ``MBV2_UPDATE_ABS``.  ``--e2train full`` (fused kernels on
+    the card): the loss within ``MBV2_PSG_LOSS_REL``, and the share of
+    equal update signs reported."""
+    from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
+    from repro_torch.launch.train import E2TRAIN, experiment
+    from repro_torch.training.train_step import init_train_state, make_train_step
+
+    batch = make_image_batch(GaussianImageTask(snr=2.0), 0, 0, 0, 8, "cpu")
+    out = {}
+    for preset in ("off", "full"):
+        exp = experiment(0, 0, 8, 4, e2=E2TRAIN[preset], cnn="mobilenetv2")
+        run = {}
+        for dev in ("cpu", "cuda"):
+            state = init_train_state(exp, seed=0, device=dev)
+            p0 = {k: p.detach().cpu().clone()
+                  for k, p in state.model.named_parameters()}
+            state, met = make_train_step(exp)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+            run[dev] = ({k: float(v) for k, v in met.items()},
+                        {k: p.detach().cpu() - p0[k]
+                         for k, p in state.model.named_parameters()})
+        (mc, uc), (mg, ug) = run["cpu"], run["cuda"]
+        loss_rel = abs(mc["loss"] - mg["loss"]) / abs(mc["loss"])
+        floor = MBV2_UPDATE_ABS / MBV2_UPDATE_REL
+        worst = max(float((ug[k] - uc[k]).norm()
+                          / uc[k].norm().clamp_min(floor)) for k in uc)
+        signs = sum(int((ug[k].sign() == uc[k].sign()).sum()) for k in uc) \
+            / sum(u.numel() for u in uc.values())
+        if preset == "off" and not (loss_rel <= 1e-4
+                                    and worst <= MBV2_UPDATE_REL):
+            fail(f"MobileNetV2 PSG-off step: loss {mg['loss']} against the "
+                 f"CPU's {mc['loss']}, worst update {worst:.3g} of its norm")
+        if preset == "full" and not loss_rel <= MBV2_PSG_LOSS_REL:
+            fail(f"MobileNetV2 PSG step: loss {mg['loss']} against the "
+                 f"CPU's {mc['loss']}")
+        out[preset] = {"loss_cpu": mc["loss"], "loss_cuda": mg["loss"],
+                       "loss_rel": loss_rel, "worst_update_rel": worst,
+                       "update_sign_agreement": signs,
+                       "fallback_cpu": mc.get("psg_fallback_ratio"),
+                       "fallback_cuda": mg.get("psg_fallback_ratio")}
+    return out
+
+
+def mobilenet_cli(torch) -> dict:
+    """``launch.train --cnn mobilenetv2`` on the card for a few steps."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--cnn",
+         "mobilenetv2", "--steps", "6"], capture_output=True, text=True,
+        timeout=600, cwd=ROOT, env=env)
+    if proc.returncode != 0 or "energy report: mobilenetv2" not in \
+            proc.stdout or "held-out accuracy" not in proc.stdout:
+        fail(f"launch.train --cnn mobilenetv2 exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("model ", "throughput:", "final loss"))]
+    return {"wall_s": time.perf_counter() - t0, "lines": lines}
+
+
+def bench_cnn_check(torch, mods) -> dict:
+    """``launch.bench_cnn --fast --steps 8`` in this process, every counter
+    zeroed before and read after: the reference's three rows, and the conv
+    kernels launched by its E2-Train row."""
+    from repro_torch.kernels import conv as K
+    from repro_torch.launch import bench_cnn
+
+    reset_all(mods)
+    t0 = time.perf_counter()
+    rows = bench_cnn.main(["--fast", "--steps", "8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    names = [r.split(",", 1)[0] for r in rows]
+    if names != ["tab4/resnet14_smb", "tab4/resnet14_e2train",
+                 "tab4/mobilenetv2_fwd"] or \
+            not rows[2].endswith("logits_finite=True"):
+        fail(f"bench_cnn rows: {rows}")
+    for name in K.LAUNCHES:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by bench_cnn")
+    return {"rows": rows, "launches": launches, "wall_s": wall}
+
+
+def mobilenet_check(torch, mods):
+    """Phase 12: MobileNetV2 (published widths, batch 128) on the card."""
+    import gc
+
+    from repro_torch.configs.paper_cnns import mobilenet_conv_shapes
+    from repro_torch.kernels import conv as K
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.training.train_step import eval_params
+
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sites = mobilenet_conv_shapes(MBV2_BATCH, unique=False)
+    tot, details = check_kernels(torch, K, sites,
+                                 mobilenet_conv_shapes(MBV2_BATCH),
+                                 uncounted=False)
+    geometries = {"rows": details, "totals": kernel_totals(tot),
+                  "sites": len(sites), "card": card_line()}
+    geometries["depthwise"] = depthwise_times(torch)
+    print(json.dumps({"phase": "mobilenetv2_geometries",
+                      "totals": geometries["totals"],
+                      "depthwise": geometries["depthwise"]}), flush=True)
+    ref = mobilenet_reference_check(torch)
+    print(json.dumps({"phase": "mobilenetv2_reference", **ref}), flush=True)
+
+    def build(steps, k=1, **kw):
+        return build_trainer(batch=MBV2_BATCH, steps=steps, device="cuda",
+                             cnn="mobilenetv2", chunk_steps=k, **kw)
+
+    trainer, main, prof = run_path(torch, "mobilenetv2_main_path", build,
+                                   mods, list(K.LAUNCHES),
+                                   absent=["slu_decide"],
+                                   execute=MBV2_EXECUTED)
+    per_step = main["launches_per_executed_step"]
+    if any(per_step[n] != c for n, c in MBV2_LAUNCHES.items()):
+        fail(f"MobileNetV2 launches per executed step {per_step}, not "
+             f"{MBV2_LAUNCHES}")
+    exp = trainer.exp
+    predict = {"live": card_against_cpu(torch, exp, trainer.state.model,
+                                        "MobileNetV2 live weights",
+                                        MBV2_EVAL_REL),
+               "swa": card_against_cpu(torch, exp,
+                                       eval_params(trainer.state, exp),
+                                       "MobileNetV2 SWA weights",
+                                       MBV2_EVAL_REL)}
+    print(json.dumps({"phase": "mobilenetv2_predict", **predict}), flush=True)
+    del trainer
+    im2col, im2col_prof = run_path(
+        torch, "mobilenetv2_im2col_main_path",
+        lambda steps: build(steps, fused_conv=False), mods,
+        list(PM.LAUNCHES), absent=list(K.LAUNCHES), execute=3)[1:]
+    per, chunked, pair = chunked_pair(
+        torch, build, mods, list(K.LAUNCHES), 2 * CHUNK_K,
+        "fused MobileNetV2", profile=True, gated=False)
+    pair["sync_free_chunk"] = sync_free_chunk(torch, chunked)
+    release(chunked)
+    del per, chunked
+    print(json.dumps({"phase": "mobilenetv2_chunked",
+                      **{k: v for k, v in pair.items() if k != "losses"}}),
+          flush=True)
+    cli = mobilenet_cli(torch)
+    print(json.dumps({"phase": "mobilenetv2_cli", **cli}), flush=True)
+    bench = bench_cnn_check(torch, mods)
+    print(json.dumps({"phase": "bench_cnn", **bench}), flush=True)
+    return geometries, {
+        "reference": ref, "main_path": main, "profile": prof,
+        "predict": predict, "im2col_main_path": im2col,
+        "im2col_profile": im2col_prof, "chunked": pair, "cli": cli,
+        "bench_cnn": bench, "launches_expected": MBV2_LAUNCHES,
+        "limits": {"eval": MBV2_EVAL_REL, "psg_loss": MBV2_PSG_LOSS_REL,
+                   "update": MBV2_UPDATE_REL},
+        "seconds": time.perf_counter() - t_start, "card": card_line()}
+
+
 def main() -> None:
     try:
         import torch
@@ -2134,6 +2391,7 @@ def main() -> None:
     print(json.dumps({"phase": "chunked", **{k: v for k, v in chunked.items()
                                              if k != "slu_decide"}}),
           flush=True)
+    mbv2_geometries, mbv2 = mobilenet_check(torch, mods + (GC,))
 
     kernels = []
     for name in REPLACES:
@@ -2179,7 +2437,8 @@ def main() -> None:
          "lm_microbatch_profile": lm_mb_prof,
          "lm_microbatch_launches": lm_mb_launches,
          "microbatch_reference": mb_ref, "resume": resume,
-         "chunked": chunked, "kernels": kernels,
+         "chunked": chunked, "mobilenetv2_geometries": mbv2_geometries,
+         "mobilenetv2": mbv2, "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},

@@ -1,15 +1,18 @@
-"""The paper's own backbones: ResNet-74 and ResNet-110 on CIFAR (§4.1),
-and the convolution geometries they run."""
+"""The paper's own backbones: ResNet-74, ResNet-110 and MobileNetV2 on
+CIFAR (§4.1), and the convolution geometries they run."""
 from typing import List, NamedTuple, Optional, Tuple
 
 from repro_torch.core.config import (E2TrainConfig, Experiment, ModelConfig,
                                      TrainConfig)
+from repro_torch.core.cost import MBV2_HEAD, MBV2_STEM, mbv2_layout
 
 
 def cnn_model(name: str, depth: int, num_classes: int = 10,
               width: int = 16) -> ModelConfig:
     """``num_layers`` is the CIFAR ResNet depth (6n+2), ``d_model`` the
-    stage-0 width, ``vocab_size`` the class count."""
+    stage-0 width, ``vocab_size`` the class count.  A model named
+    ``"mobilenetv2"`` selects the MobileNetV2 backbone, whose widths are
+    its own (depth and width are ignored)."""
     return ModelConfig(name=name, family="cnn", num_layers=depth,
                        d_model=width, num_heads=1, num_kv_heads=1, d_ff=0,
                        vocab_size=num_classes, glu=False, dtype="float32")
@@ -36,8 +39,15 @@ def resnet110(num_classes: int = 10,
                       task="cifar_cnn")
 
 
+def mobilenetv2(num_classes: int = 10,
+                e2: Optional[E2TrainConfig] = None) -> Experiment:
+    return Experiment(model=cnn_model("mobilenetv2", 0, num_classes),
+                      e2=e2 or E2TrainConfig(), train=cnn_train(0.05),
+                      task="cifar_cnn")
+
+
 class ConvShape(NamedTuple):
-    """One convolution site of a CIFAR ResNet.  ``hw`` is the *input*
+    """One convolution site of a CIFAR backbone.  ``hw`` is the *input*
     extent; SAME padding ``k // 2`` is implied, so the output extent is
     ``ceil(hw / stride)``."""
 
@@ -89,6 +99,24 @@ def resnet_conv_shapes(depth: int = 74, width: int = 16, batch: int = 128,
                 shapes.append(ConvShape(batch, H * stride, cin, cout, 1,
                                         stride))
             cin = cout
+    if not unique:
+        return shapes
+    return list(dict.fromkeys(shapes))
+
+
+def mobilenet_conv_shapes(batch: int = 128, image: int = 32,
+                          unique: bool = True) -> List[ConvShape]:
+    """Convolution geometries of the CIFAR MobileNetV2 in network order:
+    the 3x3 stem, each block's 1x1 expand and project, the 1x1 head (the
+    depthwise convs are not among them: no kernel of ``kernels/conv.py``
+    runs them).  With ``unique=False`` every conv site is returned."""
+    shapes: List[ConvShape] = [ConvShape(batch, image, 3, MBV2_STEM, 3, 1)]
+    hw = image
+    for cin, hidden, cout, stride, _ in mbv2_layout():
+        shapes.append(ConvShape(batch, hw, cin, hidden, 1, 1))
+        hw //= stride
+        shapes.append(ConvShape(batch, hw, hidden, cout, 1, 1))
+    shapes.append(ConvShape(batch, hw, mbv2_layout()[-1][2], MBV2_HEAD, 1, 1))
     if not unique:
         return shapes
     return list(dict.fromkeys(shapes))

@@ -4,9 +4,11 @@ The JAX package's trees are nested dicts/lists of numpy arrays (what
 ``jax.tree.map(np.asarray, ...)`` gives); nothing here needs JAX.
 
 * ``state_dict_from_jax(params, model_state)``: a ``state_dict`` for
-  :class:`repro_torch.models.resnet.ResNet`; the stacked ``rest`` blocks of
-  each stage are unstacked into per-block modules, and conv weights stay
-  patch-major ``(k*k*C, Cout)``.
+  :class:`repro_torch.models.resnet.ResNet` or
+  :class:`~repro_torch.models.resnet.MobileNetV2`; the stacked ``rest``
+  blocks of each ResNet stage are unstacked into per-block modules,
+  MobileNetV2's ``blocks`` list is indexed as it stands, and conv weights
+  stay patch-major ``(k*k*C, Cout)``.
 * ``lm_state_dict_from_jax(params)``: a ``state_dict`` for
   :class:`repro_torch.models.transformer.TransformerLM`; the stacked
   ``units`` are unstacked into per-layer modules, and the attention weights
@@ -15,7 +17,9 @@ The JAX package's trees are nested dicts/lists of numpy arrays (what
   parameter or buffer names (parameters, BatchNorm buffers, optimizer
   moments, the SWA average): the per-block ResNet modules stacked back into
   each stage's ``trans`` and ``rest`` (``down.w`` as ``down: {conv: {w}}``),
-  the LM's layers into ``units.b0_attn``.
+  the LM's layers into ``units.b0_attn``, and indexed modules back into
+  lists (``stages``, MobileNetV2's ``blocks``), so that the flattening
+  order is JAX's (block 10 after block 9, not after block 1).
 * ``train_state_tree(state)``: a port ``TrainState`` as the JAX package's
   ``TrainState`` fields (``params``, ``opt``, ``swa``, ``step`` int32,
   ``model_state``), the tree ``ft/checkpoint.py`` writes;
@@ -66,9 +70,20 @@ def to_numpy(t) -> np.ndarray:
         else np.asarray(t)
 
 
+def _lists(node: Any) -> Any:
+    """Dicts keyed ``"0" .. "n-1"`` as lists, below ``node`` too."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(map(str, range(len(node)))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def jax_tree(named: Dict[str, Any]) -> Dict[str, Any]:
     """``named`` (port names -> tensors) as the JAX package's nested tree of
-    numpy arrays; lists where the JAX tree has lists (``stages``)."""
+    numpy arrays; lists where the JAX tree has lists (a ResNet's
+    ``stages``, MobileNetV2's ``blocks``)."""
     groups: Dict[Tuple[str, ...], Dict[Optional[int], np.ndarray]] = {}
     for name, t in named.items():
         path, i = jax_path(name)
@@ -80,10 +95,7 @@ def jax_tree(named: Dict[str, Any]) -> Dict[str, Any]:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    if "stages" in tree:
-        tree["stages"] = [tree["stages"][str(s)]
-                          for s in range(len(tree["stages"]))]
-    return tree
+    return _lists(tree)
 
 
 def children(node: Any):

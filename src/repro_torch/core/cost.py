@@ -1,5 +1,6 @@
 """Per-layer cost model, the bottom layer of the energy accounting (a copy
-of the ResNet and transformer parts of the JAX package's ``core/cost.py``).
+of the JAX package's ``core/cost.py``: the CIFAR ResNet, MobileNetV2 and
+transformer tables).
 
 * :class:`LayerCost` — one layer's forward MACs / parameters / activation
   elements, plus whether SLU can gate it (identity-shortcut residual blocks
@@ -7,8 +8,12 @@ of the ResNet and transformer parts of the JAX package's ``core/cost.py``).
 * :class:`TableCostModel` — an immutable table of layers with the derived
   totals every consumer needs (``fwd_macs``, ``param_count``,
   ``train_macs``, gated fractions, moved words).
-* Builders: :func:`resnet_cost` (:func:`cnn_cost` dispatches to it) and
-  :func:`lm_cost` for the transformer stack.
+* :func:`resnet_cost` and :func:`mobilenet_cost` make the tables of the
+  paper's CIFAR backbones (:func:`cnn_cost` dispatches on the model's
+  name), :func:`lm_cost` the transformer stack's.
+
+``MBV2_CFG`` and :func:`mbv2_layout` are MobileNetV2's block schedule, the
+one copy the port keeps: ``models/resnet.MobileNetV2`` builds from it.
 
 The tables are pinned against the JAX package's in the tests.
 """
@@ -19,6 +24,26 @@ from typing import List, Tuple
 
 from repro_torch.core import energy
 from repro_torch.core.config import ModelConfig
+
+# MobileNetV2 inverted-residual schedule, CIFAR variant: (expansion, cout,
+# blocks, stride)
+MBV2_CFG = [
+    (1, 16, 1, 1), (6, 24, 2, 1), (6, 32, 3, 2),
+    (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
+MBV2_STEM, MBV2_HEAD = 32, 1280     # stem and head widths
+
+
+def mbv2_layout() -> List[Tuple[int, int, int, int, bool]]:
+    """Static per-block ``(cin, hidden, cout, stride, residual)`` from
+    ``MBV2_CFG``: architecture facts that stay off the parameters."""
+    cin, out = MBV2_STEM, []
+    for t, c, nblk, s in MBV2_CFG:
+        for b in range(nblk):
+            stride = s if b == 0 else 1
+            out.append((cin, cin * t, c, stride, stride == 1 and cin == c))
+            cin = c
+    return out
+
 
 @dataclass(frozen=True)
 class LayerCost:
@@ -138,12 +163,41 @@ def resnet_cost(cfg: ModelConfig, image: int = 32) -> TableCostModel:
     return TableCostModel(cfg.name, tuple(layers))
 
 
+def mobilenet_cost(cfg: ModelConfig, image: int = 32) -> TableCostModel:
+    """Per-layer cost of the CIFAR MobileNetV2 (``models/resnet.py``'s
+    variant: stride-1 stem at 32², inverted residuals per ``MBV2_CFG``,
+    1280-d head)."""
+    classes = cfg.vocab_size
+    layers: List[LayerCost] = [
+        _conv("stem", image, 3, 3, MBV2_STEM),
+        _bn("stem_bn", image, MBV2_STEM)]
+    hw = image
+    for i, (cin, hidden, cout, stride, _) in enumerate(mbv2_layout()):
+        hw_out = hw // stride
+        layers += [
+            _conv(f"b{i}.expand", hw, 1, cin, hidden),
+            _bn(f"b{i}.bn1", hw, hidden),
+            # 3x3 depthwise: 9 MACs per output element per channel
+            LayerCost(f"b{i}.dw", "dw", float(hw_out * hw_out * 9 * hidden),
+                      9 * hidden, float(hw_out * hw_out * hidden)),
+            _bn(f"b{i}.bn2", hw_out, hidden),
+            _conv(f"b{i}.project", hw_out, 1, hidden, cout),
+            _bn(f"b{i}.bn3", hw_out, cout)]
+        hw = hw_out
+    last = mbv2_layout()[-1][2]
+    layers += [_conv("head", hw, 1, last, MBV2_HEAD),
+               _bn("head_bn", hw, MBV2_HEAD),
+               LayerCost("fc", "fc", float(MBV2_HEAD * classes),
+                         MBV2_HEAD * classes + classes, float(classes))]
+    return TableCostModel(cfg.name, tuple(layers))
+
+
 def cnn_cost(cfg: ModelConfig, image: int = 32) -> TableCostModel:
     """Dispatch on the ``family="cnn"`` encoding's model name."""
     if cfg.family != "cnn":
         raise ValueError(f"cnn_cost: {cfg.name!r} has family={cfg.family!r}")
     if cfg.name == "mobilenetv2":
-        raise NotImplementedError("MobileNetV2 is not ported yet")
+        return mobilenet_cost(cfg, image)
     return resnet_cost(cfg, image)
 
 

@@ -39,13 +39,10 @@ from repro_torch.core.config import PSGConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.energy import FP32_MAC_PJ, mac_energy_pj
 from repro_torch.kernels import dispatch, ref
+from repro_torch.launch.bench_common import csv_row
 
 FP32, BF16 = 4, 2
 BQ = BK = 128          # the TPU flash kernels' tiles (the JAX package's model)
-
-
-def csv_row(name: str, us_per_call: float, derived: str) -> str:
-    return f"{name},{us_per_call:.1f},{derived}"
 
 
 def one_per_kind(shapes):

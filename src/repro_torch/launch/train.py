@@ -1,7 +1,10 @@
-"""Train a CIFAR ResNet or a transformer LM with SMD, SLU and PSG and print
-the energy report.
+"""Train a CIFAR ResNet, MobileNetV2 or a transformer LM with SMD, SLU and
+PSG and print the energy report.
 
     python -m repro_torch.launch.train --depth 74 --batch 128 --steps 8
+    python -m repro_torch.launch.train --cnn mobilenetv2 --steps 8
+    python -m repro_torch.launch.train --cnn mobilenetv2 --batch 2 \\
+        --steps 2 --device cpu
     python -m repro_torch.launch.train --depth 8 --width 8 --batch 4 \\
         --steps 4 --device cpu
     python -m repro_torch.launch.train --task lm --arch qwen2_5_3b --smoke \\
@@ -22,8 +25,11 @@ per-step loop and synthetic data (Gaussian CIFAR images; Markov-chain
 tokens).  ``--e2train`` picks the techniques as the JAX package does:
 ``full`` (the default: SMD p=0.5, SLU on, PSG on), ``smd``, ``slu``, ``psg``
 or ``off``; with PSG on the optimizer is ``psg`` (signSGD, lr 0.03),
-otherwise the experiment's own (the CIFAR ResNet: SGD with momentum, lr
-0.1).  ``--fused-conv`` picks the ResNet's conv path
+otherwise the experiment's own (SGD with momentum, lr 0.1 for the CIFAR
+ResNet and 0.05 for MobileNetV2).  ``--cnn`` picks the CIFAR backbone:
+``resnet`` (the default; ``--depth`` and ``--width`` apply to it) or
+``mobilenetv2`` at its published widths, which has no SLU gate and ignores
+SLU as the JAX package does.  ``--fused-conv`` picks the CNN's conv path
 (``PSGConfig.fused_conv``): ``on`` and ``auto`` the implicit-GEMM conv
 kernels, ``off`` the materialized im2col on the PSG matmul kernels.
 ``--smoke`` cuts the LM to toy dimensions (``configs.reduce_experiment``);
@@ -65,7 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_experiment, reduce_experiment
-from repro_torch.configs.paper_cnns import cnn_model, cnn_train
+from repro_torch.configs.paper_cnns import cnn_model, cnn_train, mobilenetv2
 from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
                                      SLUConfig, SMDConfig, TrainConfig,
                                      fused_attention_active)
@@ -81,6 +87,7 @@ from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
 
 FUSED = {"auto": None, "on": True, "off": False}    # --fused-{conv,attention}
+CNNS = ("resnet", "mobilenetv2")                    # --cnn
 FULL_E2 = E2TrainConfig(smd=SMDConfig(enabled=True, drop_prob=0.5),
                         slu=SLUConfig(enabled=True, alpha=1e-3),
                         psg=PSGConfig(enabled=True))
@@ -106,27 +113,36 @@ def _for_e2(tcfg: TrainConfig, e2: E2TrainConfig) -> TrainConfig:
 
 def experiment(depth: int, width: int, batch: int, steps: int,
                e2: E2TrainConfig = FULL_E2,
-               fused_conv: Optional[bool] = None) -> Experiment:
-    """CIFAR ResNet-``depth`` under ``e2`` (an :data:`E2TRAIN` preset) with
-    ``PSGConfig.fused_conv = fused_conv``; the paper's training config
-    (``configs.paper_cnns``) cut to ``batch`` and ``steps``."""
-    tcfg = dataclasses.replace(cnn_train(), global_batch=batch,
+               fused_conv: Optional[bool] = None,
+               cnn: str = "resnet") -> Experiment:
+    """CIFAR ResNet-``depth`` at stage-0 ``width`` (``cnn="resnet"``) or
+    MobileNetV2 (``cnn="mobilenetv2"``, depth and width ignored) under
+    ``e2`` (an :data:`E2TRAIN` preset) with ``PSGConfig.fused_conv =
+    fused_conv``; the paper's training config (``configs.paper_cnns``) cut
+    to ``batch`` and ``steps``."""
+    if cnn not in CNNS:
+        raise ValueError(f"cnn {cnn!r}: one of {CNNS}")
+    base = mobilenetv2() if cnn == "mobilenetv2" else Experiment(
+        model=cnn_model(f"resnet{depth}", depth, width=width),
+        train=cnn_train(), task="cifar_cnn")
+    tcfg = dataclasses.replace(base.train, global_batch=batch,
                                total_steps=steps)
     e2 = dataclasses.replace(e2, psg=dataclasses.replace(
         e2.psg, fused_conv=fused_conv))
-    return Experiment(model=cnn_model(f"resnet{depth}", depth, width=width),
-                      e2=e2, train=_for_e2(tcfg, e2), task="cifar_cnn")
+    return base.replace(e2=e2, train=_for_e2(tcfg, e2))
 
 
 def build_trainer(depth: int = 74, width: int = 16, batch: int = 128,
                   steps: int = 8, device=None, seed: int = 0,
                   e2: E2TrainConfig = FULL_E2,
-                  fused_conv: Optional[bool] = None, **trainer_kw) -> Trainer:
-    """The ResNet trainer the CLI runs: model from ``seed``, data seed 0;
-    ``trainer_kw`` go to :class:`Trainer` (checkpoints, deadline)."""
+                  fused_conv: Optional[bool] = None, cnn: str = "resnet",
+                  **trainer_kw) -> Trainer:
+    """The CNN trainer the CLI runs (:func:`experiment`): model from
+    ``seed``, data seed 0; ``trainer_kw`` go to :class:`Trainer`
+    (checkpoints, deadline, chunking)."""
     dev = resolve_device(device)
     _fp32_is_fp32()
-    exp = experiment(depth, width, batch, steps, e2, fused_conv)
+    exp = experiment(depth, width, batch, steps, e2, fused_conv, cnn)
     state = init_train_state(exp, seed=seed, device=dev)
     img_task = evaluate.data_task(exp)
 
@@ -249,6 +265,10 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
                          "auto leaves it to "
                          "core/config.fused_attention_active, which picks "
                          "the flash kernels as the JAX package's auto does")
+    ap.add_argument("--cnn", choices=CNNS, default="resnet",
+                    help="CIFAR backbone (--task cifar_cnn): resnet "
+                         "(--depth, --width) or mobilenetv2 at its "
+                         "published widths")
     ap.add_argument("--fused-conv", choices=list(FUSED), default="auto",
                     help="PSGConfig.fused_conv (--task cifar_cnn): on = "
                          "the implicit-GEMM conv kernels, off = the "
@@ -313,14 +333,17 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
         batch = args.batch or 128
         trainer = build_trainer(args.depth, args.width, batch, args.steps,
                                 args.device, e2=e2,
-                                fused_conv=FUSED[args.fused_conv], **ft)
+                                fused_conv=FUSED[args.fused_conv],
+                                cnn=args.cnn, **ft)
         conv = "fused" if fused_conv_active(trainer.exp.e2.psg
                                             if psg_cfg else None) \
             else "im2col"
-        print(f"model {trainer.exp.model.name} (CIFAR shapes, width "
-              f"{args.width}, batch {batch}, {conv} conv, --e2train "
-              f"{args.e2train}, kernel backend {kernel_backend(trainer)}) "
-              f"on {trainer.device}")
+        width = "published widths" if args.cnn == "mobilenetv2" \
+            else f"width {args.width}"
+        print(f"model {trainer.exp.model.name} (CIFAR shapes, {width}, "
+              f"batch {batch}, {conv} conv, --e2train {args.e2train}, "
+              f"kernel backend {kernel_backend(trainer)}) on "
+              f"{trainer.device}")
     if args.ft_kill_at_step is not None:
         trainer.make_batch = faults.kill_at_step(trainer.make_batch,
                                                  args.ft_kill_at_step)

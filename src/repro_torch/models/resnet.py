@@ -1,7 +1,7 @@
-"""CIFAR ResNet (6n+2) with SLU-gated residual blocks and PSG convs.
+"""CIFAR ResNet (6n+2) with SLU-gated residual blocks and PSG convs, and
+the CIFAR MobileNetV2.
 
-The counterpart of the ResNet half of the JAX package's
-``models/resnet.py``.  Parameters are ``nn.Parameter``s; the BatchNorm
+The counterpart of the JAX package's ``models/resnet.py``.  Parameters are ``nn.Parameter``s; the BatchNorm
 running statistics are buffers, updated in place by a train-mode forward
 and never seen by the optimizer; an eval-mode forward (``model.eval()``)
 normalizes with them and runs every block, the SLU gate unevaluated.  Each stage holds one transition block
@@ -22,6 +22,13 @@ Every conv is ``psg.conv2d``: the implicit-GEMM kernels when the active
 PSG config's ``fused_conv`` resolves on (``psg.fused_conv_active``),
 otherwise the JAX package's materialized im2col through ``psg.matmul``
 (the PSG matmul kernels under PSG, a plain product without it).
+
+:class:`MobileNetV2` (stem 3->32, seventeen inverted residuals per
+``core/cost.MBV2_CFG``, a 1x1 head to 1280, then fc) reuses ``Conv`` and
+``BatchNorm``, with relu6.  It has no SLU gate: its loss is the NLL alone
+and reports full execution, as the JAX package's does.  Its 3x3 depthwise
+conv (:func:`depthwise`) is plain PyTorch, as the JAX package computes it
+outside any kernel.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from torch import nn
 
 from repro_torch.core import psg, rng
 from repro_torch.core.config import E2TrainConfig
+from repro_torch.core.cost import MBV2_HEAD, MBV2_STEM, mbv2_layout
 from repro_torch.core.slu import Gate, GateState, gated_residual, \
     resnet_uniforms
 from repro_torch.models.layers import dense_init
@@ -185,6 +193,11 @@ class ResNet(nn.Module):
         return logits, aux
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits, dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
+
+
 def resnet_loss(model: ResNet, batch: Dict[str, torch.Tensor],
                 key: Optional[rng.Key] = None,
                 keep: Optional[Sequence[bool]] = None,
@@ -194,9 +207,142 @@ def resnet_loss(model: ResNet, batch: Dict[str, torch.Tensor],
     metrics)``.  The BatchNorm state is updated in place on ``model``."""
     e2 = model.e2
     logits, aux = model(batch["image"], key=key, keep=keep, slu_u=slu_u)
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(1, batch["label"].long()[:, None]).mean()
+    nll = _nll(logits, batch["label"])
     total = nll + e2.slu.alpha * aux["slu_cost"] if e2.slu.enabled else nll
     metrics = {"loss": nll, "slu_cost": aux["slu_cost"],
                "slu_exec_ratio": aux["slu_executed"].mean()}
     return total, metrics
+
+
+# ---------------------------------------------------------------------------
+# MobileNetV2 (CIFAR variant)
+# ---------------------------------------------------------------------------
+
+
+def _dw_window(xp: torch.Tensor, t: int, stride: int, ho: int,
+               wo: int) -> torch.Tensor:
+    i, j = divmod(t, 3)
+    return xp[:, i:i + (ho - 1) * stride + 1:stride,
+              j:j + (wo - 1) * stride + 1:stride, :]
+
+
+class Depthwise(torch.autograd.Function):
+    """3x3 depthwise conv of NHWC ``x`` with a ``(9, C)`` weight, SAME
+    padding, the JAX package's ``_depthwise``: the stride is applied to the
+    window before the multiply.  The nine strided windows of the padded
+    input are accumulated in tap order ``(i, j)`` into one fp32 tensor;
+    no ``(B, H', W', 9, C)`` stack is formed, and only the padded input is
+    saved.  The backward adds ``gy * w_t`` into each window of a zero
+    padded gradient in tap order (in place, no atomics) and reduces
+    ``window_t * gy`` over the positions for ``dw_t``: deterministic, and
+    free of host syncs, so a CUDA graph can hold it."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int):
+        B, H, W, C = x.shape
+        ho, wo = -(-H // stride), -(-W // stride)
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        y = _dw_window(xp, 0, stride, ho, wo) * w[0]
+        for t in range(1, 9):
+            y.addcmul_(_dw_window(xp, t, stride, ho, wo), w[t])
+        ctx.save_for_backward(xp, w)
+        ctx.stride, ctx.hw = stride, (H, W)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        xp, w = ctx.saved_tensors
+        stride, (H, W) = ctx.stride, ctx.hw
+        ho, wo = gy.shape[1], gy.shape[2]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dxp = torch.zeros_like(xp)
+            for t in range(9):
+                _dw_window(dxp, t, stride, ho, wo).addcmul_(gy, w[t])
+            dx = dxp[:, 1:H + 1, 1:W + 1, :]
+        if ctx.needs_input_grad[1]:
+            dw = torch.stack([
+                (_dw_window(xp, t, stride, ho, wo) * gy).sum(dim=(0, 1, 2))
+                for t in range(9)])
+        return dx, dw, None
+
+
+def depthwise(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """:class:`Depthwise`: ``(B, H, W, C) x (9, C) -> (B, ceil(H / s),
+    ceil(W / s), C)``."""
+    return Depthwise.apply(x, w, stride)
+
+
+class InvertedResidual(nn.Module):
+    """1x1 expand - BN - relu6 - 3x3 depthwise - BN - relu6 - 1x1 project -
+    BN, with the identity added where ``residual``."""
+
+    def __init__(self, cin: int, hidden: int, cout: int,
+                 generator: torch.Generator):
+        super().__init__()
+        self.expand = Conv(cin, hidden, 1, generator)
+        self.bn1 = BatchNorm(hidden)
+        self.dw = nn.Parameter(dense_init((9, hidden), generator))
+        self.bn2 = BatchNorm(hidden)
+        self.project = Conv(hidden, cout, 1, generator)
+        self.bn3 = BatchNorm(cout)
+
+    def forward(self, h: torch.Tensor, stride: int,
+                residual: bool) -> torch.Tensor:
+        y = F.relu6(self.bn1(self.expand(h)))
+        y = F.relu6(self.bn2(depthwise(y, self.dw, stride)))
+        y = self.bn3(self.project(y))
+        return h + y if residual else y
+
+
+class MobileNetV2(nn.Module):
+    """The CIFAR MobileNetV2 at its published widths.  Parameter names are
+    the JAX package's tree (``stem.w``, ``blocks.{i}.expand.w``,
+    ``blocks.{i}.dw``, ``head.w``, ``fc_w``, ...); the static block layout
+    (``core/cost.mbv2_layout``) stays off the parameters."""
+
+    def __init__(self, num_classes: int = 10, seed: int = 0):
+        super().__init__()
+        self.layout = mbv2_layout()
+        g = torch.Generator().manual_seed(seed)
+        self.stem = Conv(3, MBV2_STEM, 3, g)
+        self.stem_bn = BatchNorm(MBV2_STEM)
+        self.blocks = nn.ModuleList(
+            [InvertedResidual(cin, hidden, cout, g)
+             for cin, hidden, cout, _, _ in self.layout])
+        self.head = Conv(self.layout[-1][2], MBV2_HEAD, 1, g)
+        self.head_bn = BatchNorm(MBV2_HEAD)
+        self.fc_w = nn.Parameter(dense_init((MBV2_HEAD, num_classes), g))
+        self.fc_b = nn.Parameter(torch.zeros(num_classes))
+
+    def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None,
+                keep: Optional[Sequence[bool]] = None,
+                slu_u: Optional[Uniforms] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """x: (B, 32, 32, 3) -> (logits, aux).  ``key`` and ``slu_u`` are
+        taken for the task's loss contract and unused (no gate draws);
+        ``keep`` is refused.  ``aux`` reports full execution: ``slu_cost``
+        1 and no SLU flags."""
+        if keep is not None:
+            raise ValueError("MobileNetV2 has no SLU gate; it takes no "
+                             "injected keep mask")
+        h = F.relu6(self.stem_bn(self.stem(x)))
+        for blk, (_, _, _, stride, residual) in zip(self.blocks, self.layout):
+            h = blk(h, stride, residual)
+        h = F.relu6(self.head_bn(self.head(h)))
+        logits = h.mean(dim=(1, 2)) @ self.fc_w + self.fc_b
+        aux = {"slu_cost": x.new_ones(()), "slu_executed": x.new_ones((0,))}
+        return logits, aux
+
+
+def mobilenetv2_loss(model: MobileNetV2, batch: Dict[str, torch.Tensor],
+                     key: Optional[rng.Key] = None,
+                     keep: Optional[Sequence[bool]] = None,
+                     slu_u: Optional[Uniforms] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy alone (no SLU term); the SLU metrics report full
+    execution, as the JAX package's ``mobilenetv2_loss``."""
+    logits, aux = model(batch["image"], key=key, keep=keep, slu_u=slu_u)
+    nll = _nll(logits, batch["label"])
+    one = aux["slu_cost"]
+    return nll, {"loss": nll, "slu_cost": one, "slu_exec_ratio": one}

@@ -1,6 +1,6 @@
 """Task registry: what the training stack needs to know about a model
-family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets) and
-``"lm"`` (the dense transformer LM).
+family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets and
+MobileNetV2) and ``"lm"`` (the dense transformer LM).
 
 * ``init(exp, seed, device) -> nn.Module`` — parameters and buffers
   (BatchNorm running statistics) on ``device``.
@@ -10,7 +10,8 @@ family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets) and
   SLU draws where they were drawn ahead (``slu_uniforms``), ``keep`` a test
   hook that injects SLU decisions where the task takes one.
 * ``slu_uniforms(exp, key) -> np.ndarray`` — the fp32 uniforms of a step's
-  SLU keep draws, one per gated position in network order.
+  SLU keep draws, one per gated position in network order (empty for a
+  model without gates).
 * ``make_predict(exp) -> predict(model, batch)`` — eval-mode logits:
   stored statistics, no RNG, no SLU, no PSG (the plain products); under
   ``torch.no_grad()``, and the model is left in the mode it was found in.

@@ -23,7 +23,7 @@ chunked loop drives apart), the counterpart of the JAX package's
   the learning rate, AdamW's bias corrections and SWA's weight are
   float32 scalars computed on the host and handed to the device as a
   tensor, the same in every mode;
-* the BatchNorm statistics (ResNet) are buffers of the model, updated by
+* the BatchNorm statistics (the CNNs) are buffers of the model, updated by
   the forward; the optimizer never sees them.  The LM holds none.
 
 :func:`eval_params` and :func:`recalibrate_model_state` are the JAX
@@ -93,9 +93,9 @@ class TrainStep:
 
     * ``host_inputs(state)`` -> ``(u, scal)``: the step's SLU uniforms, fp32
       ``(m, n)`` (one row per microbatch, drawn with the keys the model
-      would draw with; ``None`` without SLU), and its float32 scalars
-      ``[swa weight, lr, ...]`` (the optimizer's, ``optim/api.py``), from
-      ``state.step`` and the host counters;
+      would draw with; ``None`` without SLU or without a gated block), and
+      its float32 scalars ``[swa weight, lr, ...]`` (the optimizer's,
+      ``optim/api.py``), from ``state.step`` and the host counters;
     * ``device_step(state, batch, u, scal)`` -> ``(metrics, slu_executed)``:
       the loss, gradients, optimizer update and SWA average on the
       device, in place; ``u`` and ``scal`` host arrays or tensors, the
@@ -134,6 +134,8 @@ class TrainStep:
             keys = [key] if self.m == 1 else \
                 [rng.fold_in(key, i) for i in range(self.m)]
             u = np.stack([self.task.slu_uniforms(self.exp, k) for k in keys])
+            if not u.size:      # no gated block (MobileNetV2): no draws
+                u = None
         w = 0.0
         if state.swa is not None:
             w, _ = swa_weight(state.swa["count"], state.step, self.swa_start)

@@ -148,10 +148,12 @@ def test_trainer_with_injected_smd_schedule_matches_jax_ledger():
     assert trainer.energy_report(steps=steps).to_dict() == want
 
 
-@pytest.mark.parametrize("depth", [8, 74, 110])
+@pytest.mark.parametrize("depth", [8, 74, 110, "mobilenetv2"])
 def test_cost_table_equals_jax(depth):
-    t = cnn_cost(cnn_model(f"resnet{depth}", depth))
-    j = jcnn_cost(jcnn_model(f"resnet{depth}", depth))
+    name, depth = (depth, 0) if depth == "mobilenetv2" else \
+        (f"resnet{depth}", depth)
+    t = cnn_cost(cnn_model(name, depth))
+    j = jcnn_cost(jcnn_model(name, depth))
     assert [dataclasses.astuple(l) for l in t.layers] == \
         [dataclasses.astuple(l) for l in j.layers]
     assert t.param_count() == j.param_count()
