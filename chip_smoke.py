@@ -135,7 +135,28 @@ Phases, each fatal on failure:
    per-step loop against the chunked loop (K=4, no IF node) bit for bit
    over 8 executed steps, one more chunk under
    ``set_sync_debug_mode("error")``; ``launch.train --cnn mobilenetv2`` and
-   ``launch.bench_cnn --fast --steps 8``.
+   ``launch.bench_cnn --fast --steps 8``;
+13. paper_benches: the paper's experiments through the driver's benches
+   (``launch/bench_run``), in this process, in fast mode at half the
+   reference's nominal steps (``PAPER_STEPS``): ``smd``, ``slu``,
+   ``psg``, ``e2train``, ``convergence`` and ``throughput``, each
+   with every launch counter zeroed before and read after (kernels 5-9
+   launched by the PSG benches on the bench LM, no kernel by the others);
+   the row names are the reference's (``PAPER_ROWS``), every derived field
+   parses, ``tab2/psg`` carries its measured fallback and ``tab3/*`` the
+   published savings; first kernels 5-9 against their plain versions on
+   the operands of one ``tab2/fixed8`` step (tau 0) and one ``tab2/psg``
+   step at the bench LM's 28 weight-matmul sites and 4 attention
+   backwards (``bench_lm_kernels_check``, its tolerances stated there);
+   then ``--full --json`` (ResNet-26, kernels 1-4 launched; the Table 3
+   sweep within ``TABLE3_REL`` of ``TABLE3_*``, the JAX package's values)
+   and ``--json-throughput`` into a temporary directory; then the CPU: a
+   CPU ``run_lm`` of every configuration that draws SMD drops and of the
+   energy record's run (worker processes) must execute the card's steps,
+   the SMD rows' ``energy_ratio`` follows, and ``tab2/sgd32``'s first 8
+   losses from the card's initial weights on the CPU are within
+   ``SGD32_REL`` of the card's; recorded: the device's idle share of a
+   profiled ``sgd32`` and ``psg`` step.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -2253,6 +2274,461 @@ def mobilenet_check(torch, mods):
         "seconds": time.perf_counter() - t_start, "card": card_line()}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's benchmarks (launch/bench_run and its benches)
+# ---------------------------------------------------------------------------
+
+# the JAX package's rows, in order (benchmarks/bench_*.py)
+PAPER_ROWS = {
+    "smd": ["fig3a/smb@1.00", "fig3a/smb@0.83", "fig3a/smb@0.67",
+            "fig3a/smd@1.00", "fig3a/smd@0.83", "fig3a/smd@0.67",
+            "fig3b/smb_lr0.1", "fig3b/smb_lr0.14", "fig3b/smb_lr0.2"],
+    "slu": ["fig4/slu_mild", "fig4/slu_strong", "fig4/sd_skip20",
+            "fig4/sd_skip40"],
+    "psg": ["tab2/sgd32", "tab2/fixed8", "tab2/signsgd", "tab2/psg"],
+    "e2train": ["tab3/e2train_skip20", "tab3/e2train_skip40",
+                "tab3/e2train_skip60"],
+    "convergence": ["fig5/smb", "fig5/slu", "fig5/slu_smd", "fig5/e2train"],
+    "throughput": ["throughput_resnet14_cifar",
+                   "throughput_resnet14_overhead_bound"],
+}
+PSG_BENCHES = ("psg", "e2train", "convergence")   # kernels 5-9, tiny LM
+# nominal steps of each bench in this phase: half the reference's fast-mode
+# budgets (smd 100, slu 100, psg 60, e2train 160, convergence 60), so that
+# the phase stays near 150 s where the host is slow (the bench LM is
+# host-bound: 138-243 s for the whole budgets); None: fast mode
+PAPER_STEPS = {"smd": 50, "slu": 50, "psg": 30, "e2train": 80,
+               "convergence": 30, "throughput": None}
+TAB3_PAPER = ["0.8027", "0.8520", "0.9013"]
+SGD32_STEPS = 8      # tab2/sgd32's first steps, card against CPU
+SGD32_REL = 1e-4     # fp32, TF32 off, no quantization: summation order only
+TABLE3_REL = 1e-12
+# the CPU's counts: one single-threaded worker a run (the bench LM's ops
+# are too small to gain from threads), the card's host cores all busy
+CPU_WORKERS, CPU_THREADS = 8, 1
+# ResNet-74's Table 3 reports from the config alone (bench_run.
+# table3_config_derived), the JAX package's values:
+# tests/test_torch_bench_paper.py holds these against its EnergyLedger
+TABLE3_COMMON = {
+    "model": "resnet74", "task": "cifar_cnn", "steps": 64000, "batch": 128,
+    "fwd_macs_per_example": 168919680.0, "params": 1147226,
+    "gated_fraction": 0.953682128689801,
+    "smd": {"name": "smd", "enabled": True, "assumed": 0.6666666666666666,
+            "measured": None},
+    "psg": {"name": "psg", "enabled": True, "assumed": 0.4, "measured": None},
+    "psg_factor_assumed": 0.09369565217391303, "psg_factor_measured": None,
+    "computational_savings_measured": None,
+    "energy_pj_baseline": 1.9799315793408004e+16, "energy_pj_measured": None,
+    "energy_savings_measured": None, "validated_against_hlo": None,
+    "straggler_dropped": 0}
+# skip: (computational_savings_assumed, paper_composition,
+#        energy_pj_assumed, energy_savings_assumed)
+TABLE3_POINTS = {
+    0.2: (0.9500289855072463, 0.8037333333333333, 1060737089202176.0,
+          0.9464255684251807),
+    0.4: (0.9625217391304348, 0.8528, 811478259525632.1, 0.9590148332400554),
+    0.6: (0.9750144927536232, 0.9018666666666667, 562219429849088.0,
+          0.9716040980549301)}
+
+
+def table3_pinned() -> list:
+    rows = []
+    for skip, (comp, paper, e_pj, e_save) in TABLE3_POINTS.items():
+        row = json.loads(json.dumps(TABLE3_COMMON))
+        row["slu"] = {"name": "slu", "enabled": True, "assumed": skip,
+                      "measured": None}
+        row.update(computational_savings_assumed=comp,
+                   paper_composition=paper, energy_pj_assumed=e_pj,
+                   energy_savings_assumed=e_save)
+        rows.append(row)
+    return rows
+
+
+def same_record(got, want, rel: float, where: str) -> None:
+    """``got`` equals ``want``: the same keys, floats within ``rel``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            fail(f"{where}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_record(got[k], want[k], rel, f"{where}.{k}")
+    elif isinstance(want, float):
+        if not isinstance(got, float) or abs(got - want) > rel * abs(want):
+            fail(f"{where}: {got!r} != {want!r} (rel {rel})")
+    elif got != want or type(got) is not type(want):
+        fail(f"{where}: {got!r} != {want!r}")
+
+
+def row_fields(row: str) -> dict:
+    """The parsed ``derived`` fields of one CSV row; fails unless every
+    field parses (floats, a curve of floats, a throughput speedup)."""
+    import re
+
+    name, us, derived = row.split(",", 2)
+    if not math.isfinite(float(us)) or float(us) <= 0:
+        fail(f"{name}: us_per_call {us}")
+    out = {}
+    for kv in derived.split(";"):
+        key, value = kv.split("=", 1)
+        if key == "curve":
+            out[key] = [float(v) for v in value.split("|")]
+        elif key == "speedup":
+            m = re.fullmatch(r"(\d+\.\d+)x_per_step=(\d+\.\d+)/s", value)
+            if m is None:
+                fail(f"{name}: speedup field {value!r}")
+            out[key], out["per_step"] = float(m[1]), float(m[2])
+        else:
+            out[key] = float(value)
+        values = out[key] if key == "curve" else [out[key]]
+        if not all(math.isfinite(v) for v in values):
+            fail(f"{name}: {key}={value}")
+    return out
+
+
+class RunRecorder:
+    """Wraps each bench module's ``run_lm``: what every run was (config,
+    steps, arguments) and did (executed and dropped steps, losses)."""
+
+    def __init__(self, mods):
+        self.mods, self.runs, self._saved = mods, [], {}
+
+    def __enter__(self):
+        for mod in self.mods:
+            self._saved[mod] = mod.run_lm
+            mod.run_lm = self._wrap(mod.__name__.rsplit(".", 1)[1],
+                                    mod.run_lm)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._saved.items():
+            mod.run_lm = fn
+
+    def _wrap(self, bench, run_lm):
+        def recorded(e2, steps, **kw):
+            hist, tr, wall = run_lm(e2, steps, **kw)
+            self.runs.append({
+                "bench": bench, "e2": e2, "steps": steps, "kw": kw,
+                "executed": tr.executed_steps, "dropped": tr.dropped_steps,
+                "losses": [h["loss"] for h in hist], "wall_s": wall})
+            return hist, tr, wall
+        return recorded
+
+
+def cpu_executed(e2, steps, kw):
+    """``(executed, dropped)`` of a CPU ``run_lm`` of the same configuration
+    (a worker process's job)."""
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    from repro_torch.launch.bench_common import run_lm
+    _, tr, _ = run_lm(e2, steps, **{**kw, "device": "cpu"})
+    return tr.executed_steps, tr.dropped_steps
+
+
+def cpu_energy_record(fast: bool):
+    """The energy record's measured run on the CPU (a worker's job)."""
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    from repro_torch.launch.bench_run import energy_json
+    return energy_json(fast, "cpu")["measured_run"]
+
+
+def bench_lm_kernels_check(torch, PM, FA, dev):
+    """Kernels 5-9 at the bench LM's own shapes, on the operands one
+    executed step of ``tab2/fixed8`` (beta 0) and one of ``tab2/psg`` (beta
+    0.05) gave the dispatch layer: 28 PSG weight-matmul sites a step (N =
+    512 tokens, din/dout 32-128, one padded 128x128 flag tile each) and 4
+    attention backwards (fp32, 4 q heads on 2 kv heads, head_dim 16, seq
+    32: the CUDA-core kernels, one padded kv block).  Tolerances:
+    kernel 5 bit for bit; kernel 6 signs and flags bit for bit, at tau 0
+    every element confident (no flag) and sign 0 where pred is 0; kernel 7
+    o within ``FP32_REL`` of max|o|, lse within 1e-5; kernel 8 dq within
+    ``FP32_REL`` of max|dq| (on the plain version's lse); kernel 9 at most
+    ``DKV_MISMATCH`` of each product's elements differing, by at most
+    ``DKV_REL`` of its max|ref| (as phase 4; here one flipped P or dS code
+    moves head_dim = 16 of a product's 16,384 elements, so the limit admits
+    one flip a product).  Checked, not counted."""
+    from repro_torch.core.config import E2TrainConfig, PSGConfig
+    from repro_torch.core.quant import codes
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import bench_common, bench_psg
+
+    out = {}
+    for run, e2, opt in (
+            ("fixed8", bench_psg.FIXED8, "signsgd"),
+            ("psg", E2TrainConfig(psg=PSGConfig(enabled=True)), "psg")):
+        matmuls, attns = [], []
+        grad_w, attn_bwd = dispatch.psg_grad_w, dispatch.attention_bwd
+
+        def capture_w(x2, gy2, cfg):
+            matmuls.append((x2.detach().float().clone(),
+                            gy2.detach().float().clone(), cfg))
+            return grad_w(x2, gy2, cfg)
+
+        def capture_attn(q, k, v, o, lse, do, cfg, *, causal=True):
+            attns.append(([t.detach().clone() for t in (q, k, v, do)],
+                          cfg, causal))
+            return attn_bwd(q, k, v, o, lse, do, cfg, causal=causal)
+
+        dispatch.psg_grad_w, dispatch.attention_bwd = capture_w, capture_attn
+        try:
+            bench_common.run_lm(e2, 1, lr=0.03, optimizer=opt, device=dev)
+        finally:
+            dispatch.psg_grad_w, dispatch.attention_bwd = grad_w, attn_bwd
+        if len(matmuls) != 7 * 4:      # q, k, v, o, up, gate, down x 4
+            fail(f"{run}: {len(matmuls)} PSG matmul sites in a bench LM "
+                 "step, not 28")
+        if len(attns) != 4:
+            fail(f"{run}: {len(attns)} attention backwards, not 4")
+        geometries, zero_pred, flagged = {}, 0, 0
+        for x2, gy2, cfg in matmuls:
+            xm, xq = codes(x2, cfg.bits_x_msb)[0], codes(x2, cfg.bits_x)[0]
+            gm, gq = codes(gy2, cfg.bits_g_msb)[0], codes(gy2, cfg.bits_g)[0]
+            xm, gm, xq, gq = (t.contiguous() for t in (xm, gm, xq, gq))
+            geo = (x2.shape[0], x2.shape[1], gy2.shape[1])
+            pred = PM.predictor_matmul(xm, gm)
+            if not torch.equal(pred, PM.predictor_matmul_plain(xm, gm)):
+                fail(f"predictor_matmul at {geo} ({run}): not identical")
+            tau = cfg.beta * pred.float().abs().amax()
+            sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
+            psign, pstats = PM.psg_grad_w_plain(pred, xq, gq, tau)
+            if not (torch.equal(sign, psign) and torch.equal(stats, pstats)):
+                fail(f"psg_grad_w at {geo} ({run}): not identical")
+            if cfg.beta == 0.0:
+                zeros = pred == 0
+                if float(tau) != 0.0 or int(stats.abs().sum()) != 0:
+                    fail(f"psg_grad_w at tau {float(tau)} at {geo}: "
+                         "a tile fell back")
+                if not torch.equal(sign[zeros],
+                                   torch.zeros_like(sign[zeros])):
+                    fail(f"psg_grad_w at tau 0 at {geo}: nonzero sign at "
+                         "pred 0")
+                zero_pred += int(zeros.sum())
+            flagged += int((stats != 0).any())
+            geometries[str(geo)] = geometries.get(str(geo), 0) + 1
+        attn_rows = []
+        for (q, k, v, do), cfg, causal in attns:
+            geo = [*q.shape[:3], k.shape[2], q.shape[3], str(q.dtype),
+                   causal]
+            o, lse = FA.flash_fwd(q, k, v, causal=causal)
+            o_p, lse_p = FA.flash_attention_plain(q, k, v, causal=causal)
+            err_o = float((o.float() - o_p.float()).abs().max())
+            err_l = float((lse - lse_p).abs().max())
+            if not (err_o <= FP32_REL * float(o_p.float().abs().max())
+                    and err_l <= 1e-5):
+                fail(f"flash_fwd at {geo} ({run}): o err {err_o}, lse err "
+                     f"{err_l}")
+            delta = torch.einsum("bsnh,bsnh->bns", do.float(),
+                                 o_p.float()).contiguous()
+            dq = FA.flash_bwd_dq(q, k, v, do, lse_p, delta, causal=causal)
+            dq_p = FA.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                         causal=causal)
+            err_dq = float((dq - dq_p).abs().max())
+            if not err_dq <= FP32_REL * float(dq_p.abs().max()):
+                fail(f"flash_bwd_dq at {geo} ({run}): max abs err {err_dq}")
+            scales = FA.attention_psg_scales(
+                q, v, do, delta, bits_x=cfg.bits_x, bits_x_msb=cfg.bits_x_msb,
+                bits_g=cfg.bits_g, bits_g_msb=cfg.bits_g_msb)
+            lims = tuple(FA.qlim(b) for b in (cfg.bits_x, cfg.bits_x_msb,
+                                              cfg.bits_g, cfg.bits_g_msb))
+            got = FA.flash_bwd_dkv(q, k, v, do, lse_p, delta, scales,
+                                   lims=lims, causal=causal)
+            want = FA.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scales,
+                                          lims=lims, causal=causal)
+            shares = []
+            for pname, g_, w_ in zip(("dv_msb", "dv_full", "dk_msb",
+                                      "dk_full"), got, want):
+                diff = (g_ - w_).abs().double()
+                share, top = float((diff > 0).double().mean()), \
+                    float(diff.max())
+                if share > DKV_MISMATCH or top > DKV_REL * float(
+                        w_.abs().max()):
+                    fail(f"flash_bwd_dkv {pname} at {geo} ({run}): {share} "
+                         f"of elements differ, by up to {top}")
+                shares.append(share)
+            attn_rows.append({"geometry": geo, "o_err": err_o,
+                              "lse_err": err_l, "dq_err": err_dq,
+                              "dkv_mismatch_shares": shares})
+        out[run] = {"psg_sites": len(matmuls), "geometries": geometries,
+                    "tiles_per_site": 1, "sites_flagged": flagged,
+                    "zero_pred_elements": zero_pred, "attention": attn_rows}
+    return out
+
+
+def paper_benches_check(torch, mods, dev="cuda", steps=None):
+    """Phase 13: the paper's benchmarks through the driver's benches, in
+    this process, in fast mode; ``steps`` ({bench: nominal steps}, e.g.
+    :data:`PAPER_STEPS`) cuts a bench's steps (None: the reference's
+    budget)."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core.config import E2TrainConfig, PSGConfig
+    from repro_torch.kernels import conv as K
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch import (bench_common, bench_convergence,
+                                    bench_e2train, bench_psg, bench_run,
+                                    bench_slu, bench_smd)
+    from repro_torch.tasks import get_task
+
+    t_start = time.perf_counter()
+    lm_check = bench_lm_kernels_check(torch, PM, FA, dev)
+    print(json.dumps({"phase": "paper_benches_kernels", **lm_check}),
+          flush=True)
+    lm_kernels = list(PM.LAUNCHES) + list(FA.LAUNCHES)
+    benches = {}
+    with RunRecorder([bench_smd, bench_slu, bench_psg, bench_e2train,
+                      bench_convergence]) as rec:
+        for name, want in PAPER_ROWS.items():
+            reset_all(mods)
+            t0 = time.perf_counter()
+            rows = bench_run.BENCHES[name](fast=True, device=dev,
+                                           steps=(steps or {}).get(name))
+            bench_common.sync(torch.device(dev))
+            wall = time.perf_counter() - t0
+            launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+            for row in rows:
+                print(row, flush=True)
+            print(json.dumps({"phase": f"paper_bench_{name}", "wall_s": wall,
+                              "launches": launches}), flush=True)
+            if [r.split(",", 1)[0] for r in rows] != want:
+                fail(f"bench {name} rows {rows}, not the reference's {want}")
+            for kernel, count in launches.items():
+                if name in PSG_BENCHES and kernel in lm_kernels:
+                    if dev == "cuda" and count <= 0:
+                        fail(f"kernel {kernel} was not launched by {name}")
+                elif count != 0:
+                    fail(f"kernel {kernel} launched {count} times by {name}")
+            benches[name] = {"rows": rows, "wall_s": wall,
+                             "launches": launches,
+                             "fields": [row_fields(r) for r in rows]}
+    profiles = {}
+    if dev == "cuda":     # the idle share of an executed step of each family
+        for fam, e2, kw in (
+                ("sgd32", E2TrainConfig(), {}),
+                ("psg", E2TrainConfig(psg=PSGConfig(True)),
+                 dict(lr=0.03, optimizer="psg"))):
+            _, tr, _ = bench_common.run_lm(e2, 2, device=dev, **kw)
+            profiles[fam] = profile_step(torch, tr)
+            del tr
+        print(json.dumps({"phase": "paper_benches_profile", **profiles}),
+              flush=True)
+    psg_fields = benches["psg"]["fields"][3]
+    if not {"measured_fallback", "energy_saving_measured"} <= set(psg_fields):
+        fail(f"tab2/psg: {benches['psg']['rows'][3]}")
+    if benches["psg"]["fields"][1].get("energy_saving") != \
+            round(bench_psg.FIXED8_SAVING, 3):
+        fail(f"tab2/fixed8: {benches['psg']['rows'][1]}")
+    if [r.rsplit("paper=", 1)[1] for r in benches["e2train"]["rows"]] != \
+            TAB3_PAPER:
+        fail(f"tab3 rows: {benches['e2train']['rows']}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all(mods)
+        t0 = time.perf_counter()
+        if bench_run.main(["--full", "--json", f"{tmp}/energy.json",
+                           "--device", dev]) != 0:
+            fail("bench_run --full --json did not exit 0")
+        energy_wall = time.perf_counter() - t0
+        energy_launches = {n: c for mod in mods
+                           for n, c in mod.LAUNCHES.items()}
+        t0 = time.perf_counter()
+        if bench_run.main(["--json-throughput", f"{tmp}/throughput.json",
+                           "--device", dev]) != 0:
+            fail("bench_run --json-throughput did not exit 0")
+        throughput_wall = time.perf_counter() - t0
+        energy = json.loads(Path(f"{tmp}/energy.json").read_text())
+        throughput = json.loads(Path(f"{tmp}/throughput.json").read_text())
+    for kernel in K.LAUNCHES:
+        if dev == "cuda" and energy_launches[kernel] <= 0:
+            fail(f"kernel {kernel} was not launched by the energy record")
+    for i, (got, want) in enumerate(zip(energy["table3_config_derived"],
+                                        table3_pinned())):
+        same_record(got, want, TABLE3_REL, f"table3_config_derived[{i}]")
+    measured = energy["measured_run"]
+    if (measured["model"], measured["steps"], measured["batch"],
+            measured["validated_against_hlo"]) != ("resnet26", 40, 8, None):
+        fail(f"measured_run {measured}")
+    for name, rec_t in throughput.items():
+        if not all(rec_t[k] > 0 for k in ("per_step_steps_per_s",
+                                          "chunked_steps_per_s")):
+            fail(f"throughput record {name}: {rec_t}")
+    print(json.dumps({"phase": "paper_benches_records",
+                      "energy_wall_s": energy_wall,
+                      "throughput_wall_s": throughput_wall,
+                      "energy_launches": energy_launches,
+                      "measured_run": measured, "throughput": throughput}),
+          flush=True)
+
+    # the CPU's counts: a CPU run_lm of every configuration that draws SMD
+    # drops (with SMD off every step executes, with no draw), and the
+    # energy record's measured run; tab2/sgd32's first steps here
+    t0 = time.perf_counter()
+    for run in rec.runs:
+        if not run["e2"].smd.enabled and (run["executed"], run["dropped"]) \
+                != (run["steps"], 0):
+            fail(f"{run['bench']}: SMD off but {run['executed']} of "
+                 f"{run['steps']} steps executed")
+    # the PSG runs, the longest on the CPU, first
+    smd_runs = sorted((r for r in rec.runs if r["e2"].smd.enabled),
+                      key=lambda r: not r["e2"].psg.enabled)
+    with ProcessPoolExecutor(
+            CPU_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        energy_cpu = pool.submit(cpu_energy_record, False)
+        jobs = [pool.submit(cpu_executed, r["e2"], r["steps"], r["kw"])
+                for r in smd_runs]
+        tab2 = [r for r in rec.runs if r["bench"] == "bench_psg"]
+        sgd32 = tab2[0]
+        exp = bench_common.lm_experiment(E2TrainConfig(), sgd32["steps"])
+        cpu_hist, _, _ = bench_common.run_lm(
+            E2TrainConfig(), SGD32_STEPS, total_steps=sgd32["steps"],
+            device="cpu", init=get_task("lm").init(exp, 0, dev).cpu())
+        counts = [job.result() for job in jobs]
+        energy_cpu = energy_cpu.result()
+    card_losses = sgd32["losses"][:SGD32_STEPS]
+    cpu_losses = [h["loss"] for h in cpu_hist]
+    sgd32_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                          cpu_losses))
+    if len(card_losses) != SGD32_STEPS or sgd32_rel > SGD32_REL:
+        fail(f"tab2/sgd32 card losses {card_losses} against the CPU's "
+             f"{cpu_losses}: {sgd32_rel} relative > {SGD32_REL}")
+    for run, (executed, dropped) in zip(smd_runs, counts):
+        if (run["executed"], run["dropped"]) != (executed, dropped):
+            fail(f"{run['bench']} {run['e2']} over {run['steps']} steps: "
+                 f"{run['executed']} executed on the card, {executed} on "
+                 "the CPU")
+    smd_rows = zip(benches["smd"]["fields"][3:6],
+                   [r for r in smd_runs if r["bench"] == "bench_smd"])
+    base = (steps or {}).get("smd") or 100    # bench_smd's base budget
+    for fields, run in smd_rows:
+        if fields["energy_ratio"] != round(run["executed"] / base, 2):
+            fail(f"SMD row energy_ratio {fields['energy_ratio']} != "
+                 f"{run['executed']} / {base}")
+    if energy_cpu["smd"] != measured["smd"]:
+        fail(f"energy record SMD {measured['smd']} on the card, "
+             f"{energy_cpu['smd']} on the CPU")
+    cpu_s = time.perf_counter() - t0
+    out = {"kernels_at_bench_shapes": lm_check, "profiles": profiles,
+           "benches": {n: {k: v for k, v in b.items() if k != "fields"}
+                       for n, b in benches.items()},
+           "runs": [{k: (str(v) if k in ("e2", "kw") else v)
+                     for k, v in r.items() if k != "losses"}
+                    for r in rec.runs],
+           "sgd32": {"card": card_losses, "cpu": cpu_losses,
+                     "max_rel": sgd32_rel, "limit": SGD32_REL},
+           "smd_runs_on_cpu": len(smd_runs), "cpu_check_s": cpu_s,
+           "energy_wall_s": energy_wall, "throughput_wall_s": throughput_wall,
+           "energy_launches": energy_launches, "measured_run": measured,
+           "throughput": throughput,
+           "seconds": time.perf_counter() - t_start}
+    print(json.dumps({"phase": "paper_benches",
+                      "wall_s": {n: b["wall_s"] for n, b in benches.items()},
+                      "cpu_check_s": cpu_s, "sgd32_max_rel": sgd32_rel,
+                      "seconds": out["seconds"]}), flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2392,6 +2868,7 @@ def main() -> None:
                                              if k != "slu_decide"}}),
           flush=True)
     mbv2_geometries, mbv2 = mobilenet_check(torch, mods + (GC,))
+    paper = paper_benches_check(torch, mods + (GC,), steps=PAPER_STEPS)
 
     kernels = []
     for name in REPLACES:
@@ -2438,7 +2915,7 @@ def main() -> None:
          "lm_microbatch_launches": lm_mb_launches,
          "microbatch_reference": mb_ref, "resume": resume,
          "chunked": chunked, "mobilenetv2_geometries": mbv2_geometries,
-         "mobilenetv2": mbv2, "kernels": kernels,
+         "mobilenetv2": mbv2, "paper_benches": paper, "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},

@@ -205,6 +205,18 @@ class E2TrainConfig:
     slu: SLUConfig = field(default_factory=SLUConfig)
     psg: PSGConfig = field(default_factory=PSGConfig)
 
+    @classmethod
+    def full(cls) -> "E2TrainConfig":
+        return cls(
+            smd=SMDConfig(enabled=True),
+            slu=SLUConfig(enabled=True),
+            psg=PSGConfig(enabled=True),
+        )
+
+    @classmethod
+    def off(cls) -> "E2TrainConfig":
+        return cls()
+
 
 @dataclass(frozen=True)
 class TrainConfig:

@@ -89,6 +89,10 @@ class EnergyReport:
     energy_pj_measured: Optional[float]
     energy_savings_assumed: float
     energy_savings_measured: Optional[float]
+    # cost-table verdict of the static cost audit, in the JAX package's
+    # position: always None here (no audit was run; None is not False),
+    # since the audit is not ported
+    validated_against_hlo: Optional[bool] = None
     # straggler telemetry: steps force-dropped
     # because they exceeded the per-step deadline.  A subset of the SMD
     # dropped count (the measured smd ratio already reflects them); carried
@@ -124,6 +128,9 @@ class EnergyReport:
             f"  45nm energy savings:   assumed {fmt(self.energy_savings_assumed, True)}"
             f" | measured {fmt(self.energy_savings_measured, True)}"
             f" (baseline {self.energy_pj_baseline:.3e} pJ)",
+            f"  cost table validated vs jaxpr/HLO: "
+            + ("—" if self.validated_against_hlo is None
+               else "yes" if self.validated_against_hlo else "NO"),
         ]
         return "\n".join(lines)
 
@@ -200,9 +207,17 @@ class EnergyLedger:
 
     # ----- the report -----
 
-    def report(self, steps: Optional[int] = None) -> EnergyReport:
+    def report(self, steps: Optional[int] = None,
+               validate_against_hlo: bool = False) -> EnergyReport:
         """Build the report over ``steps`` nominal steps (default: the
-        config's ``total_steps``)."""
+        config's ``total_steps``).  ``validate_against_hlo=True`` asks for
+        the JAX package's static cost audit, which is not ported: it
+        raises ``NotImplementedError``."""
+        if validate_against_hlo:
+            raise NotImplementedError(
+                "validate_against_hlo: the static cost audit (the JAX "
+                "package's analysis/audit.py) is not ported; it waits for "
+                "the analysis port (ROADMAP queue 1, item 8)")
         exp, cost = self.exp, self.cost
         e2, tc = exp.e2, exp.train
         steps = steps if steps is not None else tc.total_steps

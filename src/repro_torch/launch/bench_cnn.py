@@ -40,7 +40,7 @@ from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
                                      SLUConfig, SMDConfig, TrainConfig)
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
-from repro_torch.launch.bench_common import csv_row, energy_fields
+from repro_torch.launch.bench_common import csv_row, energy_fields, sync
 from repro_torch.launch.train import _fp32_is_fp32
 from repro_torch.models.resnet import MobileNetV2
 from repro_torch.training import evaluate
@@ -50,11 +50,6 @@ from repro_torch.training.trainer import Trainer
 TASK = GaussianImageTask(num_classes=10, snr=2.0)
 BATCH = 16
 PAPER_SAVING = 0.8027       # Tab. 3/4: SMD + SLU at 20% skip + PSG
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def _cnn_experiment(depth: int, e2: E2TrainConfig, steps: int, *,
@@ -75,10 +70,10 @@ def _train_resnet(depth: int, e2: E2TrainConfig, steps: int,
     trainer = Trainer(exp, init_train_state(exp, seed=0, device=dev),
                       lambda s, sh: make_image_batch(TASK, 0, s, sh, BATCH,
                                                      dev), device=dev)
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     trainer.run(steps)
-    _sync(dev)
+    sync(dev)
     wall = time.perf_counter() - t0
     # eval mode with the BatchNorm statistics of the run
     acc = evaluate.accuracy(exp, eval_params(trainer.state, exp), dev)
@@ -91,10 +86,10 @@ def _mobilenet_fwd(dev: torch.device):
     image = make_image_batch(TASK, 0, 0, 0, 8, dev)["image"]
     with torch.no_grad():
         model(image)                     # warm-up
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         logits, _ = model(image)
-        _sync(dev)
+        sync(dev)
     return (time.perf_counter() - t0) * 1e6, logits
 
 

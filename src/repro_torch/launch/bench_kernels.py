@@ -29,8 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -39,39 +38,10 @@ from repro_torch.core.config import PSGConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.energy import FP32_MAC_PJ, mac_energy_pj
 from repro_torch.kernels import dispatch, ref
-from repro_torch.launch.bench_common import csv_row
+from repro_torch.launch.bench_common import csv_row, one_per_kind, time_us
 
 FP32, BF16 = 4, 2
 BQ = BK = 128          # the TPU flash kernels' tiles (the JAX package's model)
-
-
-def one_per_kind(shapes):
-    """The first ConvShape of each ``kind``: body, stride-2 transition and
-    1x1 downsample."""
-    by_kind = {}
-    for s in shapes:
-        by_kind.setdefault(s.kind, s)
-    return list(by_kind.values())
-
-
-def time_us(fn: Callable, *args, reps: int = 3):
-    """``(microseconds per call, last result)``; the first call is a
-    warm-up and is not timed."""
-    out = fn(*args)
-    dev = next((a.device for a in args if torch.is_tensor(a)), None)
-    if dev is not None and dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn(*args)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) * 1e3 / reps, out
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fn(*args)
-    return (time.perf_counter() - t0) * 1e6 / reps, out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,178 @@
+"""The benchmark driver: one module per paper table or figure (the JAX
+package's ``benchmarks/run.py``).
+
+    python -m repro_torch.launch.bench_run [--full] [--only a,b] [--device cpu]
+    python -m repro_torch.launch.bench_run --json PATH [--json-throughput PATH]
+
+Prints ``name,us_per_call,derived`` CSV.  ``--full`` runs the longer
+budgets.  ``--only`` takes the benches with a port: ``smd`` (Fig. 3, Tab.
+1), ``slu`` (Fig. 4), ``psg`` (Tab. 2), ``e2train`` (Tab. 3), ``cnn`` (Tab.
+4), ``convergence`` (Fig. 5), ``kernels`` and ``throughput``; the JAX
+package's ``conv``, ``attn``, ``roofline``, ``audit`` and ``ft`` are not
+ported and are refused with exit code 2 and what they wait for.
+
+A bench that raises prints ``name,0.0,ERROR:<type>:<message>`` (its
+traceback on stderr); the driver carries on with the others and exits 1 at
+the end.
+
+``--json PATH`` writes the energy record instead: the config-derived Table
+3 sweep (ResNet-74 at SLU skip 0.2 / 0.4 / 0.6, no training) and a measured
+E2-Train run (ResNet-14 at width 16 and batch 8, or ResNet-26 over 40 steps
+with ``--full``), every field from ``EnergyReport.to_dict()``;
+``validated_against_hlo`` is null (no cost audit ran).  ``--json-throughput
+PATH`` writes the chunked loop's throughput record
+(``bench_throughput.throughput_json``).  Either writes only to the path it
+is given.
+
+Runs on the card unless ``--device cpu`` is given; the kernels build at the
+first call that needs them, inside the first bench that runs them (build
+them first, as ``chip_smoke.py`` does, to keep the build out of the rows).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import traceback
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.configs.paper_cnns import cnn_model, resnet74
+from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
+                                     SLUConfig, SMDConfig, TrainConfig)
+from repro_torch.core.device import resolve_device
+from repro_torch.core.ledger import EnergyLedger
+from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
+from repro_torch.launch import (bench_cnn, bench_convergence, bench_e2train,
+                                bench_kernels, bench_psg, bench_slu,
+                                bench_smd, bench_throughput)
+from repro_torch.launch.train import _fp32_is_fp32
+from repro_torch.training.train_step import init_train_state
+from repro_torch.training.trainer import Trainer
+
+BENCHES = {
+    "smd": bench_smd.run,                   # Fig. 3a/3b, Tab. 1
+    "slu": bench_slu.run,                   # Fig. 4
+    "psg": bench_psg.run,                   # Tab. 2
+    "e2train": bench_e2train.run,           # Tab. 3
+    "cnn": bench_cnn.run,                   # Tab. 4
+    "convergence": bench_convergence.run,   # Fig. 5
+    "kernels": bench_kernels.run,
+    "throughput": bench_throughput.run,     # the chunked loop
+}
+# the JAX package's benches with no port yet, and what each waits for
+_BYTES = ("a decision on what the card's byte count counts (the CUDA "
+          "kernels' own tiles or the TPU kernels' BlockSpec model)")
+_ANALYSIS = "the port of launch/dryrun and analysis/"
+NOT_PORTED = {"conv": _BYTES, "attn": _BYTES, "roofline": _ANALYSIS,
+              "audit": _ANALYSIS,
+              "ft": "the llama3_8b config, which it trains"}
+
+
+def table3_config_derived() -> list:
+    """ResNet-74's energy reports at the paper's three operating points
+    (SLU skip 0.2 / 0.4 / 0.6), from the config alone: every measured
+    column is null (absent, not 0)."""
+    table3 = []
+    for skip in (0.2, 0.4, 0.6):
+        op = E2TrainConfig(smd=SMDConfig(enabled=True, drop_prob=0.5),
+                           slu=SLUConfig(enabled=True, target_skip=skip),
+                           psg=PSGConfig(enabled=True))
+        table3.append(EnergyLedger(resnet74(e2=op)).report().to_dict())
+    return table3
+
+
+def energy_json(fast: bool = True, device=None) -> dict:
+    """The energy record: the Table 3 sweep derived from the config, and a
+    short measured E2-Train run on the paper's ResNet through the
+    trainer's ``energy_report``."""
+    dev = resolve_device(device)
+    _fp32_is_fp32()
+    table3 = table3_config_derived()
+    depth, steps = (14, 12) if fast else (26, 40)
+    e2 = E2TrainConfig(smd=SMDConfig(enabled=True, drop_prob=0.5),
+                       slu=SLUConfig(enabled=True, alpha=5e-3,
+                                     target_skip=0.2),
+                       psg=PSGConfig(enabled=True, swa=False))
+    exp = Experiment(model=cnn_model(f"resnet{depth}", depth), e2=e2,
+                     train=TrainConfig(global_batch=8, lr=0.03,
+                                       optimizer="psg", total_steps=steps,
+                                       schedule="constant"),
+                     task="cifar_cnn")
+    task = GaussianImageTask(num_classes=10, snr=2.0)
+    tr = Trainer(exp, init_train_state(exp, seed=0, device=dev),
+                 lambda s, sh: make_image_batch(task, 0, s, sh, 8, dev),
+                 device=dev)
+    tr.run(steps)
+    return {"table3_config_derived": table3,
+            "measured_run": tr.energy_report(steps=steps).to_dict()}
+
+
+def _write(path: str, record: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(record, f, indent=2)
+    print(f"wrote {path}", file=sys.stderr)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated bench names: "
+                         + ",".join(BENCHES))
+    ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                    help="default: cuda (raises without a card)")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="write the energy record to PATH (skips the CSV "
+                         "benches)")
+    ap.add_argument("--json-throughput", default=None, metavar="PATH",
+                    help="write the chunked loop's throughput record to "
+                         "PATH (skips the CSV benches)")
+    args = ap.parse_args(argv)
+    fast = not args.full
+    only = args.only.split(",") if args.only else list(BENCHES)
+    for name in only:
+        if name in NOT_PORTED:
+            print(f"bench {name!r} is not ported: it waits for "
+                  f"{NOT_PORTED[name]}", file=sys.stderr)
+            return 2
+        if name not in BENCHES:
+            print(f"unknown bench {name!r}; expected one of "
+                  f"{', '.join(BENCHES)}", file=sys.stderr)
+            return 2
+    dev = resolve_device(args.device)
+
+    if args.json or args.json_throughput:
+        if args.json:
+            _write(args.json, energy_json(fast, dev))
+        if args.json_throughput:
+            _write(args.json_throughput,
+                   bench_throughput.throughput_json(fast, dev))
+        return 0
+
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"# benchmarks on {where}", file=sys.stderr)
+    print("name,us_per_call,derived", flush=True)
+    failed = []
+    for name, fn in BENCHES.items():
+        if name not in only:
+            continue
+        t0 = time.time()
+        try:
+            for row in fn(fast=fast, device=dev):
+                print(row, flush=True)
+        except Exception as e:  # a bench's failure is a row, then exit 1
+            traceback.print_exc()
+            print(f"{name},0.0,ERROR:{type(e).__name__}:{e}", flush=True)
+            failed.append(name)
+        print(f"# {name} done in {time.time() - t0:.1f}s", file=sys.stderr)
+    if failed:
+        print(f"failed: {', '.join(failed)}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

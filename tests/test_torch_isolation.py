@@ -26,7 +26,7 @@ def _imported_roots(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, roots
 
 
 def test_every_port_module_imports_without_a_card():
