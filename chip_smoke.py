@@ -156,7 +156,21 @@ Phases, each fatal on failure:
    the SMD rows' ``energy_ratio`` follows, and ``tab2/sgd32``'s first 8
    losses from the card's initial weights on the CPU are within
    ``SGD32_REL`` of the card's; recorded: the device's idle share of a
-   profiled ``sgd32`` and ``psg`` step.
+   profiled ``sgd32`` and ``psg`` step;
+14. dense_archs: llama3-8b (2 x 4096, flash), starcoder2-15b (4 x 4096 in
+   its config's 4 microbatches, 48 heads on 4 kv heads, flash) and
+   h2o-danube-3-4b (1 x 16384, a 4096-token sliding window, query-chunked
+   softmax, kernels 7-9 absent) at their published widths, 4 layers,
+   ``--e2train full``, ``remat="block"`` (``dense_archs_check``): kernels
+   5-6 at each one's weight-matmul geometries (dout 960 among them) and
+   7-9 at its attention geometry against their plain versions, timed, not
+   counted in the ``kernels`` line (kernel 9 also bit for bit on integer
+   inputs at g = 12); a reduced step on the card against the CPU (the
+   windowed model also query-chunked at 8,492 tokens); each main path as
+   in 7, its launches checked against its executed sub-blocks; then the
+   fault-injection record (``launch/bench_ft``) on the card, every fault
+   recovered and the llama3-8b kill-and-restart bit for bit across
+   processes.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -547,25 +561,27 @@ def time_cases(torch, cases, row, tot):
         t["ops_s"] += m * ops / peak
 
 
-def lm_matmul_sites(d, heads, kv_heads, head_dim, d_ff, layers):
-    """{(din, dout): PSG weight-matmul sites per step} of a dense qwen-style
-    stack: q and o (d x d), k and v (d x kv), up and gate (d x d_ff),
-    down (d_ff x d), per layer."""
+def lm_matmul_sites(d, heads, kv_heads, head_dim, d_ff, layers, glu=True):
+    """{(din, dout): PSG weight-matmul sites per step} of a dense decoder
+    stack: q and o (d x d), k and v (d x kv), up (d x d_ff), with ``glu``
+    also gate (d x d_ff), and down (d_ff x d), per layer."""
     kv = kv_heads * head_dim
     sites = {}
     for geo in [(d, heads * head_dim), (heads * head_dim, d), (d, kv),
-                (d, kv), (d, d_ff), (d, d_ff), (d_ff, d)]:
+                (d, kv), (d, d_ff)] + [(d, d_ff)] * glu + [(d_ff, d)]:
         sites[geo] = sites.get(geo, 0) + layers
     return sites
 
 
-def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
+def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col,
+                             path="qwen", worst_cases=True):
     """Phase 3: kernels 5 and 6 against their plain versions at each weight
-    matmul geometry, timed; the padded geometry and the ResNet-74 im2col
-    ones (``im2col``: {(N, din, dout): sites per step}) are checked and
-    timed, not counted (the im2col step's sums go to ``im2col_totals``);
-    then kernels 5 and 6 alone at the worst-case magnitude
-    (``worst_case_check``, ``sign_worst_case_check``)."""
+    matmul geometry of ``path``, timed; the padded geometry (if any) and
+    the ResNet-74 im2col ones (``im2col``: {(N, din, dout): sites per
+    step}) are checked and timed, not counted (the im2col step's sums go
+    to ``im2col_totals``); then, with ``worst_cases``, kernels 5 and 6
+    alone at the worst-case magnitude (``worst_case_check``,
+    ``sign_worst_case_check``)."""
     from repro_torch.core.quant import codes
 
     tot = {n: _zero_total() for n in ("predictor_matmul", "psg_grad_w")}
@@ -573,7 +589,8 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
     details = []
     g = torch.Generator(device="cuda").manual_seed(1)
     geos = [((n_tokens, din, dout), m, tot) for (din, dout), m in sites.items()]
-    geos.append(((n_tokens, *padded), 0, tot))
+    if padded:
+        geos.append(((n_tokens, *padded), 0, tot))
     geos += [(geo, m, im2col_tot) for geo, m in im2col.items()]
     for (N, din, dout), m, into in geos:
         x = torch.randn(N, din, device="cuda", generator=g)
@@ -582,7 +599,7 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
         xq, gq = codes(x, 8)[0], codes(gy, 16)[0]
         del x, gy
         row = {"geometry": [N, din, dout], "sites_per_step": m,
-               "path": "im2col" if into is im2col_tot else "qwen"}
+               "path": "im2col" if into is im2col_tot else path}
         pred = PM.predictor_matmul(xm, gm)
         if not torch.equal(pred, PM.predictor_matmul_plain(xm, gm)):
             fail(f"predictor_matmul at {row['geometry']}: not identical")
@@ -611,6 +628,8 @@ def check_psg_matmul_kernels(torch, PM, sites, padded, n_tokens, im2col):
         details.append(row)
         del xm_f, gm_f
         torch.cuda.synchronize()
+    if not worst_cases:
+        return tot, details, im2col_tot
     details.append(worst_case_check(torch, PM))
     details.append(sign_worst_case_check(torch, PM))
     details.append(conv_sign_worst_case_check(torch))
@@ -740,27 +759,37 @@ def bf16_one_ulp(torch, a, ref) -> bool:
     return bf16_ulp_ratio(torch, a, ref) <= 1.0
 
 
-def flash_geometries(m):
+def attention_geometry(name, m, batch, seq, layers, passes=1):
     """(name, B, S, nh, nkv, hd, dtype, causal, sites per step of kernels
-    7, 8, 9): the qwen2.5-3b attention of the flash main path (kernel 7 runs
-    twice per layer under remat="block"), then a padded MHA geometry and a
-    non-causal one, checked and not counted."""
-    return [("qwen", LM_BATCH, LM_SEQ, m.num_heads, m.num_kv_heads,
-             m.resolved_head_dim, "bfloat16", True,
-             (2 * LM_LAYERS, LM_LAYERS, LM_LAYERS)),
+    7, 8, 9) of model ``m``'s flash main path at ``batch`` x ``seq`` per
+    forward pass, ``passes`` passes a step (its microbatches): kernel 7
+    runs twice per layer under remat="block"."""
+    return (name, batch, seq, m.num_heads, m.num_kv_heads,
+            m.resolved_head_dim, "bfloat16", True,
+            (2 * layers * passes, layers * passes, layers * passes))
+
+
+def flash_geometries(m):
+    """The qwen2.5-3b attention of the flash main path, then a padded MHA
+    geometry and a non-causal one, checked and not counted."""
+    return [attention_geometry("qwen", m, LM_BATCH, LM_SEQ, LM_LAYERS),
             ("padded", 2, 300, 8, 8, 32, "float32", True, (0, 0, 0)),
             ("noncausal", 1, 1024, 8, 2, 64, "bfloat16", False, (0, 0, 0))]
 
 
-def check_flash_kernels(torch, FA, geometries):
-    """Phase 4: kernels 7-9 against their plain versions, with times; kernel
-    9 also bit for bit on small integer inputs."""
+DKV_LIMS = (127.0, 7.0, 32767.0, 511.0)   # kernel 9's code limits
+
+
+def check_flash_kernels(torch, FA, geometries, extra_checks=True):
+    """Phase 4: kernels 7-9 against their plain versions, with times; with
+    ``extra_checks``, kernel 9 also bit for bit on small integer inputs,
+    kernel 8 on cancelling inputs and kernel 7 on the split-P adversarial
+    v at the first geometry, and kernel 9 past its old guard."""
     import torch.nn.functional as F
 
     tot = {n: _zero_total() for n in FA.LAUNCHES}
     tot["flash_bwd_dq"]["bound_fp32_ms"] = 0.0
     details = []
-    lims = (127.0, 7.0, 32767.0, 511.0)
     gen = torch.Generator(device="cuda").manual_seed(2)
     for name, B, S, nh, nkv, hd, dt, causal, sites in geometries:
         dtype = getattr(torch, dt)
@@ -797,10 +826,10 @@ def check_flash_kernels(torch, FA, geometries):
         scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8,
                                          bits_x_msb=4, bits_g=16,
                                          bits_g_msb=10)
-        got = FA.flash_bwd_dkv(q, k, v, do, lse_p, delta, scales, lims=lims,
-                               causal=causal)
+        got = FA.flash_bwd_dkv(q, k, v, do, lse_p, delta, scales,
+                               lims=DKV_LIMS, causal=causal)
         want = FA.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scales,
-                                      lims=lims, causal=causal)
+                                      lims=DKV_LIMS, causal=causal)
         err_kv, stats = 0.0, []
         for pname, g_, w_ in zip(("dv_msb", "dv_full", "dk_msb", "dk_full"),
                                  got, want):
@@ -851,9 +880,9 @@ def check_flash_kernels(torch, FA, geometries):
                else rate((2 * prod, mm), (prod, FP32_OPS_PER_S))), sites[1]),
             ("flash_bwd_dkv", err_kv,
              lambda: FA.flash_bwd_dkv(q, k, v, do, lse_p, delta, scales,
-                                      lims=lims, causal=causal),
+                                      lims=DKV_LIMS, causal=causal),
              lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scales,
-                                            lims=lims, causal=causal),
+                                            lims=DKV_LIMS, causal=causal),
              None, qkv + e * do.numel() + 2 * rows + 24 + 32 * k.numel(),
              *rate((2 * prod, mm), (4 * prod, INT8_OPS_PER_S)), sites[2])]
         time_cases(torch, cases, row, tot)
@@ -868,30 +897,18 @@ def check_flash_kernels(torch, FA, geometries):
         del q, k, v, do, o, o_p, dq, dq_p, qt, kt, vt, cases
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    if not extra_checks:
+        return tot, details
 
-    # small integer q, k, v and dO: every score and dP is exact in any
-    # summation order, so kernel 9's codes and products must be identical
     for dt in ("float32", "bfloat16"):
-        q, k, v, do = (torch.randint(-2, 3, shape, device="cuda",
-                                     generator=gen).to(getattr(torch, dt))
-                       for shape in ((1, 256, 4, 128), (1, 256, 2, 128),
-                                     (1, 256, 2, 128), (1, 256, 4, 128)))
-        o, lse = FA.flash_attention_plain(q, k, v)
-        delta = torch.einsum("bsnh,bsnh->bns", do.float(),
-                             o.float()).contiguous()
-        scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8,
-                                         bits_x_msb=4, bits_g=16,
-                                         bits_g_msb=10)
-        got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims)
-        want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales,
-                                      lims=lims)
-        if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
-            fail(f"flash_bwd_dkv on integer {dt} inputs: not identical")
-        details.append({"name": f"integer_{dt}", "flash_bwd_dkv": "identical",
-                        "nonzero_products": [int((w_ != 0).sum())
-                                             for w_ in want]})
+        details.append(dkv_integer_check(
+            torch, FA, (dt, 1, 256, 4, 2, 128, dt, True, None), gen))
     details.append(dq_cancel_check(torch, FA, geometries[0]))
-    details.append(dkv_past_guard(torch, FA, gen, lims))
+    # S g = 606,208 query rows per kv head, past the 600,358 its int32
+    # predictor sums once refused
+    details.append(dkv_integer_check(
+        torch, FA, ("past_guard", 1, 9472, 64, 1, 16, "bfloat16", True, None),
+        gen))
     details.append(split_p_adversarial(torch, FA, geometries[0], gen))
     return tot, details
 
@@ -926,24 +943,31 @@ def dq_cancel_check(torch, FA, geometry):
     return out
 
 
-def dkv_past_guard(torch, FA, gen, lims, S=9472, nh=64, hd=16):
-    """Kernel 9 bit for bit on small integer inputs at S g = 606,208 query
-    rows per kv head (g = nh, one kv head), past the 600,358 its int32
-    predictor sums once refused."""
+def dkv_integer_check(torch, FA, geometry, gen):
+    """Kernel 9 bit for bit on small integer q, k, v and dO at
+    ``geometry`` (name, B, S, nh, nkv, hd, dtype, causal, _): every score
+    and dP is exact in any summation order, so its codes and products must
+    be identical to the plain version's."""
+    name, B, S, nh, nkv, hd, dt, causal, _ = geometry
     q, k, v, do = (torch.randint(-2, 3, shape, device="cuda",
-                                 generator=gen).to(torch.bfloat16)
-                   for shape in ((1, S, nh, hd), (1, S, 1, hd),
-                                 (1, S, 1, hd), (1, S, nh, hd)))
-    o, lse = FA.flash_attention_plain(q, k, v)
+                                 generator=gen).to(getattr(torch, dt))
+                   for shape in ((B, S, nh, hd), (B, S, nkv, hd),
+                                 (B, S, nkv, hd), (B, S, nh, hd)))
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal)
     delta = torch.einsum("bsnh,bsnh->bns", do.float(), o.float()).contiguous()
     scales = FA.attention_psg_scales(q, v, do, delta, bits_x=8, bits_x_msb=4,
                                      bits_g=16, bits_g_msb=10)
-    got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=lims)
-    want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales, lims=lims)
+    got = FA.flash_bwd_dkv(q, k, v, do, lse, delta, scales, lims=DKV_LIMS,
+                           causal=causal)
+    want = FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scales,
+                                  lims=DKV_LIMS, causal=causal)
     if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
-        fail(f"flash_bwd_dkv at S g = {S * nh}: not identical")
-    out = {"name": "dkv_past_guard", "geometry": [1, S, nh, 1, hd],
+        fail(f"flash_bwd_dkv on integer inputs at {name} ({B}, {S}, {nh}, "
+             f"{nkv}, {hd}, {dt}): not identical")
+    out = {"name": f"integer_{name}", "geometry": [B, S, nh, nkv, hd, dt],
+           "query_rows_per_kv_head": S * nh // nkv,
            "flash_bwd_dkv": "identical",
+           "nonzero_products": [int((w_ != 0).sum()) for w_ in want],
            "max_abs": [float(w_.abs().max()) for w_ in want]}
     del q, k, v, do, o, got, want
     torch.cuda.empty_cache()
@@ -1275,19 +1299,23 @@ def compare_steps(mc, pc, mg, pg):
             "param_agreement": agree}
 
 
-def lm_reference_check(torch, fused_attention, microbatches=1):
-    """Phase 5: one train step of the reduced qwen2.5-3b on the card and on
+def lm_reference_check(torch, fused_attention, microbatches=1, arch=LM_ARCH,
+                       batch=None, seq=None):
+    """Phase 5: one train step of the reduced ``arch`` on the card and on
     the CPU from the same parameters and batch; SLU decisions come from the
     same step key on both.  ``fused_attention`` is the PSG config's,
-    ``microbatches`` the train config's."""
+    ``microbatches`` the train config's, ``batch`` x ``seq`` the step's
+    tokens (default: the reduced experiment's, 2 x 16); the attention path
+    taken is in the result."""
     import copy
 
     from repro_torch.data.synthetic import MarkovLMTask, make_lm_batch
     from repro_torch.launch.train import lm_experiment
+    from repro_torch.models.layers import attention_path
     from repro_torch.tasks import get_task
     from repro_torch.training.train_step import make_train_step, train_state_for
 
-    exp = lm_experiment(LM_ARCH, smoke=True, steps=4,
+    exp = lm_experiment(arch, smoke=True, steps=4, batch=batch, seq=seq,
                         fused_attention=fused_attention,
                         microbatches=microbatches)
     tc = exp.train
@@ -1302,7 +1330,10 @@ def lm_reference_check(torch, fused_attention, microbatches=1):
         out[dev] = ({k: float(v) for k, v in met.items()},
                     {k: p.detach().cpu() for k, p in state.model.named_parameters()})
     (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
-    return compare_steps(mc, pc, mg, pg)
+    return {"arch": arch, "tokens": [tc.global_batch, tc.seq_len],
+            "attention": attention_path(exp.model, exp.e2.psg, tc.seq_len),
+            "sliding_window": exp.model.sliding_window,
+            **compare_steps(mc, pc, mg, pg)}
 
 
 def reset_all(mods):
@@ -1582,24 +1613,30 @@ def lm_microbatch_equivalence(torch):
     return {"param_rel_err": err, "loss_m1": out[1][0], "loss_m2": out[2][0]}
 
 
-def sub_block_launches(main, m):
-    """The flash LM path's launches as its executed sub-blocks account for
-    them: per executed attention sub-block kernel 7 twice (the forward and
-    its recompute), kernels 8 and 9 once, kernels 5 and 6 four times (q, k,
-    v, o); per executed MLP sub-block kernels 5 and 6 three times (up, gate,
-    down).  The executed sub-blocks come from the SLU execution ratios of
-    the ``executed * m`` forward passes; fails unless every count holds."""
+def sub_block_launches(main, m, layers=LM_LAYERS, mlp_sites=3, flash=True):
+    """An LM path's launches as its executed sub-blocks account for them:
+    per executed attention sub-block kernel 7 twice (the forward and its
+    recompute), kernels 8 and 9 once (none of the three without ``flash``),
+    kernels 5 and 6 four times (q, k, v, o); per executed MLP sub-block
+    kernels 5 and 6 ``mlp_sites`` times (up, gate and down; no gate in a
+    non-gated MLP).  The executed sub-blocks come from the SLU execution
+    ratios of the ``executed * m`` forward passes of ``layers`` layers;
+    without the flash kernels the attention sub-blocks are what kernel 5's
+    count leaves; fails unless every count holds."""
     passes = main["executed"] * m
-    subs = round(sum(main["slu_exec_ratio"]) * 2 * LM_LAYERS * m)
+    subs = round(sum(main["slu_exec_ratio"]) * 2 * layers * m)
     got = main["launches"]
-    attn = got["flash_bwd_dq"]
+    attn = got["flash_bwd_dq"] if flash else \
+        (got["predictor_matmul"] - mlp_sites * subs) // (4 - mlp_sites)
     mlp = subs - attn
-    want = {"flash_fwd": 2 * attn, "flash_bwd_dq": attn,
-            "flash_bwd_dkv": attn, "predictor_matmul": 4 * attn + 3 * mlp,
-            "psg_grad_w": 4 * attn + 3 * mlp}
+    fl = int(flash)
+    want = {"flash_fwd": 2 * fl * attn, "flash_bwd_dq": fl * attn,
+            "flash_bwd_dkv": fl * attn,
+            "predictor_matmul": 4 * attn + mlp_sites * mlp,
+            "psg_grad_w": 4 * attn + mlp_sites * mlp}
     if any(got[k] != v for k, v in want.items()) or not (
             2 * passes <= min(attn, mlp) <= max(attn, mlp)
-            <= LM_LAYERS * passes):
+            <= layers * passes):
         fail(f"launches {got} do not match {passes} passes of {attn} "
              f"attention and {mlp} MLP sub-blocks: {want}")
     return {"passes": passes, "attention_sub_blocks": attn,
@@ -2729,6 +2766,108 @@ def paper_benches_check(torch, mods, dev="cuda", steps=None):
     return out
 
 
+# phase 14: the dense decoder family at its published widths, 4 layers deep
+DENSE_LAYERS = 4
+DENSE_PATHS = {     # arch: (batch, seq) of one step, as its main path trains
+    "llama3_8b": (2, 4096),         # train_4k's length, its batch cut
+    "starcoder2_15b": (4, 4096),    # in its config's 4 microbatches
+    "h2o_danube_3_4b": (1, 16384),  # above 8192 tokens: query-chunked
+}
+QCHUNK_REF_SEQ = 8192 + 300     # the reduced windowed model's chunked step
+
+
+def dense_archs_check(torch, mods):
+    """Phase 14: llama3-8b, starcoder2-15b and h2o-danube-3-4b at their
+    published widths, :data:`DENSE_LAYERS` layers, ``--e2train full``,
+    ``remat="block"``.  For each: kernels 5-6 at its weight-matmul
+    geometries (tokens of one microbatch; bit for bit, timed, not counted
+    in the ``kernels`` line) and, where it takes the flash path, kernels
+    7-9 at its attention geometry (limits of :func:`check_flash_kernels`,
+    kernel 9 also bit for bit on integer inputs); one reduced step on the
+    card against the CPU (h2o-danube-3-4b: at 16 tokens over its reduced
+    window of 8, materialized, and at :data:`QCHUNK_REF_SEQ` tokens, query
+    chunked); then its main path (:data:`DENSE_PATHS`) through
+    ``build_lm_trainer`` with its launches checked against its executed
+    sub-blocks (kernels 7-9 absent from the windowed model), profiled.
+    Last, the fault-injection record on the card
+    (``launch/bench_ft.ft_json``), which must recover every fault, its
+    kill-and-restart bit for bit."""
+    from repro_torch.configs import get_experiment
+    from repro_torch.core.config import PSGConfig
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch import bench_ft
+    from repro_torch.launch.train import build_lm_trainer
+    from repro_torch.models.layers import attention_path
+
+    t_start = time.perf_counter()
+    out = {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    for arch, (batch, seq) in DENSE_PATHS.items():
+        exp = get_experiment(arch)
+        m, micro = exp.model, exp.train.microbatches
+        path = attention_path(m, PSGConfig(enabled=True), seq)
+        flash = path == "flash"
+        sites = lm_matmul_sites(m.d_model, m.num_heads, m.num_kv_heads,
+                                m.resolved_head_dim, m.d_ff,
+                                DENSE_LAYERS * micro, glu=m.glu)
+        ptot, prows, _ = check_psg_matmul_kernels(
+            torch, PM, sites, None, batch // micro * seq, {}, path=arch,
+            worst_cases=False)
+        r = {"attention": path, "microbatches": micro,
+             "psg_matmul_rows": prows, "totals": kernel_totals(ptot)}
+        if flash:
+            geo = attention_geometry(arch, m, batch // micro, seq,
+                                     DENSE_LAYERS, micro)
+            ftot, frows = check_flash_kernels(torch, FA, [geo],
+                                              extra_checks=False)
+            frows.append(dkv_integer_check(
+                torch, FA, geo, torch.Generator(device="cuda").manual_seed(4)))
+            r["flash_rows"] = frows
+            r["totals"].update(kernel_totals(ftot))
+        print(json.dumps({"phase": f"dense_{arch}_kernels", **r}),
+              flush=True)
+        refs = [lm_reference_check(torch, None, arch=arch)]
+        if not flash:
+            refs.append(lm_reference_check(torch, None, arch=arch, batch=1,
+                                           seq=QCHUNK_REF_SEQ))
+            if [(x["attention"], x["tokens"][1] > x["sliding_window"] > 0)
+                    for x in refs] != [("materialized", True),
+                                       ("query-chunked", True)]:
+                fail(f"{arch} reference steps took {refs}")
+        r["reference"] = refs
+        print(json.dumps({"phase": f"dense_{arch}_reference",
+                          "steps": refs}), flush=True)
+        trainer, main, prof = run_path(
+            torch, f"dense_{arch}_main_path",
+            lambda steps: build_lm_trainer(arch, num_layers=DENSE_LAYERS,
+                                           batch=batch, seq=seq, steps=steps,
+                                           device="cuda"),
+            mods, list(PM.LAUNCHES) + (list(FA.LAUNCHES) if flash else []),
+            absent=[] if flash else list(FA.LAUNCHES))
+        tc = trainer.exp.train
+        if (tc.global_batch, tc.seq_len, tc.microbatches, tc.remat) != \
+                (batch, seq, micro, "block") or attention_path(
+                    trainer.exp.model, trainer.exp.e2.psg, seq) != path:
+            fail(f"{arch} trained {tc} on another path than {path}")
+        del trainer
+        subs = sub_block_launches(main, micro, DENSE_LAYERS,
+                                  3 if m.glu else 2, flash)
+        print(json.dumps({"phase": f"dense_{arch}_launches", **subs}),
+              flush=True)
+        r.update(main_path=main, profile=prof, sub_block_launches=subs)
+        out[arch] = r
+    t0 = time.perf_counter()
+    ft = bench_ft.ft_json(fast=True, device="cuda")
+    ft["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "dense_ft", **ft}), flush=True)
+    kill = ft["scenarios"][-1]
+    if not (ft["all_recovered"] and kill["bitwise_match_vs_uninterrupted"]):
+        fail(f"fault-injection record on the card: {ft}")
+    out["ft"] = ft
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2869,6 +3008,7 @@ def main() -> None:
           flush=True)
     mbv2_geometries, mbv2 = mobilenet_check(torch, mods + (GC,))
     paper = paper_benches_check(torch, mods + (GC,), steps=PAPER_STEPS)
+    dense = dense_archs_check(torch, mods + (GC,))
 
     kernels = []
     for name in REPLACES:
@@ -2915,7 +3055,8 @@ def main() -> None:
          "lm_microbatch_launches": lm_mb_launches,
          "microbatch_reference": mb_ref, "resume": resume,
          "chunked": chunked, "mobilenetv2_geometries": mbv2_geometries,
-         "mobilenetv2": mbv2, "paper_benches": paper, "kernels": kernels,
+         "mobilenetv2": mbv2, "paper_benches": paper,
+         "dense_archs": dense, "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},

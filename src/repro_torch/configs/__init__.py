@@ -1,8 +1,9 @@
 """Architecture configs: ``get_experiment(arch)`` returns the full
 production config of a ported architecture; ``reduce_experiment`` cuts any
 of them to toy dimensions for CPU tests (the JAX package's
-``repro.configs``).  Ported: ``qwen2_5_3b`` and the paper's CNNs
-(``paper_cnns``)."""
+``repro.configs``).  Ported: the dense decoders ``qwen2_5_3b``,
+``llama3_8b``, ``starcoder2_15b`` and ``h2o_danube_3_4b``, and the paper's
+CNNs (``paper_cnns``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,7 @@ import importlib
 
 from repro_torch.core.config import Experiment
 
-ARCH_IDS = ["qwen2_5_3b"]
+ARCH_IDS = ["h2o_danube_3_4b", "starcoder2_15b", "llama3_8b", "qwen2_5_3b"]
 
 
 def canon(arch: str) -> str:

@@ -5,12 +5,9 @@ The field names and defaults are those of the JAX package's
 packages.  :class:`ModelConfig` keeps the CNN encoding (``family="cnn"``)
 and the dense-transformer fields; the MoE and SSM fields are not ported.
 Options this package does not implement raise ``NotImplementedError`` where
-they are set, never a quiet substitute:
-
-* ``TrainConfig.remat="full"``;
-* block kinds other than ``"attn"``, sliding-window attention and the
-  encoder/cross-attention/frontend fields (raised by
-  ``models/transformer.py`` when such a model is built).
+they are set, never a quiet substitute: block kinds other than ``"attn"``
+and the encoder/cross-attention/frontend fields (raised by
+``models/transformer.py`` when such a model is built).
 """
 from __future__ import annotations
 
@@ -233,14 +230,14 @@ class TrainConfig:
     weight_decay: float = 1e-4
     optimizer: str = "sgdm"           # sgdm | signsgd | psg | adamw
     grad_clip: float = 0.0
-    remat: str = "block"              # none | block (full is not ported)
+    # none | block | full.  "full" is the JAX package's value, whose
+    # lm_fwd checkpoints only under "block": it computes what "none" does,
+    # and so does the port (models/transformer.py)
+    remat: str = "block"
     seed: int = 0
 
     def __post_init__(self):
-        if self.remat == "full":
-            raise NotImplementedError("remat='full' is not ported; use "
-                                      "'block' or 'none'")
-        if self.remat not in ("none", "block"):
+        if self.remat not in ("none", "block", "full"):
             raise ValueError(f"unknown remat {self.remat!r}")
 
 

@@ -3,13 +3,15 @@ package's ``benchmarks/run.py``).
 
     python -m repro_torch.launch.bench_run [--full] [--only a,b] [--device cpu]
     python -m repro_torch.launch.bench_run --json PATH [--json-throughput PATH]
+    python -m repro_torch.launch.bench_run --json-ft [PATH] [--device cpu]
 
 Prints ``name,us_per_call,derived`` CSV.  ``--full`` runs the longer
 budgets.  ``--only`` takes the benches with a port: ``smd`` (Fig. 3, Tab.
 1), ``slu`` (Fig. 4), ``psg`` (Tab. 2), ``e2train`` (Tab. 3), ``cnn`` (Tab.
-4), ``convergence`` (Fig. 5), ``kernels`` and ``throughput``; the JAX
-package's ``conv``, ``attn``, ``roofline``, ``audit`` and ``ft`` are not
-ported and are refused with exit code 2 and what they wait for.
+4), ``convergence`` (Fig. 5), ``kernels``, ``throughput`` and ``ft`` (the
+fault-injection record); the JAX package's ``conv``, ``attn``,
+``roofline`` and ``audit`` are not ported and are refused with exit code 2
+and what they wait for.
 
 A bench that raises prints ``name,0.0,ERROR:<type>:<message>`` (its
 traceback on stderr); the driver carries on with the others and exits 1 at
@@ -21,8 +23,10 @@ E2-Train run (ResNet-14 at width 16 and batch 8, or ResNet-26 over 40 steps
 with ``--full``), every field from ``EnergyReport.to_dict()``;
 ``validated_against_hlo`` is null (no cost audit ran).  ``--json-throughput
 PATH`` writes the chunked loop's throughput record
-(``bench_throughput.throughput_json``).  Either writes only to the path it
-is given.
+(``bench_throughput.throughput_json``).  ``--json-ft [PATH]`` (default
+``BENCH_ft.json``) writes the fault-injection record
+(``bench_ft.ft_json``) and exits 1 when any scenario did not recover.
+Each writes only to the path it is given.
 
 Runs on the card unless ``--device cpu`` is given; the kernels build at the
 first call that needs them, inside the first bench that runs them (build
@@ -46,8 +50,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.ledger import EnergyLedger
 from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
 from repro_torch.launch import (bench_cnn, bench_convergence, bench_e2train,
-                                bench_kernels, bench_psg, bench_slu,
-                                bench_smd, bench_throughput)
+                                bench_ft, bench_kernels, bench_psg,
+                                bench_slu, bench_smd, bench_throughput)
 from repro_torch.launch.train import _fp32_is_fp32
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
@@ -61,14 +65,14 @@ BENCHES = {
     "convergence": bench_convergence.run,   # Fig. 5
     "kernels": bench_kernels.run,
     "throughput": bench_throughput.run,     # the chunked loop
+    "ft": bench_ft.run,                     # fault-injection recovery
 }
 # the JAX package's benches with no port yet, and what each waits for
 _BYTES = ("a decision on what the card's byte count counts (the CUDA "
           "kernels' own tiles or the TPU kernels' BlockSpec model)")
 _ANALYSIS = "the port of launch/dryrun and analysis/"
 NOT_PORTED = {"conv": _BYTES, "attn": _BYTES, "roofline": _ANALYSIS,
-              "audit": _ANALYSIS,
-              "ft": "the llama3_8b config, which it trains"}
+              "audit": _ANALYSIS}
 
 
 def table3_config_derived() -> list:
@@ -130,6 +134,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--json-throughput", default=None, metavar="PATH",
                     help="write the chunked loop's throughput record to "
                          "PATH (skips the CSV benches)")
+    ap.add_argument("--json-ft", nargs="?", const="BENCH_ft.json",
+                    default=None, metavar="PATH",
+                    help="write the fault-injection recovery record "
+                         "(corruption fallback, producer raise, write "
+                         "retry and surfacing, kill and restart) to PATH "
+                         "and exit 1 if any recovery failed (skips the CSV "
+                         "benches)")
     args = ap.parse_args(argv)
     fast = not args.full
     only = args.only.split(",") if args.only else list(BENCHES)
@@ -144,12 +155,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return 2
     dev = resolve_device(args.device)
 
-    if args.json or args.json_throughput:
+    if args.json or args.json_throughput or args.json_ft:
         if args.json:
             _write(args.json, energy_json(fast, dev))
         if args.json_throughput:
             _write(args.json_throughput,
                    bench_throughput.throughput_json(fast, dev))
+        if args.json_ft:
+            record = bench_ft.ft_json(fast, dev)
+            _write(args.json_ft, record)
+            if not record["all_recovered"]:
+                print("fault-injection recovery FAILED", file=sys.stderr)
+                return 1
         return 0
 
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

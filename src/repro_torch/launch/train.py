@@ -11,6 +11,8 @@ PSG and print the energy report.
         --steps 6 --device cpu
     python -m repro_torch.launch.train --task lm --fused-attention on \\
         --batch 2 --seq 4096 --steps 8
+    python -m repro_torch.launch.train --task lm --arch llama3_8b --smoke \\
+        --steps 6 --device cpu
     python -m repro_torch.launch.train --depth 74 --e2train off \\
         --fused-conv off --steps 8
     python -m repro_torch.launch.train --depth 8 --width 8 --batch 4 \\
@@ -32,6 +34,10 @@ ResNet and 0.05 for MobileNetV2).  ``--cnn`` picks the CIFAR backbone:
 SLU as the JAX package does.  ``--fused-conv`` picks the CNN's conv path
 (``PSGConfig.fused_conv``): ``on`` and ``auto`` the implicit-GEMM conv
 kernels, ``off`` the materialized im2col on the PSG matmul kernels.
+``--arch`` picks the LM among the ported dense decoders
+(``configs.ARCH_IDS``: qwen2.5-3b, llama3-8b, starcoder2-15b, which trains
+in its config's 4 microbatches, and h2o-danube-3-4b, whose sliding window
+keeps it off the flash kernels);
 ``--smoke`` cuts the LM to toy dimensions (``configs.reduce_experiment``);
 ``--fused-attention on`` trains the LM through the flash kernels with the
 PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` through
@@ -70,11 +76,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import get_experiment, reduce_experiment
+from repro_torch.configs import ARCH_IDS, get_experiment, reduce_experiment
 from repro_torch.configs.paper_cnns import cnn_model, cnn_train, mobilenetv2
 from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
-                                     SLUConfig, SMDConfig, TrainConfig,
-                                     fused_attention_active)
+                                     SLUConfig, SMDConfig, TrainConfig)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.psg import fused_conv_active
 from repro_torch.data.synthetic import (host_image_batch, host_lm_batch,
@@ -82,6 +87,7 @@ from repro_torch.data.synthetic import (host_image_batch, host_lm_batch,
 from repro_torch.ft import faults
 from repro_torch.ft.checkpoint import latest_intact_step, restore_checkpoint
 from repro_torch.kernels import dispatch
+from repro_torch.models.layers import attention_path
 from repro_torch.training import evaluate
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
@@ -162,7 +168,7 @@ def lm_experiment(arch: str, num_layers: Optional[int] = None,
                   steps: int = 8, smoke: bool = False,
                   fused_attention: Optional[bool] = None,
                   e2: E2TrainConfig = FULL_E2,
-                  microbatches: int = 1) -> Experiment:
+                  microbatches: Optional[int] = None) -> Experiment:
     """``arch`` under ``e2`` (an :data:`E2TRAIN` preset; with PSG on, the
     ``psg`` optimizer at lr 0.03); ``smoke`` reduces it to toy dimensions
     first, ``num_layers`` cuts the depth, ``batch``/``seq`` default to the
@@ -171,7 +177,8 @@ def lm_experiment(arch: str, num_layers: Optional[int] = None,
     ``None`` auto, which resolves to the flash kernels as in the JAX
     package) and
     ``microbatches`` is ``TrainConfig.microbatches`` (``batch`` is the
-    whole step's)."""
+    whole step's; ``None``: the experiment's own, 4 for starcoder2-15b,
+    1 for a ``smoke`` reduction)."""
     exp = get_experiment(arch)
     if smoke:
         exp = reduce_experiment(exp)
@@ -180,7 +187,8 @@ def lm_experiment(arch: str, num_layers: Optional[int] = None,
     tcfg = dataclasses.replace(
         exp.train, total_steps=steps,
         global_batch=batch or exp.train.global_batch,
-        seq_len=seq or exp.train.seq_len, microbatches=microbatches)
+        seq_len=seq or exp.train.seq_len,
+        microbatches=microbatches or exp.train.microbatches)
     e2 = dataclasses.replace(e2, psg=dataclasses.replace(
         e2.psg, fused_attention=fused_attention))
     return exp.replace(model=model, e2=e2, train=_for_e2(tcfg, e2),
@@ -193,7 +201,8 @@ def build_lm_trainer(arch: str = "qwen2_5_3b",
                      steps: int = 8, device=None, seed: int = 0,
                      smoke: bool = False,
                      fused_attention: Optional[bool] = None,
-                     e2: E2TrainConfig = FULL_E2, microbatches: int = 1,
+                     e2: E2TrainConfig = FULL_E2,
+                     microbatches: Optional[int] = None,
                      **trainer_kw) -> Trainer:
     """The LM trainer the CLI runs: model from ``seed`` on ``device``,
     Markov-chain tokens from the experiment's seed; ``trainer_kw`` go to
@@ -252,7 +261,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--task", choices=["cifar_cnn", "lm"], default="cifar_cnn")
-    ap.add_argument("--arch", default="qwen2_5_3b",
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2_5_3b",
                     help="LM architecture (--task lm)")
     ap.add_argument("--smoke", action="store_true",
                     help="toy-sized LM (--task lm)")
@@ -322,8 +331,10 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
                                    smoke=args.smoke, fused_attention=fused,
                                    e2=e2, **ft)
         tc = trainer.exp.train
-        attn = "flash" if fused_attention_active(
-            trainer.exp.e2.psg if psg_cfg else None) else "materialized"
+        attn = attention_path(trainer.exp.model, trainer.exp.e2.psg
+                              if psg_cfg else None, tc.seq_len)
+        if trainer.exp.model.sliding_window:
+            attn += f" sliding-window ({trainer.exp.model.sliding_window})"
         print(f"model {trainer.exp.model.name} ({trainer.exp.model.num_layers}"
               f" layers, d_model {trainer.exp.model.d_model}, batch "
               f"{tc.global_batch} x seq {tc.seq_len}, {attn} attention, "

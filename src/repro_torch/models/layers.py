@@ -7,13 +7,14 @@ training.  Parameters are fp32 ``nn.Parameter``s in the JAX layouts (``wq``
 cast to the activation dtype inside each call, so a JAX tree loads as it
 is (``repro_torch.convert``).  Every weight matmul goes through
 ``core/psg.matmul``/``einsum``, so under an active PSG config it runs the
-PSG matmul kernels.  Attention takes one of two paths, chosen as the JAX
-package chooses: under a PSG config with ``fused_attention=True``, the
-flash kernels with the PSG dk/dv backward (``core/psg.attention``), which
-keep every ``(S, T)`` tile out of device memory; otherwise the
-materialized softmax, scores in fp32 and probabilities in bf16
-(:class:`SoftmaxLowp`), up to 8192 tokens (the query-chunked path above
-that is not ported).
+PSG matmul kernels.  Attention takes one of three paths, chosen as the JAX
+package chooses (:func:`attention_path`): under a PSG config with the flash
+kernels on and no sliding window, the flash kernels with the PSG dk/dv
+backward (``core/psg.attention``), which keep every ``(S, T)`` tile out of
+device memory; otherwise the softmax with scores in fp32 and probabilities
+in bf16 (:class:`SoftmaxLowp`), materialized whole, or one 512-query chunk
+at a time (:func:`_sdpa_qchunked`) above 8192 tokens and, when asked (the
+eval forward), from 1024.
 """
 from __future__ import annotations
 
@@ -23,11 +24,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import psg
 from repro_torch.core.config import ModelConfig, fused_attention_active
 
-ATTN_CHUNK_THRESHOLD = 8192     # the JAX package chunks queries above this
+ATTN_Q_CHUNK = 512               # queries per chunk of the chunked path
+ATTN_CHUNK_THRESHOLD = 8192     # chunk the queries above this many tokens
 
 
 def dense_init(shape, generator: torch.Generator, scale: float = 1.0
@@ -156,9 +159,16 @@ class SoftmaxLowp(torch.autograd.Function):
         return gf.sub_(gw).mul_(wf)
 
 
-def causal_mask(S: int, T: int, device=None) -> torch.Tensor:
-    """(S, T) bool: query i attends key j iff j <= i."""
-    return torch.ones(S, T, dtype=torch.bool, device=device).tril()
+def causal_mask(S: int, T: int, offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """(S, T) bool: query i attends key j iff j <= i + offset and, with a
+    window, j > i + offset - window."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    kj = torch.arange(T, device=device)[None, :]
+    m = kj <= qi
+    if window > 0:
+        m &= kj > qi - window
+    return m
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -178,24 +188,66 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, nh, hd)
 
 
-def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig
-                  ) -> torch.Tensor:
-    """Causal self-attention over a full sequence (training)."""
+def _sdpa_qchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Causal (and windowed) attention one chunk of ``ATTN_Q_CHUNK``
+    queries at a time against the full keys: the JAX package's
+    ``_sdpa_qchunked``.  The queries are padded to a chunk multiple (the
+    padded rows attend causally past the end and are sliced off), and each
+    chunk is checkpointed, so that the backward recomputes its scores and
+    only one chunk's ``(B, nkv, L, g, T)`` fp32 scores are live at a time,
+    as under the JAX package's ``jax.checkpoint``."""
+    B, S, nh, hd = q.shape
+    L = ATTN_Q_CHUNK
+    pad = (-S) % L
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    T = k.shape[1]
+
+    def one_chunk(qi, c):
+        mask = causal_mask(L, T, c * L, cfg.sliding_window, q.device)
+        return _sdpa(qi, k, v, mask)
+
+    out = torch.cat([
+        checkpoint(one_chunk, qi, c, use_reentrant=False,
+                   preserve_rng_state=False)
+        for c, qi in enumerate(q.split(L, dim=1))], dim=1)
+    return out[:, :S] if pad else out
+
+
+def attention_path(cfg: ModelConfig, psg_cfg, S: int,
+                   prefer_chunked: bool = False) -> str:
+    """The path the JAX package's ``attention_fwd`` takes for ``S`` tokens
+    under ``psg_cfg`` (``None``: PSG off): ``"flash"`` when the config
+    turns the flash kernels on and there is no sliding window; else
+    ``"query-chunked"`` above ``ATTN_CHUNK_THRESHOLD`` tokens, or from
+    ``2 * ATTN_Q_CHUNK`` with ``prefer_chunked`` (the eval forward); else
+    ``"materialized"``."""
+    if cfg.sliding_window == 0 and fused_attention_active(psg_cfg):
+        return "flash"
+    if S > ATTN_CHUNK_THRESHOLD or (prefer_chunked and S >= 2 * ATTN_Q_CHUNK):
+        return "query-chunked"
+    return "materialized"
+
+
+def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                  prefer_chunked: bool = False) -> torch.Tensor:
+    """Causal (and windowed) self-attention over a full sequence, on
+    :func:`attention_path`'s path under the active PSG config; the
+    materialized softmax takes the causal-and-window mask whole."""
     B, S, _ = x.shape
-    fused = cfg.sliding_window == 0 and \
-        fused_attention_active(psg.active_config())
-    if not fused and S > ATTN_CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence {S} > {ATTN_CHUNK_THRESHOLD} needs the query-chunked "
-            "attention path, which is not ported")
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if fused:
+    path = attention_path(cfg, psg.active_config(), S, prefer_chunked)
+    if path == "flash":
         out = psg.attention(q, k, v, causal=True)
+    elif path == "query-chunked":
+        out = _sdpa_qchunked(q, k, v, cfg)
     else:
-        out = _sdpa(q, k, v, causal_mask(S, S, x.device))
+        out = _sdpa(q, k, v, causal_mask(S, S, 0, cfg.sliding_window,
+                                         x.device))
     return psg.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype))
 
 

@@ -17,9 +17,15 @@ from the same parameters and step key, the decisions are the JAX package's.
 taken, so the recompute is deterministic and the gradients equal those of
 ``remat="none"``.  The JAX package checkpoints whole units; here the ffn's
 decision depends on the mixer's output, so the checkpoint is per sub-block.
+``remat="full"`` checkpoints nothing, as in the JAX package's ``lm_fwd``.
+
+Attention takes the JAX package's paths (``layers.attention_fwd``), with
+sliding-window masks; the eval forward prefers the query-chunked softmax
+from 1024 tokens, as the JAX package's ``lm_fwd(train=False)`` does (its
+sequence parallelism, which keeps training off that path, is off there).
 
 Not ported (raise when such a model is built): block kinds other than
-``attn``, sliding-window attention, encoder/cross-attention and frontends.
+``attn``, encoder/cross-attention and frontends.
 """
 from __future__ import annotations
 
@@ -42,9 +48,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if kinds != {BLOCK_ATTN}:
         raise NotImplementedError(f"{cfg.name}: block kinds {sorted(kinds)} "
                                   "are not ported (only 'attn')")
-    if cfg.sliding_window:
-        raise NotImplementedError(f"{cfg.name}: sliding-window attention "
-                                  "needs a masked path that is not ported")
     if cfg.encoder_layers or cfg.cross_attention or cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: encoder, cross-attention "
                                   "and frontends are not ported")
@@ -91,9 +94,12 @@ class TransformerLM(nn.Module):
         ``key`` is the step's threefry key (``fold_in(PRNGKey(seed),
         step)``, default ``PRNGKey(0)``); ``slu_u`` gives the uniforms of
         its SLU draws instead (``core/slu.lm_uniforms`` of that key; a CUDA
-        tensor inside a captured step).  In eval mode (``self.training``
-        false) every sub-block runs ungated and nothing is checkpointed:
-        the JAX package's ``lm_fwd(train=False, remat="none")``."""
+        tensor inside a captured step).  ``remat`` is ``"block"`` (each
+        executed sub-block checkpointed) or ``"none"``/``"full"`` (nothing
+        checkpointed).  In eval mode (``self.training`` false) every
+        sub-block runs ungated, nothing is checkpointed and attention
+        prefers the query-chunked path: the JAX package's
+        ``lm_fwd(train=False, remat="none")``."""
         cfg, slu_cfg = self.cfg, self.e2.slu
         key = rng.PRNGKey(0) if key is None else key
         dt = getattr(torch, cfg.dtype)
@@ -108,7 +114,8 @@ class TransformerLM(nn.Module):
         kps, exs = [], []
         for i, blk in enumerate(self.layers):
             force = slu_cfg.never_skip_first_last and i in (0, n - 1)
-            subs = ((_mixer(blk, cfg), (blk.ln1, blk.attn)),
+            subs = ((_mixer(blk, cfg, not self.training),
+                     (blk.ln1, blk.attn)),
                     (_ffn(blk, cfg), (blk.ln2, blk.mlp)))
             for j, (fn, mods) in enumerate(subs):
                 if remat == "block":
@@ -155,8 +162,9 @@ def _in_context(body):
     return fn
 
 
-def _mixer(blk: Block, cfg: ModelConfig):
-    return _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg))
+def _mixer(blk: Block, cfg: ModelConfig, prefer_chunked: bool):
+    return _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg,
+                                                 prefer_chunked))
 
 
 def _ffn(blk: Block, cfg: ModelConfig):

@@ -314,9 +314,11 @@ def test_fused_attention_resolution():
 
 
 def test_layer_routes_to_flash_only_under_fused_attention(monkeypatch):
-    """The flash path comes before the sequence guard of the materialized
-    path, and the two paths agree at bf16-probability resolution (the
-    materialized softmax rounds its probabilities to bf16)."""
+    """The flash path comes before the sequence threshold of the
+    query-chunked path, which computes the materialized softmax's values
+    one chunk at a time; flash and materialized agree at bf16-probability
+    resolution (the materialized softmax rounds its probabilities to
+    bf16)."""
     _, texp = _configs(16)
     attn = L.Attention(texp.model, torch.Generator().manual_seed(0))
     x = torch.randn(2, 16, 64, generator=torch.Generator().manual_seed(1))
@@ -325,11 +327,11 @@ def test_layer_routes_to_flash_only_under_fused_attention(monkeypatch):
     with tpsg.enable(fused, tpsg.zero_probe()):
         y_flash = L.attention_fwd(attn, x, texp.model)
     with tpsg.enable(CFG, tpsg.zero_probe()):
-        with pytest.raises(NotImplementedError):
-            L.attention_fwd(attn, x, texp.model)
+        y_chunked = L.attention_fwd(attn, x, texp.model)
     monkeypatch.setattr(L, "ATTN_CHUNK_THRESHOLD", 8192)
     with tpsg.enable(CFG, tpsg.zero_probe()):
         y_mat = L.attention_fwd(attn, x, texp.model)
+    assert torch.equal(y_chunked, y_mat)
     assert _rel(y_flash.detach().numpy(), y_mat.detach().numpy()) <= 2e-2
 
 

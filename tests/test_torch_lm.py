@@ -316,12 +316,11 @@ def test_lm_cost_table_equals_jax(reduced):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tc.TrainConfig(remat="full")
+    # remat="full" and sliding windows are ported: their positive cases are
+    # in test_torch_dense_archs.py
     _, texp = _configs()
     for change in (dict(block_unit=("moe",)), dict(family="ssm"),
-                   dict(sliding_window=8), dict(encoder_layers=2),
-                   dict(frontend="vision")):
+                   dict(encoder_layers=2), dict(frontend="vision")):
         with pytest.raises(NotImplementedError):
             TransformerLM(dataclasses.replace(texp.model, **change))
     loss = get_task("lm").make_loss(texp)
