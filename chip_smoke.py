@@ -170,7 +170,27 @@ Phases, each fatal on failure:
    in 7, its launches checked against its executed sub-blocks; then the
    fault-injection record (``launch/bench_ft``) on the card, every fault
    recovered and the llama3-8b kill-and-restart bit for bit across
-   processes.
+   processes;
+15. encdec_vlm_moe: whisper-small (encoder-decoder, 12 + 12 layers, 8 x
+   4096 tokens + 8 x 1500 frames), phi-3-vision-4.2b (VLM, 4 layers, 2 x
+   4096 tokens + 576 patches, head dim 96) and deepseek-moe-16b (4 layers,
+   2 x 4096, 64 experts top-6 + 2 shared) at their published widths,
+   ``--e2train full``, ``remat="block"`` (``encdec_vlm_moe_check``):
+   kernels 5-6 bit for bit at the MoE models' expert geometries (960 rows
+   of deepseek's, 1,280 of grok-1-314b's, one launch an expert) and on an
+   expert with no token, kernels 7-9 at phi-3-vision's attention (hd 96)
+   and whisper-small's decoder (g = 1) with phase 4's limits (kernel 9
+   also bit for bit on integer inputs at hd 96), timed, not counted in
+   the ``kernels`` line; a reduced step of each of the four archs on the
+   card against the CPU; each main path as in 7, its launches checked
+   against its executed sub-blocks (an MoE sub-block's three per expert,
+   the encoder's per pass); grok-1-314b's one layer is not trained: its
+   parameters and optimizer state, reckoned from its config
+   (``reckoned_state_bytes``), do not fit the card; last, the reduced
+   deepseek-moe-16b and whisper-small through the chunked loop (K = 4,
+   gated sub-blocks as IF nodes) against the per-step loop bit for bit,
+   losses, the MoE aux loss (0 where an IF node skipped the MoE) and SLU
+   flags included.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -1309,7 +1329,8 @@ def lm_reference_check(torch, fused_attention, microbatches=1, arch=LM_ARCH,
     taken is in the result."""
     import copy
 
-    from repro_torch.data.synthetic import MarkovLMTask, make_lm_batch
+    from repro_torch.data.synthetic import (MarkovLMTask, make_lm_batch,
+                                            with_frontend)
     from repro_torch.launch.train import lm_experiment
     from repro_torch.models.layers import attention_path
     from repro_torch.tasks import get_task
@@ -1319,8 +1340,9 @@ def lm_reference_check(torch, fused_attention, microbatches=1, arch=LM_ARCH,
                         fused_attention=fused_attention,
                         microbatches=microbatches)
     tc = exp.train
-    batch = make_lm_batch(MarkovLMTask(vocab=exp.model.vocab_size), tc.seed,
-                          0, 0, tc.global_batch, tc.seq_len, "cpu")
+    batch = with_frontend(make_lm_batch(
+        MarkovLMTask(vocab=exp.model.vocab_size), tc.seed, 0, 0,
+        tc.global_batch, tc.seq_len, "cpu"), exp.model, 0)
     model = get_task("lm").init(exp, 0, "cpu")
     out = {}
     for dev in ("cpu", "cuda"):
@@ -1613,13 +1635,16 @@ def lm_microbatch_equivalence(torch):
     return {"param_rel_err": err, "loss_m1": out[1][0], "loss_m2": out[2][0]}
 
 
-def sub_block_launches(main, m, layers=LM_LAYERS, mlp_sites=3, flash=True):
+def sub_block_launches(main, m, layers=LM_LAYERS, mlp_sites=3, flash=True,
+                       fixed=0):
     """An LM path's launches as its executed sub-blocks account for them:
     per executed attention sub-block kernel 7 twice (the forward and its
     recompute), kernels 8 and 9 once (none of the three without ``flash``),
     kernels 5 and 6 four times (q, k, v, o); per executed MLP sub-block
     kernels 5 and 6 ``mlp_sites`` times (up, gate and down; no gate in a
-    non-gated MLP).  The executed sub-blocks come from the SLU execution
+    non-gated MLP; an MoE FFN's three per expert, routed and shared); and
+    per forward pass ``fixed`` more of kernels 5 and 6 (the ungated
+    encoder's).  The executed sub-blocks come from the SLU execution
     ratios of the ``executed * m`` forward passes of ``layers`` layers;
     without the flash kernels the attention sub-blocks are what kernel 5's
     count leaves; fails unless every count holds."""
@@ -1627,13 +1652,14 @@ def sub_block_launches(main, m, layers=LM_LAYERS, mlp_sites=3, flash=True):
     subs = round(sum(main["slu_exec_ratio"]) * 2 * layers * m)
     got = main["launches"]
     attn = got["flash_bwd_dq"] if flash else \
-        (got["predictor_matmul"] - mlp_sites * subs) // (4 - mlp_sites)
+        (got["predictor_matmul"] - fixed * passes - mlp_sites * subs) \
+        // (4 - mlp_sites)
     mlp = subs - attn
     fl = int(flash)
+    psg = 4 * attn + mlp_sites * mlp + fixed * passes
     want = {"flash_fwd": 2 * fl * attn, "flash_bwd_dq": fl * attn,
-            "flash_bwd_dkv": fl * attn,
-            "predictor_matmul": 4 * attn + mlp_sites * mlp,
-            "psg_grad_w": 4 * attn + mlp_sites * mlp}
+            "flash_bwd_dkv": fl * attn, "predictor_matmul": psg,
+            "psg_grad_w": psg}
     if any(got[k] != v for k, v in want.items()) or not (
             2 * passes <= min(attn, mlp) <= max(attn, mlp)
             <= layers * passes):
@@ -2868,6 +2894,182 @@ def dense_archs_check(torch, mods):
     return out
 
 
+ENCDEC_PATHS = {    # arch: (layers, batch, seq) of its main path (None: all)
+    "whisper_small": (None, 8, 4096),
+    "phi_3_vision_4_2b": (4, 2, 4096),
+    "deepseek_moe_16b": (4, 2, 4096),
+    "grok_1_314b": (1, 8, 4096),
+}
+CARD_BYTES = 80e9
+
+
+def reckoned_state_bytes(exp) -> dict:
+    """The bytes a ``--e2train full`` trainer of ``exp`` holds on the card
+    before any activation: the parameters and the ``psg`` optimizer's
+    momentum in ``param_dtype``, the SWA average in fp32, the gradients
+    in ``param_dtype`` and their majority-vote signs in fp32; plus the
+    fp32 temporaries (two) of the optimizer's update of the largest leaf
+    (an expert stack)."""
+    m = exp.model
+    n = m.param_count()
+    pb = 2 if m.param_dtype == "bfloat16" else 4
+    f = m.moe_d_ff or m.d_ff
+    largest = max(m.num_experts * m.d_model * f, m.padded_vocab * m.d_model)
+    state = n * (3 * pb + 4 + 4)
+    return {"params": n, "param_bytes": pb, "state_bytes": state,
+            "update_temporaries_bytes": 2 * 4 * largest,
+            "fits": state + 2 * 4 * largest < CARD_BYTES}
+
+
+def zero_expert_check(torch, PM, N, din, dout):
+    """Kernels 5 and 6 on an expert that received no token: every row of
+    its input and of its output gradient zero (scale ``1e-12 / lim``,
+    codes 0); bit for bit against the plain versions."""
+    from repro_torch.core.quant import codes
+
+    x = torch.zeros(N, din, device="cuda")
+    gy = torch.zeros(N, dout, device="cuda")
+    xm, gm = codes(x, 4)[0], codes(gy, 10)[0]
+    xq, gq = codes(x, 8)[0], codes(gy, 16)[0]
+    pred = PM.predictor_matmul(xm, gm)
+    tau = 0.05 * pred.float().abs().amax()
+    sign, stats = PM.psg_grad_w(pred, xq, gq, tau)
+    psign, pstats = PM.psg_grad_w_plain(pred, xq, gq, tau)
+    if not (torch.equal(pred, PM.predictor_matmul_plain(xm, gm))
+            and torch.equal(sign, psign) and torch.equal(stats, pstats)):
+        fail(f"kernels 5-6 on an expert with no token ({N}, {din}, {dout}): "
+             "not identical")
+    return {"geometry": [N, din, dout], "expert": "no token",
+            "identical": True, "fallback_flags": float(stats.float().mean()),
+            "nonzero_signs": int((sign != 0).sum())}
+
+
+CHUNK_ARCHS = ("deepseek_moe_16b", "whisper_small")
+
+
+def encdec_chunked_check(torch, arch, steps=16):
+    """The reduced ``arch`` (3 layers, the middle one gated) through the
+    per-step loop and the chunked loop (K = 4: one captured CUDA graph,
+    every unforced gated sub-block an IF node) from the same init on the
+    card: losses, the MoE aux loss, SLU flags and parameters bit for bit
+    (:func:`same_runs`); for the MoE, some step skips the gated MoE
+    sub-block, so its IF node leaves the aux at 0 there."""
+    from repro_torch.launch.train import build_lm_trainer
+
+    a, b = (build_lm_trainer(arch, num_layers=3, smoke=True, steps=steps,
+                             device="cuda", chunk_steps=k) for k in (1, 4))
+    a.run(steps)
+    b.run(steps)
+    out = same_runs(torch, a, b, f"{arch} chunked")
+    aux = [[h["aux_loss"] for h in t.history] for t in (a, b)]
+    if aux[0] != aux[1]:
+        fail(f"{arch} chunked: aux_loss {aux[1]} against per-step {aux[0]}")
+    skipped = sum(f[3] == 0.0 for f in (h["slu_executed"]
+                                        for h in a.history))
+    if b._chunk_fn.cond.nodes <= 0 or (
+            a.exp.model.num_experts and not skipped):
+        fail(f"{arch} chunked: {b._chunk_fn.cond.nodes} IF nodes, "
+             f"{skipped} steps skipping layer 1's ffn")
+    out.update(if_nodes=b._chunk_fn.cond.nodes, aux_loss=aux[0],
+               steps_skipping_layer1_ffn=skipped)
+    return out
+
+
+def encdec_vlm_moe_check(torch, mods):
+    """Phase 15: whisper-small (encoder-decoder), phi-3-vision-4.2b (VLM)
+    and the MoE family (deepseek-moe-16b, grok-1-314b) at their published
+    widths, ``--e2train full``, ``remat="block"``.  Kernels 5-6 at each MoE
+    model's expert geometries (``G * C`` rows an expert, one launch per
+    expert; bit for bit, timed, not counted in the ``kernels`` line) and on
+    an expert with no token; kernels 7-9 at phi-3-vision's attention (hd
+    96, 4096 text + 576 patch tokens) and whisper-small's decoder (hd 64,
+    g = 1) with phase 4's limits, kernel 9 also bit for bit on integer
+    inputs at hd 96; one reduced step of each arch on the card against the
+    CPU; then the main paths of :data:`ENCDEC_PATHS` whose reckoned state
+    (:func:`reckoned_state_bytes`) fits the card, each with its launches
+    checked against its executed sub-blocks, profiled.  A path whose state
+    does not fit is not trained: its reckoning is recorded.  Last, the
+    reduced deepseek-moe-16b and whisper-small through the chunked loop
+    against the per-step loop (:func:`encdec_chunked_check`)."""
+    from repro_torch.configs import get_experiment
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch.train import build_lm_trainer, lm_experiment
+    from repro_torch.models.layers import attention_path
+
+    t_start = time.perf_counter()
+    out = {}
+    for arch, (layers, batch, seq) in ENCDEC_PATHS.items():
+        exp = lm_experiment(arch, num_layers=layers, batch=batch, seq=seq)
+        m, micro = exp.model, exp.train.microbatches
+        layers = m.num_layers
+        vlm = bool(m.frontend) and not m.encoder_layers
+        tokens = seq + (m.frontend_tokens if vlm else 0)
+        r = {"layers": layers, "microbatches": micro,
+             "tokens_per_sequence": tokens,
+             "attention": attention_path(m, exp.e2.psg, tokens),
+             "reckoned": reckoned_state_bytes(exp)}
+        if m.num_experts:
+            n_g = min(1024, batch // micro * seq)
+            rows = batch // micro * seq // n_g * max(
+                int(m.capacity_factor * m.top_k * n_g / m.num_experts), 1)
+            f, d, E = m.moe_d_ff, m.d_model, m.num_experts
+            sites = {(d, f): 2 * E * layers * micro,
+                     (f, d): E * layers * micro}
+            ptot, prows, _ = check_psg_matmul_kernels(
+                torch, PM, sites, None, rows, {}, path=f"{arch}_expert",
+                worst_cases=False)
+            prows += [zero_expert_check(torch, PM, rows, d, f),
+                      zero_expert_check(torch, PM, rows, f, d)]
+            r.update(expert_rows=rows, expert_kernel_rows=prows,
+                     expert_totals=kernel_totals(ptot))
+        if arch in ("whisper_small", "phi_3_vision_4_2b"):
+            geo = attention_geometry(arch, m, batch // micro, tokens, layers,
+                                     micro)
+            ftot, frows = check_flash_kernels(torch, FA, [geo],
+                                              extra_checks=False)
+            if m.resolved_head_dim == 96:
+                frows.append(dkv_integer_check(
+                    torch, FA, geo,
+                    torch.Generator(device="cuda").manual_seed(5)))
+            r.update(flash_rows=frows, flash_totals=kernel_totals(ftot))
+        print(json.dumps({"phase": f"encdec_{arch}_kernels", **r}),
+              flush=True)
+        r["reference"] = lm_reference_check(torch, None, arch=arch)
+        print(json.dumps({"phase": f"encdec_{arch}_reference",
+                          **r["reference"]}), flush=True)
+        if not r["reckoned"]["fits"]:
+            print(json.dumps({"phase": f"encdec_{arch}_not_trained",
+                              **r["reckoned"]}), flush=True)
+            out[arch] = r
+            continue
+        trainer, main, prof = run_path(
+            torch, f"encdec_{arch}_main_path",
+            lambda steps: build_lm_trainer(arch, num_layers=layers,
+                                           batch=batch, seq=seq, steps=steps,
+                                           device="cuda"),
+            mods, list(PM.LAUNCHES) + list(FA.LAUNCHES), execute=3)
+        tc = trainer.exp.train
+        if (tc.global_batch, tc.seq_len, tc.microbatches, tc.remat) != \
+                (batch, seq, micro, "block"):
+            fail(f"{arch} trained {tc}")
+        del trainer
+        mlp_sites = 3 * (m.num_experts + m.num_shared_experts) \
+            if m.num_experts else (3 if m.glu else 2)
+        subs = sub_block_launches(main, micro, layers, mlp_sites, True,
+                                  fixed=6 * m.encoder_layers)
+        print(json.dumps({"phase": f"encdec_{arch}_launches", **subs}),
+              flush=True)
+        r.update(main_path=main, profile=prof, sub_block_launches=subs)
+        out[arch] = r
+    out["chunked"] = {arch: encdec_chunked_check(torch, arch)
+                      for arch in CHUNK_ARCHS}
+    print(json.dumps({"phase": "encdec_chunked", **out["chunked"]}),
+          flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3009,6 +3211,7 @@ def main() -> None:
     mbv2_geometries, mbv2 = mobilenet_check(torch, mods + (GC,))
     paper = paper_benches_check(torch, mods + (GC,), steps=PAPER_STEPS)
     dense = dense_archs_check(torch, mods + (GC,))
+    encdec = encdec_vlm_moe_check(torch, mods + (GC,))
 
     kernels = []
     for name in REPLACES:
@@ -3056,7 +3259,7 @@ def main() -> None:
          "microbatch_reference": mb_ref, "resume": resume,
          "chunked": chunked, "mobilenetv2_geometries": mbv2_geometries,
          "mobilenetv2": mbv2, "paper_benches": paper,
-         "dense_archs": dense, "kernels": kernels,
+         "dense_archs": dense, "encdec_vlm_moe": encdec, "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},

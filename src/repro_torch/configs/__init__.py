@@ -2,8 +2,10 @@
 production config of a ported architecture; ``reduce_experiment`` cuts any
 of them to toy dimensions for CPU tests (the JAX package's
 ``repro.configs``).  Ported: the dense decoders ``qwen2_5_3b``,
-``llama3_8b``, ``starcoder2_15b`` and ``h2o_danube_3_4b``, and the paper's
-CNNs (``paper_cnns``)."""
+``llama3_8b``, ``starcoder2_15b`` and ``h2o_danube_3_4b``, the
+encoder-decoder ``whisper_small``, the VLM ``phi_3_vision_4_2b``, the MoE
+models ``deepseek_moe_16b`` and ``grok_1_314b``, and the paper's CNNs
+(``paper_cnns``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +13,9 @@ import importlib
 
 from repro_torch.core.config import Experiment
 
-ARCH_IDS = ["h2o_danube_3_4b", "starcoder2_15b", "llama3_8b", "qwen2_5_3b"]
+ARCH_IDS = ["deepseek_moe_16b", "grok_1_314b", "h2o_danube_3_4b",
+            "starcoder2_15b", "llama3_8b", "qwen2_5_3b", "whisper_small",
+            "phi_3_vision_4_2b"]
 
 
 def canon(arch: str) -> str:
@@ -28,8 +32,7 @@ def get_experiment(arch: str) -> Experiment:
 
 def reduce_experiment(exp: Experiment) -> Experiment:
     """Same family and block structure, toy dimensions (a copy of the JAX
-    package's generic reduction; its MoE/SSM/encoder cuts have no fields
-    here)."""
+    package's generic reduction; its SSM cut has no field here)."""
     m = exp.model
     unit = m.block_unit or ()
     n_layers = max(len(unit), 2) if unit else 2
@@ -45,6 +48,10 @@ def reduce_experiment(exp: Experiment) -> Experiment:
         num_kv_heads=kv,
         head_dim=64 // heads if m.head_dim == 0 else 16,
         d_ff=96 if m.d_ff else 0,
+        moe_d_ff=48 if m.moe_d_ff else 0,
+        num_experts=min(m.num_experts, 4),
+        num_shared_experts=min(m.num_shared_experts, 1),
+        top_k=min(m.top_k, 2),
         vocab_size=128,
         sliding_window=min(m.sliding_window, 8) if m.sliding_window else 0,
         encoder_layers=min(m.encoder_layers, 2),

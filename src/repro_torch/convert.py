@@ -11,15 +11,22 @@ The JAX package's trees are nested dicts/lists of numpy arrays (what
   stay patch-major ``(k*k*C, Cout)``.
 * ``lm_state_dict_from_jax(params)``: a ``state_dict`` for
   :class:`repro_torch.models.transformer.TransformerLM`; the stacked
-  ``units`` are unstacked into per-layer modules, and the attention weights
-  keep their ``(d, n, h)`` / ``(n, h, d)`` layouts.
+  ``units`` (``b0_attn`` or ``b0_moe``, an MoE's ``shared`` experts a list
+  inside), ``encoder`` and ``cross`` are unstacked into per-layer modules
+  (``layers.<i>``, ``encoder.<i>``, ``cross.<i>``), and the attention and
+  expert weights keep their ``(d, n, h)`` / ``(n, h, d)`` / ``(E, d, f)``
+  layouts.
 * ``jax_tree(named)``: the inverse, for any dict keyed by this package's
   parameter or buffer names (parameters, BatchNorm buffers, optimizer
   moments, the SWA average): the per-block ResNet modules stacked back into
   each stage's ``trans`` and ``rest`` (``down.w`` as ``down: {conv: {w}}``),
-  the LM's layers into ``units.b0_attn``, and indexed modules back into
-  lists (``stages``, MobileNetV2's ``blocks``), so that the flattening
-  order is JAX's (block 10 after block 9, not after block 1).
+  the LM's layers into ``units.b0_attn`` (``units.b0_moe`` when they hold
+  an ``moe``), its encoder and cross-attention layers into ``encoder`` and
+  ``cross``, and indexed modules back into lists (``stages``, MobileNetV2's
+  ``blocks``, the shared experts), so that the flattening order is JAX's
+  (block 10 after block 9, not after block 1).  bf16 tensors leave as
+  fp32 arrays of the same values (numpy has no bf16; the JAX package's
+  ``astype`` restores its dtype exactly).
 * ``train_state_tree(state)``: a port ``TrainState`` as the JAX package's
   ``TrainState`` fields (``params``, ``opt``, ``swa``, ``step`` int32,
   ``model_state``), the tree ``ft/checkpoint.py`` writes;
@@ -33,12 +40,23 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-STACKED = ("rest", "b0_attn")       # JAX tree keys over stacked blocks
+# JAX tree keys over stacked blocks
+STACKED = ("rest", "b0_attn", "b0_moe", "encoder", "cross")
+LM_STACKED = ("encoder", "cross")       # top-level stacks named as in JAX
 
 
-def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+def lm_unit(names) -> str:
+    """The JAX unit key of an LM's layers: ``b0_moe`` when any layer holds
+    an ``moe``, else ``b0_attn``."""
+    moe = any(n.split(".")[:3:2] == ["layers", "moe"] for n in names)
+    return "b0_moe" if moe else "b0_attn"
+
+
+def jax_path(name: str, unit: str = "b0_attn"
+             ) -> Tuple[Tuple[str, ...], Optional[int]]:
     """Where the port's ``name`` lives in the JAX package's tree: the key
-    path, and the index along the stacked axis (``None`` if unstacked)."""
+    path, and the index along the stacked axis (``None`` if unstacked);
+    ``unit`` is the LM's unit key (:func:`lm_unit`)."""
     parts = name.split(".")
     if parts[0] == "stages":                     # ResNet block
         stage, b, rest = parts[1], int(parts[2]), parts[3:]
@@ -48,7 +66,9 @@ def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
             return ("stages", stage, "trans", *rest), None
         return ("stages", stage, "rest", *rest), b - 1
     if parts[0] == "layers":                     # LM layer
-        return ("units", "b0_attn", *parts[2:]), int(parts[1])
+        return ("units", unit, *parts[2:]), int(parts[1])
+    if parts[0] in LM_STACKED:                   # encoder or cross layer
+        return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 
@@ -60,14 +80,18 @@ def port_name(path: Tuple[str, ...], index: Optional[int]) -> str:
             rest = ["down"] + rest[2:]
         b = 0 if where == "trans" else index + 1
         return ".".join(["stages", stage, str(b), *rest])
-    if path[:2] == ("units", "b0_attn"):
+    if path[0] == "units":
         return ".".join(["layers", str(index), *path[2:]])
+    if path[0] in LM_STACKED:
+        return ".".join([path[0], str(index), *path[1:]])
     return ".".join(path)
 
 
 def to_numpy(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
-        else np.asarray(t)
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _lists(node: Any) -> Any:
@@ -85,8 +109,9 @@ def jax_tree(named: Dict[str, Any]) -> Dict[str, Any]:
     numpy arrays; lists where the JAX tree has lists (a ResNet's
     ``stages``, MobileNetV2's ``blocks``)."""
     groups: Dict[Tuple[str, ...], Dict[Optional[int], np.ndarray]] = {}
+    unit = lm_unit(named)
     for name, t in named.items():
-        path, i = jax_path(name)
+        path, i = jax_path(name, unit)
         groups.setdefault(path, {})[i] = to_numpy(t)
     tree: Dict[str, Any] = {}
     for path, g in groups.items():
@@ -141,11 +166,12 @@ def state_dict_from_jax(params: Dict[str, Any], model_state: Dict[str, Any]
 
 
 def lm_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Only ``attn`` units of one block each (what the port builds)."""
+    """Units of one ``attn`` or one ``moe`` block each (what the port
+    builds), with the enc-dec's ``encoder``, ``enc_norm`` and ``cross``."""
     units = params["units"]
-    if list(units) != ["b0_attn"]:
+    if list(units) not in (["b0_attn"], ["b0_moe"]):
         raise NotImplementedError(f"units {sorted(units)}: only one-block "
-                                  "'attn' units are ported")
+                                  "'attn' or 'moe' units are ported")
     return _tensors(port_named(params))
 
 

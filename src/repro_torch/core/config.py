@@ -2,12 +2,13 @@
 
 The field names and defaults are those of the JAX package's
 ``repro.core.config`` so that one experiment reads the same in both
-packages.  :class:`ModelConfig` keeps the CNN encoding (``family="cnn"``)
-and the dense-transformer fields; the MoE and SSM fields are not ported.
+packages.  :class:`ModelConfig` keeps the CNN encoding (``family="cnn"``),
+the transformer fields (dense and MoE blocks, the encoder, cross-attention
+and frontends) and ``param_dtype``; the SSM fields are not ported.
 Options this package does not implement raise ``NotImplementedError`` where
-they are set, never a quiet substitute: block kinds other than ``"attn"``
-and the encoder/cross-attention/frontend fields (raised by
-``models/transformer.py`` when such a model is built).
+they are set, never a quiet substitute: the SSM block kinds (raised by
+``models/transformer.py`` when such a model is built, and by the parameter
+count).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 BLOCK_ATTN = "attn"              # self-attention + dense MLP
+BLOCK_MOE = "moe"                # self-attention + MoE FFN
 
 # kernel backends of ``PSGConfig.backend`` (``kernels/dispatch.py``)
 KERNEL_BACKENDS = ("auto", "reference", "plain", "cuda")
@@ -46,7 +48,8 @@ class ModelConfig:
     """
 
     name: str
-    family: str                      # dense | cnn (moe/ssm/hybrid not ported)
+    family: str                      # dense | moe | audio | vlm | cnn
+                                     # (ssm/hybrid not ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -63,20 +66,27 @@ class ModelConfig:
     act: str = "silu"                # silu | gelu | relu
     glu: bool = True                 # gated MLP (SwiGLU-style) if True
     tie_embeddings: bool = False
-    router_aux_coef: float = 0.01    # MoE load-balance weight (no MoE here)
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                # per-expert hidden dim (0 -> d_ff)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01    # load-balance loss weight
 
     # repeating unit of block kinds, tiled to num_layers; empty -> "attn"
-    # for the dense family
+    # ("moe" for the moe family)
     block_unit: Tuple[str, ...] = ()
 
-    # encoder/decoder and multimodal frontends: not ported (must stay off)
-    encoder_layers: int = 0
+    # --- encoder/decoder and multimodal frontends ---
+    encoder_layers: int = 0          # > 0: enc-dec (whisper)
     cross_attention: bool = False
-    frontend: str = ""
-    frontend_tokens: int = 0
+    frontend: str = ""               # "" | "audio" | "vision"
+    frontend_tokens: int = 0         # frontend embedding positions
 
     dtype: str = "bfloat16"          # activation dtype
-    param_dtype: str = "float32"
+    param_dtype: str = "float32"     # parameters (and their updates)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -91,8 +101,8 @@ class ModelConfig:
         """Full per-layer block-kind tuple of length num_layers."""
         unit = self.block_unit
         if not unit:
-            unit = {"moe": ("moe",), "ssm": ("mlstm",)}.get(self.family,
-                                                           (BLOCK_ATTN,))
+            unit = {"moe": (BLOCK_MOE,), "ssm": ("mlstm",)}.get(
+                self.family, (BLOCK_ATTN,))
         reps = -(-self.num_layers // len(unit))
         return (unit * reps)[: self.num_layers]
 
@@ -105,15 +115,20 @@ class ModelConfig:
         return -(-self.vocab_size // 128) * 128
 
     def param_count(self) -> int:
-        """Analytic parameter count (``attn`` blocks; a CNN config asks its
-        per-layer cost table)."""
+        """Analytic parameter count (``attn`` and ``moe`` blocks, the
+        encoder and cross-attention; a CNN config asks its per-layer cost
+        table)."""
         if self.family == "cnn":
             from repro_torch.core.cost import cnn_cost
             return cnn_cost(self).param_count()
         d, hd = self.d_model, self.resolved_head_dim
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         n += sum(self._block_params(kind, d, hd) for kind in self.blocks)
-        return n + d                                  # final norm
+        n += d                                        # final norm
+        if self.encoder_layers:
+            n += self.encoder_layers * self._block_params(BLOCK_ATTN, d, hd)
+            n += self.num_layers * self._attn_params(d, hd)   # cross
+        return n
 
     def _attn_params(self, d: int, hd: int) -> int:
         q = d * self.num_heads * hd
@@ -129,8 +144,13 @@ class ModelConfig:
     def _block_params(self, kind: str, d: int, hd: int) -> int:
         if kind == BLOCK_ATTN:
             return self._attn_params(d, hd) + self._mlp_params(d, self.d_ff)
+        if kind == BLOCK_MOE:
+            dff = self.moe_d_ff or self.d_ff
+            experts = (self.num_experts + self.num_shared_experts) * \
+                self._mlp_params(d, dff)
+            return self._attn_params(d, hd) + experts + d * self.num_experts
         raise NotImplementedError(f"block kind {kind!r} is not ported "
-                                  "(only dense 'attn' blocks)")
+                                  "(the SSM kinds come in a later slice)")
 
 
 @dataclass(frozen=True)

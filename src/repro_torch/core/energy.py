@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Mapping, Tuple
 
-from repro_torch.core.config import BLOCK_ATTN, E2TrainConfig, ModelConfig
+from repro_torch.core.config import BLOCK_ATTN, BLOCK_MOE, E2TrainConfig, \
+    ModelConfig
 
 # Horowitz ISSCC'14 45nm, picojoules.
 ENERGY_45NM: Mapping[str, float] = {
@@ -113,7 +114,28 @@ def block_fwd_flops(cfg: ModelConfig, kind: str, S: int,
     if cfg.family == "cnn":
         raise ValueError(f"{cfg.name!r} is a CNN config: it has no "
                          "transformer blocks (use core/cost.cnn_cost)")
-    if kind != BLOCK_ATTN:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
     p, a = _attn_flops(cfg, S, kv_len or S)
-    return p + a + _mlp_flops(cfg, S, cfg.d_ff)
+    if kind == BLOCK_ATTN:
+        return p + a + _mlp_flops(cfg, S, cfg.d_ff)
+    if kind == BLOCK_MOE:       # top_k routed and every shared expert
+        dff = cfg.moe_d_ff or cfg.d_ff
+        experts = (cfg.top_k + cfg.num_shared_experts) * \
+            _mlp_flops(cfg, S, dff)
+        return p + a + experts + 2 * S * cfg.d_model * cfg.num_experts
+    raise NotImplementedError(f"block kind {kind!r} is not ported")
+
+
+def model_fwd_flops(cfg: ModelConfig, batch: int, S: int,
+                    kv_len: int = 0) -> float:
+    """Forward FLOPs of the whole LM for ``batch`` sequences of ``S``
+    tokens: the blocks, the encoder over ``frontend_tokens`` frames and
+    every decoder layer's cross-attention (enc-dec), and the head."""
+    per = sum(block_fwd_flops(cfg, k, S, kv_len) for k in cfg.blocks)
+    if cfg.encoder_layers:
+        enc_S = cfg.frontend_tokens or S
+        per += cfg.encoder_layers * block_fwd_flops(cfg, BLOCK_ATTN, enc_S)
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        per += cfg.num_layers * (2 * S * d * cfg.num_heads * hd * 2
+                                 + 2 * S * enc_S * cfg.num_heads * hd * 2)
+    head = 2 * S * cfg.d_model * cfg.vocab_size
+    return float(batch) * (per + head)

@@ -183,26 +183,47 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y2.reshape(*x.shape[:-1], w.shape[-1])
 
 
+EINSUM_PATTERNS = ("bsd,dnh->bsnh", "btd,dnh->btnh", "bsnh,nhd->bsd",
+                   "ecd,edf->ecf", "ecf,efd->ecd",
+                   "gecd,edf->gecf", "gecf,efd->gecd")
+
+
 def einsum(pattern: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The dense attention projections, through PSG when a config is
-    active: ``bsd,dnh->bsnh`` (q/k/v) and ``bsnh,nhd->bsd`` (output).
-    Other patterns raise (the JAX package's grouped MoE patterns are not
-    ported)."""
-    if pattern not in ("bsd,dnh->bsnh", "bsnh,nhd->bsd"):
+    """The models' weight contractions, through PSG when a config is
+    active: the attention projections ``bsd,dnh->bsnh`` (also ``btd``) and
+    ``bsnh,nhd->bsd``, and the MoE experts' ``ecd,edf->ecf`` /
+    ``ecf,efd->ecd`` and their grouped forms ``gecd,edf->gecf`` /
+    ``gecf,efd->gecd``.  An expert pattern runs one :class:`PSGMatmul` per
+    expert ``e`` on its ``(G*C, din)`` rows (the JAX package's ``vmap`` of
+    ``psg_matmul``): each expert's operands get their own scales and its
+    flags their own 128x128 tiling, and each adds its ``[fallback * macs,
+    macs]`` to the probe.  Other patterns raise."""
+    if pattern not in EINSUM_PATTERNS:
         raise NotImplementedError(f"psg.einsum pattern {pattern!r} is not "
                                   "ported")
     cfg = active_config()
     if cfg is None:
         return torch.einsum(pattern, x, w.to(x.dtype))
-    if pattern == "bsd,dnh->bsnh":
+    if pattern in ("bsd,dnh->bsnh", "btd,dnh->btnh"):
         B, S, d = x.shape
         _, n, h = w.shape
         return psg_matmul(x.reshape(B * S, d), w.reshape(d, n * h),
                           cfg).reshape(B, S, n, h)
-    B, S, n, h = x.shape
-    d = w.shape[-1]
-    return psg_matmul(x.reshape(B * S, n * h), w.reshape(n * h, d),
-                      cfg).reshape(B, S, d)
+    if pattern == "bsnh,nhd->bsd":
+        B, S, n, h = x.shape
+        d = w.shape[-1]
+        return psg_matmul(x.reshape(B * S, n * h), w.reshape(n * h, d),
+                          cfg).reshape(B, S, d)
+    # unbind, not indexing: its backward stacks the experts' gradients once,
+    # where each index's would fill and add a whole-stack gradient
+    ws = w.to(x.dtype).unbind(0)
+    if pattern in ("ecd,edf->ecf", "ecf,efd->ecd"):
+        return torch.stack([psg_matmul(xe, we, cfg)
+                            for xe, we in zip(x.unbind(0), ws)])
+    G, E, C, din = x.shape      # each expert's rows in (g, c) order
+    ys = [psg_matmul(xe.reshape(G * C, din), we, cfg).reshape(G, C, -1)
+          for xe, we in zip(x.unbind(1), ws)]
+    return torch.stack(ys).transpose(0, 1)
 
 
 def fused_conv_active(cfg: Optional[PSGConfig]) -> bool:

@@ -174,9 +174,46 @@ def erfinv_f32(x: np.ndarray) -> np.ndarray:
     return out
 
 
-def normal(key: Key, shape: Shape = ()) -> np.ndarray:
-    """float32 standard normals: ``sqrt(2) * erfinv(u)``, ``u`` uniform on
-    ``[nextafter(-1, 0), 1)``."""
+def normal(key: Key, shape: Shape = (), dtype: str = "float32"
+           ) -> np.ndarray:
+    """Standard normals: ``sqrt(2) * erfinv(u)``, ``u`` uniform on
+    ``[nextafter(-1, 0), 1)``, as ``jax.random.normal(key, shape, dtype)``.
+    ``dtype`` ``"float32"``, or ``"bfloat16"``: float32 values that are
+    bf16 numbers (numpy has no bf16), JAX's bf16 draw (:func:`_normal_bf16`)."""
+    if dtype == "bfloat16":
+        return _normal_bf16(key, shape)
+    if dtype != "float32":
+        raise ValueError(f"normal: dtype {dtype!r} is not float32 or bfloat16")
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform(key, shape, lo, 1.0)
     return np.float32(np.sqrt(2.0)) * erfinv_f32(u)
+
+
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 ``x`` rounded to the nearest bf16 (ties to even), as float32
+    (finite inputs)."""
+    b = np.asarray(x, np.float32).view(_U32).astype(np.uint64)
+    b = (b + np.uint64(0x7FFF) + ((b >> np.uint64(16)) & np.uint64(1))) \
+        & np.uint64(0xFFFF0000)
+    return b.astype(_U32).view(np.float32)
+
+
+def _bf16_normal_table() -> np.ndarray:
+    """The 128 values of JAX's bf16 normal, by the 7 mantissa bits of its
+    uniform: ``u = max(lo, (m / 128) * (1 - lo) + lo)`` in bf16 (``1 - lo``
+    rounds to 2), then ``erfinv`` in float32 (XLA upcasts it), each step
+    rounded to bf16, times ``bf16(sqrt 2)``."""
+    lo = np.float32(-1.0 + 2.0 ** -8)          # bf16 nextafter(-1, 0)
+    u = np.arange(128, dtype=np.float32) / np.float32(128.0)
+    u = np.maximum(lo, bf16_round(u * np.float32(2.0) + lo))
+    e = bf16_round(erfinv_f32(u))
+    return bf16_round(bf16_round(np.float32(np.sqrt(2.0))) * e)
+
+
+def _normal_bf16(key: Key, shape: Shape) -> np.ndarray:
+    """``jax.random.normal`` in bf16: the low 8 of the 32 random bits (bf16
+    has fewer than 8 mantissa bits, so ``jax.random.uniform`` draws 8),
+    their top 7 a bf16 mantissa in ``[1, 2)``, mapped through
+    :func:`_bf16_normal_table`."""
+    bits = random_bits(key, shape)
+    return _bf16_normal_table()[(bits & _U32(0xFF)) >> _U32(1)]

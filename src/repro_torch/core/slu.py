@@ -96,11 +96,14 @@ def gated_residual(block_fn: Callable[[torch.Tensor], torch.Tensor],
                    x: torch.Tensor, keep_prob: torch.Tensor,
                    u: Optional[Uniform], force_keep: bool,
                    modules: Sequence[nn.Module] = (),
-                   keep: Optional[bool] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   keep: Optional[bool] = None, has_aux: bool = False
+                   ) -> Tuple[torch.Tensor, ...]:
     """``x + g * block(x)`` where the block is kept, else ``x``; returns
     ``(output, executed)``, ``executed`` a 0-d fp32 tensor (1. or 0.) on
-    ``x``'s device.
+    ``x``'s device.  With ``has_aux`` the block returns ``(y, aux)``, aux a
+    0-d fp32 loss term (the MoE's load-balance loss), and this returns
+    ``(output, executed, aux)`` with aux unscaled where the block runs and
+    0 where it is skipped (the JAX package's ``lax.cond`` pair).
 
     ``keep = force_keep | (u < keep_prob)`` in fp32, ``u`` the block's
     uniform (:func:`resnet_uniforms`, :func:`lm_uniforms`; unused when
@@ -142,16 +145,19 @@ def gated_residual(block_fn: Callable[[torch.Tensor], torch.Tensor],
         else:
             keep = bool(np.float32(u) < np.float32(float(keep_prob.detach())))
     if keep is False:          # decided on the host: no node, no grad path
-        return x, torch.zeros((), device=x.device)
+        zero = torch.zeros((), device=x.device)
+        return (x, zero, zero) if has_aux else (x, zero)
     cfg, probe = psg.snapshot()
     if psg.active_config() is None:
         probe = None
     named = [dict(m.named_parameters()) for m in modules]
     params = [q for d in named for q in d.values()]
-    decide = (block_fn, keep, u, cg, cfg, probe is not None, modules, named)
-    return _GatedResidual.apply(
+    decide = (block_fn, keep, u, cg, cfg, probe is not None, modules, named,
+              has_aux)
+    out, flag, aux = _GatedResidual.apply(
         decide, x, keep_prob, probe if probe is not None else x.new_empty(0),
         *params)
+    return (out, flag, aux) if has_aux else (out, flag)
 
 
 def _leaf(t: torch.Tensor) -> torch.Tensor:
@@ -165,17 +171,19 @@ class _GatedResidual(torch.autograd.Function):
     node when the decision is on the card, and keeps that inner graph; the
     backward differentiates it (``torch.autograd.grad``), in a second IF
     node on the saved flag.  Fills before each node give the skipped
-    block's result."""
+    block's result (the aux output, 0 without ``has_aux``, too)."""
 
     @staticmethod
     def forward(ctx, decide, x, p, probe, *params):
         from torch.nn.utils.stateless import _reparametrize_module
 
         from repro_torch.core import psg
-        block_fn, keep, u, cg, cfg, has_probe, modules, named = decide
+        block_fn, keep, u, cg, cfg, has_probe, modules, named, has_aux = \
+            decide
         ctx.keep, ctx.cg, ctx.has_probe = keep, cg, has_probe
         ctx.inner = None
         out = x.clone()
+        aux_out = torch.zeros((), device=x.device)
 
         def body():
             with torch.enable_grad(), contextlib.ExitStack() as stack:
@@ -189,9 +197,13 @@ class _GatedResidual(torch.autograd.Function):
                     stack.enter_context(psg.enable(cfg, leaves[2]))
                 pd = leaves[1]
                 g_st = (1.0 + pd - pd.detach()).to(x.dtype)
-                t = g_st * block_fn(leaves[0])
+                y = block_fn(leaves[0])
+                y, aux = y if has_aux else (y, None)
+                t = g_st * y
             out.add_(t.detach())
-            ctx.inner = (t, leaves)
+            if has_aux:
+                aux_out.copy_(aux.detach())
+            ctx.inner = (t, aux, leaves)
 
         if cg is None:
             flag = torch.ones((), device=x.device)
@@ -206,10 +218,10 @@ class _GatedResidual(torch.autograd.Function):
         ctx.flag = flag
         ctx.save_for_backward(probe, *params)
         ctx.mark_non_differentiable(flag)
-        return out, flag
+        return out, flag, aux_out
 
     @staticmethod
-    def backward(ctx, gout, _gflag):
+    def backward(ctx, gout, _gflag, gaux):
         probe, *params = ctx.saved_tensors
         dx = gout.clone()
         dp = torch.zeros((), dtype=torch.float32, device=gout.device)
@@ -218,8 +230,11 @@ class _GatedResidual(torch.autograd.Function):
         outs = [dp] + ([dprobe] if ctx.has_probe else []) + dparams
 
         def body():
-            t, leaves = ctx.inner
-            gs = torch.autograd.grad(t, leaves, gout, allow_unused=True)
+            t, aux, leaves = ctx.inner
+            outs_t, grads_t = ([t, aux], [gout, gaux]) if aux is not None \
+                else (t, gout)
+            gs = torch.autograd.grad(outs_t, leaves, grads_t,
+                                     allow_unused=True)
             if gs[0] is not None:
                 dx.add_(gs[0])
             for dst, g in zip(outs, gs[1:]):

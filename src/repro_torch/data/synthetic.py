@@ -16,12 +16,17 @@ a dropped step draws nothing.  ``host_image_batch`` and ``host_lm_batch``
 make the same batches as CPU tensors, pinned on request, for the prefetch
 thread of the chunked loop (``data/pipeline.py``), which must not issue a
 copy to the card.
+
+A model with a frontend (whisper's audio frames, phi-3-vision's patches,
+stubs in both packages) takes ``"frontend"`` embeddings beside its tokens:
+:func:`host_frontend`, the JAX launcher's
+``jax.random.normal(fold_in(PRNGKey(7), step), (B, F, d), act dtype)``.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -127,3 +132,30 @@ def host_lm_batch(task: MarkovLMTask, seed: int, step: int, shard: int,
     labels = np.full((batch, seq), -1, np.int64)
     tokens[:, :-1], labels[:, :-1] = toks[:, :-1], toks[:, 1:]
     return _host({"tokens": tokens, "labels": labels}, pin)
+
+
+FRONTEND_SEED = 7               # the JAX launcher's PRNGKey of the frontend
+
+
+def host_frontend(cfg, step: int, batch: int, seed: int = FRONTEND_SEED,
+                  pin: bool = False) -> torch.Tensor:
+    """Frontend embeddings ``(batch, frontend_tokens, d_model)`` in the
+    activation dtype, as a CPU tensor (pinned with ``pin``): standard
+    normals of ``fold_in(PRNGKey(seed), step)`` drawn in that dtype
+    (``rng.normal``; bf16 draws are JAX's bit for bit)."""
+    shape = (batch, cfg.frontend_tokens, cfg.d_model)
+    x = rng.normal(rng.fold_in(rng.PRNGKey(seed), step), shape, cfg.dtype)
+    t = torch.from_numpy(x).to(getattr(torch, cfg.dtype))
+    return t.pin_memory() if pin else t
+
+
+def with_frontend(b: Dict[str, torch.Tensor], cfg, step: int,
+                  seed: int = FRONTEND_SEED, pin: bool = False,
+                  device: Optional[torch.device] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """``b`` with ``"frontend"`` (:func:`host_frontend` of its rows) when
+    ``cfg`` has a frontend, on ``device`` if given; else ``b``."""
+    if not cfg.frontend:
+        return b
+    f = host_frontend(cfg, step, b["tokens"].shape[0], seed, pin)
+    return {**b, "frontend": f if device is None else f.to(device)}

@@ -180,12 +180,16 @@ struct Geo {
 
 
 // Column of element jj of a thread's HD / 16 output columns: groups of four
-// at tx * 4 + 64 * group when there are four or more (so that a quarter warp
-// reads 128 contiguous bytes), else tx * CPT + jj.
+// at tx * 4 + 64 * group when they come in whole groups of four (HD 64, 128:
+// a quarter warp reads 128 contiguous bytes), else tx * CPT + jj (HD 16, 32,
+// 96; at HD 96 the groups of 64 would reach column 125).
+template <int HD>
+constexpr bool kGroups4 = (HD / 16) % 4 == 0;
+
 template <int HD>
 __device__ __forceinline__ int col(int tx, int jj) {
   constexpr int CPT = HD / 16;
-  if constexpr (CPT >= 4) return (jj / 4) * 64 + tx * 4 + jj % 4;
+  if constexpr (kGroups4<HD>) return (jj / 4) * 64 + tx * 4 + jj % 4;
   else return tx * CPT + jj;
 }
 
@@ -193,7 +197,7 @@ template <int HD>
 __device__ __forceinline__ void lds_cols(const float* row, int tx,
                                          float (&v)[HD / 16]) {
   constexpr int CPT = HD / 16;
-  if constexpr (CPT >= 4) {
+  if constexpr (kGroups4<HD>) {
 #pragma unroll
     for (int a = 0; a < CPT / 4; ++a) {
       const float4 w = *reinterpret_cast<const float4*>(row + a * 64 + tx * 4);
@@ -306,15 +310,18 @@ template <int HD>
 __device__ __forceinline__ void lds_words(const unsigned* row, int tx,
                                           unsigned (&v)[HD / 16]) {
   constexpr int CPT = HD / 16;
-  if constexpr (CPT >= 4) {
+  if constexpr (kGroups4<HD>) {
 #pragma unroll
     for (int g = 0; g < CPT / 4; ++g) {
       const uint4 w = *reinterpret_cast<const uint4*>(row + g * 64 + tx * 4);
       v[4 * g] = w.x; v[4 * g + 1] = w.y; v[4 * g + 2] = w.z; v[4 * g + 3] = w.w;
     }
-  } else if constexpr (CPT == 2) {
-    const uint2 w = *reinterpret_cast<const uint2*>(row + tx * 2);
-    v[0] = w.x; v[1] = w.y;
+  } else if constexpr (CPT % 2 == 0) {   // CPT words at tx * CPT, 8-aligned
+#pragma unroll
+    for (int a = 0; a < CPT / 2; ++a) {
+      const uint2 w = *reinterpret_cast<const uint2*>(row + tx * CPT + 2 * a);
+      v[2 * a] = w.x; v[2 * a + 1] = w.y;
+    }
   } else {
     v[0] = row[tx];
   }
@@ -326,14 +333,16 @@ template <int HD>
 __device__ __forceinline__ void lds_halves(const uint16_t* row, int tx,
                                            unsigned (&v)[(HD / 16 + 1) / 2]) {
   constexpr int CPT = HD / 16;
-  if constexpr (CPT >= 4) {
+  if constexpr (kGroups4<HD>) {
 #pragma unroll
     for (int g = 0; g < CPT / 4; ++g) {
       const uint2 w = *reinterpret_cast<const uint2*>(row + g * 64 + tx * 4);
       v[2 * g] = w.x; v[2 * g + 1] = w.y;
     }
-  } else if constexpr (CPT == 2) {
-    v[0] = *reinterpret_cast<const unsigned*>(row + tx * 2);
+  } else if constexpr (CPT % 2 == 0) {   // CPT halves at tx * CPT, 4-aligned
+#pragma unroll
+    for (int a = 0; a < CPT / 2; ++a)
+      v[a] = *reinterpret_cast<const unsigned*>(row + tx * CPT + 2 * a);
   } else {
     v[0] = row[tx];
   }
@@ -1672,6 +1681,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     case 64:                                                                 \
       return bf16 ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)                   \
                   : LAUNCH<float, 64>(__VA_ARGS__);                          \
+    case 96:                                                                 \
+      return bf16 ? LAUNCH<__nv_bfloat16, 96>(__VA_ARGS__)                   \
+                  : LAUNCH<float, 96>(__VA_ARGS__);                          \
     case 128:                                                                \
       return bf16 ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)                  \
                   : LAUNCH<float, 128>(__VA_ARGS__);                         \

@@ -84,7 +84,7 @@ from repro_torch.kernels.conv import _call, _check, _on_cuda, _stream
 
 NEG_INF = -1e30
 FALLBACK_TILE = 128     # kv rows of one fallback tile (the TPU kernel's bk)
-HEAD_DIMS = (16, 32, 64, 128)   # the head dims the CUDA kernels are built for
+HEAD_DIMS = (16, 32, 64, 96, 128)   # the head dims the CUDA kernels are built for
 FWD_BLOCK_K = 64        # kv rows a stage of the bf16 forward kernel
 DKV_TILE = 64           # query rows a tile and kv rows a block of kernel 9
 DKV_PLANES = 6          # K-major code planes the bf16 kernel 9 reads

@@ -13,6 +13,8 @@ PSG and print the energy report.
         --batch 2 --seq 4096 --steps 8
     python -m repro_torch.launch.train --task lm --arch llama3_8b --smoke \\
         --steps 6 --device cpu
+    python -m repro_torch.launch.train --task lm --arch whisper_small \\
+        --smoke --steps 6 --device cpu
     python -m repro_torch.launch.train --depth 74 --e2train off \\
         --fused-conv off --steps 8
     python -m repro_torch.launch.train --depth 8 --width 8 --batch 4 \\
@@ -34,10 +36,13 @@ ResNet and 0.05 for MobileNetV2).  ``--cnn`` picks the CIFAR backbone:
 SLU as the JAX package does.  ``--fused-conv`` picks the CNN's conv path
 (``PSGConfig.fused_conv``): ``on`` and ``auto`` the implicit-GEMM conv
 kernels, ``off`` the materialized im2col on the PSG matmul kernels.
-``--arch`` picks the LM among the ported dense decoders
-(``configs.ARCH_IDS``: qwen2.5-3b, llama3-8b, starcoder2-15b, which trains
-in its config's 4 microbatches, and h2o-danube-3-4b, whose sliding window
-keeps it off the flash kernels);
+``--arch`` picks the LM among the ported ones (``configs.ARCH_IDS``: the
+dense decoders qwen2.5-3b, llama3-8b, starcoder2-15b, which trains in its
+config's 4 microbatches, and h2o-danube-3-4b, whose sliding window keeps
+it off the flash kernels; the encoder-decoder whisper-small and the VLM
+phi-3-vision-4.2b, whose batches carry frontend embeddings drawn as the
+JAX launcher draws them; the MoE models deepseek-moe-16b and grok-1-314b,
+bf16 parameters in 8 microbatches);
 ``--smoke`` cuts the LM to toy dimensions (``configs.reduce_experiment``);
 ``--fused-attention on`` trains the LM through the flash kernels with the
 PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` through
@@ -83,7 +88,8 @@ from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
 from repro_torch.core.device import resolve_device
 from repro_torch.core.psg import fused_conv_active
 from repro_torch.data.synthetic import (host_image_batch, host_lm_batch,
-                                       make_image_batch, make_lm_batch)
+                                       make_image_batch, make_lm_batch,
+                                       with_frontend)
 from repro_torch.ft import faults
 from repro_torch.ft.checkpoint import latest_intact_step, restore_checkpoint
 from repro_torch.kernels import dispatch
@@ -215,13 +221,18 @@ def build_lm_trainer(arch: str = "qwen2_5_3b",
     tc = exp.train
     task = evaluate.data_task(exp)
 
+    pin = dev.type == "cuda"
+
     def make_batch(step, shard):
-        return make_lm_batch(task, tc.seed, step, shard, tc.global_batch,
-                             tc.seq_len, dev)
+        return with_frontend(make_lm_batch(task, tc.seed, step, shard,
+                                           tc.global_batch, tc.seq_len, dev),
+                             exp.model, step, device=dev)
 
     def make_host_batch(step, shard):
-        return host_lm_batch(task, tc.seed, step, shard, tc.global_batch,
-                             tc.seq_len, pin=dev.type == "cuda")
+        return with_frontend(host_lm_batch(task, tc.seed, step, shard,
+                                           tc.global_batch, tc.seq_len,
+                                           pin=pin),
+                             exp.model, step, pin=pin)
 
     return Trainer(exp, state, make_batch, device=dev,
                    make_host_batch=make_host_batch, **trainer_kw)
@@ -330,15 +341,24 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
                                    steps=args.steps, device=args.device,
                                    smoke=args.smoke, fused_attention=fused,
                                    e2=e2, **ft)
-        tc = trainer.exp.train
-        attn = attention_path(trainer.exp.model, trainer.exp.e2.psg
-                              if psg_cfg else None, tc.seq_len)
-        if trainer.exp.model.sliding_window:
-            attn += f" sliding-window ({trainer.exp.model.sliding_window})"
-        print(f"model {trainer.exp.model.name} ({trainer.exp.model.num_layers}"
-              f" layers, d_model {trainer.exp.model.d_model}, batch "
-              f"{tc.global_batch} x seq {tc.seq_len}, {attn} attention, "
-              f"--e2train {args.e2train}, kernel backend "
+        tc, m = trainer.exp.train, trainer.exp.model
+        vlm = m.frontend and not m.encoder_layers
+        attn = attention_path(m, trainer.exp.e2.psg if psg_cfg else None,
+                              tc.seq_len + (m.frontend_tokens if vlm else 0))
+        if m.sliding_window:
+            attn += f" sliding-window ({m.sliding_window})"
+        extra = ""
+        if m.encoder_layers:
+            extra += (f", {m.encoder_layers}-layer encoder over "
+                      f"{m.frontend_tokens} frames")
+        elif vlm:
+            extra += f", {m.frontend_tokens} patches prepended"
+        if m.num_experts:
+            extra += (f", {m.num_experts} experts top-{m.top_k}"
+                      f" + {m.num_shared_experts} shared")
+        print(f"model {m.name} ({m.num_layers} layers, d_model {m.d_model}, "
+              f"batch {tc.global_batch} x seq {tc.seq_len}{extra}, {attn} "
+              f"attention, --e2train {args.e2train}, kernel backend "
               f"{kernel_backend(trainer)}) on {trainer.device}")
     else:
         batch = args.batch or 128

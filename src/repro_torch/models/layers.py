@@ -1,20 +1,22 @@
-"""Transformer layers: norms, rotary embedding, GQA attention, and the
-(gated) MLP.
+"""Transformer layers: norms, rotary embedding, GQA attention (causal,
+or unmasked for the encoder), cross-attention, and the (gated) MLP.
 
-The counterpart of the JAX package's ``models/layers.py`` for dense
-training.  Parameters are fp32 ``nn.Parameter``s in the JAX layouts (``wq``
-``(d, nh, hd)``, ``wo`` ``(nh, hd, d)``, MLP weights ``(in, out)``) and are
-cast to the activation dtype inside each call, so a JAX tree loads as it
-is (``repro_torch.convert``).  Every weight matmul goes through
+The counterpart of the JAX package's ``models/layers.py`` for training.
+Parameters are ``nn.Parameter``s in ``param_dtype`` (fp32 unless a config
+says otherwise) in the JAX layouts (``wq`` ``(d, nh, hd)``, ``wo`` ``(nh,
+hd, d)``, MLP weights ``(in, out)``) and are cast to the activation dtype
+inside each call, so a JAX tree loads as it is (``repro_torch.convert``).
+Every weight matmul but the cross-attention's goes through
 ``core/psg.matmul``/``einsum``, so under an active PSG config it runs the
-PSG matmul kernels.  Attention takes one of three paths, chosen as the JAX
-package chooses (:func:`attention_path`): under a PSG config with the flash
-kernels on and no sliding window, the flash kernels with the PSG dk/dv
-backward (``core/psg.attention``), which keep every ``(S, T)`` tile out of
-device memory; otherwise the softmax with scores in fp32 and probabilities
-in bf16 (:class:`SoftmaxLowp`), materialized whole, or one 512-query chunk
-at a time (:func:`_sdpa_qchunked`) above 8192 tokens and, when asked (the
-eval forward), from 1024.
+PSG matmul kernels.  Causal attention takes one of three paths, chosen as
+the JAX package chooses (:func:`attention_path`): under a PSG config with
+the flash kernels on and no sliding window, the flash kernels with the PSG
+dk/dv backward (``core/psg.attention``), which keep every ``(S, T)`` tile
+out of device memory; otherwise the softmax with scores in fp32 and
+probabilities in bf16 (:class:`SoftmaxLowp`), materialized whole, or one
+512-query chunk at a time (:func:`_sdpa_qchunked`) above 8192 tokens and,
+when asked (the eval forward), from 1024.  The encoder's unmasked
+attention and the cross-attention are always materialized.
 """
 from __future__ import annotations
 
@@ -33,20 +35,28 @@ ATTN_Q_CHUNK = 512               # queries per chunk of the chunked path
 ATTN_CHUNK_THRESHOLD = 8192     # chunk the queries above this many tokens
 
 
-def dense_init(shape, generator: torch.Generator, scale: float = 1.0
-               ) -> torch.Tensor:
-    """Fan-in truncated-normal init at +-2 sigma, on the generator's
-    device (the JAX package's ``dense_init``; same law, other draws)."""
+def dense_init(shape, generator: torch.Generator, scale: float = 1.0,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fan-in truncated-normal init at +-2 sigma, drawn in fp32 and cast to
+    ``dtype``, on the generator's device (the JAX package's
+    ``dense_init``; same law, other draws)."""
     std = scale / max(shape[0], 1) ** 0.5
     t = torch.empty(shape, device=generator.device)
     nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
                           generator=generator)
-    return t
+    return t.to(dtype)
 
 
-def embed_init(shape, generator: torch.Generator) -> torch.Tensor:
-    return torch.randn(shape, generator=generator,
-                       device=generator.device) * 0.02
+def embed_init(shape, generator: torch.Generator,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (torch.randn(shape, generator=generator,
+                        device=generator.device) * 0.02).to(dtype)
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The parameters' dtype, ``cfg.param_dtype`` (fp32 unless a config,
+    such as grok-1-314b's, says otherwise)."""
+    return getattr(torch, cfg.param_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -57,10 +67,10 @@ def embed_init(shape, generator: torch.Generator) -> torch.Tensor:
 class Norm(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        d = cfg.d_model
+        d, pd = cfg.d_model, param_dtype(cfg)
         self.kind = cfg.norm
-        self.scale = nn.Parameter(torch.ones(d, device=device))
-        self.bias = nn.Parameter(torch.zeros(d, device=device)) \
+        self.scale = nn.Parameter(torch.ones(d, device=device, dtype=pd))
+        self.bias = nn.Parameter(torch.zeros(d, device=device, dtype=pd)) \
             if cfg.norm == "layernorm" else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -110,15 +120,15 @@ class Attention(nn.Module):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nh, nkv = cfg.num_heads, cfg.num_kv_heads
-        dev = generator.device
-        self.wq = nn.Parameter(dense_init((d, nh, hd), generator))
-        self.wk = nn.Parameter(dense_init((d, nkv, hd), generator))
-        self.wv = nn.Parameter(dense_init((d, nkv, hd), generator))
-        self.wo = nn.Parameter(dense_init((nh, hd, d), generator))
+        dev, pd = generator.device, param_dtype(cfg)
+        self.wq = nn.Parameter(dense_init((d, nh, hd), generator, dtype=pd))
+        self.wk = nn.Parameter(dense_init((d, nkv, hd), generator, dtype=pd))
+        self.wv = nn.Parameter(dense_init((d, nkv, hd), generator, dtype=pd))
+        self.wo = nn.Parameter(dense_init((nh, hd, d), generator, dtype=pd))
         if cfg.qkv_bias:
-            self.bq = nn.Parameter(torch.zeros(nh, hd, device=dev))
-            self.bk = nn.Parameter(torch.zeros(nkv, hd, device=dev))
-            self.bv = nn.Parameter(torch.zeros(nkv, hd, device=dev))
+            self.bq = nn.Parameter(torch.zeros(nh, hd, device=dev, dtype=pd))
+            self.bk = nn.Parameter(torch.zeros(nkv, hd, device=dev, dtype=pd))
+            self.bv = nn.Parameter(torch.zeros(nkv, hd, device=dev, dtype=pd))
         else:
             self.bq = self.bk = self.bv = None
 
@@ -231,17 +241,23 @@ def attention_path(cfg: ModelConfig, psg_cfg, S: int,
 
 
 def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                  prefer_chunked: bool = False) -> torch.Tensor:
+                  prefer_chunked: bool = False,
+                  causal: bool = True) -> torch.Tensor:
     """Causal (and windowed) self-attention over a full sequence, on
     :func:`attention_path`'s path under the active PSG config; the
-    materialized softmax takes the causal-and-window mask whole."""
+    materialized softmax takes the causal-and-window mask whole.
+    ``causal=False`` (the encoder) is the materialized softmax with no
+    mask, never flash nor chunked, as in the JAX package."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    path = attention_path(cfg, psg.active_config(), S, prefer_chunked)
-    if path == "flash":
+    path = attention_path(cfg, psg.active_config(), S, prefer_chunked) \
+        if causal else "unmasked"
+    if path == "unmasked":
+        out = _sdpa(q, k, v, None)
+    elif path == "flash":
         out = psg.attention(q, k, v, causal=True)
     elif path == "query-chunked":
         out = _sdpa_qchunked(q, k, v, cfg)
@@ -249,6 +265,19 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         out = _sdpa(q, k, v, causal_mask(S, S, 0, cfg.sliding_window,
                                          x.device))
     return psg.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype))
+
+
+def cross_attention_fwd(p: Attention, x: torch.Tensor, memory: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's attention over the encoder's output ``memory`` (B, T,
+    d): no mask, no RoPE, plain ``torch.einsum`` projections (no PSG, as
+    the JAX package's ``cross_attention_fwd``)."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dnh->bsnh", x, p.wq.to(dt))
+    k = torch.einsum("btd,dnh->btnh", memory, p.wk.to(dt))
+    v = torch.einsum("btd,dnh->btnh", memory, p.wv.to(dt))
+    out = _sdpa(q, k, v, None)
+    return torch.einsum("bsnh,nhd->bsd", out, p.wo.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -260,17 +289,19 @@ _ACTS = {"silu": F.silu, "relu": F.relu,
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 d_ff: int = 0):
+        """``d_ff`` (default ``cfg.d_ff``): a shared expert's width."""
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        dev = generator.device
-        self.w_up = nn.Parameter(dense_init((d, f), generator))
-        self.w_down = nn.Parameter(dense_init((f, d), generator))
-        self.w_gate = nn.Parameter(dense_init((d, f), generator)) \
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        dev, pd = generator.device, param_dtype(cfg)
+        self.w_up = nn.Parameter(dense_init((d, f), generator, dtype=pd))
+        self.w_down = nn.Parameter(dense_init((f, d), generator, dtype=pd))
+        self.w_gate = nn.Parameter(dense_init((d, f), generator, dtype=pd)) \
             if cfg.glu else None
         if cfg.mlp_bias:
-            self.b_up = nn.Parameter(torch.zeros(f, device=dev))
-            self.b_down = nn.Parameter(torch.zeros(d, device=dev))
+            self.b_up = nn.Parameter(torch.zeros(f, device=dev, dtype=pd))
+            self.b_down = nn.Parameter(torch.zeros(d, device=dev, dtype=pd))
         else:
             self.b_up = self.b_down = None
 

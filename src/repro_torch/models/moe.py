@@ -1,0 +1,130 @@
+"""Mixture-of-Experts FFN: grouped top-k routing with per-group capacity
+(the JAX package's ``models/moe.py``).
+
+Tokens are routed in groups of ``GROUP_SIZE``; each group gives every
+expert ``C = max(int(capacity_factor * k * n_g / E), 1)`` slots.  The
+router runs in fp32 and never through PSG; the experts' three matmuls go
+through ``core/psg.einsum``'s grouped patterns, one PSG matmul per expert
+(its own scales and fallback flags).  Shared experts (DeepSeekMoE) are
+always-on MLPs of the expert width.
+
+The routing follows the reference's order exactly:
+
+* top-k of the softmax probabilities with ties to the lower expert index
+  (``jax.lax.top_k``; ``torch.topk`` promises no order among ties, so a
+  stable descending sort takes its place), the k weights renormalized;
+* a token's slot in expert e is the count of earlier (token, rank) choices
+  of e in the group, over the flattened ``(n, k)`` axis, token-major; a
+  choice past the capacity is dropped (combine weight 0);
+* the load-balance loss ``E * sum_e frac_tokens_e * frac_probs_e`` counts
+  every token's first choice, dropped ones too.
+
+The reference dispatches and combines with one-hot einsums over ``(G, n,
+E, C)``.  Every dispatch weight is 0 or 1 and a slot holds at most one
+token, so its expert inputs are the routed tokens themselves and each
+token's output is the sum of its kept choices' weighted expert outputs:
+here an indexed write into ``(E, G, C, d)`` (zeros in empty slots) and a
+gather of each choice's output, which compute the same values without the
+one-hot tensors.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import psg
+from repro_torch.core.config import ModelConfig
+from repro_torch.models import layers as L
+
+GROUP_SIZE = 1024
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) fp32; ``w_up``/``w_gate`` (E, d, f), ``w_down``
+    (E, f, d) in ``param_dtype``; ``shared``: the shared experts' MLPs."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        d, E = cfg.d_model, cfg.num_experts
+        f = cfg.moe_d_ff or cfg.d_ff
+        pd = L.param_dtype(cfg)
+        self.router = nn.Parameter(L.dense_init((d, E), generator))
+        self.w_up = nn.Parameter(L.dense_init((E, d, f), generator, dtype=pd))
+        self.w_gate = nn.Parameter(L.dense_init((E, d, f), generator,
+                                                dtype=pd))
+        self.w_down = nn.Parameter(L.dense_init((E, f, d), generator,
+                                                dtype=pd))
+        self.shared = nn.ModuleList(L.MLP(cfg, generator, d_ff=f)
+                                    for _ in range(cfg.num_shared_experts))
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values, ties in
+    ascending index order."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(probs: torch.Tensor, k: int, cap: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``probs`` (G, n, E) -> ``(weights, experts, slots, keep)``, each
+    (G, n, k): the renormalized top-k weights, their experts, each
+    choice's slot in its expert (the reference's cumsum over the flattened
+    ``(n, k)`` axis) and whether the slot is below ``cap``."""
+    G, n, E = probs.shape
+    topv, topi = top_k(probs, k)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    onehot = F.one_hot(topi, E)                            # (G, n, k, E)
+    flat = onehot.reshape(G, n * k, E)
+    pos = (flat.cumsum(dim=1) - flat).reshape(G, n, k, E)
+    pos = (pos * onehot).sum(dim=-1)
+    return topv, topi, pos, pos < cap
+
+
+def moe_fwd(m: MoE, x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d), fp32 load-balance loss)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    dt, dev = x.dtype, x.device
+    N = B * S
+    n_g = min(GROUP_SIZE, N)
+    G = N // n_g
+    if G * n_g != N:
+        raise ValueError(f"tokens {N} not divisible by group {n_g}")
+    cap = max(int(cfg.capacity_factor * k * n_g / E), 1)
+
+    xg = x.reshape(G, n_g, d)
+    probs = torch.softmax(xg.float() @ m.router.float(), dim=-1)
+    topv, topi, pos, keep = route(probs, k, cap)
+
+    # dispatch: slot (e, g, c) holds its token, empty slots zero; dropped
+    # choices go to a spare slot C that is cut off (no mask, no host sync:
+    # the step can be captured in a CUDA graph)
+    gi = torch.arange(G, device=dev)[:, None, None].expand(G, n_g, k)
+    slot = torch.where(keep, pos, torch.full((), cap, device=dev))
+    ex_in = x.new_zeros(E, G, cap + 1, d).index_put(
+        (topi, gi, slot), xg[:, :, None, :].expand(G, n_g, k, d))
+    ex_in = ex_in[:, :, :cap].contiguous().transpose(0, 1)   # (G, E, C, d)
+
+    act = F.silu if cfg.act == "silu" else L._ACTS["gelu"]
+    h = act(psg.einsum("gecd,edf->gecf", ex_in, m.w_up.to(dt)))
+    h = h * psg.einsum("gecd,edf->gecf", ex_in, m.w_gate.to(dt))
+    ex_out = psg.einsum("gecf,efd->gecd", h, m.w_down.to(dt))
+
+    # combine: each token's kept choices, weighted, summed over its k
+    picked = ex_out[gi, topi, slot.clamp(max=cap - 1)]    # (G, n, k, d)
+    w = torch.where(keep, topv, torch.zeros((), device=dev)).to(dt)
+    y = (picked * w[..., None]).sum(dim=2).reshape(N, d)
+
+    if m.shared:
+        xt = x.reshape(N, d)
+        for sp in m.shared:
+            y = y + L.mlp_fwd(sp, xt, cfg)
+
+    frac_tokens = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(frac_tokens * probs.mean(dim=(0, 1)))
+    return y.reshape(B, S, d), aux.float()

@@ -1,9 +1,12 @@
-"""Dense transformer LM with SLU-gated sub-blocks and PSG matmuls.
+"""Transformer LM with SLU-gated sub-blocks and PSG matmuls: dense and MoE
+decoders, the encoder-decoder (whisper) and the VLM (phi-3-vision).
 
-The counterpart of the JAX package's ``models/transformer.py`` for
-``attn`` blocks (self-attention + dense MLP).  The JAX scan over stacked
-units becomes a Python loop over per-layer modules (``layers.<i>``), so a
-JAX tree loads through ``repro_torch.convert.lm_state_dict_from_jax``.
+The counterpart of the JAX package's ``models/transformer.py`` for ``attn``
+blocks (self-attention + dense MLP) and ``moe`` blocks (self-attention +
+the MoE FFN of ``models/moe.py``).  The JAX scan over stacked units
+becomes a Python loop over per-layer modules (``layers.<i>``, and
+``encoder.<i>`` and ``cross.<i>`` for the enc-dec), so a JAX tree loads
+through ``repro_torch.convert.lm_state_dict_from_jax``.
 
 SLU gates each residual sub-block (mixer, then ffn) with the weight-shared
 gate, whose LSTM state runs through the sub-blocks in order.  The keys are
@@ -11,21 +14,36 @@ the JAX package's: layer ``i`` folds ``i`` (its unit index) and then 0 (its
 place in the one-block unit) into the step key and splits the result into
 the mixer's and the ffn's key; the first and last layer always run.  So,
 from the same parameters and step key, the decisions are the JAX package's.
+A gated MoE ffn draws the same keep as a dense one and carries its
+load-balance loss out of the gate: unscaled where it runs, 0 where it is
+skipped (the reference's ``lax.cond`` pair; ``core/slu.gated_residual``'s
+``has_aux``).
 
-``remat="block"`` checkpoints each executed sub-block's branch
-(``torch.utils.checkpoint``, non-reentrant) after its SLU decision has been
-taken, so the recompute is deterministic and the gradients equal those of
-``remat="none"``.  The JAX package checkpoints whole units; here the ffn's
-decision depends on the mixer's output, so the checkpoint is per sub-block.
-``remat="full"`` checkpoints nothing, as in the JAX package's ``lm_fwd``.
+``remat="block"`` checkpoints each executed sub-block's branch, and each
+decoder layer's cross-attention, (``torch.utils.checkpoint``,
+non-reentrant) after its SLU decision has been taken, so the recompute is
+deterministic and the gradients equal those of ``remat="none"``.  The JAX
+package checkpoints whole units; here the ffn's decision depends on the
+mixer's output, so the checkpoint is per sub-block.  ``remat="full"``
+checkpoints nothing, as in the JAX package's ``lm_fwd``.
 
 Attention takes the JAX package's paths (``layers.attention_fwd``), with
 sliding-window masks; the eval forward prefers the query-chunked softmax
 from 1024 tokens, as the JAX package's ``lm_fwd(train=False)`` does (its
 sequence parallelism, which keeps training off that path, is off there).
 
-Not ported (raise when such a model is built): block kinds other than
-``attn``, encoder/cross-attention and frontends.
+Frontends (stubs in both packages) come in as embeddings ``(B, F, d)``:
+
+* the enc-dec (``encoder_layers > 0``) runs them through a bidirectional
+  encoder of ``attn`` blocks (unmasked materialized softmax, RoPE, every
+  layer checkpointed whatever ``remat`` says, never SLU-gated) and
+  ``enc_norm``; every decoder layer then adds cross-attention over that
+  memory after its whole block, as the reference's ``lm_fwd`` does (its
+  ``prefill_to_state``/``decode_step`` add it between attention and MLP);
+* the VLM prepends them to the token embeddings: positions, SLU's FLOPs
+  and the logits run over ``F + S``, and ``lm_loss`` keeps the text tail.
+
+Not ported (raise when such a model is built): the SSM block kinds.
 """
 from __future__ import annotations
 
@@ -36,33 +54,48 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import psg, rng
-from repro_torch.core.config import BLOCK_ATTN, E2TrainConfig, ModelConfig
+from repro_torch.core.config import BLOCK_ATTN, BLOCK_MOE, E2TrainConfig, \
+    ModelConfig
 from repro_torch.core.energy import block_fwd_flops
 from repro_torch.core.slu import Gate, flops_regularizer, gated_residual, \
     lm_uniforms
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.blocks)
-    if kinds != {BLOCK_ATTN}:
+    kinds = set(cfg.blocks) - {BLOCK_ATTN, BLOCK_MOE}
+    if kinds:
         raise NotImplementedError(f"{cfg.name}: block kinds {sorted(kinds)} "
-                                  "are not ported (only 'attn')")
-    if cfg.encoder_layers or cfg.cross_attention or cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: encoder, cross-attention "
-                                  "and frontends are not ported")
+                                  "are not ported (the SSM kinds come in a "
+                                  "later slice); ported: 'attn', 'moe'")
 
 
 class Block(nn.Module):
-    """One ``attn`` block: pre-norm attention, then pre-norm MLP."""
+    """One ``attn`` block (pre-norm attention, then pre-norm MLP) or
+    ``moe`` block (the MLP an MoE FFN)."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 kind: str = BLOCK_ATTN):
         super().__init__()
         dev = generator.device
+        self.kind = kind
         self.ln1 = L.Norm(cfg, dev)
         self.attn = L.Attention(cfg, generator)
         self.ln2 = L.Norm(cfg, dev)
-        self.mlp = L.MLP(cfg, generator)
+        if kind == BLOCK_MOE:
+            self.moe = M.MoE(cfg, generator)
+        else:
+            self.mlp = L.MLP(cfg, generator)
+
+
+class CrossBlock(nn.Module):
+    """A decoder layer's cross-attention: ``ln`` then ``attn``."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        self.ln = L.Norm(cfg, generator.device)
+        self.attn = L.Attention(cfg, generator)
 
 
 class TransformerLM(nn.Module):
@@ -75,22 +108,45 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.e2 = e2 or E2TrainConfig()
         g = torch.Generator(device=device or "cpu").manual_seed(seed)
+        pd = L.param_dtype(cfg)
         self.embed = nn.Parameter(L.embed_init((cfg.padded_vocab, cfg.d_model),
-                                               g))
+                                               g, dtype=pd))
         self.head = None if cfg.tie_embeddings else nn.Parameter(
-            L.dense_init((cfg.d_model, cfg.padded_vocab), g))
+            L.dense_init((cfg.d_model, cfg.padded_vocab), g, dtype=pd))
         self.final_norm = L.Norm(cfg, g.device)
-        self.layers = nn.ModuleList(Block(cfg, g)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, g, kind)
+                                    for kind in cfg.blocks)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(Block(cfg, g)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = L.Norm(cfg, g.device)
+            self.cross = nn.ModuleList(CrossBlock(cfg, g)
+                                       for _ in range(cfg.num_layers))
         self.slu_gate = Gate(cfg.d_model, self.e2.slu, g) \
             if self.e2.slu.enabled else None
 
-    def forward(self, tokens: torch.Tensor, key: Optional[rng.Key] = None,
-                remat: str = "block", slu_u=None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens (B, S) -> (fp32 logits (B, S, V), aux{slu_cost,
-        slu_executed (L, 2), slu_keep_probs (2L,)}).
+    def encode(self, embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder over frontend embeddings (activation dtype): every
+        layer checkpointed (the JAX package's ``jax.checkpoint``, which
+        keeps its O(F^2) scores out of the saved residuals), then
+        ``enc_norm``."""
+        x = embeds
+        for blk in self.encoder:
+            fn = _in_context(lambda h, blk=blk: _encoder_layer(blk, h,
+                                                               self.cfg))
+            x = _checkpointed(fn)(x) if torch.is_grad_enabled() else fn(x)
+        return self.enc_norm(x)
 
+    def forward(self, tokens: torch.Tensor, key: Optional[rng.Key] = None,
+                remat: str = "block", slu_u=None,
+                frontend: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens (B, S) -> (fp32 logits (B, S', V), aux{aux_loss,
+        slu_cost, slu_executed (L, 2), slu_keep_probs (2L,)}); ``S' = F +
+        S`` for the VLM, else S.
+
+        ``frontend`` (B, F, d): the encoder's input (enc-dec) or the
+        prepended patch embeddings (VLM); cast to the activation dtype.
         ``key`` is the step's threefry key (``fold_in(PRNGKey(seed),
         step)``, default ``PRNGKey(0)``); ``slu_u`` gives the uniforms of
         its SLU draws instead (``core/slu.lm_uniforms`` of that key; a CUDA
@@ -104,6 +160,14 @@ class TransformerLM(nn.Module):
         key = rng.PRNGKey(0) if key is None else key
         dt = getattr(torch, cfg.dtype)
         x = self.embed[tokens].to(dt)
+        memory = None
+        if cfg.encoder_layers:
+            if frontend is None:
+                raise ValueError(f"{cfg.name}: an enc-dec model needs its "
+                                 "frontend embeddings")
+            memory = self.encode(frontend.to(dt))
+        elif frontend is not None:                   # VLM: prepend patches
+            x = torch.cat([frontend.to(dt), x], dim=1)
         S = x.shape[1]
         n = cfg.num_layers
         gate = self.slu_gate if self.training else None
@@ -112,24 +176,38 @@ class TransformerLM(nn.Module):
         if gate is not None and slu_u is None:
             slu_u = lm_uniforms(key, n)
         kps, exs = [], []
+        aux_loss = torch.zeros((), device=x.device)
         for i, blk in enumerate(self.layers):
             force = slu_cfg.never_skip_first_last and i in (0, n - 1)
+            moe = blk.kind == BLOCK_MOE
             subs = ((_mixer(blk, cfg, not self.training),
                      (blk.ln1, blk.attn)),
-                    (_ffn(blk, cfg), (blk.ln2, blk.mlp)))
+                    (_ffn(blk, cfg), (blk.ln2, blk.moe if moe else blk.mlp)))
             for j, (fn, mods) in enumerate(subs):
+                has_aux = moe and j == 1
                 if remat == "block":
                     fn = _checkpointed(fn)
                 if gate is None:
-                    x = x + fn(x)
+                    y = fn(x)
+                    if has_aux:
+                        y, a = y
+                        aux_loss = aux_loss + a
+                    x = x + y
                     kps.append(torch.ones((), device=x.device))
                     exs.append(torch.ones((), device=x.device))
                     continue
                 p, gst = gate(x, gst)
-                x, ex = gated_residual(fn, x, p, slu_u[2 * i + j], force,
-                                       modules=mods)
+                out = gated_residual(fn, x, p, slu_u[2 * i + j], force,
+                                     modules=mods, has_aux=has_aux)
+                x, ex = out[0], out[1]
+                if has_aux:
+                    aux_loss = aux_loss + out[2]
                 kps.append(p)
                 exs.append(ex)
+            if memory is not None and blk.kind == BLOCK_ATTN:
+                cross = _cross(self.cross[i], memory, cfg)
+                x = x + (_checkpointed(cross) if remat == "block"
+                         else cross)(x)
         x = self.final_norm(x)
         head = self.embed.T if self.head is None else self.head
         logits = (x @ head.to(dt)).float()
@@ -139,11 +217,16 @@ class TransformerLM(nn.Module):
             logits = logits.masked_fill(pad, -1e30)
         kps_t = torch.stack(kps)
         if gate is not None:
-            flops = block_fwd_flops(cfg, BLOCK_ATTN, S) / 2.0
-            slu_cost = flops_regularizer(kps_t, torch.full_like(kps_t, flops))
+            # one fill per block kind (a captured step copies nothing from
+            # the host): each sub-block half of its block's FLOPs
+            flops = torch.stack([
+                torch.full((2,), block_fwd_flops(cfg, kind, S) / 2.0,
+                           device=x.device) for kind in cfg.blocks])
+            slu_cost = flops_regularizer(kps_t, flops.reshape(-1))
         else:
             slu_cost = torch.ones((), device=x.device)
-        aux = {"slu_cost": slu_cost, "slu_keep_probs": kps_t,
+        aux = {"aux_loss": aux_loss, "slu_cost": slu_cost,
+               "slu_keep_probs": kps_t,
                "slu_executed": torch.stack(exs).reshape(n, 2)}
         return logits, aux
 
@@ -162,13 +245,25 @@ def _in_context(body):
     return fn
 
 
+def _encoder_layer(blk: Block, x: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    x = x + L.attention_fwd(blk.attn, blk.ln1(x), cfg, causal=False)
+    return x + L.mlp_fwd(blk.mlp, blk.ln2(x), cfg)
+
+
 def _mixer(blk: Block, cfg: ModelConfig, prefer_chunked: bool):
     return _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg,
                                                  prefer_chunked))
 
 
 def _ffn(blk: Block, cfg: ModelConfig):
+    if blk.kind == BLOCK_MOE:
+        return _in_context(lambda h: M.moe_fwd(blk.moe, blk.ln2(h), cfg))
     return _in_context(lambda h: L.mlp_fwd(blk.mlp, blk.ln2(h), cfg))
+
+
+def _cross(cb: CrossBlock, memory: torch.Tensor, cfg: ModelConfig):
+    return lambda h: L.cross_attention_fwd(cb.attn, cb.ln(h), memory, cfg)
 
 
 def _checkpointed(fn):
@@ -181,20 +276,23 @@ def lm_loss(model: TransformerLM, batch: Dict[str, torch.Tensor],
             key: Optional[rng.Key] = None, remat: str = "block", slu_u=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked next-token cross-entropy (``logsumexp - label logit`` over
-    labels >= 0) plus ``alpha * slu_cost`` (Eq. 1); returns ``(total,
-    metrics)``."""
+    labels >= 0, on the text tail of a VLM's logits) plus
+    ``router_aux_coef * aux_loss`` (the MoE blocks' load-balance loss) and
+    ``alpha * slu_cost`` (Eq. 1); returns ``(total, metrics)``."""
     cfg, e2 = model.cfg, model.e2
-    logits, aux = model(batch["tokens"], key=key, remat=remat, slu_u=slu_u)
+    logits, aux = model(batch["tokens"], key=key, remat=remat, slu_u=slu_u,
+                        frontend=batch.get("frontend"))
     labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:          # VLM prepended patches
+        logits = logits[:, -labels.shape[1]:]
     mask = (labels >= 0).float()
     ll = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
     nll = torch.logsumexp(logits, dim=-1) - ll
     loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-    aux_loss = torch.zeros((), device=logits.device)   # no MoE blocks
-    total = loss + cfg.router_aux_coef * aux_loss
+    total = loss + cfg.router_aux_coef * aux["aux_loss"]
     if e2.slu.enabled:
         total = total + e2.slu.alpha * aux["slu_cost"]
-    metrics = {"loss": loss, "aux_loss": aux_loss,
+    metrics = {"loss": loss, "aux_loss": aux["aux_loss"],
                "slu_cost": aux["slu_cost"],
                "slu_exec_ratio": aux["slu_executed"].mean()}
     return total, metrics

@@ -27,10 +27,10 @@ def sgd_apply(params: Tensors, grads: Tensors, state: Dict[str, Tensors],
               lr, *, momentum: float = 0.9,
               weight_decay: float = 1e-4) -> None:
     mom = state["momentum"]
-    for k, p in params.items():
-        g = grads[k].float() + weight_decay * p
-        m = momentum * mom[k] + g
-        p.copy_(p - lr * m)
+    for k, p in params.items():     # in fp32, also for bf16 parameters
+        g = grads[k].float() + weight_decay * p.float()
+        m = momentum * mom[k].float() + g
+        p.copy_(p.float() - lr * m)
         mom[k].copy_(m)
 
 
@@ -67,10 +67,12 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict[str, Any],
     """The update alone, with the bias corrections given (floats, or 0-d
     tensors on the device) and the count left as it is."""
     mu, nu = state["mu"], state["nu"]
-    for k, p in params.items():
+    for k, p in params.items():     # in fp32, also for bf16 parameters
         g = grads[k].float()
-        mu[k].copy_(b1 * mu[k] + (1 - b1) * g)
-        nu[k].copy_(b2 * nu[k] + (1 - b2) * g * g)
-        step = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps) \
-            + weight_decay * p
-        p.copy_(p - lr * step)
+        mu_n = b1 * mu[k].float() + (1 - b1) * g
+        nu_n = b2 * nu[k].float() + (1 - b2) * g * g
+        mu[k].copy_(mu_n)
+        nu[k].copy_(nu_n)
+        step = (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + eps) \
+            + weight_decay * p.float()
+        p.copy_(p.float() - lr * step)

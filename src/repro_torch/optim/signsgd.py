@@ -22,8 +22,9 @@ def signsgd_apply(params: Tensors, grads: Tensors, state: Dict[str, Tensors],
                   lr, *, momentum: float = 0.0,
                   weight_decay: float = 0.0) -> None:
     mom = state["momentum"]
-    for k, p in params.items():
+    for k, p in params.items():     # in fp32, also for bf16 parameters
         g = grads[k].float()
-        m = momentum * mom[k] + (1 - momentum) * g if momentum > 0 else g
-        p.copy_(p - lr * (torch.sign(m) + weight_decay * p))
+        m = momentum * mom[k].float() + (1 - momentum) * g \
+            if momentum > 0 else g
+        p.copy_(p.float() - lr * (torch.sign(m) + weight_decay * p.float()))
         mom[k].copy_(m)

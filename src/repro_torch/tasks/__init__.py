@@ -1,6 +1,6 @@
 """Task registry: what the training stack needs to know about a model
 family.  This package registers ``"cifar_cnn"`` (the CIFAR ResNets and
-MobileNetV2) and ``"lm"`` (the dense transformer LM).
+MobileNetV2) and ``"lm"`` (the transformer LMs).
 
 * ``init(exp, seed, device) -> nn.Module`` — parameters and buffers
   (BatchNorm running statistics) on ``device``.

@@ -1,5 +1,7 @@
-"""``lm`` task: the dense transformer LM (``models/transformer.py``).
-Stateless: the model holds no buffers."""
+"""``lm`` task: the transformer LM (``models/transformer.py``): dense and
+MoE decoders, the encoder-decoder and the VLM, whose batches carry
+``"frontend"`` embeddings beside the tokens.  Stateless: the model holds
+no buffers."""
 from __future__ import annotations
 
 from repro_torch.core.config import Experiment
@@ -30,7 +32,8 @@ def _slu_uniforms(exp: Experiment, key):
 
 def _make_predict(exp: Experiment):
     def predict(model, batch):
-        return eval_logits(model, batch["tokens"])
+        return eval_logits(model, batch["tokens"],
+                           frontend=batch.get("frontend"))
     return predict
 
 

@@ -5,7 +5,9 @@
 * images: the training task's Gaussian classes (snr 2.0), data seed 99,
   batches 0-3 of 32 images;
 * tokens: the training task's Markov chain, data seed 999, batches 0-3 of
-  16 x 32 tokens, next-token accuracy over the labels >= 0.
+  16 x 32 tokens, next-token accuracy over the labels >= 0 (for a VLM, on
+  the text tail of its logits); a model with a frontend gets frontend
+  embeddings from seed 999 too (``data/synthetic.with_frontend``).
 
 The weights are :func:`~repro_torch.training.train_step.eval_params` (the
 SWA average when SWA is on) with the trainer's BatchNorm statistics; an
@@ -24,7 +26,8 @@ from torch import nn
 from repro_torch.core.config import Experiment
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import (GaussianImageTask, MarkovLMTask,
-                                        make_image_batch, make_lm_batch)
+                                        make_image_batch, make_lm_batch,
+                                        with_frontend)
 from repro_torch.tasks import get_task
 from repro_torch.training.train_step import (eval_params,
                                              recalibrate_model_state)
@@ -51,8 +54,9 @@ def heldout_batch(exp: Experiment, i: int, device=None
     if exp.task == "cifar_cnn":
         return make_image_batch(data_task(exp), IMAGE_SEED, i, 0, IMAGE_BATCH,
                                 dev)
-    return make_lm_batch(data_task(exp), TOKEN_SEED, i, 0, TOKEN_BATCH,
-                         TOKEN_SEQ, dev)
+    return with_frontend(make_lm_batch(data_task(exp), TOKEN_SEED, i, 0,
+                                       TOKEN_BATCH, TOKEN_SEQ, dev),
+                         exp.model, i, seed=TOKEN_SEED, device=dev)
 
 
 def accuracy(exp: Experiment, model: nn.Module, device=None,
@@ -63,7 +67,10 @@ def accuracy(exp: Experiment, model: nn.Module, device=None,
     for i in range(n_batches):
         b = heldout_batch(exp, i, device)
         labels = b["label"] if exp.task == "cifar_cnn" else b["labels"]
-        pred = predict(model, b).argmax(-1)
+        logits = predict(model, b)
+        if exp.task != "cifar_cnn":        # a VLM's text tail
+            logits = logits[:, -labels.shape[1]:]
+        pred = logits.argmax(-1)
         mask = labels >= 0
         correct += int((pred[mask] == labels[mask]).sum())
         total += int(mask.sum())

@@ -261,12 +261,19 @@ def test_lm_trainer_runs_on_the_card(card):
 # padded past two 64-row tiles, GQA at the qwen2.5-3b head dim, non-causal;
 # then S = T not a multiple of the bf16 forward's 128-row query block or
 # 64-row kv stage: the qwen2.5-3b grouping (g = 8) at hd 128, and a
-# non-causal g = 4 one
+# non-causal g = 4 one; then hd 96 (phi-3-vision's head dim, whose columns
+# do not come in groups of 64) with g = 1 (whisper's and phi-3's MHA), causal,
+# and with g = 4, non-causal, S past eight 64-row tiles (large enough that the
+# 0.1% limit of the random-input kernel 9 check admits one flipped code)
 FLASH = [(2, 40, 4, 2, 16, True), (2, 300, 8, 8, 32, True),
          (1, 256, 4, 2, 128, True), (1, 200, 4, 4, 64, False),
-         (1, 200, 16, 2, 128, True), (2, 77, 4, 1, 64, False)]
+         (1, 200, 16, 2, 128, True), (2, 77, 4, 1, 64, False),
+         (1, 200, 4, 4, 96, True), (1, 520, 8, 2, 96, False)]
 FLASH_IDS = ["hd16", "mha_padded", "gqa_hd128", "noncausal", "gqa8_hd128",
-             "ragged_noncausal"]
+             "ragged_noncausal", "hd96_g1", "gqa_hd96_noncausal"]
+# the integer-input cases: the first three and both hd 96 ones
+FLASH_INT = FLASH[:3] + FLASH[6:]
+FLASH_INT_IDS = FLASH_IDS[:3] + FLASH_IDS[6:]
 
 
 def _flash_data(shape, dev, dtype, integer=False):
@@ -346,7 +353,7 @@ def test_flash_dkv_kernel_matches_plain(card, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", FLASH[:3], ids=FLASH_IDS[:3])
+@pytest.mark.parametrize("shape", FLASH_INT, ids=FLASH_INT_IDS)
 def test_flash_dkv_kernel_is_bit_identical_on_integer_inputs(card, shape,
                                                              dtype):
     """Small integer q, k, v and dO make every score and dP exact in any
@@ -366,7 +373,7 @@ def test_flash_dkv_kernel_is_bit_identical_on_integer_inputs(card, shape,
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128])
 def test_flash_dkv_bf16_kernel_at_every_head_dim(card, hd, causal):
     """The bf16 kernel 9 (bf16 and int8 tensor cores) at every head dim it
     is built for, S = 300 (not a multiple of the 64-row tiles), g = 4: on
@@ -743,6 +750,28 @@ def test_graphed_chunk_matches_per_step(card):
     for key in ("step", "total_loss", "slu_executed"):
         assert [h[key] for h in a.history] == [h[key] for h in b.history]
     assert b._chunk_fn.cond.nodes > 0
+    for (n, x), (_, y) in zip(a.state.model.state_dict().items(),
+                              b.state.model.state_dict().items()):
+        assert torch.equal(x, y), n
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "whisper_small"])
+def test_graphed_moe_and_encoder_chunks_match_per_step(card, arch):
+    """The reduced MoE and enc-dec LMs through the chunked loop on the card
+    (gated sub-blocks as IF nodes) equal the per-step loop bit for bit,
+    the MoE's aux loss included (0 where a skipped MoE sub-block's IF node
+    did not run)."""
+    from repro_torch.launch.train import build_lm_trainer
+    a, b = (build_lm_trainer(arch, num_layers=3, smoke=True, steps=16,
+                             device=card, chunk_steps=k) for k in (1, 4))
+    a.run(16)
+    b.run(16)
+    for key in ("step", "total_loss", "aux_loss", "slu_executed"):
+        assert [h[key] for h in a.history] == [h[key] for h in b.history]
+    assert b._chunk_fn.cond.nodes > 0
+    if arch == "deepseek_moe_16b":
+        assert any(h["slu_executed"][3] == 0.0 for h in a.history)
+        assert all(h["aux_loss"] > 0 for h in a.history)
     for (n, x), (_, y) in zip(a.state.model.state_dict().items(),
                               b.state.model.state_dict().items()):
         assert torch.equal(x, y), n

@@ -317,10 +317,12 @@ def test_lm_cost_table_equals_jax(reduced):
 
 def test_unported_options_raise():
     # remat="full" and sliding windows are ported: their positive cases are
-    # in test_torch_dense_archs.py
+    # in test_torch_dense_archs.py; MoE blocks, the encoder and frontends
+    # in test_torch_encdec_moe.py.  The SSM kinds still raise.
     _, texp = _configs()
-    for change in (dict(block_unit=("moe",)), dict(family="ssm"),
-                   dict(encoder_layers=2), dict(frontend="vision")):
+    for change in (dict(block_unit=("mamba",)), dict(family="ssm"),
+                   dict(block_unit=("slstm",)),
+                   dict(block_unit=("shared_attn",))):
         with pytest.raises(NotImplementedError):
             TransformerLM(dataclasses.replace(texp.model, **change))
     loss = get_task("lm").make_loss(texp)

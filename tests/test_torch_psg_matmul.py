@@ -197,9 +197,9 @@ def test_psg_einsum_patterns_match_jax(pattern):
 def test_plain_matmul_without_psg_and_unported_patterns():
     x, w = torch.randn(2, 3, 4), torch.randn(4, 5)
     torch.testing.assert_close(tpsg.matmul(x, w), x @ w)
-    with pytest.raises(NotImplementedError):
-        tpsg.einsum("ecd,edf->ecf", torch.randn(2, 3, 4),
-                    torch.randn(2, 4, 5))
+    with pytest.raises(NotImplementedError):      # the decode projection
+        tpsg.einsum("bd,dnh->bnh", torch.randn(2, 4),
+                    torch.randn(4, 3, 5))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
