@@ -190,7 +190,23 @@ Phases, each fatal on failure:
    deepseek-moe-16b and whisper-small through the chunked loop (K = 4,
    gated sub-blocks as IF nodes) against the per-step loop bit for bit,
    losses, the MoE aux loss (0 where an IF node skipped the MoE) and SLU
-   flags included.
+   flags included;
+16. ssm: the SSM family (``ssm_check``): each mixer at full width (Mamba2
+   at zamba2-1.2b's, mLSTM and sLSTM at xlstm-350m's), 1 x 4096 tokens,
+   fp32, forward and input gradient on the card against the CPU within
+   ``MIXER_REL`` (the chaotic sLSTM over its first ``SLSTM_SEQ`` tokens),
+   each timed; kernels 5-6 at zamba2-1.2b's shared-attention projections
+   and 7-9 at its attention geometry with phase 4's limits, timed, not
+   counted; a reduced step of xlstm-350m and of zamba2-1.2b at 512 tokens
+   (two chunks) on the card against the CPU; the main paths (``SSM_PATHS``,
+   ``--e2train full``, ``remat="block"``, bf16): zamba2-1.2b at its 38
+   blocks, 4 x 4096 in its 4 microbatches, its kernel 5-9 launches equal
+   to its two shared-attention calls a microbatch, and xlstm-350m's unit
+   of 4 layers, launching none of the ten kernels, each with its reckoned
+   state and profiled (device events only); last, both reduced archs
+   through the chunked loop against the per-step loop bit for bit, with
+   IF nodes on the Mamba2 and LSTM sub-blocks and none on the shared
+   attention.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -1420,16 +1436,20 @@ def main_path(torch, build, mods, kernels, absent=(), execute=4, smd=True):
             n: c / trainer.executed_steps for n, c in launches.items()}}
 
 
-def profile_step(torch, trainer):
+def profile_step(torch, trainer, cpu_ops=True):
     """One more executed step of a main path under torch.profiler: device
-    time by kernel and the device's busy share."""
+    time by kernel and the device's busy share; ``cpu_ops=False`` records
+    the device's events alone (no host op events: for steps that launch
+    hundreds of thousands of kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = 1
     while not trainer.keeps(trainer.state.step + steps - 1):
         steps += 1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + \
+        ([ProfilerActivity.CPU] if cpu_ops else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         trainer.run(steps)
         torch.cuda.synchronize()
@@ -1457,8 +1477,9 @@ def profile_step(torch, trainer):
                     for n, us in top]}
 
 
-def run_path(torch, name, build, mods, kernels, **kw):
-    """A main path, its energy report and its profile."""
+def run_path(torch, name, build, mods, kernels, cpu_ops=True, **kw):
+    """A main path, its energy report and its profile (``cpu_ops``: of
+    :func:`profile_step`)."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1467,7 +1488,7 @@ def run_path(torch, name, build, mods, kernels, **kw):
     print(json.dumps({"phase": name, **main}), flush=True)
     print(trainer.energy_report(steps=main["nominal_steps"]).summary(),
           flush=True)
-    prof = profile_step(torch, trainer)
+    prof = profile_step(torch, trainer, cpu_ops)
     print(json.dumps({"phase": f"{name}_profile", **prof}), flush=True)
     return trainer, main, prof
 
@@ -3070,6 +3091,204 @@ def encdec_vlm_moe_check(torch, mods):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the SSM family (xlstm-350m, zamba2-1.2b)
+# ---------------------------------------------------------------------------
+
+SSM_PATHS = {       # arch: (layers, batch, seq) of its main path (None: all)
+    "zamba2_1_2b": (None, 4, 4096),     # 38 blocks, its 4 microbatches
+    "xlstm_350m": (4, 4, 4096),         # one unit of its 24 layers
+}
+SSM_REF_SEQ = 512       # the reduced steps: two 256-token chunks carry state
+MIXER_SEQ = 4096
+# the mixers at full width, card against CPU, fp32 with TF32 off: the same
+# fp32 operations in other orders (the CPU tests hold the port to the JAX
+# package at 1e-5 of max|ref|, Mamba2's per-head vectors' gradients at 1e-4);
+# over 4096 tokens the log-decay cumulative sums (to -11,000 in Mamba2's
+# fastest head) round apart, so the limit is 1e-4 of max|ref|
+MIXER_REL = 1e-4
+# sLSTM at xlstm-350m's widths is chaotic: its recurrent weights (the
+# reference's fan-in law over nh = 4 rows, std 0.5 into 256-wide sums) double
+# a rounding difference every ~2 tokens (the CPU against the JAX package:
+# 6e-7 at token 0, 3.7e-6 at 4, 2.6e-5 at 8, O(1) by 40), and its input
+# gradient grows by 20 orders of magnitude and more over 256 tokens, to inf
+# in some sequences, in both packages; so the card is held to the CPU over
+# its first SLSTM_SEQ tokens, and the 4096-token call is timed with its
+# forward checked finite (the share of non-finite input gradient elements
+# recorded)
+SLSTM_SEQ = 4
+
+
+def ssm_mixer_check(torch) -> dict:
+    """Phase 16: each mixer at full width, 1 x 4096 tokens, fp32 (Mamba2 at
+    zamba2-1.2b's widths, mLSTM and sLSTM at xlstm-350m's): forward and
+    input gradient on the card against the CPU (the sLSTM over
+    :data:`SLSTM_SEQ` tokens), the card's forward and backward timed."""
+    import dataclasses
+
+    from repro_torch.configs import get_experiment
+    from repro_torch.models import ssm as S
+
+    out = {}
+    for kind, arch in (("mamba", "zamba2_1_2b"), ("mlstm", "xlstm_350m"),
+                       ("slstm", "xlstm_350m")):
+        cfg = dataclasses.replace(get_experiment(arch).model,
+                                  dtype="float32")
+        cpu = S.MIXERS[kind][0](cfg, torch.Generator().manual_seed(0))
+        card = S.MIXERS[kind][0](cfg, torch.Generator().manual_seed(0)) \
+            .to("cuda")
+        fwd = S.MIXERS[kind][1]
+        g = torch.Generator().manual_seed(1)
+        u = torch.randn(1, MIXER_SEQ, cfg.d_model, generator=g)
+        gy = torch.randn(1, MIXER_SEQ, cfg.d_model, generator=g)
+        n = SLSTM_SEQ if kind == "slstm" else MIXER_SEQ
+        res = {}
+        for mod, dev in ((cpu, "cpu"), (card, "cuda")):
+            x = u[:, :n].to(dev).requires_grad_()
+            y = fwd(mod, x, cfg)
+            y.backward(gy[:, :n].to(dev))
+            res[dev] = (y.detach().cpu(), x.grad.cpu())
+        errs = [rel_err(a, b) for a, b in zip(res["cuda"], res["cpu"])]
+        if not max(errs) <= MIXER_REL:
+            fail(f"{kind} at full width, card against CPU: relative errors "
+                 f"{errs} (y, dx) above {MIXER_REL}")
+        # timed once: the compared call above ran the same kernels
+        x, gyc = u.to("cuda").requires_grad_(), gy.to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fwd(card, x, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y.backward(gyc)
+        torch.cuda.synchronize()
+        times = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+        if not bool(torch.isfinite(y).all()):
+            fail(f"{kind} at full width: a non-finite output")
+        heads = S._mamba_dims(cfg)[1] if kind == "mamba" else cfg.num_heads
+        r = {"widths": {"d_model": cfg.d_model, "ssm_state": cfg.ssm_state,
+                        "heads": heads}, "compared_tokens": n,
+             "y_rel_err": errs[0], "dx_rel_err": errs[1], "limit": MIXER_REL,
+             "tokens": MIXER_SEQ, "fwd_ms": times[0], "bwd_ms": times[1],
+             "dx_nonfinite_share": float((~torch.isfinite(x.grad)).float()
+                                         .mean())}
+        out[kind] = r
+        del cpu, card, x, y
+    return out
+
+
+def ssm_chunked_check(torch, arch, steps=8) -> dict:
+    """The reduced ``arch`` (xlstm-350m's unit of 3 mLSTM and 1 sLSTM,
+    zamba2-1.2b's of 18 Mamba2 and the shared attention) through the
+    per-step loop and the chunked loop (K = 4) from the same init on the
+    card, bit for bit (:func:`same_runs`), with one IF node in the forward
+    and one in the backward of each unforced gated sub-block (the Mamba2
+    and LSTM ones) and none for the shared attention."""
+    from repro_torch.core.config import BLOCK_SHARED_ATTN
+    from repro_torch.launch.train import build_lm_trainer
+
+    a, b = (build_lm_trainer(arch, smoke=True, steps=steps, device="cuda",
+                             chunk_steps=k) for k in (1, 4))
+    a.run(steps)
+    b.run(steps)
+    out = same_runs(torch, a, b, f"{arch} chunked")
+    blocks = a.exp.model.blocks
+    gated = sum(kind != BLOCK_SHARED_ATTN
+                for kind in blocks[1:-1])       # first and last forced
+    nodes = b._chunk_fn.cond.nodes
+    if nodes != 2 * gated:
+        fail(f"{arch} chunked: {nodes} IF nodes for {gated} unforced gated "
+             "sub-blocks (one node in the forward, one in the backward)")
+    skipped = sum(0.0 in h["slu_executed"] for h in a.history)
+    out.update(if_nodes=nodes, gated_sub_blocks=gated,
+               steps_skipping_a_sub_block=skipped)
+    return out
+
+
+def ssm_check(torch, mods):
+    """Phase 16: the SSM family at the published widths, ``--e2train
+    full``, ``remat="block"``, bf16 activations.  The mixers at full width
+    card against CPU (:func:`ssm_mixer_check`); kernels 5-6 at zamba2's
+    shared-attention projections and 7-9 at its attention geometry (hd 64,
+    32 heads, g = 1) with phase 4's limits, timed, not counted; a reduced
+    step of each arch at :data:`SSM_REF_SEQ` tokens on the card against the
+    CPU; then the main paths of :data:`SSM_PATHS`, each with its reckoned
+    state: zamba2-1.2b's launches of kernels 5-9 equal its shared
+    attention's (two calls a microbatch, never gated: four PSG matmuls and
+    kernel 7 twice, 8 and 9 once, a call), xlstm-350m launching none of the
+    ten; each profiled (device events only: its steps launch several
+    hundred thousand kernels).  Last, the reduced archs through the chunked
+    loop (:func:`ssm_chunked_check`)."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch.train import build_lm_trainer, lm_experiment
+    from repro_torch.models.layers import attention_path
+
+    t_start = time.perf_counter()
+    out = {"mixers": ssm_mixer_check(torch)}
+    print(json.dumps({"phase": "ssm_mixers", **out["mixers"]}), flush=True)
+    for arch, (layers, batch, seq) in SSM_PATHS.items():
+        exp = lm_experiment(arch, num_layers=layers, batch=batch, seq=seq)
+        m, micro = exp.model, exp.train.microbatches
+        calls = m.blocks.count("shared_attn")
+        r = {"layers": m.num_layers, "microbatches": micro,
+             "unit": list(m.block_unit),
+             "attention": attention_path(m, exp.e2.psg, seq) if calls
+             else None, "reckoned": reckoned_state_bytes(exp)}
+        if calls:
+            d = m.d_model
+            sites = {(d, m.num_heads * m.resolved_head_dim):
+                     4 * calls * micro}
+            ptot, prows, _ = check_psg_matmul_kernels(
+                torch, PM, sites, None, batch // micro * seq, {},
+                path=f"{arch}_shared_attention", worst_cases=False)
+            geo = attention_geometry(arch, m, batch // micro, seq, calls,
+                                     micro)
+            ftot, frows = check_flash_kernels(torch, FA, [geo],
+                                              extra_checks=False)
+            r.update(psg_matmul_rows=prows, flash_rows=frows,
+                     totals={**kernel_totals(ptot), **kernel_totals(ftot)})
+        print(json.dumps({"phase": f"ssm_{arch}_kernels", **r}), flush=True)
+        r["reference"] = lm_reference_check(torch, None, arch=arch,
+                                            seq=SSM_REF_SEQ)
+        print(json.dumps({"phase": f"ssm_{arch}_reference",
+                          **r["reference"]}), flush=True)
+        if not r["reckoned"]["fits"]:
+            fail(f"{arch}: reckoned state {r['reckoned']} does not fit")
+        kernels = list(PM.LAUNCHES) + list(FA.LAUNCHES)
+        trainer, main, prof = run_path(
+            torch, f"ssm_{arch}_main_path",
+            lambda steps: build_lm_trainer(arch, num_layers=layers,
+                                           batch=batch, seq=seq, steps=steps,
+                                           device="cuda"),
+            mods, kernels if calls else [],
+            absent=[] if calls else [n for mod in mods
+                                     for n in mod.LAUNCHES],
+            execute=3, cpu_ops=False)
+        tc = trainer.exp.train
+        if (tc.global_batch, tc.seq_len, tc.microbatches, tc.remat,
+                trainer.exp.model.dtype) != \
+                (batch, seq, micro, "block", "bfloat16"):
+            fail(f"{arch} trained {tc}")
+        del trainer
+        per_call = {"predictor_matmul": 4, "psg_grad_w": 4, "flash_fwd": 2,
+                    "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        passes = main["executed"] * micro
+        want = {k: v * calls * passes for k, v in per_call.items()}
+        got = {k: main["launches"][k] for k in want}
+        if got != want:
+            fail(f"{arch}: launches {got}, {calls} shared-attention calls "
+                 f"in each of {passes} passes want {want}")
+        r.update(main_path=main, profile=prof,
+                 shared_attention_launches={"calls_per_pass": calls,
+                                            "passes": passes, **got})
+        out[arch] = r
+    out["chunked"] = {arch: ssm_chunked_check(torch, arch)
+                      for arch in SSM_PATHS}
+    print(json.dumps({"phase": "ssm_chunked", **out["chunked"]}), flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3212,6 +3431,7 @@ def main() -> None:
     paper = paper_benches_check(torch, mods + (GC,), steps=PAPER_STEPS)
     dense = dense_archs_check(torch, mods + (GC,))
     encdec = encdec_vlm_moe_check(torch, mods + (GC,))
+    ssm = ssm_check(torch, mods + (GC,))
 
     kernels = []
     for name in REPLACES:
@@ -3259,7 +3479,8 @@ def main() -> None:
          "microbatch_reference": mb_ref, "resume": resume,
          "chunked": chunked, "mobilenetv2_geometries": mbv2_geometries,
          "mobilenetv2": mbv2, "paper_benches": paper,
-         "dense_archs": dense, "encdec_vlm_moe": encdec, "kernels": kernels,
+         "dense_archs": dense, "encdec_vlm_moe": encdec, "ssm": ssm,
+         "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
                                for n in REPLACES},

@@ -4,7 +4,8 @@ of them to toy dimensions for CPU tests (the JAX package's
 ``repro.configs``).  Ported: the dense decoders ``qwen2_5_3b``,
 ``llama3_8b``, ``starcoder2_15b`` and ``h2o_danube_3_4b``, the
 encoder-decoder ``whisper_small``, the VLM ``phi_3_vision_4_2b``, the MoE
-models ``deepseek_moe_16b`` and ``grok_1_314b``, and the paper's CNNs
+models ``deepseek_moe_16b`` and ``grok_1_314b``, the xLSTM
+``xlstm_350m``, the Mamba2 hybrid ``zamba2_1_2b`` and the paper's CNNs
 (``paper_cnns``)."""
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ import importlib
 from repro_torch.core.config import Experiment
 
 ARCH_IDS = ["deepseek_moe_16b", "grok_1_314b", "h2o_danube_3_4b",
-            "starcoder2_15b", "llama3_8b", "qwen2_5_3b", "whisper_small",
-            "phi_3_vision_4_2b"]
+            "starcoder2_15b", "llama3_8b", "qwen2_5_3b", "xlstm_350m",
+            "whisper_small", "phi_3_vision_4_2b", "zamba2_1_2b"]
 
 
 def canon(arch: str) -> str:
@@ -32,7 +33,7 @@ def get_experiment(arch: str) -> Experiment:
 
 def reduce_experiment(exp: Experiment) -> Experiment:
     """Same family and block structure, toy dimensions (a copy of the JAX
-    package's generic reduction; its SSM cut has no field here)."""
+    package's generic reduction)."""
     m = exp.model
     unit = m.block_unit or ()
     n_layers = max(len(unit), 2) if unit else 2
@@ -53,6 +54,7 @@ def reduce_experiment(exp: Experiment) -> Experiment:
         num_shared_experts=min(m.num_shared_experts, 1),
         top_k=min(m.top_k, 2),
         vocab_size=128,
+        ssm_state=min(m.ssm_state, 8) if m.ssm_state else 0,
         sliding_window=min(m.sliding_window, 8) if m.sliding_window else 0,
         encoder_layers=min(m.encoder_layers, 2),
         frontend_tokens=8 if m.frontend else 0,

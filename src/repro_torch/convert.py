@@ -11,20 +11,25 @@ The JAX package's trees are nested dicts/lists of numpy arrays (what
   stay patch-major ``(k*k*C, Cout)``.
 * ``lm_state_dict_from_jax(params)``: a ``state_dict`` for
   :class:`repro_torch.models.transformer.TransformerLM`; the stacked
-  ``units`` (``b0_attn`` or ``b0_moe``, an MoE's ``shared`` experts a list
-  inside), ``encoder`` and ``cross`` are unstacked into per-layer modules
-  (``layers.<i>``, ``encoder.<i>``, ``cross.<i>``), and the attention and
-  expert weights keep their ``(d, n, h)`` / ``(n, h, d)`` / ``(E, d, f)``
-  layouts.
-* ``jax_tree(named)``: the inverse, for any dict keyed by this package's
-  parameter or buffer names (parameters, BatchNorm buffers, optimizer
-  moments, the SWA average): the per-block ResNet modules stacked back into
-  each stage's ``trans`` and ``rest`` (``down.w`` as ``down: {conv: {w}}``),
-  the LM's layers into ``units.b0_attn`` (``units.b0_moe`` when they hold
-  an ``moe``), its encoder and cross-attention layers into ``encoder`` and
-  ``cross``, and indexed modules back into lists (``stages``, MobileNetV2's
-  ``blocks``, the shared experts), so that the flattening order is JAX's
-  (block 10 after block 9, not after block 1).  bf16 tensors leave as
+  ``units`` (one key ``b{i}_{kind}`` per block of the unit, an MoE's
+  ``shared`` experts a list inside), ``encoder`` and ``cross`` are
+  unstacked into per-layer modules (``units.b{i}_{kind}[u]`` as
+  ``layers.<u * len(unit) + i>``, ``encoder.<i>``, ``cross.<i>``), the
+  top-level ``shared`` attention (zamba2) stays ``shared``, and the
+  attention and expert weights keep their ``(d, n, h)`` / ``(n, h, d)`` /
+  ``(E, d, f)`` layouts.
+* ``jax_tree(named, unit=None)``: the inverse, for any dict keyed by this
+  package's parameter or buffer names (parameters, BatchNorm buffers,
+  optimizer moments, the SWA average): the per-block ResNet modules stacked
+  back into each stage's ``trans`` and ``rest`` (``down.w`` as ``down:
+  {conv: {w}}``), the LM's layers into ``units`` by ``unit``, the model's
+  tuple of block kinds (default: one ``attn`` block, one ``moe`` block when
+  the layers hold an ``moe``; a ``shared_attn`` block keeps its empty
+  subtree), its encoder and cross-attention layers into ``encoder`` and
+  ``cross``, and indexed modules back into lists (``stages``,
+  MobileNetV2's ``blocks``, the shared experts), so that the flattening
+  order is JAX's (sorted keys: block 10 after block 9, not after block 1;
+  ``b10_mamba`` before ``b1_mamba``).  bf16 tensors leave as
   fp32 arrays of the same values (numpy has no bf16; the JAX package's
   ``astype`` restores its dtype exactly).
 * ``train_state_tree(state)``: a port ``TrainState`` as the JAX package's
@@ -40,23 +45,26 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-# JAX tree keys over stacked blocks
-STACKED = ("rest", "b0_attn", "b0_moe", "encoder", "cross")
+# JAX tree keys over stacked blocks (and every key under ``units``)
+STACKED = ("rest", "encoder", "cross")
 LM_STACKED = ("encoder", "cross")       # top-level stacks named as in JAX
+SHARED_ATTN = "shared_attn"             # a unit's block with no parameters
+
+Unit = Tuple[str, ...]
 
 
-def lm_unit(names) -> str:
-    """The JAX unit key of an LM's layers: ``b0_moe`` when any layer holds
-    an ``moe``, else ``b0_attn``."""
+def lm_unit(names) -> Unit:
+    """The unit of one-block LM layers: ``("moe",)`` when any layer holds
+    an ``moe``, else ``("attn",)``."""
     moe = any(n.split(".")[:3:2] == ["layers", "moe"] for n in names)
-    return "b0_moe" if moe else "b0_attn"
+    return ("moe",) if moe else ("attn",)
 
 
-def jax_path(name: str, unit: str = "b0_attn"
+def jax_path(name: str, unit: Unit = ("attn",)
              ) -> Tuple[Tuple[str, ...], Optional[int]]:
     """Where the port's ``name`` lives in the JAX package's tree: the key
     path, and the index along the stacked axis (``None`` if unstacked);
-    ``unit`` is the LM's unit key (:func:`lm_unit`)."""
+    ``unit`` is the LM's tuple of block kinds."""
     parts = name.split(".")
     if parts[0] == "stages":                     # ResNet block
         stage, b, rest = parts[1], int(parts[2]), parts[3:]
@@ -66,14 +74,17 @@ def jax_path(name: str, unit: str = "b0_attn"
             return ("stages", stage, "trans", *rest), None
         return ("stages", stage, "rest", *rest), b - 1
     if parts[0] == "layers":                     # LM layer
-        return ("units", unit, *parts[2:]), int(parts[1])
+        u, i = divmod(int(parts[1]), len(unit))
+        return ("units", f"b{i}_{unit[i]}", *parts[2:]), u
     if parts[0] in LM_STACKED:                   # encoder or cross layer
         return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 
-def port_name(path: Tuple[str, ...], index: Optional[int]) -> str:
-    """The inverse of :func:`jax_path`."""
+def port_name(path: Tuple[str, ...], index: Optional[int],
+              unit_len: int = 1) -> str:
+    """The inverse of :func:`jax_path`; ``unit_len`` is the number of
+    blocks a unit (of keys under ``units``)."""
     if path[0] == "stages":
         stage, where, rest = path[1], path[2], list(path[3:])
         if rest[:2] == ["down", "conv"]:
@@ -81,7 +92,8 @@ def port_name(path: Tuple[str, ...], index: Optional[int]) -> str:
         b = 0 if where == "trans" else index + 1
         return ".".join(["stages", stage, str(b), *rest])
     if path[0] == "units":
-        return ".".join(["layers", str(index), *path[2:]])
+        i = int(path[1][1:].split("_")[0])
+        return ".".join(["layers", str(index * unit_len + i), *path[2:]])
     if path[0] in LM_STACKED:
         return ".".join([path[0], str(index), *path[1:]])
     return ".".join(path)
@@ -104,12 +116,14 @@ def _lists(node: Any) -> Any:
     return node
 
 
-def jax_tree(named: Dict[str, Any]) -> Dict[str, Any]:
+def jax_tree(named: Dict[str, Any], unit: Optional[Unit] = None
+             ) -> Dict[str, Any]:
     """``named`` (port names -> tensors) as the JAX package's nested tree of
     numpy arrays; lists where the JAX tree has lists (a ResNet's
-    ``stages``, MobileNetV2's ``blocks``)."""
+    ``stages``, MobileNetV2's ``blocks``); ``unit`` the LM's tuple of block
+    kinds (default :func:`lm_unit`)."""
     groups: Dict[Tuple[str, ...], Dict[Optional[int], np.ndarray]] = {}
-    unit = lm_unit(named)
+    unit = unit or lm_unit(named)
     for name, t in named.items():
         path, i = jax_path(name, unit)
         groups.setdefault(path, {})[i] = to_numpy(t)
@@ -120,6 +134,10 @@ def jax_tree(named: Dict[str, Any]) -> Dict[str, Any]:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
+    if "units" in tree:
+        for i, kind in enumerate(unit):
+            if kind == SHARED_ATTN:
+                tree["units"][f"b{i}_{kind}"] = {}
     return _lists(tree)
 
 
@@ -145,13 +163,16 @@ def port_named(tree: Any) -> Dict[str, np.ndarray]:
     """The inverse of :func:`jax_tree`: port names -> numpy arrays, the
     stacked blocks unstacked."""
     out: Dict[str, np.ndarray] = {}
+    unit_len = len(tree["units"]) \
+        if isinstance(tree, dict) and "units" in tree else 1
     for path, leaf in leaves(tree):
-        stacked = next((j for j, k in enumerate(path) if k in STACKED), None)
+        stacked = 1 if path[0] == "units" else next(
+            (j for j, k in enumerate(path) if k in STACKED), None)
         if stacked is None or stacked == len(path) - 1:
             out[port_name(path, None)] = np.asarray(leaf)
             continue
         for i in range(len(leaf)):
-            out[port_name(path, i)] = np.asarray(leaf[i])
+            out[port_name(path, i, unit_len)] = np.asarray(leaf[i])
     return out
 
 
@@ -166,12 +187,13 @@ def state_dict_from_jax(params: Dict[str, Any], model_state: Dict[str, Any]
 
 
 def lm_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Units of one ``attn`` or one ``moe`` block each (what the port
-    builds), with the enc-dec's ``encoder``, ``enc_norm`` and ``cross``."""
-    units = params["units"]
-    if list(units) not in (["b0_attn"], ["b0_moe"]):
-        raise NotImplementedError(f"units {sorted(units)}: only one-block "
-                                  "'attn' or 'moe' units are ported")
+    """Units of any blocks (keys ``b{i}_{kind}``, ``i`` the block's place),
+    zamba2's top-level ``shared`` attention, and the enc-dec's ``encoder``,
+    ``enc_norm`` and ``cross``."""
+    keys = sorted(params["units"], key=lambda k: int(k[1:].split("_")[0]))
+    if [int(k[1:].split("_")[0]) for k in keys] != list(range(len(keys))):
+        raise ValueError(f"units {keys}: expected keys b0_... to "
+                         f"b{len(keys) - 1}_...")
     return _tensors(port_named(params))
 
 
@@ -182,9 +204,10 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 TRAIN_STATE_FIELDS = ("params", "opt", "swa", "step", "model_state")
 
 
-def _counted(state: Dict[str, Any]) -> Dict[str, Any]:
+def _counted(state: Dict[str, Any], unit: Optional[Unit] = None
+             ) -> Dict[str, Any]:
     """An optimizer or SWA dict: name dicts as trees, counts as int32."""
-    return {k: jax_tree(v) if isinstance(v, dict) else np.int32(v)
+    return {k: jax_tree(v, unit) if isinstance(v, dict) else np.int32(v)
             for k, v in state.items()}
 
 
@@ -194,9 +217,10 @@ def train_state_tree(state) -> Dict[str, Any]:
     (``None`` where the JAX field is ``None``: no SWA, the LM's
     ``model_state``)."""
     buffers = dict(state.model.named_buffers())
-    return {"params": jax_tree(dict(state.model.named_parameters())),
-            "opt": _counted(state.opt),
-            "swa": None if state.swa is None else _counted(state.swa),
+    unit = getattr(state.model, "unit", None)   # an LM's block kinds
+    return {"params": jax_tree(dict(state.model.named_parameters()), unit),
+            "opt": _counted(state.opt, unit),
+            "swa": None if state.swa is None else _counted(state.swa, unit),
             "step": np.int32(state.step),
             "model_state": jax_tree(buffers) if buffers else None}
 

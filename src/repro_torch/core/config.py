@@ -3,12 +3,10 @@
 The field names and defaults are those of the JAX package's
 ``repro.core.config`` so that one experiment reads the same in both
 packages.  :class:`ModelConfig` keeps the CNN encoding (``family="cnn"``),
-the transformer fields (dense and MoE blocks, the encoder, cross-attention
-and frontends) and ``param_dtype``; the SSM fields are not ported.
-Options this package does not implement raise ``NotImplementedError`` where
-they are set, never a quiet substitute: the SSM block kinds (raised by
-``models/transformer.py`` when such a model is built, and by the parameter
-count).
+the transformer fields (dense, MoE, Mamba2, mLSTM, sLSTM and weight-shared
+attention blocks, the encoder, cross-attention and frontends) and
+``param_dtype``.  Options this package does not implement raise
+``NotImplementedError`` where they are set, never a quiet substitute.
 """
 from __future__ import annotations
 
@@ -18,6 +16,12 @@ from typing import Optional, Tuple
 
 BLOCK_ATTN = "attn"              # self-attention + dense MLP
 BLOCK_MOE = "moe"                # self-attention + MoE FFN
+BLOCK_MAMBA = "mamba"            # Mamba2 SSM mixer
+BLOCK_MLSTM = "mlstm"            # xLSTM matrix-memory block
+BLOCK_SLSTM = "slstm"            # xLSTM scalar-memory block
+BLOCK_SHARED_ATTN = "shared_attn"  # zamba2-style weight-shared attention
+BLOCK_KINDS = (BLOCK_ATTN, BLOCK_MOE, BLOCK_MAMBA, BLOCK_MLSTM, BLOCK_SLSTM,
+               BLOCK_SHARED_ATTN)
 
 # kernel backends of ``PSGConfig.backend`` (``kernels/dispatch.py``)
 KERNEL_BACKENDS = ("auto", "reference", "plain", "cuda")
@@ -48,8 +52,8 @@ class ModelConfig:
     """
 
     name: str
-    family: str                      # dense | moe | audio | vlm | cnn
-                                     # (ssm/hybrid not ported)
+    family: str                      # dense | moe | ssm | hybrid | audio
+                                     # | vlm | cnn
     num_layers: int
     d_model: int
     num_heads: int
@@ -74,6 +78,12 @@ class ModelConfig:
     moe_d_ff: int = 0                # per-expert hidden dim (0 -> d_ff)
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01    # load-balance loss weight
+
+    # --- SSM / xLSTM ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    shared_attn_every: int = 0       # shared attn after every k blocks
 
     # repeating unit of block kinds, tiled to num_layers; empty -> "attn"
     # ("moe" for the moe family)
@@ -101,7 +111,7 @@ class ModelConfig:
         """Full per-layer block-kind tuple of length num_layers."""
         unit = self.block_unit
         if not unit:
-            unit = {"moe": (BLOCK_MOE,), "ssm": ("mlstm",)}.get(
+            unit = {"moe": (BLOCK_MOE,), "ssm": (BLOCK_MLSTM,)}.get(
                 self.family, (BLOCK_ATTN,))
         reps = -(-self.num_layers // len(unit))
         return (unit * reps)[: self.num_layers]
@@ -114,16 +124,27 @@ class ModelConfig:
             return self.vocab_size
         return -(-self.vocab_size // 128) * 128
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Whether the arch defines a sub-quadratic long-context path."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
     def param_count(self) -> int:
-        """Analytic parameter count (``attn`` and ``moe`` blocks, the
-        encoder and cross-attention; a CNN config asks its per-layer cost
-        table)."""
+        """Analytic parameter count (the blocks, the encoder and
+        cross-attention; a CNN config asks its per-layer cost table).  The
+        JAX package's count, kept as it is: zamba2's shared attention is
+        counted only under ``shared_attn_every``, which its config does not
+        set, and the SSM kinds' terms are its estimates."""
         if self.family == "cnn":
             from repro_torch.core.cost import cnn_cost
             return cnn_cost(self).param_count()
         d, hd = self.d_model, self.resolved_head_dim
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         n += sum(self._block_params(kind, d, hd) for kind in self.blocks)
+        if self.shared_attn_every:
+            n += self._attn_params(d, hd)
         n += d                                        # final norm
         if self.encoder_layers:
             n += self.encoder_layers * self._block_params(BLOCK_ATTN, d, hd)
@@ -149,8 +170,35 @@ class ModelConfig:
             experts = (self.num_experts + self.num_shared_experts) * \
                 self._mlp_params(d, dff)
             return self._attn_params(d, hd) + experts + d * self.num_experts
-        raise NotImplementedError(f"block kind {kind!r} is not ported "
-                                  "(the SSM kinds come in a later slice)")
+        if kind == BLOCK_MAMBA:
+            di = self.ssm_expand * d
+            # in_proj (x,z), conv, ssm params (A,dt,B,C heads), out_proj, norm
+            return 2 * d * di + self.ssm_conv_width * di \
+                + 2 * di * self.ssm_state + 2 * di + di * d + 2 * d
+        if kind in (BLOCK_MLSTM, BLOCK_SLSTM):
+            di = self.ssm_expand * d
+            # qkv + gates + out_proj (+ up/down ffn-ish projections)
+            return 2 * d * di + 3 * di * hd_or(di) + di * d + 2 * d
+        if kind == BLOCK_SHARED_ATTN:
+            return 0         # its parameters are the model's ``shared``
+        raise ValueError(f"unknown block kind {kind!r}")
+
+
+def hd_or(x: int) -> int:   # the JAX package's helper of the mLSTM estimate
+    return max(x // 8, 1)
+
+
+def unit_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The repeating unit of block kinds that tiles ``cfg.blocks`` (one
+    block when the config names no unit)."""
+    return cfg.block_unit or (cfg.blocks[0],)
+
+
+def sub_blocks(kind: str) -> Tuple[str, ...]:
+    """A block kind's residual sub-blocks, SLU's gating granularity:
+    ``attn`` and ``moe`` a mixer and an ffn, the others one mixer."""
+    return ("mixer", "ffn") if kind in (BLOCK_ATTN, BLOCK_MOE) \
+        else ("mixer",)
 
 
 @dataclass(frozen=True)

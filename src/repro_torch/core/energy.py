@@ -9,8 +9,9 @@ from __future__ import annotations
 
 from typing import Mapping, Tuple
 
-from repro_torch.core.config import BLOCK_ATTN, BLOCK_MOE, E2TrainConfig, \
-    ModelConfig
+from repro_torch.core.config import (BLOCK_ATTN, BLOCK_MAMBA, BLOCK_MLSTM,
+                                     BLOCK_MOE, BLOCK_SHARED_ATTN,
+                                     BLOCK_SLSTM, E2TrainConfig, ModelConfig)
 
 # Horowitz ISSCC'14 45nm, picojoules.
 ENERGY_45NM: Mapping[str, float] = {
@@ -110,27 +111,49 @@ def _mlp_flops(cfg: ModelConfig, S: int, d_ff: int) -> float:
 
 def block_fwd_flops(cfg: ModelConfig, kind: str, S: int,
                     kv_len: int = 0) -> float:
-    """Forward FLOPs of one block for S tokens (per batch element)."""
+    """Forward FLOPs of one block for S tokens (per batch element).  The
+    JAX package's count, kept as it is because SLU's cost term reads it:
+    ``shared_attn`` is priced as an ``attn`` block, MLP included, although
+    that block has no MLP."""
     if cfg.family == "cnn":
         raise ValueError(f"{cfg.name!r} is a CNN config: it has no "
                          "transformer blocks (use core/cost.cnn_cost)")
-    p, a = _attn_flops(cfg, S, kv_len or S)
-    if kind == BLOCK_ATTN:
-        return p + a + _mlp_flops(cfg, S, cfg.d_ff)
-    if kind == BLOCK_MOE:       # top_k routed and every shared expert
-        dff = cfg.moe_d_ff or cfg.d_ff
+    d = cfg.d_model
+    if kind in (BLOCK_ATTN, BLOCK_MOE, BLOCK_SHARED_ATTN):
+        p, a = _attn_flops(cfg, S, kv_len or S)
+        if kind != BLOCK_MOE:
+            return p + a + _mlp_flops(cfg, S, cfg.d_ff)
+        dff = cfg.moe_d_ff or cfg.d_ff    # top_k routed and every shared
         experts = (cfg.top_k + cfg.num_shared_experts) * \
             _mlp_flops(cfg, S, dff)
-        return p + a + experts + 2 * S * cfg.d_model * cfg.num_experts
-    raise NotImplementedError(f"block kind {kind!r} is not ported")
+        return p + a + experts + 2 * S * d * cfg.num_experts
+    if kind == BLOCK_MAMBA:
+        di, st = cfg.ssm_expand * d, cfg.ssm_state
+        proj = 2 * S * d * (2 * di + 2 * st) + 2 * S * di * d
+        scan = 2 * S * di * st * 2               # state update + readout
+        return float(proj + scan + S * di * cfg.ssm_conv_width * 2)
+    if kind == BLOCK_MLSTM:
+        di = cfg.ssm_expand * d
+        hd = di // cfg.num_heads
+        proj = 2 * S * d * 2 * di + 2 * S * di * 3 * di + 2 * S * di * d
+        return float(proj + 2 * S * cfg.num_heads * hd * hd * 2)
+    if kind == BLOCK_SLSTM:
+        proj = 2 * S * d * 4 * d + 2 * S * d * d
+        rec = 2 * S * cfg.num_heads * (d // cfg.num_heads) ** 2 * 4
+        return float(proj + rec)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def model_fwd_flops(cfg: ModelConfig, batch: int, S: int,
                     kv_len: int = 0) -> float:
     """Forward FLOPs of the whole LM for ``batch`` sequences of ``S``
-    tokens: the blocks, the encoder over ``frontend_tokens`` frames and
-    every decoder layer's cross-attention (enc-dec), and the head."""
+    tokens: the blocks, ``shared_attn_every``'s attention calls, the
+    encoder over ``frontend_tokens`` frames and every decoder layer's
+    cross-attention (enc-dec), and the head."""
     per = sum(block_fwd_flops(cfg, k, S, kv_len) for k in cfg.blocks)
+    if cfg.shared_attn_every:
+        p, a = _attn_flops(cfg, S, kv_len or S)
+        per += cfg.num_layers // cfg.shared_attn_every * (p + a)
     if cfg.encoder_layers:
         enc_S = cfg.frontend_tokens or S
         per += cfg.encoder_layers * block_fwd_flops(cfg, BLOCK_ATTN, enc_S)

@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from repro_torch.core import rng
-from repro_torch.core.config import SLUConfig
+from repro_torch.core.config import (BLOCK_SHARED_ATTN, ModelConfig,
+                                     SLUConfig, sub_blocks, unit_kinds)
 from repro_torch.models.layers import dense_init
 
 Uniform = Union[float, np.floating, torch.Tensor]
@@ -81,14 +82,23 @@ def resnet_uniforms(key: rng.Key, n_blocks: int) -> np.ndarray:
                     np.float32)
 
 
-def lm_uniforms(key: rng.Key, num_layers: int) -> np.ndarray:
-    """The uniforms of an LM step's keep draws, fp32 ``(2 L,)`` in
-    sub-block order: layer ``i`` splits ``fold_in(fold_in(key, i), 0)`` into
-    the mixer's and the ffn's key (the JAX package's unit keys)."""
+def lm_uniforms(key: rng.Key, cfg: ModelConfig) -> np.ndarray:
+    """The uniforms of an LM step's keep draws, fp32, one per gated
+    sub-block in order (the JAX package's unit keys): block ``i`` of unit
+    ``u`` splits ``fold_in(fold_in(key, u), i)`` into ``r1`` and ``r2``; an
+    ``attn`` or ``moe`` block's mixer draws ``r1`` and its ffn ``r2``, an
+    SSM block draws ``r1`` alone, and ``shared_attn``, never gated, draws
+    nothing.  For one-block units that is ``2 L`` uniforms, layer ``i``'s
+    from ``fold_in(fold_in(key, i), 0)``."""
+    unit = unit_kinds(cfg)
     out = []
-    for i in range(num_layers):
-        for r in rng.split(rng.fold_in(rng.fold_in(key, i), 0)):
-            out.append(rng.uniform(r))
+    for u in range(cfg.num_layers // len(unit)):
+        uk = rng.fold_in(key, u)
+        for i, kind in enumerate(unit):
+            if kind == BLOCK_SHARED_ATTN:
+                continue
+            rs = rng.split(rng.fold_in(uk, i))
+            out.extend(rng.uniform(r) for r in rs[:len(sub_blocks(kind))])
     return np.array(out, np.float32)
 
 

@@ -15,6 +15,8 @@ PSG and print the energy report.
         --steps 6 --device cpu
     python -m repro_torch.launch.train --task lm --arch whisper_small \\
         --smoke --steps 6 --device cpu
+    python -m repro_torch.launch.train --task lm --arch zamba2_1_2b \\
+        --smoke --steps 6 --device cpu
     python -m repro_torch.launch.train --depth 74 --e2train off \\
         --fused-conv off --steps 8
     python -m repro_torch.launch.train --depth 8 --width 8 --batch 4 \\
@@ -42,7 +44,9 @@ config's 4 microbatches, and h2o-danube-3-4b, whose sliding window keeps
 it off the flash kernels; the encoder-decoder whisper-small and the VLM
 phi-3-vision-4.2b, whose batches carry frontend embeddings drawn as the
 JAX launcher draws them; the MoE models deepseek-moe-16b and grok-1-314b,
-bf16 parameters in 8 microbatches);
+bf16 parameters in 8 microbatches; the xLSTM xlstm-350m and the Mamba2
+hybrid zamba2-1.2b, which trains in its config's 4 microbatches and whose
+header names its units of mixers);
 ``--smoke`` cuts the LM to toy dimensions (``configs.reduce_experiment``);
 ``--fused-attention on`` trains the LM through the flash kernels with the
 PSG dk/dv backward (``PSGConfig.fused_attention=True``), ``off`` through
@@ -84,7 +88,8 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_experiment, reduce_experiment
 from repro_torch.configs.paper_cnns import cnn_model, cnn_train, mobilenetv2
 from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
-                                     SLUConfig, SMDConfig, TrainConfig)
+                                     SLUConfig, SMDConfig, TrainConfig,
+                                     unit_kinds)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.psg import fused_conv_active
 from repro_torch.data.synthetic import (host_image_batch, host_lm_batch,
@@ -356,6 +361,11 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
         if m.num_experts:
             extra += (f", {m.num_experts} experts top-{m.top_k}"
                       f" + {m.num_shared_experts} shared")
+        unit = unit_kinds(m)
+        if len(unit) > 1:
+            kinds = " + ".join(f"{unit.count(k)} {k}"
+                               for k in dict.fromkeys(unit))
+            extra += f", {m.num_layers // len(unit)} units of {kinds}"
         print(f"model {m.name} ({m.num_layers} layers, d_model {m.d_model}, "
               f"batch {tc.global_batch} x seq {tc.seq_len}{extra}, {attn} "
               f"attention, --e2train {args.e2train}, kernel backend "

@@ -115,10 +115,14 @@ def moe_fwd(m: MoE, x: torch.Tensor, cfg: ModelConfig
     h = h * psg.einsum("gecd,edf->gecf", ex_in, m.w_gate.to(dt))
     ex_out = psg.einsum("gecf,efd->gecd", h, m.w_down.to(dt))
 
-    # combine: each token's kept choices, weighted, summed over its k
+    # combine: each token's kept choices, weighted by weights rounded to
+    # the activation dtype, summed over its k in fp32 and rounded once (the
+    # reference's one einsum of bf16 operands: their products are exact in
+    # its fp32 accumulator)
     picked = ex_out[gi, topi, slot.clamp(max=cap - 1)]    # (G, n, k, d)
     w = torch.where(keep, topv, torch.zeros((), device=dev)).to(dt)
-    y = (picked * w[..., None]).sum(dim=2).reshape(N, d)
+    y = (picked.float() * w.float()[..., None]).sum(dim=2).to(dt) \
+        .reshape(N, d)
 
     if m.shared:
         xt = x.reshape(N, d)

@@ -1,19 +1,27 @@
 """Transformer LM with SLU-gated sub-blocks and PSG matmuls: dense and MoE
-decoders, the encoder-decoder (whisper) and the VLM (phi-3-vision).
+decoders, the xLSTM and Mamba2 stacks (xlstm-350m, zamba2's hybrid with its
+weight-shared attention), the encoder-decoder (whisper) and the VLM
+(phi-3-vision).
 
-The counterpart of the JAX package's ``models/transformer.py`` for ``attn``
-blocks (self-attention + dense MLP) and ``moe`` blocks (self-attention +
-the MoE FFN of ``models/moe.py``).  The JAX scan over stacked units
-becomes a Python loop over per-layer modules (``layers.<i>``, and
-``encoder.<i>`` and ``cross.<i>`` for the enc-dec), so a JAX tree loads
-through ``repro_torch.convert.lm_state_dict_from_jax``.
+The counterpart of the JAX package's ``models/transformer.py``: ``attn``
+blocks (self-attention + dense MLP), ``moe`` blocks (self-attention + the
+MoE FFN of ``models/moe.py``), ``mamba``, ``mlstm`` and ``slstm`` blocks
+(``ln1`` and the mixer of ``models/ssm.py``) and ``shared_attn`` blocks
+(zamba2: one top-level ``shared = {ln, attn}`` module, the same at every
+call, so its gradient sums over the calls).  The JAX scan over stacked
+units of ``cfg.block_unit`` becomes a Python loop over per-layer modules
+(``layers.<j>``, a ``shared_attn`` layer an empty one, and ``encoder.<i>``
+and ``cross.<i>`` for the enc-dec), so a JAX tree loads through
+``repro_torch.convert.lm_state_dict_from_jax``.
 
-SLU gates each residual sub-block (mixer, then ffn) with the weight-shared
-gate, whose LSTM state runs through the sub-blocks in order.  The keys are
-the JAX package's: layer ``i`` folds ``i`` (its unit index) and then 0 (its
-place in the one-block unit) into the step key and splits the result into
-the mixer's and the ffn's key; the first and last layer always run.  So,
-from the same parameters and step key, the decisions are the JAX package's.
+SLU gates each residual sub-block (an ``attn`` or ``moe`` block's mixer,
+then its ffn; an SSM block's mixer) with the weight-shared gate, whose LSTM
+state runs through the gated sub-blocks in order; ``shared_attn`` is never
+gated.  The keys are the JAX package's (``core/slu.lm_uniforms``): block
+``i`` of unit ``u`` folds ``u`` and then ``i`` into the step key and splits
+the result into the mixer's and the ffn's key; the first and last block
+(global index ``u * len(unit) + i``) always run.  So, from the same
+parameters and step key, the decisions are the JAX package's.
 A gated MoE ffn draws the same keep as a dense one and carries its
 load-balance loss out of the gate: unscaled where it runs, 0 where it is
 skipped (the reference's ``lax.cond`` pair; ``core/slu.gated_residual``'s
@@ -28,9 +36,11 @@ mixer's output, so the checkpoint is per sub-block.  ``remat="full"``
 checkpoints nothing, as in the JAX package's ``lm_fwd``.
 
 Attention takes the JAX package's paths (``layers.attention_fwd``), with
-sliding-window masks; the eval forward prefers the query-chunked softmax
-from 1024 tokens, as the JAX package's ``lm_fwd(train=False)`` does (its
-sequence parallelism, which keeps training off that path, is off there).
+sliding-window masks; it prefers the query-chunked softmax from 1024
+tokens unless the model trains with every block ``attn`` or ``moe``, as
+the JAX package's ``lm_fwd`` does (``prefer_chunked = not sp``: its
+sequence parallelism, which keeps training off that path, holds only for
+such units).
 
 Frontends (stubs in both packages) come in as embeddings ``(B, F, d)``:
 
@@ -42,11 +52,10 @@ Frontends (stubs in both packages) come in as embeddings ``(B, F, d)``:
   ``prefill_to_state``/``decode_step`` add it between attention and MLP);
 * the VLM prepends them to the token embeddings: positions, SLU's FLOPs
   and the logits run over ``F + S``, and ``lm_loss`` keeps the text tail.
-
-Not ported (raise when such a model is built): the SSM block kinds.
 """
 from __future__ import annotations
 
+from itertools import groupby
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -54,33 +63,47 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import psg, rng
-from repro_torch.core.config import BLOCK_ATTN, BLOCK_MOE, E2TrainConfig, \
-    ModelConfig
+from repro_torch.core.config import (BLOCK_ATTN, BLOCK_KINDS, BLOCK_MOE,
+                                     BLOCK_SHARED_ATTN, E2TrainConfig,
+                                     ModelConfig, sub_blocks, unit_kinds)
 from repro_torch.core.energy import block_fwd_flops
 from repro_torch.core.slu import Gate, flops_regularizer, gated_residual, \
     lm_uniforms
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.blocks) - {BLOCK_ATTN, BLOCK_MOE}
-    if kinds:
-        raise NotImplementedError(f"{cfg.name}: block kinds {sorted(kinds)} "
-                                  "are not ported (the SSM kinds come in a "
-                                  "later slice); ported: 'attn', 'moe'")
+    """Refuse an unknown block kind, or a depth the unit does not tile (the
+    JAX package's ``init_lm`` asserts it)."""
+    unknown = set(cfg.blocks) - set(BLOCK_KINDS)
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds "
+                         f"{sorted(unknown)}; known: {BLOCK_KINDS}")
+    unit = unit_kinds(cfg)
+    if cfg.num_layers % len(unit):
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} not "
+                         f"divisible by unit {unit}")
 
 
 class Block(nn.Module):
-    """One ``attn`` block (pre-norm attention, then pre-norm MLP) or
-    ``moe`` block (the MLP an MoE FFN)."""
+    """One block: ``attn`` (pre-norm attention, then pre-norm MLP), ``moe``
+    (the MLP an MoE FFN), ``mamba``/``mlstm``/``slstm`` (pre-norm mixer,
+    held under the kind's name) or ``shared_attn`` (no parameters: they
+    are the model's ``shared``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  kind: str = BLOCK_ATTN):
         super().__init__()
         dev = generator.device
         self.kind = kind
+        if kind == BLOCK_SHARED_ATTN:
+            return
         self.ln1 = L.Norm(cfg, dev)
+        if kind in ssm.MIXERS:
+            setattr(self, kind, ssm.MIXERS[kind][0](cfg, generator))
+            return
         self.attn = L.Attention(cfg, generator)
         self.ln2 = L.Norm(cfg, dev)
         if kind == BLOCK_MOE:
@@ -89,8 +112,9 @@ class Block(nn.Module):
             self.mlp = L.MLP(cfg, generator)
 
 
-class CrossBlock(nn.Module):
-    """A decoder layer's cross-attention: ``ln`` then ``attn``."""
+class NormAttention(nn.Module):
+    """``ln`` then ``attn``: a decoder layer's cross-attention, or zamba2's
+    weight-shared attention."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -106,6 +130,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.unit = unit_kinds(cfg)
         self.e2 = e2 or E2TrainConfig()
         g = torch.Generator(device=device or "cpu").manual_seed(seed)
         pd = L.param_dtype(cfg)
@@ -116,11 +141,13 @@ class TransformerLM(nn.Module):
         self.final_norm = L.Norm(cfg, g.device)
         self.layers = nn.ModuleList(Block(cfg, g, kind)
                                     for kind in cfg.blocks)
+        if BLOCK_SHARED_ATTN in self.unit or cfg.shared_attn_every:
+            self.shared = NormAttention(cfg, g)
         if cfg.encoder_layers:
             self.encoder = nn.ModuleList(Block(cfg, g)
                                          for _ in range(cfg.encoder_layers))
             self.enc_norm = L.Norm(cfg, g.device)
-            self.cross = nn.ModuleList(CrossBlock(cfg, g)
+            self.cross = nn.ModuleList(NormAttention(cfg, g)
                                        for _ in range(cfg.num_layers))
         self.slu_gate = Gate(cfg.d_model, self.e2.slu, g) \
             if self.e2.slu.enabled else None
@@ -142,8 +169,12 @@ class TransformerLM(nn.Module):
                 frontend: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens (B, S) -> (fp32 logits (B, S', V), aux{aux_loss,
-        slu_cost, slu_executed (L, 2), slu_keep_probs (2L,)}); ``S' = F +
-        S`` for the VLM, else S.
+        slu_cost, slu_executed (units, sub-blocks a unit), slu_keep_probs
+        (sub-blocks,)}); ``S' = F + S`` for the VLM, else S.  A unit's
+        sub-blocks are its ``attn``/``moe`` blocks' two, its other blocks'
+        one; ungated ones (``shared_attn``, every one in eval mode) count as
+        kept with probability 1.  One-block ``attn``/``moe`` units give
+        ``(L, 2)`` and ``(2 L,)``.
 
         ``frontend`` (B, F, d): the encoder's input (enc-dec) or the
         prepended patch embeddings (VLM); cast to the activation dtype.
@@ -172,22 +203,24 @@ class TransformerLM(nn.Module):
         n = cfg.num_layers
         gate = self.slu_gate if self.training else None
         remat = remat if self.training else "none"
+        # the reference's sequence parallelism (sp) keeps training off the
+        # query-chunked softmax, and holds only for attn/moe units
+        prefer_chunked = not (self.training and all(
+            k in (BLOCK_ATTN, BLOCK_MOE) for k in self.unit))
         gst = gate.init_state() if gate is not None else None
         if gate is not None and slu_u is None:
-            slu_u = lm_uniforms(key, n)
+            slu_u = lm_uniforms(key, cfg)
         kps, exs = [], []
+        drawn = 0                                  # uniforms used so far
         aux_loss = torch.zeros((), device=x.device)
         for i, blk in enumerate(self.layers):
             force = slu_cfg.never_skip_first_last and i in (0, n - 1)
-            moe = blk.kind == BLOCK_MOE
-            subs = ((_mixer(blk, cfg, not self.training),
-                     (blk.ln1, blk.attn)),
-                    (_ffn(blk, cfg), (blk.ln2, blk.moe if moe else blk.mlp)))
+            subs = _sub_block_fns(self, blk, prefer_chunked)
             for j, (fn, mods) in enumerate(subs):
-                has_aux = moe and j == 1
+                has_aux = blk.kind == BLOCK_MOE and j == 1
                 if remat == "block":
                     fn = _checkpointed(fn)
-                if gate is None:
+                if gate is None or blk.kind == BLOCK_SHARED_ATTN:
                     y = fn(x)
                     if has_aux:
                         y, a = y
@@ -197,8 +230,9 @@ class TransformerLM(nn.Module):
                     exs.append(torch.ones((), device=x.device))
                     continue
                 p, gst = gate(x, gst)
-                out = gated_residual(fn, x, p, slu_u[2 * i + j], force,
+                out = gated_residual(fn, x, p, slu_u[drawn], force,
                                      modules=mods, has_aux=has_aux)
+                drawn += 1
                 x, ex = out[0], out[1]
                 if has_aux:
                     aux_loss = aux_loss + out[2]
@@ -216,18 +250,15 @@ class TransformerLM(nn.Module):
                 >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e30)
         kps_t = torch.stack(kps)
+        n_units = n // len(self.unit)
         if gate is not None:
-            # one fill per block kind (a captured step copies nothing from
-            # the host): each sub-block half of its block's FLOPs
-            flops = torch.stack([
-                torch.full((2,), block_fwd_flops(cfg, kind, S) / 2.0,
-                           device=x.device) for kind in cfg.blocks])
-            slu_cost = flops_regularizer(kps_t, flops.reshape(-1))
+            flops = unit_flops(cfg, S, x.device).repeat(n_units)
+            slu_cost = flops_regularizer(kps_t, flops)
         else:
             slu_cost = torch.ones((), device=x.device)
         aux = {"aux_loss": aux_loss, "slu_cost": slu_cost,
                "slu_keep_probs": kps_t,
-               "slu_executed": torch.stack(exs).reshape(n, 2)}
+               "slu_executed": torch.stack(exs).reshape(n_units, -1)}
         return logits, aux
 
 
@@ -251,18 +282,41 @@ def _encoder_layer(blk: Block, x: torch.Tensor, cfg: ModelConfig
     return x + L.mlp_fwd(blk.mlp, blk.ln2(x), cfg)
 
 
-def _mixer(blk: Block, cfg: ModelConfig, prefer_chunked: bool):
-    return _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg,
-                                                 prefer_chunked))
+def unit_flops(cfg: ModelConfig, S: int, device=None) -> torch.Tensor:
+    """Analytic forward FLOPs of each sub-block of one unit, fp32 (the JAX
+    package's ``unit_flops``: a block's FLOPs split evenly over its
+    sub-blocks), one fill per run of equal values, so that a captured step
+    copies nothing from the host."""
+    vals = [block_fwd_flops(cfg, kind, S) / len(sub_blocks(kind))
+            for kind in unit_kinds(cfg) for _ in sub_blocks(kind)]
+    return torch.cat([torch.full((len(list(run)),), v, device=device)
+                      for v, run in groupby(vals)])
 
 
-def _ffn(blk: Block, cfg: ModelConfig):
+def _sub_block_fns(model: TransformerLM, blk: Block, prefer_chunked: bool):
+    """``(fn, modules)`` of each residual sub-block of ``blk`` in order:
+    ``fn(h)`` the branch added to the stream (under the PSG context of its
+    first call), ``modules`` the ones holding the parameters it reads."""
+    cfg = model.cfg
+    if blk.kind == BLOCK_SHARED_ATTN:
+        sh = model.shared
+        return ((_in_context(lambda h: L.attention_fwd(
+            sh.attn, sh.ln(h), cfg, prefer_chunked)), (sh.ln, sh.attn)),)
+    if blk.kind in ssm.MIXERS:
+        mixer, fwd = getattr(blk, blk.kind), ssm.MIXERS[blk.kind][1]
+        return ((lambda h: fwd(mixer, blk.ln1(h), cfg), (blk.ln1, mixer)),)
+    mixer = _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg,
+                                                  prefer_chunked))
     if blk.kind == BLOCK_MOE:
-        return _in_context(lambda h: M.moe_fwd(blk.moe, blk.ln2(h), cfg))
-    return _in_context(lambda h: L.mlp_fwd(blk.mlp, blk.ln2(h), cfg))
+        return ((mixer, (blk.ln1, blk.attn)),
+                (_in_context(lambda h: M.moe_fwd(blk.moe, blk.ln2(h), cfg)),
+                 (blk.ln2, blk.moe)))
+    return ((mixer, (blk.ln1, blk.attn)),
+            (_in_context(lambda h: L.mlp_fwd(blk.mlp, blk.ln2(h), cfg)),
+             (blk.ln2, blk.mlp)))
 
 
-def _cross(cb: CrossBlock, memory: torch.Tensor, cfg: ModelConfig):
+def _cross(cb: NormAttention, memory: torch.Tensor, cfg: ModelConfig):
     return lambda h: L.cross_attention_fwd(cb.attn, cb.ln(h), memory, cfg)
 
 

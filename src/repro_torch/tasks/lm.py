@@ -1,5 +1,6 @@
 """``lm`` task: the transformer LM (``models/transformer.py``): dense and
-MoE decoders, the encoder-decoder and the VLM, whose batches carry
+MoE decoders, the SSM and hybrid stacks (xLSTM, zamba2), the
+encoder-decoder and the VLM, whose batches carry
 ``"frontend"`` embeddings beside the tokens.  Stateless: the model holds
 no buffers."""
 from __future__ import annotations
@@ -27,7 +28,7 @@ def _make_loss(exp: Experiment):
 
 
 def _slu_uniforms(exp: Experiment, key):
-    return lm_uniforms(key, exp.model.num_layers)
+    return lm_uniforms(key, exp.model)
 
 
 def _make_predict(exp: Experiment):

@@ -54,6 +54,7 @@ from repro_torch.core import energy  # noqa: E402
 from repro_torch.core import psg as tpsg  # noqa: E402
 from repro_torch.core import rng  # noqa: E402
 from repro_torch.core.cost import lm_cost  # noqa: E402
+from repro_torch.core.slu import lm_uniforms  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.ft.checkpoint import (_flatten, restore_checkpoint,  # noqa: E402
                                        save_checkpoint, verify_checkpoint)
@@ -196,12 +197,35 @@ def test_cost_flops_and_param_counts_equal_jax(arch):
 
 
 def test_transformer_refuses_only_the_ssm_kinds():
+    """Every arch builds, the SSM kinds too since they were ported
+    (``tests/test_torch_ssm.py``); what is refused now is a block kind
+    neither package knows, or a depth its unit does not tile."""
+    cfg = reduce_experiment(get_experiment("llama3_8b")).model
     for arch in ARCHS:
         TransformerLM(reduce_experiment(get_experiment(arch)).model)
-    cfg = dataclasses.replace(reduce_experiment(get_experiment(
-        "llama3_8b")).model, block_unit=("mamba",))
-    with pytest.raises(NotImplementedError, match="SSM"):
-        TransformerLM(cfg)
+    TransformerLM(dataclasses.replace(cfg, block_unit=("mamba",)))
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        TransformerLM(dataclasses.replace(cfg, block_unit=("rwkv",)))
+    with pytest.raises(ValueError, match="not divisible by unit"):
+        TransformerLM(dataclasses.replace(cfg, num_layers=3,
+                                          block_unit=("attn", "mamba")))
+
+
+def test_moe_slu_layout_is_one_block_units():
+    """Generalizing the SLU keys to multi-block units keeps the MoE's: two
+    uniforms a layer, layer ``i``'s from ``fold_in(fold_in(key, i), 0)``
+    split in two, and flags ``(L, 2)``."""
+    _, texp = _configs("deepseek_moe_16b", False)
+    model = _port_model(texp, _jstate("deepseek_moe_16b", False).params)
+    key = rng.fold_in(rng.PRNGKey(0), 2)
+    want = [rng.uniform(r) for i in range(LAYERS)
+            for r in rng.split(rng.fold_in(rng.fold_in(key, i), 0))]
+    np.testing.assert_array_equal(lm_uniforms(key, texp.model),
+                                  np.array(want, np.float32))
+    with torch.no_grad():
+        _, aux = model(_batch(texp)["tokens"], key, remat="none")
+    assert aux["slu_executed"].shape == (LAYERS, 2)
+    assert aux["slu_keep_probs"].shape == (2 * LAYERS,)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -281,6 +305,40 @@ def test_moe_fwd_matches_jax(case, psg_on):
         assert not bool((topi == 3).any())
     else:
         assert bool(keep.any())
+
+
+@pytest.mark.parametrize("case", ["balanced", "drops", "ties_empty"])
+def test_moe_fwd_bf16_combine_rounds_once(case, monkeypatch):
+    """bf16 activations (deepseek-moe's and grok's on the card): the
+    reference combines the experts' bf16 outputs with bf16 weights in one
+    einsum, whose products are exact in its fp32 accumulator, and rounds
+    the sum over a token's k choices once; the port's ``moe_fwd`` must be
+    within one bf16 ulp of the larger magnitude (the same fp32 sum in
+    another order can round one ulp apart) plus ``1e-6 * max|ref|``.
+    Rounding each weighted choice to bf16 before the sum misses this.
+    silu is relu in both packages here: XLA rounds silu's bf16 sigmoid and
+    product apart, PyTorch once, which would move the experts' outputs
+    themselves by an ulp; relu, the bf16 products and the fp32-accumulated
+    bf16 matmuls round alike in both."""
+    relu = {"jax": jax.nn.relu, "torch": torch.nn.functional.relu}
+    monkeypatch.setattr(jax.nn, "silu", relu["jax"])
+    monkeypatch.setitem(JL._ACTS, "silu", relu["jax"])
+    monkeypatch.setattr(M.F, "silu", relu["torch"])
+    monkeypatch.setitem(L._ACTS, "silu", relu["torch"])
+    jp, m, cfg, jcfg, x = _moe_pair(case, False)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    jcfg = dataclasses.replace(jcfg, dtype="bfloat16")
+    xb = jnp.asarray(x, jnp.bfloat16)
+    jy, _ = JM.moe_fwd(jax.tree.map(jnp.asarray, jp), xb, jcfg)
+    with torch.no_grad():
+        y, _ = M.moe_fwd(m, torch.from_numpy(
+            np.asarray(xb.astype(jnp.float32))).bfloat16(), cfg)
+    assert y.dtype == torch.bfloat16
+    a = y.float().numpy()
+    ref = np.asarray(jy.astype(jnp.float32))
+    big = np.maximum(np.abs(a), np.abs(ref))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(big, 1e-30))) - 7)
+    assert np.all(np.abs(a - ref) <= ulp + 1e-6 * np.abs(ref).max())
 
 
 def _einsum_data(pattern):

@@ -45,6 +45,7 @@ from repro_torch.core import config as tc  # noqa: E402
 from repro_torch.core import psg as tpsg  # noqa: E402
 from repro_torch.core import rng  # noqa: E402
 from repro_torch.core.cost import lm_cost  # noqa: E402
+from repro_torch.core.slu import lm_uniforms  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.transformer import TransformerLM, lm_loss  # noqa: E402
@@ -303,6 +304,24 @@ def test_trainer_with_smd_matches_the_jax_trainer():
     assert got == want
 
 
+def test_slu_layout_is_one_block_units():
+    """Generalizing the SLU keys to multi-block units keeps the dense LM's:
+    two uniforms a layer, layer ``i``'s from ``fold_in(fold_in(key, i),
+    0)`` split in two (the layout of the earlier slices), flags ``(L, 2)``
+    and keep probabilities ``(2 L,)``."""
+    _, texp = _configs()
+    key = rng.fold_in(rng.PRNGKey(0), 3)
+    want = [rng.uniform(r) for i in range(LAYERS)
+            for r in rng.split(rng.fold_in(rng.fold_in(key, i), 0))]
+    np.testing.assert_array_equal(lm_uniforms(key, texp.model),
+                                  np.array(want, np.float32))
+    model = TransformerLM(texp.model, texp.e2)
+    with torch.no_grad():
+        _, aux = model(_batch()["tokens"], key, remat="none")
+    assert aux["slu_executed"].shape == (LAYERS, 2)
+    assert aux["slu_keep_probs"].shape == (2 * LAYERS,)
+
+
 @pytest.mark.parametrize("reduced", [False, True])
 def test_lm_cost_table_equals_jax(reduced):
     jexp, texp = jget("qwen2_5_3b"), get_experiment("qwen2_5_3b")
@@ -318,12 +337,12 @@ def test_lm_cost_table_equals_jax(reduced):
 def test_unported_options_raise():
     # remat="full" and sliding windows are ported: their positive cases are
     # in test_torch_dense_archs.py; MoE blocks, the encoder and frontends
-    # in test_torch_encdec_moe.py.  The SSM kinds still raise.
+    # in test_torch_encdec_moe.py; the SSM kinds in test_torch_ssm.py.  A
+    # block kind neither package knows raises.
     _, texp = _configs()
-    for change in (dict(block_unit=("mamba",)), dict(family="ssm"),
-                   dict(block_unit=("slstm",)),
-                   dict(block_unit=("shared_attn",))):
-        with pytest.raises(NotImplementedError):
+    for change in (dict(block_unit=("rwkv",)),
+                   dict(block_unit=("attn", "hyena", "attn"))):
+        with pytest.raises(ValueError, match="unknown block kinds"):
             TransformerLM(dataclasses.replace(texp.model, **change))
     loss = get_task("lm").make_loss(texp)
     with pytest.raises(ValueError):

@@ -335,7 +335,10 @@ def test_device_decision_matches_jax_bernoulli(step):
 def test_lm_uniforms_are_the_jax_sub_block_keys():
     key = rng.fold_in(rng.PRNGKey(5), 3)
     jkey = jax.random.fold_in(jax.random.PRNGKey(5), 3)
-    u = slu.lm_uniforms(key, 3)
+    # three one-block attn units (the uniforms take the model's config
+    # since the SSM slice: its units may hold several blocks)
+    u = slu.lm_uniforms(key, tc.ModelConfig("lm", "dense", 3, 64, 4, 4, 96,
+                                            128))
     want = []
     for i in range(3):
         for r in jax.random.split(jax.random.fold_in(
