@@ -62,4 +62,6 @@ def reduce_experiment(exp: Experiment) -> Experiment:
     )
     tr = dataclasses.replace(exp.train, global_batch=2, seq_len=16,
                              total_steps=8, microbatches=1)
-    return dataclasses.replace(exp, model=small, train=tr)
+    sv = dataclasses.replace(exp.serve, batch=2, prefill_len=16,
+                             max_kv_len=32)
+    return dataclasses.replace(exp, model=small, train=tr, serve=sv)

@@ -32,6 +32,12 @@ The JAX package's trees are nested dicts/lists of numpy arrays (what
   ``b10_mamba`` before ``b1_mamba``).  bf16 tensors leave as
   fp32 arrays of the same values (numpy has no bf16; the JAX package's
   ``astype`` restores its dtype exactly).
+* ``decode_state_tree(state, unit_len)`` and
+  ``decode_state_from_tree(tree, device)``: a serving decode state
+  (``models/transformer.DecodeState``: one entry a layer) as the JAX
+  package's ``{"units": {"b{i}": stacked over units}, "pos"}`` tree of
+  numpy arrays, and back (a bf16 array, numpy's ``ml_dtypes`` type, comes
+  back as a bf16 tensor; a JAX ``kv`` pair is a tuple in both).
 * ``train_state_tree(state)``: a port ``TrainState`` as the JAX package's
   ``TrainState`` fields (``params``, ``opt``, ``swa``, ``step`` int32,
   ``model_state``), the tree ``ft/checkpoint.py`` writes;
@@ -195,6 +201,59 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         raise ValueError(f"units {keys}: expected keys b0_... to "
                          f"b{len(keys) - 1}_...")
     return _tensors(port_named(params))
+
+
+# ---------------------------------------------------------------------------
+# serving decode state <-> the JAX package's decode-state tree
+# ---------------------------------------------------------------------------
+
+
+def _stacked(nodes):
+    """Leaves of equal trees (dicts, tuples) stacked along a new axis 0."""
+    if isinstance(nodes[0], dict):
+        return {k: _stacked([n[k] for n in nodes]) for k in nodes[0]}
+    if isinstance(nodes[0], tuple):
+        return tuple(_stacked(list(n)) for n in zip(*nodes))
+    return np.stack([to_numpy(n) for n in nodes])
+
+
+def _tensor(a, device=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":               # ml_dtypes: not for torch
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _unstacked(node, u: int, device=None):
+    if isinstance(node, dict):
+        return {k: _unstacked(v, u, device) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return tuple(_unstacked(v, u, device) for v in node)
+    return _tensor(np.asarray(node)[u], device)
+
+
+def decode_state_tree(state: Dict[str, Any], unit_len: int
+                      ) -> Dict[str, Any]:
+    """A port decode state (``{"layers": [...], "pos"}``) as the JAX
+    package's tree: layer ``j`` is entry ``j // unit_len`` of
+    ``units["b{j % unit_len}"]``."""
+    layers = state["layers"]
+    return {"units": {f"b{i}": _stacked(layers[i::unit_len])
+                      for i in range(unit_len)},
+            "pos": to_numpy(state["pos"])}
+
+
+def decode_state_from_tree(tree: Dict[str, Any], device=None
+                           ) -> Dict[str, Any]:
+    """The inverse of :func:`decode_state_tree`, as tensors on
+    ``device``."""
+    units = tree["units"]
+    unit_len = len(units)
+    n_units = len(next(leaves(units))[1])
+    layers = [_unstacked(units[f"b{j % unit_len}"], j // unit_len, device)
+              for j in range(n_units * unit_len)]
+    return {"layers": layers, "pos": _tensor(tree["pos"], device)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,21 @@
-"""Configuration of the port's training paths, as frozen dataclasses.
+"""Configuration of the port's training and serving paths, as frozen
+dataclasses.
 
 The field names and defaults are those of the JAX package's
 ``repro.core.config`` so that one experiment reads the same in both
 packages.  :class:`ModelConfig` keeps the CNN encoding (``family="cnn"``),
 the transformer fields (dense, MoE, Mamba2, mLSTM, sLSTM and weight-shared
 attention blocks, the encoder, cross-attention and frontends) and
-``param_dtype``.  Options this package does not implement raise
-``NotImplementedError`` where they are set, never a quiet substitute.
+``param_dtype``; :class:`ServeConfig` and :data:`SHAPES` the serving
+shapes (``Experiment.with_shape``).  Options this package does not
+implement raise ``NotImplementedError`` where they are set, never a quiet
+substitute.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 BLOCK_ATTN = "attn"              # self-attention + dense MLP
 BLOCK_MOE = "moe"                # self-attention + MoE FFN
@@ -310,13 +313,54 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ServeConfig:
+    batch: int = 32
+    prefill_len: int = 32768
+    max_kv_len: int = 32768
+    decode_steps: int = 1
+
+
+# The four shape cells of the JAX package (LM shapes are seq_len x
+# global_batch): one training shape, three serving shapes.
+SHAPES: Mapping[str, Mapping[str, Any]] = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+@dataclass(frozen=True)
 class Experiment:
     model: ModelConfig
     e2: E2TrainConfig = field(default_factory=E2TrainConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
     # the ``repro_torch.tasks`` entry that builds and trains the model:
     # "lm" (models/transformer.py) or "cifar_cnn" (models/resnet.py)
     task: str = "lm"
 
+    def with_shape(self, shape: str) -> "Experiment":
+        """The experiment at a :data:`SHAPES` cell: a training cell sets
+        ``train``'s sequence and batch, a serving cell ``serve``'s batch,
+        prefill length and KV length."""
+        s = SHAPES[shape]
+        if s["kind"] == "train":
+            return dataclasses.replace(self, train=dataclasses.replace(
+                self.train, seq_len=s["seq_len"],
+                global_batch=s["global_batch"]))
+        return dataclasses.replace(self, serve=dataclasses.replace(
+            self.serve, batch=s["global_batch"], prefill_len=s["seq_len"],
+            max_kv_len=s["seq_len"]))
+
     def replace(self, **kw) -> "Experiment":
         return dataclasses.replace(self, **kw)
+
+
+def shape_applicable(model: ModelConfig, shape: str) -> Tuple[bool, str]:
+    """Whether a shape cell applies to an arch, and why not: ``long_500k``
+    needs a sub-quadratic path (an SSM, a hybrid or a sliding window)."""
+    if shape == "long_500k" and not model.is_subquadratic:
+        return False, ("pure full-attention arch: no sub-quadratic 500k "
+                       "path (DESIGN.md §5)")
+    return True, ""

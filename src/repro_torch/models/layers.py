@@ -17,6 +17,13 @@ probabilities in bf16 (:class:`SoftmaxLowp`), materialized whole, or one
 512-query chunk at a time (:func:`_sdpa_qchunked`) above 8192 tokens and,
 when asked (the eval forward), from 1024.  The encoder's unmasked
 attention and the cross-attention are always materialized.
+
+Serving (the JAX package's KV-cache functions): ``attention_fwd(...,
+return_kv=True)`` hands a prefill's RoPE'd keys and values to
+:func:`fill_kv_cache`; :func:`attention_decode` runs one token against the
+cache, a ring of ``min(max_len, window)`` slots under a sliding window,
+writing its key and value in place.  Decode attention is the materialized
+softmax, as in the JAX package, which has no decode kernel.
 """
 from __future__ import annotations
 
@@ -183,8 +190,9 @@ def causal_mask(S: int, T: int, offset: int = 0, window: int = 0,
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """q (B,S,nh,hd), k/v (B,T,nkv,hd), mask (S,T) bool -> (B,S,nh,hd).
-    GQA groups the query heads over the kv heads by reshape."""
+    """q (B,S,nh,hd), k/v (B,T,nkv,hd), mask (S,T) bool, or a per-row
+    (B,1,S,1,T) one (the decode ring's) -> (B,S,nh,hd).  GQA groups the
+    query heads over the kv heads by reshape."""
     B, S, nh, hd = q.shape
     nkv = k.shape[2]
     qf = q.reshape(B, S, nkv, nh // nkv, hd)
@@ -192,7 +200,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bsngh,btnh->bnsgt", qf.float(),
                           k.float()) / math.sqrt(hd)
     if mask is not None:
-        scores = scores.masked_fill(~mask[:, None, :], -1e30)
+        m = mask[:, None, :] if mask.dim() == 2 else mask
+        scores = scores.masked_fill(~m, -1e30)
     w = SoftmaxLowp.apply(scores)
     out = torch.einsum("bnsgt,btnh->bsngh", w.to(v.dtype), v)
     return out.reshape(B, S, nh, hd)
@@ -242,12 +251,14 @@ def attention_path(cfg: ModelConfig, psg_cfg, S: int,
 
 def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                   prefer_chunked: bool = False,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, return_kv: bool = False):
     """Causal (and windowed) self-attention over a full sequence, on
     :func:`attention_path`'s path under the active PSG config; the
     materialized softmax takes the causal-and-window mask whole.
     ``causal=False`` (the encoder) is the materialized softmax with no
-    mask, never flash nor chunked, as in the JAX package."""
+    mask, never flash nor chunked, as in the JAX package.  ``return_kv``
+    also returns the RoPE'd ``(k, v)`` (B, S, nkv, hd), what
+    :func:`fill_kv_cache` hands to decode."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, x)
@@ -264,7 +275,78 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     else:
         out = _sdpa(q, k, v, causal_mask(S, S, 0, cfg.sliding_window,
                                          x.device))
-    return psg.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype))
+    y = psg.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype))
+    return (y, (k, v)) if return_kv else y
+
+
+# ---------------------------------------------------------------------------
+# KV cache (serving)
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots of a layer's cache: ``max_len``, or with a sliding window a
+    ring of ``min(max_len, window)``."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 \
+        else max_len
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero ``(k, v)`` caches, each (batch, :func:`kv_cache_len`, nkv,
+    hd)."""
+    shape = (batch, kv_cache_len(cfg, max_len), cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def fill_kv_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                  max_len: int, dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode caches from a prefill's k/v (B, S, nkv, hd): the last
+    ``min(S, T)`` positions at slots ``abs % T``, the layout
+    :func:`attention_decode`'s wrap-aware mask expects."""
+    S = k.shape[1]
+    T = kv_cache_len(cfg, max_len)
+    kc, vc = init_kv_cache(cfg, k.shape[0], max_len, dtype, k.device)
+    idx_abs = torch.arange(S - min(S, T), S, device=k.device)
+    kc[:, idx_abs % T] = k[:, idx_abs].to(dtype)
+    vc[:, idx_abs % T] = v[:, idx_abs].to(dtype)
+    return kc, vc
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                     kv_cache: Tuple[torch.Tensor, torch.Tensor],
+                     cache_len: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                    torch.Tensor]]:
+    """One token: x (B, 1, d), caches (B, T, nkv, hd), ``cache_len`` (B,)
+    int, each row's absolute position.  The new k/v are RoPE'd at that
+    position and written into the caches in place at slot ``cache_len %
+    T`` (device-side indices: nothing is read to the host); a key is
+    valid if its slot was written and, with a window, its absolute
+    position is within the window.  Returns ``(y, (kc, vc))``, the caches
+    the same tensors."""
+    kc, vc = kv_cache
+    B, T = kc.shape[:2]
+    pos = cache_len[:, None]                              # (B, 1)
+    q, k, v = _qkv(p, x)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    slot = (cache_len % T)[:, None]
+    at = slot[:, :, None, None].expand(B, 1, *kc.shape[2:])
+    kc.scatter_(1, at, k.to(kc.dtype))
+    vc.scatter_(1, at, v.to(vc.dtype))
+    idx = torch.arange(T, device=kc.device)[None, :]      # ring slots
+    wraps = pos + 1 > T
+    abs_pos = torch.where(wraps, pos - (slot - idx) % T, idx)
+    valid = idx < (pos + 1).clamp(max=T)
+    if cfg.sliding_window > 0:
+        valid &= abs_pos > pos - cfg.sliding_window
+    out = _sdpa(q, kc, vc, valid[:, None, None, None, :]).to(x.dtype)
+    return torch.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype)), (kc, vc)
 
 
 def cross_attention_fwd(p: Attention, x: torch.Tensor, memory: torch.Tensor,

@@ -52,11 +52,20 @@ Frontends (stubs in both packages) come in as embeddings ``(B, F, d)``:
   ``prefill_to_state``/``decode_step`` add it between attention and MLP);
 * the VLM prepends them to the token embeddings: positions, SLU's FLOPs
   and the logits run over ``F + S``, and ``lm_loss`` keeps the text tail.
+
+Serving (the JAX package's decode functions): :func:`prefill_to_state` runs
+a prompt through every layer once and hands over the decode state (KV
+caches, SSM states, positions), :func:`decode_step` runs one token against
+it, updating it in place, and :func:`init_decode_state` makes an empty one.
+The state is one entry a layer (``layers.<j>``), where the JAX package
+stacks it per unit (``convert.decode_state_tree`` maps the two).  Both run
+under ``torch.no_grad()``, outside any PSG context and with no SLU gate,
+as the reference serves; only the last position's logits are made.
 """
 from __future__ import annotations
 
 from itertools import groupby
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -242,13 +251,7 @@ class TransformerLM(nn.Module):
                 cross = _cross(self.cross[i], memory, cfg)
                 x = x + (_checkpointed(cross) if remat == "block"
                          else cross)(x)
-        x = self.final_norm(x)
-        head = self.embed.T if self.head is None else self.head
-        logits = (x @ head.to(dt)).float()
-        if cfg.padded_vocab != cfg.vocab_size:      # pad ids never predicted
-            pad = torch.arange(cfg.padded_vocab, device=x.device) \
-                >= cfg.vocab_size
-            logits = logits.masked_fill(pad, -1e30)
+        logits = self.logits(x)
         kps_t = torch.stack(kps)
         n_units = n // len(self.unit)
         if gate is not None:
@@ -260,6 +263,21 @@ class TransformerLM(nn.Module):
                "slu_keep_probs": kps_t,
                "slu_executed": torch.stack(exs).reshape(n_units, -1)}
         return logits, aux
+
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``final_norm``, then the head (the tied embedding's transpose
+        unless the model has its own): fp32 logits, the padded vocabulary's
+        ids masked to -1e30 (never predicted)."""
+        cfg = self.cfg
+        x = self.final_norm(x)
+        head = self.embed.T if self.head is None else self.head
+        logits = (x @ head.to(x.dtype)).float()
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = torch.arange(cfg.padded_vocab, device=x.device) \
+                >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
+        return logits
 
 
 def _in_context(body):
@@ -350,3 +368,134 @@ def lm_loss(model: TransformerLM, batch: Dict[str, torch.Tensor],
                "slu_cost": aux["slu_cost"],
                "slu_exec_ratio": aux["slu_executed"].mean()}
     return total, metrics
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill and decode
+# ---------------------------------------------------------------------------
+
+# {"layers": one state a layer, "pos": (B,) int32 absolute positions}: an
+# ``attn``/``moe``/``shared_attn`` layer holds ``{"kv": (k, v)}``, each
+# zamba2 shared-attention call its own; an SSM layer its mixer's state
+DecodeState = Dict[str, Any]
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16, device=None
+                      ) -> DecodeState:
+    """Zero decode state: KV caches of ``max_len`` slots (a ring of
+    ``min(max_len, window)`` under a sliding window) in ``dtype``, the SSM
+    states in fp32, positions 0."""
+    layers: List[Dict[str, Any]] = []
+    for kind in cfg.blocks:
+        if kind in ssm.MIXERS:
+            layers.append(getattr(ssm, f"init_{kind}_state")(
+                cfg, batch, device=device))
+        else:
+            layers.append({"kv": L.init_kv_cache(cfg, batch, max_len, dtype,
+                                                 device)})
+    return {"layers": layers,
+            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+def _self_attention(model: TransformerLM, blk: Block):
+    """``(norm, attention)`` of an ``attn``/``moe`` block, or the shared
+    ones of a ``shared_attn`` call."""
+    if blk.kind == BLOCK_SHARED_ATTN:
+        return model.shared.ln, model.shared.attn
+    return blk.ln1, blk.attn
+
+
+def _serve_ffn(model: TransformerLM, i: int, blk: Block, x: torch.Tensor,
+               memory: Optional[torch.Tensor]) -> torch.Tensor:
+    """The rest of an ``attn``/``moe`` block after its attention at serve:
+    the enc-dec's cross-attention over ``memory`` (between attention and
+    MLP, as the JAX package's ``prefill_to_state``/``decode_step`` put it),
+    then the MLP or the MoE FFN."""
+    cfg = model.cfg
+    if memory is not None and blk.kind == BLOCK_ATTN:
+        x = x + _cross(model.cross[i], memory, cfg)(x)
+    h = blk.ln2(x)
+    if blk.kind == BLOCK_ATTN:
+        return x + L.mlp_fwd(blk.mlp, h, cfg)
+    return x + M.moe_fwd(blk.moe, h, cfg)[0]
+
+
+def _memory(model: TransformerLM, memory: Optional[torch.Tensor]):
+    if model.cfg.encoder_layers and memory is None:
+        raise ValueError(f"{model.cfg.name}: an enc-dec model needs its "
+                         "encoder's memory (or, to prefill, the frontend "
+                         "embeddings it encodes)")
+    return memory
+
+
+@torch.no_grad()
+def prefill_to_state(model: TransformerLM, tokens: torch.Tensor,
+                     max_kv_len: int, memory: Optional[torch.Tensor] = None,
+                     frontend: Optional[torch.Tensor] = None,
+                     cache_dtype: torch.dtype = torch.bfloat16
+                     ) -> Tuple[torch.Tensor, DecodeState]:
+    """Bulk prefill: tokens (B, S) through every layer in one forward
+    that returns the decode state, the prefill-to-decode handoff (the JAX
+    package's ``prefill_to_state``).  Returns the last position's fp32
+    logits (B, 1, V) and the state at position ``S`` (``F + S`` for the
+    VLM, whose ``frontend`` patches are prepended); the enc-dec takes its
+    ``memory``, or runs its encoder over ``frontend``.  No SLU, no PSG,
+    no autograd: every block runs, on plain products."""
+    cfg = model.cfg
+    dt = getattr(torch, cfg.dtype)
+    x = model.embed[tokens].to(dt)
+    if cfg.encoder_layers:
+        if memory is None and frontend is not None:
+            memory = model.encode(frontend.to(dt))
+        memory = _memory(model, memory)
+    elif frontend is not None:                       # VLM: prepend patches
+        x = torch.cat([frontend.to(dt), x], dim=1)
+    layers: List[Dict[str, Any]] = []
+    for i, blk in enumerate(model.layers):
+        if blk.kind in ssm.MIXERS:
+            y, st = ssm.MIXERS[blk.kind][1](getattr(blk, blk.kind),
+                                            blk.ln1(x), cfg,
+                                            return_state=True)
+            x = x + y
+            layers.append(st)
+            continue
+        ln, attn = _self_attention(model, blk)
+        y, (k, v) = L.attention_fwd(attn, ln(x), cfg, return_kv=True)
+        x = x + y
+        layers.append({"kv": L.fill_kv_cache(cfg, k, v, max_kv_len,
+                                             cache_dtype)})
+        if blk.kind != BLOCK_SHARED_ATTN:
+            x = _serve_ffn(model, i, blk, x, memory)
+    pos = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                     device=x.device)
+    return model.logits(x[:, -1:]), {"layers": layers, "pos": pos}
+
+
+@torch.no_grad()
+def decode_step(model: TransformerLM, token: torch.Tensor,
+                state: DecodeState, memory: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, DecodeState]:
+    """token (B, 1) -> (fp32 logits (B, 1, V), ``state``) one position on
+    (the JAX package's ``decode_step``; no SLU, no PSG).  ``state`` is
+    updated in place: each cache gets the new key and value at its slot,
+    each SSM state its step's values, and ``pos`` advances by 1, all on
+    the device, with nothing read to the host."""
+    cfg = model.cfg
+    memory = _memory(model, memory)
+    x = model.embed[token].to(getattr(torch, cfg.dtype))
+    pos = state["pos"]
+    for i, (blk, st) in enumerate(zip(model.layers, state["layers"])):
+        if blk.kind in ssm.MIXERS:
+            y, new = getattr(ssm, f"{blk.kind}_step")(
+                getattr(blk, blk.kind), blk.ln1(x), st, cfg)
+            for k, t in new.items():
+                st[k].copy_(t)
+            x = x + y
+            continue
+        ln, attn = _self_attention(model, blk)
+        x = x + L.attention_decode(attn, ln(x), cfg, st["kv"], pos)[0]
+        if blk.kind != BLOCK_SHARED_ATTN:
+            x = _serve_ffn(model, i, blk, x, memory)
+    pos.add_(1)
+    return model.logits(x), state

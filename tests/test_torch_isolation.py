@@ -76,6 +76,18 @@ def test_lm_entry_points_default_to_the_card_and_raise_without_one(no_card):
                     "--steps", "1"])
 
 
+def test_serve_cli_defaults_to_the_card_and_raises_without_one(no_card):
+    from repro_torch.configs import get_experiment, reduce_experiment
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving import ServeEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen2_5_3b", "--smoke", "--requests", "1"])
+    exp = reduce_experiment(get_experiment("qwen2_5_3b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(exp, TransformerLM(exp.model))
+
+
 def test_lm_cli_runs_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import train
     trainer = train.run(["--task", "lm", "--arch", "qwen2_5_3b", "--smoke",
