@@ -137,8 +137,8 @@ Phases, each fatal on failure:
    ``set_sync_debug_mode("error")``; ``launch.train --cnn mobilenetv2`` and
    ``launch.bench_cnn --fast --steps 8``;
 13. paper_benches: the paper's experiments through the driver's benches
-   (``launch/bench_run``), in this process, in fast mode at half the
-   reference's nominal steps (``PAPER_STEPS``): ``smd``, ``slu``,
+   (``launch/bench_run``), in this process, in fast mode at a quarter of
+   the reference's nominal steps (``PAPER_STEPS``): ``smd``, ``slu``,
    ``psg``, ``e2train``, ``convergence`` and ``throughput``, each
    with every launch counter zeroed before and read after (kernels 5-9
    launched by the PSG benches on the bench LM, no kernel by the others);
@@ -199,10 +199,11 @@ Phases, each fatal on failure:
    and 7-9 at its attention geometry with phase 4's limits, timed, not
    counted; a reduced step of xlstm-350m and of zamba2-1.2b at 512 tokens
    (two chunks) on the card against the CPU; the main paths (``SSM_PATHS``,
-   ``--e2train full``, ``remat="block"``, bf16): zamba2-1.2b at its 38
-   blocks, 4 x 4096 in its 4 microbatches, its kernel 5-9 launches equal
-   to its two shared-attention calls a microbatch, and xlstm-350m's unit
-   of 4 layers, launching none of the ten kernels, each with its reckoned
+   ``--e2train full``, ``remat="block"``, bf16, two executed steps):
+   zamba2-1.2b's first unit of 19 blocks (of its 38), 4 x 4096 in its 4
+   microbatches, its kernel 5-9 launches equal to its one shared-attention
+   call a microbatch, and xlstm-350m's unit of 4 layers, launching none of
+   the ten kernels, each with its reckoned
    state and profiled (device events only); last, both reduced archs
    through the chunked loop against the per-step loop bit for bit, with
    IF nodes on the Mamba2 and LSTM sub-blocks and none on the shared
@@ -227,7 +228,34 @@ Phases, each fatal on failure:
    ``prefill_to_state(S + 1)``, ``handoff_check``); recorded: prefill ms a
    wave, decode ms a step, host ms a decode step, output tokens/s, peak
    memory, the profiled step's launches and idle share, and
-   ``decode_32k``'s KV at batch 128 reckoned (it does not fit the card).
+   ``decode_32k``'s KV at batch 128 reckoned (it does not fit the card);
+18. distribution (``distributed_check``): kernels 3-6 as a mesh runs them,
+   each on half the rows with the other half's int64 sums added before the
+   rounding and the select, against their plain versions on all the rows
+   bit for bit, at every ResNet-74 conv geometry and the qwen2.5-3b weight-
+   matmul ones (``reduce_path_check``); a one-rank NCCL world in this
+   process and ``Trainer(mesh=make_mesh((1, 1)))``, ResNet-74 fused
+   (``--e2train full``, batch 128) and the flash qwen2.5-3b (8 layers, 2 x
+   4096), each through the chunked loop beside the same run without a mesh:
+   losses, SLU flags, parameters, buffers and SWA bit for bit, every launch
+   counter equal; then two ranks on the one card (gloo on CUDA tensors,
+   ``DIST_RANK_FLAG`` children of this script), ResNet-74 at batch 128 (64
+   rows a rank): every conv's first-step PSG signs and fallback flags,
+   replayed on one rank on the same rows of x and gy, bit for bit; SMD
+   counts and the first step's SLU decisions equal; the losses, step by
+   step, within ``DIST_LOSS_REL`` (PSG off under ``sgdm``: the JAX
+   package's own mesh tolerance ``DIST_SGDM_REL``) plus twice the one-rank
+   run's own spread, the distance of its curve from its curves on the same
+   batches with their rows in another order (the same global steps, every
+   batch sum in another order, which is all two ranks change; PSG's 8-bit
+   activation codes turn BatchNorm's other summation order into code flips,
+   and the PSG-off losses diverge at lr 0.1); the model-level first-step
+   signs that differ (beside the reordered runs'), the later SLU decisions
+   and the collectives' share of one profiled step recorded; last, the
+   launcher's ``--devices 2 --mesh-data 2`` (ResNet-20, batch 128) on the
+   card killed at a step and resumed on one rank (``reshard_state``) to its
+   last step, and on two ranks to the uninterrupted two-rank run's last
+   checkpoint bit for bit.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -2406,12 +2434,12 @@ PAPER_ROWS = {
                    "throughput_resnet14_overhead_bound"],
 }
 PSG_BENCHES = ("psg", "e2train", "convergence")   # kernels 5-9, tiny LM
-# nominal steps of each bench in this phase: half the reference's fast-mode
-# budgets (smd 100, slu 100, psg 60, e2train 160, convergence 60), so that
-# the phase stays near 150 s where the host is slow (the bench LM is
-# host-bound: 138-243 s for the whole budgets); None: fast mode
-PAPER_STEPS = {"smd": 50, "slu": 50, "psg": 30, "e2train": 80,
-               "convergence": 30, "throughput": None}
+# nominal steps of each bench in this phase: a quarter of the reference's
+# fast-mode budgets (smd 100, slu 100, psg 60, e2train 160, convergence
+# 60), so that the script stays within its time limit (the bench LM is
+# host-bound: 120 s for the phase at half the budgets); None: fast mode
+PAPER_STEPS = {"smd": 25, "slu": 25, "psg": 15, "e2train": 40,
+               "convergence": 15, "throughput": None}
 TAB3_PAPER = ["0.8027", "0.8520", "0.9013"]
 SGD32_STEPS = 8      # tab2/sgd32's first steps, card against CPU
 SGD32_REL = 1e-4     # fp32, TF32 off, no quantization: summation order only
@@ -3125,7 +3153,7 @@ def encdec_vlm_moe_check(torch, mods):
 # ---------------------------------------------------------------------------
 
 SSM_PATHS = {       # arch: (layers, batch, seq) of its main path (None: all)
-    "zamba2_1_2b": (None, 4, 4096),     # 38 blocks, its 4 microbatches
+    "zamba2_1_2b": (19, 4, 4096),       # one unit of its 2, 4 microbatches
     "xlstm_350m": (4, 4, 4096),         # one unit of its 24 layers
 }
 SSM_REF_SEQ = 512       # the reduced steps: two 256-token chunks carry state
@@ -3292,7 +3320,7 @@ def ssm_check(torch, mods):
             mods, kernels if calls else [],
             absent=[] if calls else [n for mod in mods
                                      for n in mod.LAUNCHES],
-            execute=3, cpu_ops=False)
+            execute=2, cpu_ops=False)
         tc = trainer.exp.train
         if (tc.global_batch, tc.seq_len, tc.microbatches, tc.remat,
                 trainer.exp.model.dtype) != \
@@ -3677,6 +3705,601 @@ def serving_check(torch, mods):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: distribution
+# ---------------------------------------------------------------------------
+
+DIST_EXECUTED = 4       # executed steps of each run
+DIST_LOSS_REL = 1e-4    # two ranks against one, PSG on: losses, relative
+DIST_SGDM_REL = 2e-3    # the same, PSG off under sgdm (tests/test_loop.py)
+DIST_RANK_FLAG = "--distributed-rank"
+DIST_TIMEOUT_S = 120    # seconds a collective may wait
+DIST_KILL_STEPS, DIST_KILL_AT = 12, 10
+DIST_KILL_DEPTH = 20    # the launcher's ResNet of the kill and restart
+COLLECTIVE_MARKS = ("gloo", "nccl", "all_reduce", "allreduce", "all_gather",
+                    "allgather")
+
+
+def reduce_path_check(torch) -> dict:
+    """Kernels 3-6 as a mesh runs them: each wrapper on one rank's half of
+    the rows, with ``reduce`` adding the other half's exact int64 sums (what
+    the all-reduce of two ranks gives), against the plain version on all
+    the rows, bit for bit (pass 1's fp32 product, the signs and the flags),
+    at every ResNet-74 batch-128 conv geometry and at qwen2.5-3b
+    weight-matmul geometries at 8192 tokens, random codes at their
+    widths."""
+    from repro_torch.configs.paper_cnns import resnet_conv_shapes
+    from repro_torch.kernels import conv as K
+    from repro_torch.kernels import psg_matmul as PM
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def codes(shape, lim, dtype):
+        return torch.randint(-lim, lim + 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int32).to(dtype)
+
+    def adding(other):
+        return lambda t: t.add_(other)
+
+    def same(got, want, what):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                fail(f"{what}: the reduced path differs from the plain "
+                     f"version on all the rows")
+
+    n_conv = 0
+    for c in resnet_conv_shapes(DEPTH, WIDTH, BATCH):
+        k, st, hw = c.k, c.stride, c.hw
+        if k < st:                      # the subsampled 1x1 shortcut
+            hw, st = -(-hw // st), 1
+        hp = hw + 2 * (k // 2)
+        ho = (hp - k) // st + 1
+        h = c.batch // 2
+        xm = codes((c.batch, hp, hp, c.cin), 7, torch.int8)
+        gm = codes((c.batch, ho, ho, c.cout), 511, torch.int16)
+        xq = codes((c.batch, hp, hp, c.cin), 127, torch.int8)
+        gq = codes((c.batch, ho, ho, c.cout), 32767, torch.int16)
+        rest = lambda x, g: K._code_product(x[h:], g[h:], k, st).to(
+            torch.int64)
+        pred = K.conv_grad_w_predictor(xm[:h], gm[:h], k, st,
+                                       adding(rest(xm, gm)))
+        want = K.conv_grad_w_predictor_plain(xm, gm, k, st)
+        same([pred], [want], f"kernel 3 at {c}")
+        tau = 0.05 * want.abs().amax()
+        got = K.conv_grad_w(pred, xq[:h], gq[:h], tau, k, st,
+                            adding(rest(xq, gq)))
+        same(got, K.conv_grad_w_plain(want, xq, gq, tau, k, st),
+             f"kernel 4 at {c}")
+        n_conv += 1
+    from repro_torch.configs import get_experiment
+    m = get_experiment(LM_ARCH).model
+    sites = sorted(lm_matmul_sites(m.d_model, m.num_heads, m.num_kv_heads,
+                                   m.resolved_head_dim, m.d_ff, 1))
+    N = LM_BATCH * LM_SEQ
+    for din, dout in sites:
+        h = N // 2
+        xm, gm = codes((N, din), 7, torch.int8), codes((N, dout), 511,
+                                                       torch.int16)
+        xq, gq = codes((N, din), 127, torch.int8), codes((N, dout), 32767,
+                                                         torch.int16)
+        rest = lambda x, g: PM._code_product(x[h:], g[h:]).to(torch.int64)
+        pred = PM.predictor_matmul(xm[:h], gm[:h], adding(rest(xm, gm)))
+        want = PM.predictor_matmul_plain(xm, gm)
+        same([pred], [want], f"kernel 5 at {(din, dout)}")
+        tau = 0.05 * want.abs().amax()
+        got = PM.psg_grad_w(pred, xq[:h], gq[:h], tau, adding(rest(xq, gq)))
+        same(got, PM.psg_grad_w_plain(want, xq, gq, tau),
+             f"kernel 6 at {(din, dout)}")
+    torch.cuda.synchronize()
+    return {"conv_geometries": n_conv, "matmul_geometries": sites,
+            "tokens": N, "bitwise_equal": True}
+
+
+def _launch_counts(mods) -> dict:
+    return {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+
+
+def mesh_pair(torch, build, mods, kernels, executed, what, mesh, smd=True,
+              profile=True):
+    """The same nominal steps on the one-rank mesh and without a mesh, both
+    through the chunked loop (``CHUNK_K``), compared bit for bit, with
+    every launch counter zeroed before each run and equal after; each
+    run's graph is released before the next (two captured steps of the LM
+    do not fit beside the earlier phases' memory), and with ``profile`` one
+    more executed step of the mesh run, captured anew, is profiled for
+    collectives."""
+    import gc
+    steps = nominal_steps(executed, smd)
+    runs, launches = [], []
+    for m in (mesh, None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = build(steps, m)
+        reset_all(mods)
+        tr.run(steps)
+        torch.cuda.synchronize()
+        launches.append(_launch_counts(mods))
+        release(tr)
+        runs.append(tr)
+    for name in kernels:
+        if launches[0][name] <= 0:
+            fail(f"{what}: kernel {name} was not launched on the mesh")
+    if launches[0] != launches[1]:
+        fail(f"{what}: launches differ on the one-rank mesh: {launches[0]} "
+             f"against {launches[1]}")
+    out = same_runs(torch, runs[1], runs[0], what)
+    ms = [1e3 * sum(h["wall_s"] for h in t.history[CHUNK_K:])
+          / max(len(t.history) - CHUNK_K, 1) for t in runs]
+    out.update({"nominal_steps": steps, "launches": launches[0],
+                "ms_per_executed_step": ms[1],
+                "mesh_ms_per_executed_step": ms[0],
+                "losses": [h["loss"] for h in runs[0].history]})
+    if profile:
+        del runs[1]
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["mesh_profiled_step"] = _collective_share(
+            torch, lambda: runs[0].run(_to_next_kept(runs[0])))
+        if out["mesh_profiled_step"]["collective_calls"]:
+            fail(f"{what}: collectives on a one-rank mesh: "
+                 f"{out['mesh_profiled_step']}")
+        release(runs[0])
+    return out
+
+
+def _to_next_kept(trainer) -> int:
+    """Nominal steps from the trainer's step to its next executed one."""
+    steps = 1
+    while not trainer.keeps(trainer.state.step + steps - 1):
+        steps += 1
+    return steps
+
+
+def _wgrad_recorder(ops, K):
+    """Wrap the PSG conv weight-gradient op (``kernels/ops.conv_grad_w``)
+    and kernel 4's wrapper so that, while ``rec["on"]``, each op call keeps
+    its inputs (this rank's rows of x and gy), its sign and its kernel-4
+    flags, on the host; the wrappers still count their launches."""
+    rec = {"on": False, "calls": []}
+    op, k4 = ops.conv_grad_w, K.conv_grad_w
+
+    def flags(*a, **kw):
+        sign, stats = k4(*a, **kw)
+        rec["flags"] = stats
+        return sign, stats
+
+    def recorded(xp, gy, cfg, k, stride, plain=False):
+        sign, fb = op(xp, gy, cfg, k, stride, plain)
+        if rec["on"]:
+            keep = {"x": xp.cpu(), "g": gy.cpu()} if rec["inputs"] else {}
+            rec["calls"].append({**keep, "k": k, "stride": stride,
+                                 "sign": sign.cpu(),
+                                 "flags": rec["flags"].cpu()})
+        return sign, fb
+
+    ops.conv_grad_w, K.conv_grad_w = recorded, flags
+    return rec
+
+
+def _collective_share(torch, fn) -> dict:
+    """``fn()`` under torch.profiler: the host intervals of the collective
+    calls (their union), their count and their share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ev = sorted((e for e in prof.events()
+                 if any(k in e.name.lower() for k in COLLECTIVE_MARKS)),
+                key=lambda e: e.time_range.start)
+    busy, end, top = 0.0, float("-inf"), 0
+    for e in ev:
+        a, b = e.time_range.start, e.time_range.end
+        if a >= end:
+            top += 1
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"wall_ms": wall_ms, "collective_intervals": top,
+            "collective_calls": sum(1 for e in ev if e.name.startswith(
+                ("gloo:", "nccl:"))),
+            "collective_ms": busy / 1e3,
+            "collective_share": busy / 1e3 / wall_ms,
+            "names": sorted({e.name for e in ev})[:8]}
+
+
+ROW_ORDERS = {      # the global batch's rows in another order (one rank)
+    "halves_swapped": lambda B: list(range(B // 2, B)) + list(range(B // 2)),
+    "reversed": lambda B: list(range(B - 1, -1, -1)),
+}
+# the reordered runs are samples of a chaotic spread: a step's distance of
+# the two-rank run, one more such sample, may reach twice their largest
+DIST_SPREAD_FACTOR = 2.0
+
+
+def _resnet_runs(torch, mods, mesh, rec, order=None) -> dict:
+    """ResNet-74 (batch 128) with ``--e2train`` ``full`` and ``off``, each
+    for the nominal steps that execute ``DIST_EXECUTED``, on ``mesh`` (or
+    without); the first executed step's PSG conv calls recorded (``rec``,
+    their inputs too unless ``order``); ``order`` (of ``ROW_ORDERS``, one
+    rank) feeds each batch's rows in that order: the same global step,
+    every sum over the batch in another order."""
+    from repro_torch.launch.train import E2TRAIN, build_trainer
+    out = {}
+    rec["inputs"] = order is None
+    for name in ("full", "off"):
+        e2 = E2TRAIN[name]
+        steps = nominal_steps(DIST_EXECUTED, e2.smd.enabled)
+        tr = build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda", e2=e2,
+                           mesh=mesh)
+        if order is not None:
+            rows = torch.tensor(ROW_ORDERS[order](BATCH), device="cuda")
+            draw = tr.make_batch
+            tr.make_batch = lambda step, shard: {
+                k: v.index_select(0, rows) for k, v in
+                draw(step, shard).items()}
+        reset_all(mods)
+        rec["on"], rec["calls"] = name == "full", []
+        for _ in range(DIST_EXECUTED):
+            tr.run(_to_next_kept(tr))
+            rec["on"] = False
+        if tr.state.step != steps:
+            fail(f"ResNet-74 ({name}) ran {tr.state.step} nominal steps, "
+                 f"not {steps}")
+        torch.cuda.synchronize()
+        hist = tr.history
+        out[name] = {
+            "loss": [h["loss"] for h in hist],
+            "total_loss": [h["total_loss"] for h in hist],
+            "slu_executed": [h["slu_executed"] for h in hist],
+            "executed": tr.executed_steps, "dropped": tr.dropped_steps,
+            "launches": _launch_counts(mods),
+            "ms_per_executed_step": 1e3 * sum(h["wall_s"] for h in hist[1:])
+            / max(len(hist) - 1, 1),
+            "wgrad": list(rec["calls"])}
+        if name == "full" and mesh is not None:
+            out["profiled"] = _collective_share(
+                torch, lambda: tr.run(_to_next_kept(tr)))
+        del tr
+    return out
+
+
+def dist_rank_main(argv) -> None:
+    """One rank of the phase's two-rank world (this script run with
+    ``DIST_RANK_FLAG RANK WORLD PORT OUT``): gloo on CUDA tensors on the
+    one card; saves what :func:`_resnet_runs` gives to OUT."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    rank, world, port, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    from repro_torch.kernels import conv as K
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.kernels import quant as Q
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world, 1), ("data", "model"))
+    from repro_torch.kernels import ops
+    res = _resnet_runs(torch, (K, PM, FA, Q), mesh, _wgrad_recorder(ops, K))
+    res["backend"] = dist.get_backend()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _two_rank_world(torch, d) -> list:
+    """This script's two ranks on the card; their saved results."""
+    from repro_torch.ft.supervisor import free_tcp_port
+    port = free_tcp_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = [os.path.join(d, f"rank{r}.log") for r in range(2)]
+    files = [open(log, "w") for log in logs]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), DIST_RANK_FLAG, str(r),
+         "2", str(port), d], env=env, stdout=f, stderr=subprocess.STDOUT)
+        for r, f in enumerate(files)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"rank {r} of the two-rank world exited {p.returncode}: "
+                 + Path(logs[r]).read_text()[-3000:])
+    return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def _replay_ops(torch, ranks, rec) -> dict:
+    """Each conv of the two ranks' first step once more on one rank, on
+    the two ranks' rows of x and gy together: its signs and flags must be
+    the ranks' bit for bit (the global computation of the same rows)."""
+    from repro_torch.core.config import PSGConfig
+    from repro_torch.kernels import ops
+    cfg = PSGConfig(enabled=True)
+    a, b = ranks
+    if len(a) != len(b) or not a:
+        fail(f"the ranks recorded {len(a)} and {len(b)} convs")
+    for i, (ca, cb) in enumerate(zip(a, b)):
+        if not (torch.equal(ca["sign"], cb["sign"])
+                and torch.equal(ca["flags"], cb["flags"])):
+            fail(f"conv {i}: the two ranks' signs or flags differ")
+        x = torch.cat([ca["x"], cb["x"]]).cuda()
+        g = torch.cat([ca["g"], cb["g"]]).cuda()
+        sign, _ = ops.conv_grad_w(x, g, cfg, ca["k"], ca["stride"])
+        sign, flags = sign.cpu(), rec["flags"].cpu()    # the recorder's
+        if not (torch.equal(sign, ca["sign"])
+                and torch.equal(flags, ca["flags"])):
+            fail(f"conv {i}: the ranks' first-step signs or flags differ "
+                 f"from one rank's on their rows: "
+                 f"{int((sign != ca['sign']).sum())} signs, "
+                 f"{int((flags != ca['flags']).sum())} flags")
+    return {"convs": len(a), "bitwise_equal": True}
+
+
+def _rels(a, b) -> list:
+    """Step by step, the relative difference of two loss curves."""
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def _signs_differing(wa, wb) -> int:
+    return sum(int((ca["sign"] != cb["sign"]).sum()) for ca, cb in zip(wa, wb))
+
+
+def _compare_worlds(torch, one, two, replay, reordered) -> dict:
+    """Compare the two-rank results with the one-rank ones.  Fail unless
+    the SMD counts and the first executed step's SLU decisions are equal
+    (the parameters are equal up to it) and, step by step, the losses
+    within ``DIST_LOSS_REL`` (PSG on) or ``DIST_SGDM_REL`` (off) plus the
+    one-rank run's own spread: ``DIST_SPREAD_FACTOR`` times the largest
+    distance of its curve from its curves on the same batches with the rows
+    in another order (``reordered``, :data:`ROW_ORDERS`), the same global
+    steps summed in another order, which is all that two ranks change.
+    PSG rounds every activation to 8 bits and signSGD moves every weight by
+    the learning rate, so a BatchNorm sum rounded otherwise moves codes and
+    then signs; ResNet-74's PSG-off losses diverge at lr 0.1.  Every conv's first-step
+    signs and flags on the ranks' rows are checked bit for bit in
+    ``replay``; the model-level first-step signs that differ from the
+    one-rank run's, beside those of the reordered runs, and the later
+    steps' SLU decisions are recorded."""
+    out = {"first_step_ops_replayed": replay}
+    limits = {"full": DIST_LOSS_REL, "off": DIST_SGDM_REL}
+    for name, rel in limits.items():
+        a, b = one[name], two[name]
+        spread = [max(v) for v in zip(*(_rels(n[name]["loss"], a["loss"])
+                                        for n in reordered))]
+        out[name] = {"loss_rel": _rels(b["loss"], a["loss"]),
+                     "spread": spread,
+                     "limit": [rel + DIST_SPREAD_FACTOR * x for x in spread],
+                     "losses": b["loss"], "one_rank_losses": a["loss"],
+                     "slu_decisions_differing_by_step": [
+                         sum(x != y for x, y in zip(fa, fb)) for fa, fb in
+                         zip(a["slu_executed"], b["slu_executed"])],
+                     "ms_per_executed_step": b["ms_per_executed_step"],
+                     "one_rank_ms_per_executed_step":
+                         a["ms_per_executed_step"],
+                     "launches": b["launches"]}
+    wa, wb = one["full"]["wgrad"], two["full"]["wgrad"]
+    out["model_first_step"] = {
+        "convs": len(wb), "one_rank_convs": len(wa),
+        "signs": sum(c["sign"].numel() for c in wb),
+        "signs_differing": _signs_differing(wa, wb),
+        "reordered_signs_differing": [
+            _signs_differing(wa, n["full"]["wgrad"]) for n in reordered],
+        "flags_differing": sum(int((ca["flags"] != cb["flags"]).sum())
+                               for ca, cb in zip(wa, wb))}
+    print(json.dumps({"phase": "distributed_world2_comparison", **out}),
+          flush=True)
+    for name in limits:
+        a, b = one[name], two[name]
+        for key in ("executed", "dropped"):
+            if a[key] != b[key]:
+                fail(f"two ranks ({name}): {key} {b[key]} against one "
+                     f"rank's {a[key]}")
+        if a["slu_executed"][:1] != b["slu_executed"][:1]:
+            fail(f"two ranks ({name}): first-step SLU decisions "
+                 f"{b['slu_executed'][0]} against {a['slu_executed'][0]}")
+        got, lim = out[name]["loss_rel"], out[name]["limit"]
+        if not all(g <= x for g, x in zip(got, lim)):
+            fail(f"two ranks ({name}): losses {b['loss']} against "
+                 f"{a['loss']}: relative {got} above {lim}")
+    if len(wa) != len(wb):
+        fail(f"two ranks: {len(wb)} convs in the first step, one rank "
+             f"{len(wa)}")
+    return out
+
+
+def kill_restart_check(torch) -> dict:
+    """The launcher on the card: ``--devices 2 --mesh-data 2`` killed at
+    ``DIST_KILL_AT`` beside an uninterrupted two-rank run; the killed run's
+    checkpoints resumed on one rank (``--mesh-data 1``) to its last step,
+    and on two ranks to the uninterrupted run's last checkpoint, bit for
+    bit."""
+    import shlex
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.ft import faults
+    from repro_torch.ft.checkpoint import latest_intact_step
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def launcher(log, *args):
+        argv = [sys.executable, "-m", "repro_torch.launch.train",
+                "--depth", str(DIST_KILL_DEPTH), "--width", str(WIDTH),
+                "--batch", str(BATCH), "--steps", str(DIST_KILL_STEPS),
+                "--ckpt-every", "1", *args]
+        return subprocess.Popen(
+            ["sh", "-c", f'exec "$@" > {shlex.quote(log)} 2>&1', "sh",
+             *argv], env=env)
+
+    def reap(procs):
+        try:
+            for p in procs.values():
+                p.wait(timeout=600)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return {n: p.returncode for n, p in procs.items()}
+
+    with tempfile.TemporaryDirectory() as d:
+        dirs = {n: os.path.join(d, n) for n in ("killed", "ref", "to1",
+                                                 "to2")}
+        logs = {n: os.path.join(d, f"{n}.log") for n in
+                ("killed", "ref", "to1", "to2")}
+        two = ("--devices", "2", "--mesh-data", "2")
+        t0 = time.perf_counter()
+        codes = reap({
+            "killed": launcher(logs["killed"], "--ckpt", dirs["killed"],
+                               *two, "--ft-kill-at-step", str(DIST_KILL_AT)),
+            "ref": launcher(logs["ref"], "--ckpt", dirs["ref"], *two)})
+        first_s = time.perf_counter() - t0
+        if codes != {"killed": faults.KILL_EXIT_CODE, "ref": 0}:
+            fail(f"kill round exited {codes}: "
+                 + Path(logs["killed"]).read_text()[-2000:]
+                 + Path(logs["ref"]).read_text()[-2000:])
+        survivor = latest_intact_step(dirs["killed"])
+        if survivor is None:
+            fail("the killed two-rank run left no intact checkpoint")
+        for n in ("to1", "to2"):
+            shutil.copytree(dirs["killed"], dirs[n])
+        t0 = time.perf_counter()
+        codes = reap({
+            "to1": launcher(logs["to1"], "--ckpt", dirs["to1"],
+                            "--mesh-data", "1", "--resume"),
+            "to2": launcher(logs["to2"], "--ckpt", dirs["to2"], *two,
+                            "--resume")})
+        second_s = time.perf_counter() - t0
+        if codes != {"to1": 0, "to2": 0}:
+            fail(f"resume round exited {codes}: "
+                 + Path(logs["to1"]).read_text()[-2000:]
+                 + Path(logs["to2"]).read_text()[-2000:])
+        last = DIST_KILL_STEPS - 1
+        for n, shape in (("to1", "{'data': 1, 'model': 1}"),
+                         ("to2", "{'data': 2, 'model': 1}")):
+            text = Path(logs[n]).read_text()
+            if f"resumed from intact step {survivor}" not in text or \
+                    f"on mesh {shape}" not in text:
+                fail(f"{n} did not resume from step {survivor} on mesh "
+                     f"{shape}: {text[-2000:]}")
+            if latest_intact_step(dirs[n]) != last:
+                fail(f"{n}'s last intact step is "
+                     f"{latest_intact_step(dirs[n])}, not {last}")
+        a, b = (dict(np.load(os.path.join(dirs[n], f"step_{last:08d}.npz")))
+                for n in ("to2", "ref"))
+        bad = [k for k in b if k not in a or not np.array_equal(a[k], b[k])]
+        if bad or set(a) != set(b):
+            fail(f"the 2 -> 2 resumed run differs from the uninterrupted one "
+                 f"in {len(bad)} keys, e.g. {bad[:5]}")
+        return {"resumed_from": survivor, "keys": len(b),
+                "two_to_two_bitwise_equal": True, "kill_round_s": first_s,
+                "resume_round_s": second_s,
+                "ref_wall_s": _log_value(logs["ref"], "wall"),
+                "to1_wall_s": _log_value(logs["to1"], "wall"),
+                "to2_wall_s": _log_value(logs["to2"], "wall")}
+
+
+def distributed_check(torch, mods) -> dict:
+    """Phase 18 (module doc)."""
+    import datetime
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.ft.supervisor import free_tcp_port
+    from repro_torch.kernels import conv as K
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_lm_trainer, build_trainer
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"reduce_path": reduce_path_check(torch)}
+    out["reduce_path"]["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "distributed_reduce_path",
+                      **out["reduce_path"]}), flush=True)
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_tcp_port()}",
+        world_size=1, rank=0, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        out["backend"] = dist.get_backend()
+        out["resnet74_world1"] = mesh_pair(
+            torch, lambda steps, m: build_trainer(
+                DEPTH, WIDTH, BATCH, steps, device="cuda",
+                chunk_steps=CHUNK_K, mesh=m),
+            mods, list(K.LAUNCHES), CHUNK_K + 2, "ResNet-74 world 1", mesh)
+        print(json.dumps({"phase": "distributed_resnet74_world1",
+                          **out["resnet74_world1"]}), flush=True)
+        out["lm_world1"] = mesh_pair(
+            torch, lambda steps, m: build_lm_trainer(
+                LM_ARCH, num_layers=LM_LAYERS, batch=LM_BATCH, seq=LM_SEQ,
+                steps=steps, device="cuda", fused_attention=True,
+                chunk_steps=CHUNK_K, mesh=m),
+            mods, list(PM.LAUNCHES) + list(FA.LAUNCHES), CHUNK_K + 2,
+            "qwen2.5-3b world 1", mesh, profile=False)
+        print(json.dumps({"phase": "distributed_lm_world1",
+                          **out["lm_world1"]}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    out["world1_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    from repro_torch.kernels import ops
+    rec = _wgrad_recorder(ops, K)
+    one = _resnet_runs(torch, mods, None, rec)
+    reordered = [_resnet_runs(torch, mods, None, rec, o) for o in ROW_ORDERS]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_two = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        two = _two_rank_world(torch, d)
+    for name in ("full", "off"):
+        if two[0][name]["loss"] != two[1][name]["loss"]:
+            fail(f"the two ranks' losses differ ({name})")
+    prof = {"backend": two[0]["backend"],
+            "profiled_step_rank0": two[0]["profiled"],
+            "profiled_step_rank1": two[1]["profiled"],
+            "one_rank_runs_s": t_two - t0,
+            "two_rank_world_s": time.perf_counter() - t_two}
+    print(json.dumps({"phase": "distributed_world2", **prof}), flush=True)
+    replay = _replay_ops(torch, [t["full"]["wgrad"] for t in two], rec)
+    out["world2"] = {**_compare_worlds(torch, one, two[0], replay,
+                                       reordered), **prof}
+    t0 = time.perf_counter()
+    out["kill_restart"] = kill_restart_check(torch)
+    out["kill_restart"]["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "distributed_kill_restart",
+                      **out["kill_restart"]}), flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    print(json.dumps({"phase": "distributed", "seconds": out["seconds"],
+                      "card": out["card"]}), flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3697,6 +4320,10 @@ def main() -> None:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    marks = [("start", time.perf_counter())]
+
+    def mark(name: str) -> None:    # the script's seconds by phase group
+        marks.append((name, time.perf_counter()))
     from repro_torch.configs import get_experiment
     from repro_torch.configs.paper_cnns import resnet_conv_shapes
     from repro_torch.kernels import build
@@ -3740,6 +4367,7 @@ def main() -> None:
     tot.update(qtot)
     for row in qdetails:
         print(json.dumps(row), flush=True)
+    mark("kernels")
     disp = dispatch_check(torch, mods)
     print(json.dumps({"phase": "dispatch", "rows": disp}), flush=True)
     cli = cli_check(torch, mods)
@@ -3756,6 +4384,7 @@ def main() -> None:
     print(json.dumps({"phase": "lm_flash_reference", **lm_flash_ref}),
           flush=True)
 
+    mark("dispatch_cli_references")
     trainer, main, prof = run_path(
         torch, "main_path",
         lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda"),
@@ -3809,18 +4438,31 @@ def main() -> None:
                                        microbatches=2),
               "lm_sgdm_m2_vs_m1": lm_microbatch_equivalence(torch)}
     print(json.dumps({"phase": "microbatch_reference", **mb_ref}), flush=True)
+    mark("main_paths")
     resume = resume_check(torch)
     print(json.dumps({"phase": "resume", **resume}), flush=True)
+    mark("resume")
     chunked = chunked_check(torch, mods + (GC,), GC)
     print(json.dumps({"phase": "chunked", **{k: v for k, v in chunked.items()
                                              if k != "slu_decide"}}),
           flush=True)
+    mark("chunked")
     mbv2_geometries, mbv2 = mobilenet_check(torch, mods + (GC,))
+    mark("mobilenetv2")
     paper = paper_benches_check(torch, mods + (GC,), steps=PAPER_STEPS)
+    mark("paper_benches")
     dense = dense_archs_check(torch, mods + (GC,))
+    mark("dense_archs")
     encdec = encdec_vlm_moe_check(torch, mods + (GC,))
+    mark("encdec_vlm_moe")
     ssm = ssm_check(torch, mods + (GC,))
+    mark("ssm")
     serving = serving_check(torch, mods + (GC,))
+    mark("serving")
+    distributed = distributed_check(torch, mods)
+    mark("distributed")
+    phase_s = {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}
+    print(json.dumps({"phase": "timing", "seconds": phase_s}), flush=True)
 
     kernels = []
     for name in REPLACES:
@@ -3869,7 +4511,8 @@ def main() -> None:
          "chunked": chunked, "mobilenetv2_geometries": mbv2_geometries,
          "mobilenetv2": mbv2, "paper_benches": paper,
          "dense_archs": dense, "encdec_vlm_moe": encdec, "ssm": ssm,
-         "serving": serving,
+         "serving": serving, "distributed": distributed,
+         "phase_seconds": phase_s,
          "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
          "library_device_ms": {n: tot[n]["library_device_ms"]
@@ -3919,4 +4562,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [DIST_RANK_FLAG]:
+        dist_rank_main(sys.argv[2:])
+    else:
+        main()

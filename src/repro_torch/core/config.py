@@ -235,6 +235,7 @@ class PSGConfig:
     beta: float = 0.05                # adaptive threshold ratio (paper: 0.05)
     swa: bool = True                  # stochastic weight averaging (paper uses SWA)
     swa_start_frac: float = 0.5
+    majority_vote: bool = False       # beyond-paper: 1-bit sign all-reduce
     # kernel backend of the PSG ops (kernels/dispatch.py): "auto" defers to
     # the dispatch layer (an override, the REPRO_TORCH_KERNEL_BACKEND pin,
     # else the tensors' device); "reference" | "plain" | "cuda" pin it.
@@ -251,6 +252,10 @@ class PSGConfig:
     # package resolves it on every backend but Mosaic (which the port does
     # not have).
     fused_attention: Optional[bool] = None
+    # under a mesh, the forward gathers a PSG weight as int8 codes of its
+    # FSDP shards on the global grid instead of gathering the weight
+    # (distributed/fsdp.int8_gather)
+    int8_gather: bool = False
 
     def __post_init__(self):
         validate_backend(self.backend)
@@ -320,6 +325,15 @@ class ServeConfig:
     decode_steps: int = 1
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+    # logical->physical rules, e.g. fsdp shards params over "data"
+    fsdp: bool = True
+    seq_shard: bool = False           # SP: shard sequence over model axis
+
+
 # The four shape cells of the JAX package (LM shapes are seq_len x
 # global_batch): one training shape, three serving shapes.
 SHAPES: Mapping[str, Mapping[str, Any]] = {
@@ -336,6 +350,7 @@ class Experiment:
     e2: E2TrainConfig = field(default_factory=E2TrainConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     # the ``repro_torch.tasks`` entry that builds and trains the model:
     # "lm" (models/transformer.py) or "cifar_cnn" (models/resnet.py)
     task: str = "lm"

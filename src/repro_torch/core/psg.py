@@ -36,6 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import codes, quantize
+from repro_torch.distributed import sharding
+from repro_torch.distributed.fsdp import int8_gather
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.conv import conv_out_hw, conv_patches
 
@@ -52,6 +54,16 @@ def probe_fallback_ratio(probe_grad: torch.Tensor) -> torch.Tensor:
     return probe_grad[0] / torch.clamp_min(probe_grad[1], 1.0)
 
 
+def _weight_codes(w: torch.Tensor, cfg: PSGConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight's 8-bit codes and scale; under a mesh with
+    ``int8_gather``, gathered as codes (``distributed/fsdp.int8_gather``),
+    the same codes."""
+    if cfg.int8_gather and sharding.data_group() is not None:
+        return int8_gather(w, cfg.bits_x)
+    return codes(w, cfg.bits_x)
+
+
 class PSGConv2d(torch.autograd.Function):
     """NHWC conv ``(B, Hp, Wp, C) x (k*k*C, dout)`` with PSG backward on a
     pre-padded input (padding and the ``k < stride`` subsample stay outside,
@@ -65,8 +77,8 @@ class PSGConv2d(torch.autograd.Function):
         # codes and scales of the 8-bit grid: the same grid as quantize, bit
         # for bit, handed to the kernel as int8 codes; the weight's serve
         # the input gradient too
-        xc, sx = codes(xp, cfg.bits_x)
-        wc, sw = codes(w, cfg.bits_x)
+        xc, sx = codes(xp, cfg.bits_x, sharding.global_amax(xp))
+        wc, sw = _weight_codes(w, cfg)
         ctx.save_for_backward(xp, w, wc, sw)
         return dispatch.conv_fwd(xc, sx, wc, sw, cfg, k=k, stride=stride)
 
@@ -81,7 +93,7 @@ class PSGConv2d(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # the 16-bit grid of gy, as codes and scale: gc * sg is
             # quantize(gy, bits_g) bit for bit in fp32
-            gc, sg = codes(gy, cfg.bits_g)
+            gc, sg = codes(gy, cfg.bits_g, sharding.global_amax(gy))
             dxp = dispatch.conv_grad_x(gc, sg, wc, sw, cfg, k=k,
                                        stride=stride, hp=Hp,
                                        wp=Wp).to(xp.dtype)
@@ -89,7 +101,8 @@ class PSGConv2d(torch.autograd.Function):
         # fp32 like the JAX package: float32(B*Ho*Wo) * (k*k*C) * dout; a
         # fill on the device, never a copy from host memory (which a captured
         # step may not hold)
-        macs = torch.full((), float(B * ho * wo), dtype=torch.float32,
+        macs = torch.full((), float(B * sharding.data_world() * ho * wo),
+                          dtype=torch.float32,
                           device=gy.device) * (k * k * C) * dout
         dprobe = torch.stack([fallback * macs, macs])
         return dxp, sign.to(w.dtype), dprobe, None, None, None
@@ -105,7 +118,10 @@ class PSGMatmul(torch.autograd.Function):
     def forward(ctx, x2, w, probe, cfg: PSGConfig):
         ctx.save_for_backward(x2, w)
         ctx.cfg = dispatch.pinned(cfg)
-        xq = quantize(x2, cfg.bits_x)
+        xq = quantize(x2, cfg.bits_x, sharding.global_amax(x2))
+        if cfg.int8_gather and sharding.data_group() is not None:
+            wc, sw = int8_gather(w, cfg.bits_x)
+            return xq @ (wc.float() * sw).to(w.dtype).to(xq.dtype)
         return xq @ quantize(w, cfg.bits_x).to(xq.dtype)
 
     @staticmethod
@@ -114,11 +130,13 @@ class PSGMatmul(torch.autograd.Function):
         cfg = ctx.cfg
         dx = None
         if ctx.needs_input_grad[0]:
-            gq = quantize(gy, cfg.bits_g)
+            gq = quantize(gy, cfg.bits_g, sharding.global_amax(gy))
             dx = (gq @ quantize(w, cfg.bits_x).T.to(gq.dtype)).to(x2.dtype)
         sign, fallback = dispatch.psg_grad_w(x2, gy, cfg)
-        # fp32 like the JAX package: float32(N) * din * dout
-        macs = torch.full((), float(x2.shape[0]), dtype=torch.float32,
+        # fp32 like the JAX package: float32(N) * din * dout, N the global
+        # batch's tokens
+        macs = torch.full((), float(x2.shape[0] * sharding.data_world()),
+                          dtype=torch.float32,
                           device=gy.device) * x2.shape[1] * gy.shape[1]
         dprobe = torch.stack([fallback * macs, macs])
         return dx, sign.to(w.dtype), dprobe, None
@@ -149,7 +167,8 @@ class PSGAttention(torch.autograd.Function):
         T = k.shape[1]
         pairs = S * (S + 1) // 2 if (ctx.causal and S == T) else S * T
         # fp32 like the JAX package: float32(2 * B * nh * hd) * pairs
-        macs = torch.full((), float(2 * B * nh * hd), dtype=torch.float32,
+        macs = torch.full((), float(2 * B * sharding.data_world() * nh * hd),
+                          dtype=torch.float32,
                           device=gy.device) * pairs
         dprobe = torch.stack([fallback * macs, macs])
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dprobe, None,

@@ -10,7 +10,7 @@ reduction and the elementwise pass).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,9 +19,13 @@ def _lim(bits: int) -> float:
     return 2.0 ** (bits - 1) - 1.0
 
 
-def qscale(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Per-tensor scale ``max|x| / (2^(b-1) - 1)`` as an fp32 0-d tensor."""
-    amax = x.float().abs().amax()
+def qscale(x: torch.Tensor, bits: int,
+           amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-tensor scale ``max|x| / (2^(b-1) - 1)`` as an fp32 0-d tensor;
+    ``amax`` gives ``max|x|`` instead (under a mesh, the global batch's:
+    ``distributed/sharding.global_amax``)."""
+    if amax is None:
+        amax = x.float().abs().amax()
     # divide by a tensor: PyTorch multiplies a CUDA tensor divided by a
     # Python number by the number's reciprocal, which is not the fp32 quotient
     lim = torch.full((), _lim(bits), device=amax.device)
@@ -35,15 +39,16 @@ def round_codes(x: torch.Tensor, s: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() / s), -lim, lim)
 
 
-def _round_codes(x: torch.Tensor, bits: int
+def _round_codes(x: torch.Tensor, bits: int, amax=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    s = qscale(x, bits)
+    s = qscale(x, bits, amax)
     return round_codes(x, s, bits), s
 
 
-def quantize(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Fake-quantize: round onto the ``bits``-bit symmetric grid."""
-    q, s = _round_codes(x, bits)
+def quantize(x: torch.Tensor, bits: int, amax=None) -> torch.Tensor:
+    """Fake-quantize: round onto the ``bits``-bit symmetric grid (of
+    ``amax`` where given, as :func:`qscale`)."""
+    q, s = _round_codes(x, bits, amax)
     return (q * s).to(x.dtype)
 
 
@@ -55,8 +60,9 @@ def quantize_int(x: torch.Tensor, bits: int
     return q.to(dt), s
 
 
-def codes(x: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def codes(x: torch.Tensor, bits: int, amax=None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel operand codes: int8 for <= 8 bits, int16 otherwise (the JAX
-    package's ``kernels/ops._codes``)."""
-    q, s = _round_codes(x, bits)
+    package's ``kernels/ops._codes``); ``amax`` as :func:`qscale`."""
+    q, s = _round_codes(x, bits, amax)
     return q.to(torch.int8 if bits <= 8 else torch.int16), s

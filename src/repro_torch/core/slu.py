@@ -30,6 +30,7 @@ from torch import nn
 from repro_torch.core import rng
 from repro_torch.core.config import (BLOCK_SHARED_ATTN, ModelConfig,
                                      SLUConfig, sub_blocks, unit_kinds)
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import dense_init
 
 Uniform = Union[float, np.floating, torch.Tensor]
@@ -57,8 +58,9 @@ class Gate(nn.Module):
     def forward(self, x: torch.Tensor, state: GateState
                 ) -> Tuple[torch.Tensor, GateState]:
         """x: block input, channels last -> (keep probability, new
-        state)."""
-        pooled = x.float().mean(dim=tuple(range(x.dim() - 1)))
+        state).  Under a mesh the pooled feature is the global batch's,
+        so every rank takes the same keep decision."""
+        pooled = sharding.global_mean(x.float(), tuple(range(x.dim() - 1)))
         d_in = self.proj.shape[0]
         if pooled.shape[0] < d_in:
             pooled = nn.functional.pad(pooled, (0, d_in - pooled.shape[0]))

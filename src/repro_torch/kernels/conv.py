@@ -56,6 +56,12 @@ What bounds them on an H100, and what the design does about it:
   PyTorch).  It takes pass 1's fp32 product as its predictor instead of
   recomputing it, and reads ``tau`` from device memory: no host round trip
   between the passes.
+* Under a mesh each rank holds its positions only: kernels 3 and 4, given
+  ``reduce`` (the all-reduce of ``distributed/sharding.global_sum_int64``),
+  stop after the MMA kernel with the rank's int64 sums in their scratch
+  (``conv_grad_w_sums``), ``reduce`` sums them across the ranks, exactly,
+  and only then does pass 1 round to fp32 and pass 2 run its select kernel
+  (``conv_grad_w_select``).
 
 The plain versions accumulate kernels 1 and 2 in fp32 on the scaled codes
 (the operands the JAX package's kernels take), and multiply the integer
@@ -141,9 +147,12 @@ def _lib() -> ctypes.CDLL:
     lib.conv_grad_x_codes.argtypes = [_P] * 6 + [_I] * 12 + [_P]
     lib.conv_grad_w_pred.argtypes = [_P] * 4 + [_I] * 13 + [_P]
     lib.conv_grad_w_sign.argtypes = [_P] * 7 + [_I] * 15 + [_P]
+    lib.conv_grad_w_sums.argtypes = [_P] * 3 + [_I] * 14 + [_P]
+    lib.conv_grad_w_select.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     for fn in (lib.conv_fwd, lib.conv_fwd_codes, lib.conv_grad_x,
                lib.conv_grad_x_codes, lib.conv_grad_w_pred,
-               lib.conv_grad_w_sign):
+               lib.conv_grad_w_sign, lib.conv_grad_w_sums,
+               lib.conv_grad_w_select):
         fn.restype = ctypes.c_int
     return lib
 
@@ -279,9 +288,16 @@ def _code_product(x: torch.Tensor, g: torch.Tensor, k: int,
     return out.reshape(k * k * C, dout)
 
 
+def _reduced(p: torch.Tensor, reduce) -> torch.Tensor:
+    """An exact float64 code product, summed across ranks by ``reduce``
+    in int64 where given."""
+    return p if reduce is None else reduce(p.to(torch.int64))
+
+
 def conv_grad_w_predictor_plain(xm: torch.Tensor, gm: torch.Tensor, k: int,
-                                stride: int) -> torch.Tensor:
-    return _code_product(xm, gm, k, stride).to(torch.float32)
+                                stride: int, reduce=None) -> torch.Tensor:
+    return _reduced(_code_product(xm, gm, k, stride),
+                    reduce).to(torch.float32)
 
 
 def _grid_product(x: torch.Tensor, g: torch.Tensor, k: int, stride: int,
@@ -354,15 +370,17 @@ def _select(pred: torch.Tensor, full: torch.Tensor, tau: torch.Tensor
     ``sign(full)``; returns the int8 signs and the confident mask."""
     pm = pred.float()
     conf = pm.abs() >= tau
-    sign = torch.where(conf, torch.sign(pm).double(), torch.sign(full))
+    sign = torch.where(conf, torch.sign(pm).double(),
+                       torch.sign(full).double())
     return sign.to(torch.int8), conf
 
 
 def conv_grad_w_plain(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
-                      tau: torch.Tensor, k: int, stride: int
+                      tau: torch.Tensor, k: int, stride: int, reduce=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. (2) select over the predictor product and the full product."""
-    sign, conf = _select(pred, _code_product(xq, gq, k, stride), tau)
+    sign, conf = _select(pred, _reduced(_code_product(xq, gq, k, stride),
+                                        reduce), tau)
     return sign, _fallback_stats(~conf, tau, k)
 
 
@@ -522,13 +540,32 @@ def _wgrad_scratch(x: torch.Tensor, B: int, Hp: int, Wp: int, C: int,
     return scratch, hq, wq, n_pad, x_pad
 
 
+def _wgrad_sums(x: torch.Tensor, g: torch.Tensor, dims, k: int,
+                stride: int, sign_pass: bool, reduce) -> torch.Tensor:
+    """The int64 sums ``(k*k*C, dout)`` of one pass (its pre-passes and MMA
+    kernel), reduced across ranks by ``reduce``."""
+    B, Hp, Wp, C, ho, wo, dout = dims
+    scratch, hq, wq, n_pad, x_pad = _wgrad_scratch(x, B, Hp, Wp, C, dout, k,
+                                                   stride)
+    _call(_lib().conv_grad_w_sums, x.data_ptr(), g.data_ptr(),
+          scratch.data_ptr(), int(sign_pass), B, Hp, Wp, C, ho, wo, dout, k,
+          stride, hq, wq, n_pad, x_pad, _stream(x))
+    acc = scratch[:8 * k * k * C * dout].view(torch.int64)
+    return reduce(acc.view(k * k * C, dout))
+
+
 def conv_grad_w_predictor(xm: torch.Tensor, gm: torch.Tensor, k: int,
-                          stride: int) -> torch.Tensor:
+                          stride: int, reduce=None) -> torch.Tensor:
     """PSG pass 1: ``sum_n window(x_msb)^T g_msb`` patch-major ``(k*k*C,
-    dout)`` as fp32, the exact integer sum rounded once, at any size."""
+    dout)`` as fp32, the exact integer sum rounded once, at any size; with
+    ``reduce``, the int64 sum reduced across ranks before that rounding."""
     if not _on_cuda(xm, gm):
-        return conv_grad_w_predictor_plain(xm, gm, k, stride)
-    B, Hp, Wp, C, ho, wo, dout = _check_codes(xm, gm, k, stride)
+        return conv_grad_w_predictor_plain(xm, gm, k, stride, reduce)
+    B, Hp, Wp, C, ho, wo, dout = dims = _check_codes(xm, gm, k, stride)
+    if reduce is not None:
+        acc = _wgrad_sums(xm, gm, dims, k, stride, False, reduce)
+        LAUNCHES["conv_grad_w_predictor"] += 1
+        return acc.to(torch.float32)
     scratch, hq, wq, n_pad, x_pad = _wgrad_scratch(xm, B, Hp, Wp, C, dout, k,
                                                    stride)
     out = torch.empty((k * k * C, dout), device=xm.device, dtype=torch.float32)
@@ -540,24 +577,32 @@ def conv_grad_w_predictor(xm: torch.Tensor, gm: torch.Tensor, k: int,
 
 
 def conv_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
-                tau: torch.Tensor, k: int, stride: int
+                tau: torch.Tensor, k: int, stride: int, reduce=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PSG pass 2: the full 8x16-bit code product (exact) and the Eq. (2)
     select against pass 1's fp32 ``pred`` at threshold ``tau`` (fp32 0-d,
-    read on the device).  Returns ``(sign (k*k*C, dout) int8 patch-major,
-    fallback flags (k*k, ceil(dout/128)) int32)``."""
+    read on the device); with ``reduce``, the int64 product reduced across
+    ranks before the select.  Returns ``(sign (k*k*C, dout) int8
+    patch-major, fallback flags (k*k, ceil(dout/128)) int32)``."""
     if not _on_cuda(pred, xq, gq, tau):
-        return conv_grad_w_plain(pred, xq, gq, tau, k, stride)
-    B, Hp, Wp, C, ho, wo, dout = _check_codes(xq, gq, k, stride)
+        return conv_grad_w_plain(pred, xq, gq, tau, k, stride, reduce)
+    B, Hp, Wp, C, ho, wo, dout = dims = _check_codes(xq, gq, k, stride)
     _check(pred, "pred", torch.float32, 2)
     _check(tau, "tau", torch.float32, 0)
     if pred.shape != (k * k * C, dout):
         raise ValueError(f"pred {tuple(pred.shape)} != {(k * k * C, dout)}")
     bn_, nj = fallback_blocks(dout)
-    scratch, hq, wq, n_pad, x_pad = _wgrad_scratch(xq, B, Hp, Wp, C, dout, k,
-                                                   stride)
     sign = torch.empty((k * k * C, dout), device=xq.device, dtype=torch.int8)
     stats = torch.empty((k * k, nj), device=xq.device, dtype=torch.int32)
+    if reduce is not None:
+        acc = _wgrad_sums(xq, gq, dims, k, stride, True, reduce)
+        _call(_lib().conv_grad_w_select, pred.data_ptr(), acc.data_ptr(),
+              tau.data_ptr(), sign.data_ptr(), stats.data_ptr(), k * k * C,
+              dout, k * k, bn_, nj, _stream(xq))
+        LAUNCHES["conv_grad_w"] += 1
+        return sign, stats
+    scratch, hq, wq, n_pad, x_pad = _wgrad_scratch(xq, B, Hp, Wp, C, dout, k,
+                                                   stride)
     _call(_lib().conv_grad_w_sign, pred.data_ptr(), xq.data_ptr(),
           gq.data_ptr(), tau.data_ptr(), scratch.data_ptr(), sign.data_ptr(),
           stats.data_ptr(), B, Hp, Wp, C, ho, wo, dout, k, stride, hq, wq,

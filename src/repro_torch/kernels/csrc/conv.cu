@@ -1192,4 +1192,42 @@ int conv_grad_w_sign(const void* pred, const void* xq, const void* gq,
   return (int)cudaGetLastError();
 }
 
+// the int64 sums (k^2 C, dout) alone, left at the head of scratch: the two
+// pre-passes and the MMA kernel of pass 1 (sign_pass 0) or pass 2 (1), for
+// a caller that sums them across ranks before the rounding or the select
+int conv_grad_w_sums(const void* x, const void* g, void* scratch,
+                     int sign_pass, int B, int Hp, int Wp, int C, int Ho,
+                     int Wo, int dout, int k, int s, int Hq, int Wq, int Np,
+                     int NpX, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((long long)k * k * C * dout == 0) return 0;
+  PredPlan P;
+  WgradScratch S;
+  int err = wgrad_plan(B, C, dout, k, s, Hq, Wq, Np, NpX, scratch, P, S);
+  if (!err)
+    err = wgrad_prepass(x, g, B, Hp, Wp, C, Ho, Wo, dout, s, Hq, Wq, P, S,
+                        nullptr, 0, st);
+  if (err) return err;
+  return sign_pass ? launch_by_width<true>(S.xt, S.lo, S.hi, S.acc, P, st)
+                   : launch_by_width<false>(S.xt, S.lo, S.hi, S.acc, P, st);
+}
+
+// conv_grad_w_sign's select on int64 sums given (rows = k^2 C): zeroes the
+// flags, then one launch of the select kernel
+int conv_grad_w_select(const void* pred, const void* acc, const void* tau,
+                       void* sign, void* stats, int rows, int dout, int kk,
+                       int bn, int nj, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((long long)rows * dout == 0) return 0;
+  if (bn < 1 || nj != (dout + bn - 1) / bn) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaMemsetAsync(stats, 0, (size_t)kk * nj * 4, st);
+  if (err) return err;
+  const int bw = bn < dout ? bn : dout;
+  const int R = (kSelectUnroll * kSelectThreads + bw - 1) / bw;
+  conv_select_kernel<<<dim3(nj, (rows + R - 1) / R), kSelectThreads, 0, st>>>(
+      (const float*)pred, (const long long*)acc, (const float*)tau,
+      (int8_t*)sign, (int32_t*)stats, rows, dout, kk, bn, R);
+  return (int)cudaGetLastError();
+}
+
 }  // extern "C"

@@ -462,8 +462,23 @@ int psg_sign(const void* pred, const void* xq, const void* gq,
   return (int)cudaGetLastError();
 }
 
-// pass 2's exact int64 product alone, full (din x dout), through the same
-// pre-pass and MMA kernel: for the tests, on no training path
+// the Eq. (2) select and the flags of the split path on an int64 product
+// given (summed across ranks under a mesh): one launch
+int psg_select(const void* pred, const void* full, const void* tau,
+               void* sign, void* stats, int din, int dout, int bm, int bn,
+               void* stream) {
+  if (bm < 1 || bn < 1) return (int)cudaErrorInvalidValue;
+  if (din == 0 || dout == 0) return 0;
+  const int ni = (din + bm - 1) / bm, nj = (dout + bn - 1) / bn;
+  select_kernel<<<dim3(nj, ni), kSelectThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)pred, (const long long*)full, (const float*)tau,
+      (int8_t*)sign, (int32_t*)stats, din, dout, bm, bn);
+  return (int)cudaGetLastError();
+}
+
+// the exact int64 product alone, full (din x dout), through the same
+// pre-pass and MMA kernel: pass 1's or pass 2's sums under a mesh, before
+// they are summed across ranks, and for the tests
 int psg_full_product(const void* xq, const void* gq, void* xt, void* gt,
                      void* full, int N, int Np, int din, int dout,
                      void* stream) {

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.config import KERNEL_BACKENDS, PSGConfig, validate_backend
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops, ref
 
 BACKEND_AUTO = "auto"
@@ -105,6 +106,10 @@ def backend_for(cfg: Optional[PSGConfig], *tensors: torch.Tensor) -> str:
     and compute the plain versions on CPU tensors.  ``cuda`` on CPU tensors
     raises."""
     backend = resolve_backend(cfg)
+    if backend == BACKEND_REFERENCE and sharding.data_group() is not None:
+        raise NotImplementedError("the reference backend's oracles take "
+                                  "each rank's rows alone: they run outside "
+                                  "a mesh only")
     if backend == BACKEND_CUDA and not all(t.is_cuda for t in tensors):
         raise ValueError("kernel backend 'cuda' needs CUDA tensors; got "
                          f"{sorted({str(t.device) for t in tensors})}")

@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant import qscale
+from repro_torch.distributed import sharding
 from repro_torch.kernels.conv import _call, _check, _on_cuda, _stream
 
 NEG_INF = -1e30
@@ -133,16 +134,22 @@ def attention_psg_scales(q: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     """The six grid scales of the dk/dv kernel, ``[s_q, s_q_msb, s_do,
     s_do_msb, s_ds, s_ds_msb]`` fp32: per-tensor grids for q and dO, and for
     dS (never materialized) the analytic bound ``|dS| <= (max_s ||dO_s|| *
-    max_t ||v_t|| + max|delta|) / sqrt(hd)``."""
+    max_t ||v_t|| + max|delta|) / sqrt(hd)``.  Under a mesh each of the
+    five maxima is the global batch's (one MAX all-reduce)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     do32, v32 = do.float(), v.float()
-    rn_do = torch.sqrt(torch.amax(torch.sum(do32 * do32, dim=-1)))
-    rn_v = torch.sqrt(torch.amax(torch.sum(v32 * v32, dim=-1)))
-    bound = torch.clamp_min(scale * (rn_do * rn_v + delta.abs().amax()),
-                            1e-12)
+    maxima = torch.stack([
+        q.float().abs().amax(), do32.abs().amax(),
+        torch.amax(torch.sum(do32 * do32, dim=-1)),
+        torch.amax(torch.sum(v32 * v32, dim=-1)), delta.abs().amax()])
+    if sharding.data_group() is not None:
+        maxima = sharding.global_max(maxima)
+    aq, ado, ss_do, ss_v, adelta = maxima.unbind()
+    rn_do, rn_v = torch.sqrt(ss_do), torch.sqrt(ss_v)
+    bound = torch.clamp_min(scale * (rn_do * rn_v + adelta), 1e-12)
     return torch.stack([
-        qscale(q, bits_x), qscale(q, bits_x_msb),
-        qscale(do, bits_g), qscale(do, bits_g_msb),
+        qscale(q, bits_x, aq), qscale(q, bits_x_msb, aq),
+        qscale(do, bits_g, ado), qscale(do, bits_g_msb, ado),
         bound / _f32(qlim(bits_g), q.device),
         bound / _f32(qlim(bits_g_msb), q.device)]).float()
 
@@ -154,8 +161,9 @@ def psg_attention_select(msb: torch.Tensor, full: torch.Tensor, deq_msb,
     the dequantized MSB product where ``|g_msb| >= beta * max|g_msb|``, the
     dequantized full product elsewhere.  Returns ``(values, fraction of
     (tile_t x hd) kv tiles holding any fallback element)``; a partial last
-    tile is padded with confident entries."""
-    tau = beta * msb.abs().amax()
+    tile is padded with confident entries.  Under a mesh ``max|g_msb|``
+    and the fraction are the global batch's."""
+    tau = beta * sharding.global_max(msb.abs().amax())
     conf = msb.abs() >= tau
     vals = torch.where(conf, msb * deq_msb, full * deq_full)
     B, T, nkv, hd = conf.shape
@@ -164,7 +172,7 @@ def psg_attention_select(msb: torch.Tensor, full: torch.Tensor, deq_msb,
         conf = torch.cat([conf, conf.new_ones((B, pad, nkv, hd))], dim=1)
     tiles = conf.reshape(B, (T + pad) // tile_t, tile_t, nkv, hd)
     need_full = (~tiles).any(dim=4).any(dim=2)
-    return vals, need_full.float().mean()
+    return vals, sharding.global_mean(need_full.float())
 
 
 # ---------------------------------------------------------------------------

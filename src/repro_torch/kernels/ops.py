@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import codes, qscale
+from repro_torch.distributed import sharding
 from repro_torch.kernels import conv as K
 from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import psg_matmul as PM
@@ -61,23 +62,36 @@ def conv_grad_w(xp: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig, k: int,
 
     Codes are built here with the same ops as the plain versions; pass 1
     gives the predictor product, ``tau = beta * max|g_msb|`` stays on the
-    device, pass 2 selects.  Returns ``(sign (k*k*C, dout) fp32 in {-1, 0,
-    1}, mean of the per-(tap, dout block) fallback flags as an fp32 0-d
-    tensor)``.
+    device, pass 2 selects.  Under a mesh (``distributed/sharding``) the
+    grids are the global batch's and both passes' int64 sums over the
+    positions are summed across ranks before pass 1's fp32 rounding and
+    before the select, so every rank gets the global signs and flags.
+    Returns ``(sign (k*k*C, dout) fp32 in {-1, 0, 1}, mean of the
+    per-(tap, dout block) fallback flags as an fp32 0-d tensor)``.
     """
-    xm, _ = codes(xp, cfg.bits_x_msb)
-    gm, _ = codes(gy, cfg.bits_g_msb)
-    xq, _ = codes(xp, cfg.bits_x)
-    gq, _ = codes(gy, cfg.bits_g)
-    xm, gm, xq, gq = (t.contiguous() for t in (xm, gm, xq, gq))
+    xm, gm, xq, gq = _wgrad_codes(xp, gy, cfg)
+    reduce = sharding.int64_reducer()
     if plain:
-        pred = K.conv_grad_w_predictor_plain(xm, gm, k, stride)
+        pred = K.conv_grad_w_predictor_plain(xm, gm, k, stride, reduce)
     else:
-        pred = K.conv_grad_w_predictor(xm, gm, k, stride)
+        pred = K.conv_grad_w_predictor(xm, gm, k, stride, reduce)
     tau = cfg.beta * pred.float().abs().amax()
     select = K.conv_grad_w_plain if plain else K.conv_grad_w
-    sign, stats = select(pred, xq, gq, tau, k, stride)
+    sign, stats = select(pred, xq, gq, tau, k, stride, reduce)
     return sign.float(), stats.float().mean()
+
+
+def _wgrad_codes(x: torch.Tensor, gy: torch.Tensor, cfg: PSGConfig
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The four contiguous code tensors of the two PSG passes: x and gy on
+    their MSB grids and on their full grids (the global batch's grids
+    under a mesh)."""
+    ax, ag = sharding.global_amax(x), sharding.global_amax(gy)
+    xm, _ = codes(x, cfg.bits_x_msb, ax)
+    gm, _ = codes(gy, cfg.bits_g_msb, ag)
+    xq, _ = codes(x, cfg.bits_x, ax)
+    gq, _ = codes(gy, cfg.bits_g, ag)
+    return tuple(t.contiguous() for t in (xm, gm, xq, gq))
 
 
 def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig,
@@ -87,23 +101,20 @@ def psg_grad_w(x2: torch.Tensor, gy2: torch.Tensor, cfg: PSGConfig,
 
     The operands are cast to fp32 before the codes are built, as the JAX
     package's dispatch layer does.  Pass 1 gives the predictor product,
-    ``tau = beta * max|g_msb|`` stays on the device, pass 2 selects.
+    ``tau = beta * max|g_msb|`` stays on the device, pass 2 selects; under
+    a mesh as :func:`conv_grad_w`.
     Returns ``(sign (din, dout) fp32 in {-1, 0, 1}, mean of the per-tile
     fallback flags as an fp32 0-d tensor)``.
     """
-    x2, gy2 = x2.float(), gy2.float()
-    xm, _ = codes(x2, cfg.bits_x_msb)
-    gm, _ = codes(gy2, cfg.bits_g_msb)
-    xq, _ = codes(x2, cfg.bits_x)
-    gq, _ = codes(gy2, cfg.bits_g)
-    xm, gm, xq, gq = (t.contiguous() for t in (xm, gm, xq, gq))
+    xm, gm, xq, gq = _wgrad_codes(x2.float(), gy2.float(), cfg)
+    reduce = sharding.int64_reducer()
     if plain:
-        pred = PM.predictor_matmul_plain(xm, gm)
+        pred = PM.predictor_matmul_plain(xm, gm, reduce)
     else:
-        pred = PM.predictor_matmul(xm, gm)
+        pred = PM.predictor_matmul(xm, gm, reduce)
     tau = cfg.beta * pred.float().abs().amax()
     select = PM.psg_grad_w_plain if plain else PM.psg_grad_w
-    sign, stats = select(pred, xq, gq, tau)
+    sign, stats = select(pred, xq, gq, tau, reduce)
     return sign.float(), stats.float().mean()
 
 

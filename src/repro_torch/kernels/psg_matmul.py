@@ -48,6 +48,13 @@ wrapper allocates and a select kernel runs after.  :func:`psg_full_product`
 returns that int64 product alone, for the tests.  Later work: ``wgmma`` and
 TMA for both.
 
+Under a mesh each rank holds its tokens only, and a wrapper given
+``reduce`` (the all-reduce of ``distributed/sharding.global_sum_int64``)
+always takes the split path: the MMA kernel writes the rank's int64 sums
+to device memory, ``reduce`` sums them across the ranks, exactly, and only
+then does pass 1 round to fp32 and pass 2 run its select kernel (the
+split path's, called on its own through ``psg_select``).
+
 The fallback flags follow the TPU kernel's tiling whatever the CUDA tiling
 is: one flag per ``min(128, din) x min(128, dout)`` tile of the padded
 grid; a partly padded tile counts as fallback whenever ``tau > 0``, since
@@ -66,7 +73,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.conv import _call, _check, _on_cuda, _stream
+from repro_torch.kernels.conv import (_call, _check, _on_cuda, _reduced,
+                                      _stream)
 
 TILE = 128             # the TPU kernel's output tile, rows and columns
 PRED_STAGE_TOKENS = 128  # tokens a pipeline stage of the MMA kernels
@@ -97,8 +105,9 @@ def _lib() -> ctypes.CDLL:
     lib.psg_splits.argtypes = [_I] * 3
     lib.psg_sign.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     lib.psg_full_product.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    lib.psg_select.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     for fn in (lib.psg_pred, lib.psg_splits, lib.psg_sign,
-               lib.psg_full_product):
+               lib.psg_full_product, lib.psg_select):
         fn.restype = ctypes.c_int
     return lib
 
@@ -113,8 +122,9 @@ def _code_product(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return x.double().T @ g.double()
 
 
-def predictor_matmul_plain(xm: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
-    return _code_product(xm, gm).to(torch.float32)
+def predictor_matmul_plain(xm: torch.Tensor, gm: torch.Tensor,
+                           reduce=None) -> torch.Tensor:
+    return _reduced(_code_product(xm, gm), reduce).to(torch.float32)
 
 
 def split_code_bytes(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,14 +170,23 @@ def _fallback_stats(notconf: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     return padded.reshape(ni, bm, nj, bn).any(3).any(1).to(torch.int32)
 
 
-def psg_grad_w_plain(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
+def psg_select_plain(pred: torch.Tensor, full: torch.Tensor,
                      tau: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eq. (2) select over the predictor product and the full product."""
-    full = _code_product(xq, gq)
+    """Eq. (2) select over the predictor product and an exact full
+    product (float64 or int64)."""
     pm = pred.float()
     conf = pm.abs() >= tau
-    sign = torch.where(conf, torch.sign(pm).double(), torch.sign(full))
+    sign = torch.where(conf, torch.sign(pm).double(),
+                       torch.sign(full).double())
     return sign.to(torch.int8), _fallback_stats(~conf, tau)
+
+
+def psg_grad_w_plain(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
+                     tau: torch.Tensor, reduce=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (2) select over the predictor product and the full product."""
+    return psg_select_plain(pred, _reduced(_code_product(xq, gq), reduce),
+                            tau)
 
 
 def mma_block(dout: int) -> Tuple[int, int]:
@@ -226,13 +245,19 @@ def _check_codes(x: torch.Tensor, g: torch.Tensor) -> Tuple[int, int, int]:
     return x.shape[0], x.shape[1], g.shape[1]
 
 
-def predictor_matmul(xm: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
+def predictor_matmul(xm: torch.Tensor, gm: torch.Tensor,
+                     reduce=None) -> torch.Tensor:
     """PSG pass 1: ``x_msb^T g_msb`` ``(din, dout)`` as fp32, the exact
-    integer sum rounded once, at any token count."""
+    integer sum rounded once, at any token count; with ``reduce``, the
+    int64 sum reduced across ranks before that rounding."""
     if not _on_cuda(xm, gm):
-        return predictor_matmul_plain(xm, gm)
+        return predictor_matmul_plain(xm, gm, reduce)
     N, din, dout = _check_codes(xm, gm)
     lib = _lib()
+    if reduce is not None:
+        full = reduce(_full_product(lib, xm, gm, N, din, dout))
+        LAUNCHES["predictor_matmul"] += 1
+        return full.to(torch.float32)
     n_pad, xt, gt, acc = _scratch(lib, N, din, dout, xm.device)
     out = torch.empty((din, dout), device=xm.device, dtype=torch.float32)
     _call(lib.psg_pred, xm.data_ptr(), gm.data_ptr(), xt.data_ptr(),
@@ -256,13 +281,15 @@ def _scratch(lib, N: int, din: int, dout: int, dev, force_acc=False):
 
 
 def psg_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
-               tau: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               tau: torch.Tensor, reduce=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PSG pass 2: the full 8x16-bit code product (exact in integers) and
     the Eq. (2) select against pass 1's ``pred`` at threshold ``tau`` (fp32
-    0-d, read on the device).  Returns ``(sign (din, dout) int8, fallback
-    flags (ni, nj) int32)``."""
+    0-d, read on the device); with ``reduce``, the int64 product reduced
+    across ranks before the select.  Returns ``(sign (din, dout) int8,
+    fallback flags (ni, nj) int32)``."""
     if not _on_cuda(pred, xq, gq, tau):
-        return psg_grad_w_plain(pred, xq, gq, tau)
+        return psg_grad_w_plain(pred, xq, gq, tau, reduce)
     N, din, dout = _check_codes(xq, gq)
     _check(pred, "pred", torch.float32, 2)
     _check(tau, "tau", torch.float32, 0)
@@ -271,9 +298,16 @@ def psg_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
     bm, bn, ni, nj = tile_grid(din, dout)
     dev = xq.device
     lib = _lib()
-    n_pad, xt, gt, full = _scratch(lib, N, din, dout, dev)
     sign = torch.empty((din, dout), device=dev, dtype=torch.int8)
     stats = torch.empty((ni, nj), device=dev, dtype=torch.int32)
+    if reduce is not None:
+        full = reduce(_full_product(lib, xq, gq, N, din, dout))
+        _call(lib.psg_select, pred.data_ptr(), full.data_ptr(),
+              tau.data_ptr(), sign.data_ptr(), stats.data_ptr(), din, dout,
+              bm, bn, _stream(xq))
+        LAUNCHES["psg_grad_w"] += 1
+        return sign, stats
+    n_pad, xt, gt, full = _scratch(lib, N, din, dout, dev)
     _call(lib.psg_sign, pred.data_ptr(), xq.data_ptr(), gq.data_ptr(),
           tau.data_ptr(), xt.data_ptr(), gt.data_ptr(),
           full.data_ptr() if full.numel() else 0, sign.data_ptr(),
@@ -285,12 +319,18 @@ def psg_grad_w(pred: torch.Tensor, xq: torch.Tensor, gq: torch.Tensor,
 def psg_full_product(xq: torch.Tensor, gq: torch.Tensor) -> torch.Tensor:
     """The exact ``x^T g`` of 8-bit x and 16-bit g codes, int64 ``(din,
     dout)``, through the sign kernel's pre-pass and MMA kernel (CPU: the
-    plain product).  For the tests and the chip smoke test, on no training
-    path, so it counts no launch."""
+    plain product).  For the tests and the chip smoke test, so it counts
+    no launch (the wrappers run the same launches under a mesh)."""
     if not _on_cuda(xq, gq):
         return _code_product(xq, gq).to(torch.int64)
     N, din, dout = _check_codes(xq, gq)
-    lib = _lib()
+    return _full_product(_lib(), xq, gq, N, din, dout)
+
+
+def _full_product(lib, xq: torch.Tensor, gq: torch.Tensor, N: int, din: int,
+                  dout: int) -> torch.Tensor:
+    """The int64 code product through the pre-pass and the MMA kernel
+    (pass 1's codes or pass 2's: both are int8 x and int16 g)."""
     n_pad, xt, gt, full = _scratch(lib, N, din, dout, xq.device,
                                    force_acc=True)
     _call(lib.psg_full_product, xq.data_ptr(), gq.data_ptr(), xt.data_ptr(),

@@ -73,14 +73,35 @@ replays of it, and the throughput line adds the ms per executed step after
 the first chunk; ``--log-every N`` prints every N-th step's loss.  The summary
 ends with the held-out accuracy (``training/evaluate.py``) of the SWA
 weights when SWA is on, else of the live ones.
+
+Distribution follows the JAX launcher's flags. ``--distributed`` joins a
+``torch.distributed`` world, one rank a process: at ``--coordinator
+HOST:PORT`` with ``--num-processes`` and ``--process-id``, else from
+torchrun's environment (``env://``); its group is gloo's on the CPU, on the
+card NCCL's where every rank has a card of its own and gloo's otherwise
+(NCCL refuses two ranks on one card), and a collective that waits
+``DIST_TIMEOUT_S`` for a dead rank raises. ``--devices N`` spawns N such
+ranks here on ``--device`` (the counterpart of the JAX package's N host
+devices); the spawner ends the other ranks when one exits non-zero and exits
+with its code. ``--mesh-data N`` builds the ``(N, 1)`` mesh over ``("data",
+"model")`` (``launch/mesh.py``) and trains data-parallel on it: the global
+batch split over the ranks, the global computation
+(``training/trainer.py``), one checkpoint stream written by rank 0, and a
+resume that restores the last intact step and reshards it onto the mesh
+(``ft/elastic.reshard_state``), any world size. Without a mesh, each process
+of a world trains its own shard, ``make_batch(step, rank)``, into its own
+``proc{rank:03d}`` checkpoint directory, as in the JAX package.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import os
+import subprocess
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,8 +116,10 @@ from repro_torch.core.psg import fused_conv_active
 from repro_torch.data.synthetic import (host_image_batch, host_lm_batch,
                                        make_image_batch, make_lm_batch,
                                        with_frontend)
+from repro_torch.distributed import sharding
 from repro_torch.ft import faults
 from repro_torch.ft.checkpoint import latest_intact_step, restore_checkpoint
+from repro_torch.ft.elastic import reshard_state
 from repro_torch.kernels import dispatch
 from repro_torch.models.layers import attention_path
 from repro_torch.training import evaluate
@@ -104,6 +127,7 @@ from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
 
 FUSED = {"auto": None, "on": True, "off": False}    # --fused-{conv,attention}
+DIST_TIMEOUT_S = 60     # seconds a collective of a world may wait
 CNNS = ("resnet", "mobilenetv2")                    # --cnn
 FULL_E2 = E2TrainConfig(smd=SMDConfig(enabled=True, drop_prob=0.5),
                         slu=SLUConfig(enabled=True, alpha=1e-3),
@@ -271,10 +295,7 @@ def chunk_summary(trainer: Trainer) -> str:
     return out
 
 
-def run(argv: Optional[Sequence[str]] = None) -> Trainer:
-    """Parse ``argv``, build, resume, train and report; returns the
-    trainer (``main`` turns it into an exit code)."""
-    t_start = time.perf_counter()
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--task", choices=["cifar_cnn", "lm"], default="cifar_cnn")
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2_5_3b",
@@ -335,11 +356,113 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
                     help="fault injection: hard-kill (os._exit) this "
                          "process when the data path reaches STEP "
                          "(ft/faults.kill_at_step; testing only)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a torch.distributed world (one rank a "
+                         "process)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="rendezvous address (with --distributed; default: "
+                         "torchrun's environment, env://)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="world size (with --coordinator)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (with --coordinator)")
+    ap.add_argument("--devices", type=int, default=0, metavar="N",
+                    help="spawn N local ranks on --device (N > 1)")
+    ap.add_argument("--mesh-data", type=int, default=0, metavar="N",
+                    help="N-way data-parallel mesh over the batch axis (0 = "
+                         "no mesh; 1 = a one-rank mesh, still placed and "
+                         "resharded; N must be the world size)")
+    return ap
+
+
+def spawn(argv: Sequence[str], n: int) -> int:
+    """Run ``n`` ranks of this launcher on ``argv`` at a fresh localhost
+    rendezvous, rank 0's output shown; when a rank exits non-zero the
+    others are ended and its code returned (the fault hook's
+    ``KILL_EXIT_CODE`` first where several died), else 0."""
+    from repro_torch.ft.supervisor import free_tcp_port
+    port = free_tcp_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--distributed", "--coordinator", f"localhost:{port}",
+         "--num-processes", str(n), "--process-id", str(r)],
+        stdout=None if r == 0 else subprocess.DEVNULL) for r in range(n)]
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            dead = [c for c in codes if c not in (None, 0)]
+            if dead or all(c == 0 for c in codes):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    if not dead:
+        return 0
+    return faults.KILL_EXIT_CODE if faults.KILL_EXIT_CODE in dead \
+        else dead[0]
+
+
+def init_world(args) -> Tuple[int, int, str]:
+    """Join the world ``args`` name (``--distributed``; a one-rank local
+    world for ``--mesh-data 1`` alone); returns ``(rank, world,
+    backend)``, ``(0, 1, "")`` without one."""
+    import torch.distributed as dist
+    if not args.distributed and args.mesh_data < 1:
+        return 0, 1, ""
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    if args.distributed and args.coordinator is None:
+        init, world, rank = "env://", int(os.environ["WORLD_SIZE"]), \
+            int(os.environ["RANK"])
+    elif args.distributed:
+        init, world, rank = f"tcp://{args.coordinator}", \
+            args.num_processes, args.process_id
+        if world is None or rank is None:
+            raise SystemExit("--coordinator needs --num-processes and "
+                             "--process-id")
+    else:
+        from repro_torch.ft.supervisor import free_tcp_port
+        init, world, rank = f"tcp://localhost:{free_tcp_port()}", 1, 0
+    backend = "gloo"
+    if resolve_device(args.device).type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(rank % cards)
+        if world <= cards:
+            backend = "nccl"
+    kw = {"device_id": torch.device("cuda", rank % torch.cuda.device_count())
+          } if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank, timeout=timeout, **kw)
+    return rank, world, backend
+
+
+def run(argv: Optional[Sequence[str]] = None) -> Trainer:
+    """Parse ``argv``, build, resume, train and report; returns the
+    trainer (``main`` turns it into an exit code)."""
+    t_start = time.perf_counter()
+    args = _parser().parse_args(argv)
+    rank, world, backend = init_world(args)
+    mesh = None
+    if args.mesh_data >= 1:
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((args.mesh_data, 1), ("data", "model"))
+    ckpt = args.ckpt
+    if ckpt and world > 1 and mesh is None:
+        # each process owns its checkpoint stream: without a mesh the
+        # states differ, and two ranks racing one step file would tear it
+        ckpt = os.path.join(ckpt, f"proc{rank:03d}")
     e2 = E2TRAIN[args.e2train]
     psg_cfg = e2.psg if e2.psg.enabled else None
-    ft = dict(checkpoint_dir=args.ckpt, checkpoint_every=args.ckpt_every,
-              deadline_s=args.deadline_s, chunk_steps=args.chunk_steps)
+    ft = dict(checkpoint_dir=ckpt, checkpoint_every=args.ckpt_every,
+              deadline_s=args.deadline_s, chunk_steps=args.chunk_steps,
+              shard=rank if mesh is None else 0, mesh=mesh)
     if args.task == "lm":
         fused = FUSED[args.fused_attention]
         trainer = build_lm_trainer(args.arch, batch=args.batch, seq=args.seq,
@@ -385,17 +508,37 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
               f"batch {batch}, {conv} conv, --e2train {args.e2train}, "
               f"kernel backend {kernel_backend(trainer)}) on "
               f"{trainer.device}")
+    if world > 1 or mesh is not None:
+        where = f"rank {rank} of {world} ({backend})"
+        if mesh is None:
+            print(f"distributed: {where}, no mesh: data shard {rank}, "
+                  f"checkpoints in {ckpt}")
+        else:
+            how = "one rank: the step without collectives" \
+                if trainer.world == 1 else \
+                "eager steps (gloo's collectives are not captured)" \
+                if backend == "gloo" else "collectives in the step (NCCL)"
+            print(f"distributed: {where}, mesh "
+                  f"{sharding.mesh_shape(mesh)}, {how}")
     if args.ft_kill_at_step is not None:
         trainer.make_batch = faults.kill_at_step(trainer.make_batch,
                                                  args.ft_kill_at_step)
         trainer.make_host_batch = faults.kill_at_step(
             trainer.make_host_batch, args.ft_kill_at_step)
     start = 0
-    if args.resume and args.ckpt and latest_intact_step(args.ckpt) is not None:
-        # integrity-verified: falls back past torn or corrupt saves
-        _, step = restore_checkpoint(args.ckpt, trainer.state)
+    if args.resume and ckpt and latest_intact_step(ckpt) is not None:
+        # integrity-verified: falls back past torn or corrupt saves; under a
+        # mesh into the full state, then placed onto this mesh
+        if trainer.dp is not None:
+            full = trainer.dp.full_state(trainer.state)
+            _, step = restore_checkpoint(ckpt, full)
+            trainer.state = reshard_state(full, mesh)
+        else:
+            _, step = restore_checkpoint(ckpt, trainer.state)
         start = trainer.state.step      # the next nominal step
-        print(f"resumed from intact step {step} (counter at {start})")
+        print(f"resumed from intact step {step} (counter at {start})"
+              + (f" on mesh {sharding.mesh_shape(mesh)}" if mesh is not None
+                 else ""))
     hist = trainer.run(max(args.steps - start, 0), log_every=args.log_every)
     if hist:
         fb = trainer.measured_psg_fallback()
@@ -406,7 +549,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
               f"SMD-dropped {trainer.dropped_steps} (straggler-dropped "
               f"{trainer.straggler_dropped_steps}); measured PSG fallback "
               + ("none (PSG off)" if fb is None else f"{fb:.3f}"))
-        if args.chunk_steps > 1:
+        if args.chunk_steps > 1 or mesh is not None:
             print(f"throughput: {trainer.steps_per_s():.3f} executed steps/s "
                   f"(chunked K={args.chunk_steps}; the first chunk includes "
                   "the kernel build, the warm-up step and the capture); "
@@ -420,7 +563,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     if trainer.save_s:
         print(f"checkpoints: {len(trainer.save_s)} saves, "
               f"{1e3 * float(np.mean(trainer.save_s)):.2f} ms each on the "
-              f"training loop (mean; the write is async), to {args.ckpt}")
+              f"training loop (mean; the write is async), to {ckpt}")
     acc = evaluate.evaluate(trainer)
     swa = "SWA" if trainer.state.swa is not None else "live"
     n = evaluate.HELDOUT_BATCHES
@@ -434,8 +577,18 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """The CLI: 0, or 1 when the final checkpoint did not land (a run whose
-    state was not persisted must not exit green)."""
-    trainer = run(argv)
+    state was not persisted must not exit green); with ``--devices N > 1``
+    the spawner's code (:func:`spawn`)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    if args.devices > 1 and not args.distributed:
+        return spawn(argv, args.devices)
+    import torch.distributed as dist
+    try:
+        trainer = run(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     if trainer.save_errors:
         print(f"final save FAILED: {sorted(trainer.save_errors)}",
               file=sys.stderr)

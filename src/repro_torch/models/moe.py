@@ -37,6 +37,7 @@ from torch import nn
 
 from repro_torch.core import psg
 from repro_torch.core.config import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 
 GROUP_SIZE = 1024
@@ -91,9 +92,14 @@ def moe_fwd(m: MoE, x: torch.Tensor, cfg: ModelConfig
     E, k = cfg.num_experts, cfg.top_k
     dt, dev = x.dtype, x.device
     N = B * S
-    n_g = min(GROUP_SIZE, N)
+    W = sharding.data_world()
+    n_g = min(GROUP_SIZE, N * W)     # the global batch's routing group
     G = N // n_g
     if G * n_g != N:
+        if W > 1:
+            raise ValueError(f"a rank's {N} tokens (global batch / {W} "
+                             f"ranks x seq) are not whole routing groups of "
+                             f"{n_g}")
         raise ValueError(f"tokens {N} not divisible by group {n_g}")
     cap = max(int(cfg.capacity_factor * k * n_g / E), 1)
 
@@ -129,6 +135,8 @@ def moe_fwd(m: MoE, x: torch.Tensor, cfg: ModelConfig
         for sp in m.shared:
             y = y + L.mlp_fwd(sp, xt, cfg)
 
-    frac_tokens = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * torch.sum(frac_tokens * probs.mean(dim=(0, 1)))
+    # global means under a mesh
+    frac_tokens = sharding.global_mean(F.one_hot(topi[..., 0], E).float(),
+                                       (0, 1))
+    aux = E * torch.sum(frac_tokens * sharding.global_mean(probs, (0, 1)))
     return y.reshape(B, S, d), aux.float()

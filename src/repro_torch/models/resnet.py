@@ -44,6 +44,7 @@ from repro_torch.core.config import E2TrainConfig
 from repro_torch.core.cost import MBV2_HEAD, MBV2_STEM, mbv2_layout
 from repro_torch.core.slu import Gate, GateState, gated_residual, \
     resnet_uniforms
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import dense_init
 
 Uniforms = Union[np.ndarray, torch.Tensor]
@@ -84,12 +85,17 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode: normalize with the batch statistics and move the
         running statistics toward them.  Eval mode: normalize with the
-        running statistics and leave them."""
+        running statistics and leave them.  Under a mesh the batch
+        statistics are the global batch's (``distributed/sharding``), so
+        the running statistics are equal on every rank."""
         if not self.training:
             return (x - self.mean) * torch.rsqrt(self.var + BN_EPS) \
                 * self.scale + self.bias
-        mu = x.mean(dim=(0, 1, 2))
-        var = x.var(dim=(0, 1, 2), correction=0)
+        mu = sharding.global_mean(x, (0, 1, 2))
+        if sharding.data_group() is None:
+            var = x.var(dim=(0, 1, 2), correction=0)
+        else:
+            var = sharding.global_mean((x - mu) ** 2, (0, 1, 2))
         with torch.no_grad():
             self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mu)
             self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
@@ -195,7 +201,7 @@ class ResNet(nn.Module):
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits, dim=-1)
-    return -logp.gather(1, labels.long()[:, None]).mean()
+    return sharding.global_mean(-logp.gather(1, labels.long()[:, None]))
 
 
 def resnet_loss(model: ResNet, batch: Dict[str, torch.Tensor],

@@ -78,6 +78,7 @@ from repro_torch.core.config import (BLOCK_ATTN, BLOCK_KINDS, BLOCK_MOE,
 from repro_torch.core.energy import block_fwd_flops
 from repro_torch.core.slu import Gate, flops_regularizer, gated_residual, \
     lm_uniforms
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm
@@ -360,7 +361,8 @@ def lm_loss(model: TransformerLM, batch: Dict[str, torch.Tensor],
     mask = (labels >= 0).float()
     ll = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
     nll = torch.logsumexp(logits, dim=-1) - ll
-    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    loss = sharding.global_sum(torch.sum(nll * mask)) / torch.clamp_min(
+        sharding.global_sum(torch.sum(mask)), 1.0)
     total = loss + cfg.router_aux_coef * aux["aux_loss"]
     if e2.slu.enabled:
         total = total + e2.slu.alpha * aux["slu_cost"]

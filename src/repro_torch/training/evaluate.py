@@ -81,8 +81,9 @@ def evaluate(trainer, recalibrate_batches: Optional[
         Iterable[Dict[str, torch.Tensor]]] = None) -> float:
     """Held-out accuracy of ``trainer``'s evaluation weights with its
     BatchNorm statistics, or with statistics recalibrated over
-    ``recalibrate_batches`` (training batches) on a copy of the model."""
-    model = eval_params(trainer.state, trainer.exp)
+    ``recalibrate_batches`` (training batches) on a copy of the model.
+    Under a mesh every rank calls it (it gathers the SWA average)."""
+    model = eval_params(trainer.full_state(), trainer.exp)
     if recalibrate_batches is not None:
         if model is trainer.state.model:
             model = copy.deepcopy(model)

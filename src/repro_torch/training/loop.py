@@ -160,13 +160,16 @@ class ChunkStep:
     there is no eager fallback: a capture that fails raises.  Each replay
     is bracketed by CUDA events (:meth:`take_events`, read by
     :func:`device_times` once the chunk has synced), and the stacked metrics hold the step's SLU flags
-    under ``"slu_executed"``.  On the CPU every step runs eagerly.
+    under ``"slu_executed"``.  On the CPU every step runs eagerly, and so
+    does it on the card with ``eager`` set (a mesh whose collectives are
+    gloo's, which a CUDA graph cannot hold), its inputs copied to the card.
     """
 
     def __init__(self, exp: Experiment, K: Optional[int] = None):
         self.exp = exp
         self.K = K
         self.ts = TrainStep(exp)
+        self.eager = False
         self.graph = None
         self.cond = None
         self.warmup_s: Optional[float] = None
@@ -201,15 +204,17 @@ class ChunkStep:
                  step_increment) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         k = self._validate(batches, step_increment)
         device = next(state.model.parameters()).device
-        if device.type != "cuda":
+        if device.type != "cuda" or self.eager:
             rows = []
             for i, inc in enumerate(step_increment):
                 state.step += int(inc) - 1
                 u, scal = self.ts.host_inputs(state)
-                batch = {n: v[i] for n, v in batches.items()}
+                batch = {n: v[i].to(device) for n, v in batches.items()}
                 met, flags = self.ts.device_step(
-                    state, batch, None if u is None else torch.from_numpy(u),
-                    torch.from_numpy(scal))
+                    state, batch,
+                    # the uniforms stay on the host, as in the per-step loop
+                    None if u is None else torch.from_numpy(u),
+                    torch.from_numpy(scal).to(device))
                 rows.append({**met, FLAGS: flags})
                 self.ts.advance(state)
             return state, _stack_metrics(rows)

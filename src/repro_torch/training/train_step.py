@@ -19,6 +19,15 @@ chunked loop drives apart), the counterpart of the JAX package's
   microbatches;
 * with PSG on, every gradient is re-signed (``majority_vote_tree``):
   norms, embeddings, classifier and gate included;
+* under a mesh (``dp``, a ``distributed/fsdp.DataParallel``, with the
+  trainer inside ``sharding.activation_sharding``) each rank runs its rows
+  of the global batch; the loss, the metrics and every coupling of rows
+  are the global batch's (``distributed/sharding``'s collectives), each
+  rank differentiates its share of the loss (the global loss over the
+  world size), the gradients are summed across ranks (a PSG weight's sign,
+  global and equal on every rank already, comes out of the sum and the
+  re-sign unchanged), and the optimizer and SWA update each rank's shard,
+  which one gather makes whole;
 * the optimizer updates the parameters in place, then SWA averages them;
   the learning rate, AdamW's bias corrections and SWA's weight are
   float32 scalars computed on the host and handed to the device as a
@@ -55,6 +64,9 @@ class TrainState:
     opt: Dict[str, torch.Tensor]
     swa: Optional[Dict[str, Any]]
     step: int = 0
+    # the mesh the optimizer and SWA state are placed on (ft/elastic.py:
+    # this rank's shards of the FSDP leaves), None for the full state
+    mesh: Optional[Any] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -76,7 +88,10 @@ def train_state_for(exp: Experiment, model: nn.Module) -> TrainState:
 
 def split_microbatches(batch: Dict[str, torch.Tensor], m: int
                        ) -> Sequence[Dict[str, torch.Tensor]]:
-    """``batch`` as ``m`` microbatches of ``B / m`` rows, in order."""
+    """``batch`` as ``m`` microbatches of ``B / m`` rows, in order.  Under
+    a mesh ``batch`` is a rank's rows in the order of
+    ``distributed/sharding.rank_rows``, whose microbatch ``i`` is then the
+    rank's part of the global batch's microbatch ``i``."""
     if m == 1:
         return [batch]
     rows = {v.shape[0] for v in batch.values()}
@@ -120,6 +135,7 @@ class TrainStep:
         self.psg_cfg = e2.psg if e2.psg.enabled else None
         self.swa_start = int(tc.total_steps * e2.psg.swa_start_frac)
         self.slu = e2.slu.enabled and self.task.slu_uniforms is not None
+        self.dp = None      # a DataParallel under a mesh of >1 ranks
 
     # -- host -------------------------------------------------------------
 
@@ -167,7 +183,8 @@ class TrainStep:
         finally:
             hook.remove()
         inputs = list(params) + ([probe] if probe is not None else [])
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        share = loss if self.dp is None else loss / self.dp.world
+        grads = torch.autograd.grad(share, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
         probe_g = grads.pop() if probe is not None else None
@@ -204,6 +221,8 @@ class TrainStep:
             metrics = {k: torch.stack([mt[k] for mt in mets]).mean()
                        for k in mets[0]}
             flags = torch.cat(flag_l)
+        if self.dp is not None:
+            grads = self.dp.reduce_grads(grads)
         if self.psg_cfg is not None:
             grads = majority_vote_tree(grads)
         gn = torch.zeros((), device=device)
@@ -213,9 +232,13 @@ class TrainStep:
             scale = torch.clamp_max(tc.grad_clip / (gn + 1e-9), 1.0)
             grads = {k: g * scale for k, g in grads.items()}
         param_d = dict(zip(names, params))
-        self.opt.update(param_d, grads, state.opt, list(scal[1:]))
-        if state.swa is not None:
-            swa_average(state.swa, param_d, scal[0])
+        if self.dp is not None:
+            self.dp.update(self.opt, param_d, grads, state.opt,
+                           list(scal[1:]), state.swa, scal[0])
+        else:
+            self.opt.update(param_d, grads, state.opt, list(scal[1:]))
+            if state.swa is not None:
+                swa_average(state.swa, param_d, scal[0])
         metrics["total_loss"] = loss
         metrics["grad_norm"] = gn
         if probe_g is not None:

@@ -33,15 +33,32 @@ telemetry, in the JAX package's two modes (its ``training/trainer.py``):
   device's clock (so a chunk that waits for its batches counts the wait),
   for a run's first chunk and on the CPU the host's clock.
 
-Meshes (``mesh=``) are not ported, and the JAX package's
-``donate_chunk_state`` has no counterpart: the port's state is updated in
-place, one copy of it.
+With ``mesh=`` (a ``DeviceMesh`` of ``launch/mesh.make_mesh``, one rank a
+process), as in the JAX package: the state is placed by
+``state_shardings`` (``ft/elastic.reshard_state``: each rank keeps its
+shard of the FSDP leaves' optimizer and SWA state), every rank draws the
+*global* batch, ``make_batch(step, 0)``, and keeps its rows of it
+(``sharding.rank_rows``, in the JAX package's microbatch order), and the
+run goes through the chunked loop inside ``activation_sharding``, where the
+step computes the global batch's loss and gradients
+(``training/train_step.py``).  Where the data axis has more than one rank
+and its group is gloo's, a chunk's steps run eagerly (gloo's collectives
+cannot be captured in a CUDA graph); with one rank the step is the
+non-mesh one, bit for bit.  The straggler deadline reads the chunk-mean
+clock, as the JAX package's mesh runs do, and arms from the MAX over the
+ranks, so every rank takes the same forced drops.  Checkpoints hold the
+full logical state, gathered and written once, by rank 0; every rank
+learns of a failed save.
+
+The JAX package's ``donate_chunk_state`` has no counterpart: the port's
+state is updated in place, one copy of it.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +66,7 @@ import torch
 from repro_torch.core.config import Experiment
 from repro_torch.core.device import resolve_device
 from repro_torch.core.smd import smd_keep_host
+from repro_torch.distributed.sharding import rank_rows
 from repro_torch.training.loop import (FLAGS, ChunkPlanner, device_times,
                                        make_chunk_step)
 from repro_torch.training.train_step import TrainState, make_train_step
@@ -63,7 +81,8 @@ class Trainer:
                  checkpoint_every: int = 0, deadline_s: float = 0.0,
                  chunk_steps: int = 1, prefetch: int = 2,
                  make_host_batch: Optional[Callable[[int, int], Dict[
-                     str, torch.Tensor]]] = None):
+                     str, torch.Tensor]]] = None,
+                 mesh: Optional[Any] = None):
         """``make_batch(step, shard)`` gives a batch on the trainer's
         device (the per-step loop); ``make_host_batch`` the same batch as
         host tensors, pinned for the card (the chunked loop's prefetch
@@ -101,6 +120,29 @@ class Trainer:
         self._chunk_fn = None               # built at the first chunked run
         self._last_sync_t = 0.0
         self._last_done = None              # the last chunk's end event
+        self.mesh = mesh
+        self.dp = None                      # DataParallel, > 1 data ranks
+        self.rank, self.world = 0, 1
+        if mesh is not None:
+            self._place(mesh)
+
+    def _place(self, mesh) -> None:
+        from repro_torch.distributed import sharding
+        from repro_torch.ft.elastic import reshard_state
+        if self.keep_schedule is not None:
+            raise ValueError("keep_schedule is a per-step test hook")
+        self.state = reshard_state(self.state, mesh)
+        self.world = sharding.mesh_shape(mesh).get("data", 1)
+        if self.world > 1:
+            from repro_torch.distributed.fsdp import DataParallel
+            self.dp = DataParallel(mesh, self.state.model)
+            self.rank = self.dp.rank
+        tc = self.exp.train
+        if tc.global_batch % (self.world * max(tc.microbatches, 1)):
+            raise ValueError(
+                f"global batch {tc.global_batch} does not split into "
+                f"{max(tc.microbatches, 1)} microbatch(es) over "
+                f"{self.world} ranks")
 
     def keeps(self, step: int) -> bool:
         """Whether nominal step ``step`` executes (the SMD decision)."""
@@ -112,7 +154,7 @@ class Trainer:
         return smd_keep_host(self.exp.train.seed, step, smd.drop_prob)
 
     def run(self, num_steps: int, log_every: int = 0) -> List[Dict[str, float]]:
-        if self.chunk_steps > 1:
+        if self.chunk_steps > 1 or self.mesh is not None:
             return self._run_chunked(num_steps, log_every)
         return self._run_per_step(num_steps, log_every)
 
@@ -167,12 +209,22 @@ class Trainer:
 
         if self._chunk_fn is None:
             self._chunk_fn = make_chunk_step(self.exp)
+            self._chunk_fn.ts.dp = self.dp
+            # gloo's collectives cannot be captured in a CUDA graph
+            self._chunk_fn.eager = self.dp is not None and \
+                torch.distributed.get_backend(self.dp.group) != "nccl"
         planner = ChunkPlanner(self.chunk_steps)
         self._last_sync_t = 0.0
         self._last_done = None
         start = self.state.step
-        pipe = DataPipeline(self.make_host_batch or self.make_batch,
-                            self.exp.e2.smd, seed=self.exp.train.seed,
+        draw = self.make_host_batch or self.make_batch
+        if self.mesh is not None:
+            # every rank draws the global batch and keeps its rows
+            m = max(self.exp.train.microbatches, 1)
+            fn = draw
+            draw = lambda step, shard: rank_rows(fn(step, 0), self.rank,
+                                                 self.world, m)
+        pipe = DataPipeline(draw, self.exp.e2.smd, seed=self.exp.train.seed,
                             shard=self.shard, prefetch=self.prefetch,
                             start_step=start)
         in_flight = None                  # (steps, t0, host metrics, ...)
@@ -215,7 +267,8 @@ class Trainer:
         boundary."""
         steps, batches, incs = chunk
         t0 = time.perf_counter()
-        self.state, stacked = self._chunk_fn(self.state, batches, incs)
+        with self._mesh_ctx():
+            self.state, stacked = self._chunk_fn(self.state, batches, incs)
         host = None
         if self.device.type == "cuda":
             host = {k: v.to("cpu", non_blocking=True)
@@ -264,13 +317,38 @@ class Trainer:
             if i in dev_s:
                 metrics["device_s"] = dev_s[i]
             self._record(step, metrics, per_step_s, log_every)
-            if self.deadline_s and dev_s.get(i, per_step_s) > self.deadline_s:
+            if self.deadline_s and self.mesh is None and \
+                    dev_s.get(i, per_step_s) > self.deadline_s:
+                self._straggler_pending += 1
+        if self.deadline_s and self.mesh is not None:
+            # the chunk-mean clock, the slowest rank's: one arm a chunk,
+            # the same on every rank
+            slowest = per_step_s if self.dp is None else \
+                self.dp.all_max(per_step_s)
+            if slowest > self.deadline_s:
                 self._straggler_pending += 1
 
+    def _mesh_ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.distributed.sharding import activation_sharding
+        return activation_sharding(self.mesh)
+
+    def full_state(self) -> TrainState:
+        """The state with its full logical arrays: ``state`` itself, or
+        under a mesh of several ranks the gathered one (every rank must
+        call it)."""
+        return self.state if self.dp is None else \
+            self.dp.full_state(self.state)
+
     def _save(self, step: int) -> None:
+        """An async save of ``step``; under a mesh of several ranks, of the
+        gathered full state, by rank 0."""
         from repro_torch.ft.checkpoint import save_checkpoint
         t0 = time.perf_counter()
-        save_checkpoint(self.ckpt_dir, self.state, step, async_save=True)
+        state = self.full_state()
+        if self.rank == 0:
+            save_checkpoint(self.ckpt_dir, state, step, async_save=True)
         self.save_s.append(time.perf_counter() - t0)
 
     def _final_save(self) -> bool:
@@ -284,6 +362,10 @@ class Trainer:
         # leaves a stale tmp file and no checkpoint
         from repro_torch.ft.checkpoint import wait_for_saves
         failures = wait_for_saves(raise_on_error=False)
+        if self.dp is not None and \
+                self.dp.all_max(float(bool(failures))) and not failures:
+            failures = {self.ckpt_dir: RuntimeError(
+                "rank 0's save of the mesh's state failed")}
         if failures:
             self.save_errors.update(failures)
             for path, err in failures.items():

@@ -120,3 +120,20 @@ def test_chunked_loop_modules_stand_alone():
     from repro_torch.data import pipeline  # noqa: F401
     from repro_torch.kernels import graph_cond  # noqa: F401
     from repro_torch.training import loop  # noqa: F401
+
+
+def test_distribution_modules_stand_alone():
+    """The distribution layer's modules are among the files checked above
+    (no JAX, nothing of the JAX package) and importing them touches no
+    process group."""
+    import torch.distributed as dist
+    for rel in ("distributed/__init__.py", "distributed/sharding.py",
+                "distributed/fsdp.py", "launch/mesh.py", "ft/elastic.py",
+                "optim/majority_vote.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+    from repro_torch import distributed  # noqa: F401
+    from repro_torch.distributed import fsdp, sharding  # noqa: F401
+    from repro_torch.ft import elastic  # noqa: F401
+    from repro_torch.launch import mesh  # noqa: F401
+    assert not dist.is_initialized()
+    assert distributed.process_shard() == (0, 1)
