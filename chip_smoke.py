@@ -137,7 +137,7 @@ Phases, each fatal on failure:
    ``set_sync_debug_mode("error")``; ``launch.train --cnn mobilenetv2`` and
    ``launch.bench_cnn --fast --steps 8``;
 13. paper_benches: the paper's experiments through the driver's benches
-   (``launch/bench_run``), in this process, in fast mode at a quarter of
+   (``launch/bench_run``), in this process, in fast mode at an eighth of
    the reference's nominal steps (``PAPER_STEPS``): ``smd``, ``slu``,
    ``psg``, ``e2train``, ``convergence`` and ``throughput``, each
    with every launch counter zeroed before and read after (kernels 5-9
@@ -200,9 +200,10 @@ Phases, each fatal on failure:
    counted; a reduced step of xlstm-350m and of zamba2-1.2b at 512 tokens
    (two chunks) on the card against the CPU; the main paths (``SSM_PATHS``,
    ``--e2train full``, ``remat="block"``, bf16, two executed steps):
-   zamba2-1.2b's first unit of 19 blocks (of its 38), 4 x 4096 in its 4
+   zamba2-1.2b's first unit of 19 blocks (of its 38), 4 x 2048 in its 4
    microbatches, its kernel 5-9 launches equal to its one shared-attention
-   call a microbatch, and xlstm-350m's unit of 4 layers, launching none of
+   call a microbatch, and xlstm-350m's unit of 4 layers at 4 x 1024 (its
+   sLSTM loops over the tokens on the host), launching none of
    the ten kernels, each with its reckoned
    state and profiled (device events only); last, both reduced archs
    through the chunked loop against the per-step loop bit for bit, with
@@ -255,7 +256,22 @@ Phases, each fatal on failure:
    launcher's ``--devices 2 --mesh-data 2`` (ResNet-20, batch 128) on the
    card killed at a step and resumed on one rank (``reshard_state``) to its
    last step, and on two ranks to the uninterrupted two-rank run's last
-   checkpoint bit for bit.
+   checkpoint bit for bit;
+19. analysis (``analysis_check``): the static cost audits of the ``audit``
+   bench record on the card (``launch/bench_audit``: ResNet-74,
+   ResNet-110, MobileNetV2 and the smoke llama3-8b at batch 4, the lowered
+   program's column for ResNet-74 and the smoke LM), each passing, each
+   group's MACs equal to a CPU audit's bit for bit, and no kernel launched
+   (their predict programs run outside PSG); the ResNet-74 main path's
+   energy report with ``validate_against_hlo=True`` reading True; the
+   kernel lint (``analysis/kernel_lint``) over every shipped kernel, the
+   ten and ``slu_decide``, at its lint geometries with no finding (shared
+   memory, spills, occupancy, sentinel-filled outputs against the plain
+   versions, declared accumulators), one line a kernel with its resource
+   figures and the launch table in ``chiprun_out/kernel_lint_h100.json``;
+   the hot-loop lint of ResNet-14's and the smoke LM's chunk, every rule of
+   ``CHUNK_CONTRACT`` true (``no-host-callback`` under
+   ``set_sync_debug_mode("error")``); and the repo lint with no finding.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -2434,12 +2450,13 @@ PAPER_ROWS = {
                    "throughput_resnet14_overhead_bound"],
 }
 PSG_BENCHES = ("psg", "e2train", "convergence")   # kernels 5-9, tiny LM
-# nominal steps of each bench in this phase: a quarter of the reference's
+# nominal steps of each bench in this phase: an eighth of the reference's
 # fast-mode budgets (smd 100, slu 100, psg 60, e2train 160, convergence
-# 60), so that the script stays within its time limit (the bench LM is
+# 60; tab2/sgd32 keeps the SGD32_STEPS it is compared over), so that the
+# script stays within its time limit on a slow host (the bench LM is
 # host-bound: 120 s for the phase at half the budgets); None: fast mode
-PAPER_STEPS = {"smd": 25, "slu": 25, "psg": 15, "e2train": 40,
-               "convergence": 15, "throughput": None}
+PAPER_STEPS = {"smd": 12, "slu": 12, "psg": 8, "e2train": 20,
+               "convergence": 8, "throughput": None}
 TAB3_PAPER = ["0.8027", "0.8520", "0.9013"]
 SGD32_STEPS = 8      # tab2/sgd32's first steps, card against CPU
 SGD32_REL = 1e-4     # fp32, TF32 off, no quantization: summation order only
@@ -3153,8 +3170,8 @@ def encdec_vlm_moe_check(torch, mods):
 # ---------------------------------------------------------------------------
 
 SSM_PATHS = {       # arch: (layers, batch, seq) of its main path (None: all)
-    "zamba2_1_2b": (19, 4, 4096),       # one unit of its 2, 4 microbatches
-    "xlstm_350m": (4, 4, 4096),         # one unit of its 24 layers
+    "zamba2_1_2b": (19, 4, 2048),       # one unit of its 2, 4 microbatches
+    "xlstm_350m": (4, 4, 1024),         # one unit of its 24 layers
 }
 SSM_REF_SEQ = 512       # the reduced steps: two 256-token chunks carry state
 MIXER_SEQ = 4096
@@ -4300,6 +4317,120 @@ def distributed_check(torch, mods) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the static cost audit and the linters
+# ---------------------------------------------------------------------------
+
+KERNEL_LINT_TABLE = "kernel_lint_h100.json"     # under chiprun_out/
+
+
+def audit_check(torch, mods) -> dict:
+    """Phase 19a: the four audits of the ``audit`` bench record on the
+    card (the lowered program's column for ``EXPORT_WITNESS`` only), each
+    passing, each group's MACs equal to the CPU's audit bit for bit, and
+    no kernel launched (the predict programs run outside PSG)."""
+    from repro_torch.analysis.audit import audit_experiment
+    from repro_torch.launch.bench_audit import (AUDIT_BATCH, EXPORT_WITNESS,
+                                                _experiments)
+    out = {}
+    reset_all(mods)
+    for exp in _experiments():
+        t0 = time.perf_counter()
+        card = audit_experiment(exp, batch=AUDIT_BATCH, device="cuda",
+                                with_hlo=exp.model.name in EXPORT_WITNESS)
+        card_s = time.perf_counter() - t0
+        cpu = audit_experiment(exp, batch=AUDIT_BATCH, device="cpu",
+                               with_hlo=False)
+        if not card.passed:
+            fail(f"the cost audit of {exp.model.name} failed on the card:\n"
+                 + card.summary())
+        groups = {r.group: r.jaxpr_macs for r in card.rows}
+        if groups != {r.group: r.jaxpr_macs for r in cpu.rows}:
+            fail(f"{exp.model.name}: the card's group MACs differ from the "
+                 "CPU's")
+        out[exp.model.name] = {
+            "passed": card.passed, "groups": len(groups),
+            "cost_total_macs": card.cost_total_macs,
+            "ops_total_macs": card.jaxpr_total_macs,
+            "ops_total_flops": card.jaxpr_total_flops,
+            "lowered_total_flops": card.hlo_total_flops,
+            "lowered_rel_diff": card.hlo_rel_diff, "card_s": card_s}
+    launched = {n: c for mod in mods for n, c in mod.LAUNCHES.items() if c}
+    if launched:
+        fail(f"the audited predict programs launched kernels {launched}")
+    return out
+
+
+def kernel_lint_check(torch, card: str) -> dict:
+    """Phase 19c: every shipped kernel at its lint geometries, no finding;
+    one line a kernel with its resource figures; the launch table (the
+    CPU tests' fixture) into chiprun_out/."""
+    from repro_torch.analysis.kernel_lint import lint_shipped, resources
+    findings, table = lint_shipped("cuda")
+    res = resources(table["rows"])
+    for name, r in res.items():
+        print(json.dumps({"phase": "kernel_lint", "kernel": name, **r}),
+              flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / KERNEL_LINT_TABLE).write_text(json.dumps(
+        {"card": card, "rows": table["rows"],
+         "coverage": table["coverage"]}, indent=1))
+    if findings:
+        fail("kernel lint findings:\n" + "\n".join(str(f) for f in findings))
+    missing = [n for n in list(REPLACES) + ["slu_decide"] if n not in res]
+    if missing:
+        fail(f"the kernel lint did not launch {missing}")
+    return {"launches": len(table["rows"]),
+            "globals": sorted({r["global"] for r in table["rows"]}),
+            "resources": res, "coverage": table["coverage"]}
+
+
+def analysis_check(torch, mods, main_ledger, main_steps: int) -> dict:
+    """Phase 19 (module doc)."""
+    from repro_torch.analysis.hotloop_lint import default_experiments, \
+        lint_chunk
+    from repro_torch.analysis.repo_lint import lint_repo
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"audits": audit_check(torch, mods)}
+    print(json.dumps({"phase": "analysis_audits", **out["audits"]}),
+          flush=True)
+    t0 = time.perf_counter()
+    rep = main_ledger.report(steps=main_steps, validate_against_hlo=True,
+                             device="cuda")
+    if rep.validated_against_hlo is not True:
+        fail("the ResNet-74 main path's energy report is not validated: "
+             f"{rep.validated_against_hlo}")
+    out["energy_report"] = {"validated_against_hlo": True,
+                            "seconds": time.perf_counter() - t0}
+    print(rep.summary(), flush=True)
+    t0 = time.perf_counter()
+    out["kernel_lint"] = kernel_lint_check(torch, card)
+    out["kernel_lint"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["hotloop"] = {}
+    for exp in default_experiments():
+        findings, rules = lint_chunk(exp, device="cuda")
+        if findings or not all(v is True for v in rules.values()):
+            fail(f"hot-loop lint of {exp.model.name}: {rules}\n"
+                 + "\n".join(str(f) for f in findings))
+        out["hotloop"][exp.model.name] = rules
+    out["hotloop_s"] = time.perf_counter() - t0
+    findings = lint_repo()
+    if findings:
+        fail("repo lint findings:\n" + "\n".join(str(f) for f in findings))
+    out["repo_lint"] = {"findings": 0}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card
+    print(json.dumps({"phase": "analysis", "seconds": out["seconds"],
+                      "energy_report_s": out["energy_report"]["seconds"],
+                      "kernel_lint_s": out["kernel_lint"]["seconds"],
+                      "hotloop_s": out["hotloop_s"], "card": card}),
+          flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4326,6 +4457,7 @@ def main() -> None:
         marks.append((name, time.perf_counter()))
     from repro_torch.configs import get_experiment
     from repro_torch.configs.paper_cnns import resnet_conv_shapes
+    from repro_torch.core.ledger import EnergyLedger
     from repro_torch.kernels import build
     from repro_torch.kernels import conv as K
     from repro_torch.kernels import flash_attn as FA
@@ -4389,6 +4521,7 @@ def main() -> None:
         torch, "main_path",
         lambda steps: build_trainer(DEPTH, WIDTH, BATCH, steps, device="cuda"),
         mods, list(K.LAUNCHES))
+    main_ledger = EnergyLedger.from_trainer(trainer)    # phase 19's report
     ev = eval_check(torch, trainer)
     print(json.dumps({"phase": "eval", **ev}), flush=True)
     del trainer
@@ -4461,6 +4594,9 @@ def main() -> None:
     mark("serving")
     distributed = distributed_check(torch, mods)
     mark("distributed")
+    analysis = analysis_check(torch, mods + (GC,), main_ledger,
+                              main["nominal_steps"])
+    mark("analysis")
     phase_s = {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}
     print(json.dumps({"phase": "timing", "seconds": phase_s}), flush=True)
 
@@ -4512,6 +4648,7 @@ def main() -> None:
          "mobilenetv2": mbv2, "paper_benches": paper,
          "dense_archs": dense, "encdec_vlm_moe": encdec, "ssm": ssm,
          "serving": serving, "distributed": distributed,
+         "analysis": analysis,
          "phase_seconds": phase_s,
          "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},

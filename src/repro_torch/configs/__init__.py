@@ -1,9 +1,10 @@
 """Architecture configs: ``get_experiment(arch)`` returns the full
 production config of a ported architecture; ``reduce_experiment`` cuts any
-of them to toy dimensions for CPU tests (the JAX package's
-``repro.configs``).  Ported: the dense decoders ``qwen2_5_3b``,
-``llama3_8b``, ``starcoder2_15b`` and ``h2o_danube_3_4b``, the
-encoder-decoder ``whisper_small``, the VLM ``phi_3_vision_4_2b``, the MoE
+of them to toy dimensions for CPU tests, and ``smoke_experiment(arch)`` is
+that cut of ``arch`` (the JAX package's ``repro.configs``).  Ported: the
+dense decoders ``qwen2_5_3b``, ``llama3_8b``, ``starcoder2_15b`` and
+``h2o_danube_3_4b``, the encoder-decoder ``whisper_small``, the VLM
+``phi_3_vision_4_2b``, the MoE
 models ``deepseek_moe_16b`` and ``grok_1_314b``, the xLSTM
 ``xlstm_350m``, the Mamba2 hybrid ``zamba2_1_2b`` and the paper's CNNs
 (``paper_cnns``)."""
@@ -29,6 +30,13 @@ def get_experiment(arch: str) -> Experiment:
         raise NotImplementedError(f"architecture {arch!r} is not ported; "
                                   f"ported: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}").get_config()
+
+
+def smoke_experiment(arch: str) -> Experiment:
+    """The reduced same-family config of ``arch`` (no config module of
+    either package defines a ``smoke_config`` of its own, so this is the
+    JAX package's ``smoke_experiment`` for every arch)."""
+    return reduce_experiment(get_experiment(arch))
 
 
 def reduce_experiment(exp: Experiment) -> Experiment:

@@ -15,10 +15,21 @@ transformer tables).
 ``MBV2_CFG`` and :func:`mbv2_layout` are MobileNetV2's block schedule, the
 one copy the port keeps: ``models/resnet.MobileNetV2`` builds from it.
 
+:func:`cost_scope` is the counterpart of the JAX package's
+``jax.named_scope("cost:<name>")``: the models wrap each layer group in it
+(``stem``, ``s{i}.trans``, ``s{i}.rest``, ``b{i}``, ``b{i}.dw``, ``head``,
+``fc``, ``embed``, ``unit``), and the op counter of the static audit
+(``analysis/op_cost.py``) attributes each dispatched op to the innermost
+open scope.  :func:`patch_extraction` marks the im2col gather, which the
+counter books as data movement.  Both are thread-local and cost one
+attribute read unless a counter listens on the thread.
+
 The tables are pinned against the JAX package's in the tests.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -31,6 +42,84 @@ MBV2_CFG = [
     (1, 16, 1, 1), (6, 24, 2, 1), (6, 32, 3, 2),
     (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
 MBV2_STEM, MBV2_HEAD = 32, 1280     # stem and head widths
+
+
+# ---------------------------------------------------------------------------
+# cost scopes: the attribution anchors of the static audit
+# ---------------------------------------------------------------------------
+
+_tls = threading.local()
+
+
+def _stack() -> List[str]:
+    if not hasattr(_tls, "scopes"):
+        _tls.scopes = []
+    return _tls.scopes
+
+
+@contextlib.contextmanager
+def cost_scope(name: str):
+    """Attribute the ops dispatched inside to the layer group ``name``
+    (innermost scope wins); a no-op unless a counter listens."""
+    if not getattr(_tls, "listeners", 0):
+        yield
+        return
+    stack = _stack()
+    stack.append(name)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+@contextlib.contextmanager
+def patch_extraction():
+    """Mark the ops inside as patch extraction (the im2col gather): data
+    movement, never MACs (``jaxpr_cost``'s rule for
+    ``conv_general_dilated_patches``)."""
+    if not getattr(_tls, "listeners", 0):
+        yield
+        return
+    _tls.gather = getattr(_tls, "gather", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.gather -= 1
+
+
+def current_scope() -> str:
+    """The innermost open :func:`cost_scope` on this thread, or ``""``."""
+    stack = _stack()
+    return stack[-1] if stack else ""
+
+
+def in_patch_extraction() -> bool:
+    return getattr(_tls, "gather", 0) > 0
+
+
+@contextlib.contextmanager
+def listening(counting: bool = False):
+    """Open the scopes on this thread for a counter.  ``counting`` marks
+    the op counter of the static audit: the kernel dispatch layer refuses
+    to run under it (:func:`refuse_if_counting`), since a kernel's launch
+    is invisible to a dispatch mode and must never count as 0."""
+    _tls.listeners = getattr(_tls, "listeners", 0) + 1
+    _tls.counting = getattr(_tls, "counting", 0) + int(counting)
+    try:
+        yield
+    finally:
+        _tls.listeners -= 1
+        _tls.counting -= int(counting)
+
+
+def refuse_if_counting() -> None:
+    """Raise when the op counter listens on this thread (called by every
+    op of ``kernels/dispatch.py``)."""
+    if getattr(_tls, "counting", 0):
+        raise RuntimeError(
+            "the counted program reached the kernel dispatch layer: a "
+            "kernel's launch is invisible to the op counter, which never "
+            "counts it as 0; count a program that runs outside PSG")
 
 
 def mbv2_layout() -> List[Tuple[int, int, int, int, bool]]:

@@ -89,9 +89,8 @@ class EnergyReport:
     energy_pj_measured: Optional[float]
     energy_savings_assumed: float
     energy_savings_measured: Optional[float]
-    # cost-table verdict of the static cost audit, in the JAX package's
-    # position: always None here (no audit was run; None is not False),
-    # since the audit is not ported
+    # cost-table verdict of the static cost audit (analysis/audit.py):
+    # None when no audit was run (None is not False)
     validated_against_hlo: Optional[bool] = None
     # straggler telemetry: steps force-dropped
     # because they exceeded the per-step deadline.  A subset of the SMD
@@ -208,16 +207,19 @@ class EnergyLedger:
     # ----- the report -----
 
     def report(self, steps: Optional[int] = None,
-               validate_against_hlo: bool = False) -> EnergyReport:
+               validate_against_hlo: bool = False,
+               device=None) -> EnergyReport:
         """Build the report over ``steps`` nominal steps (default: the
-        config's ``total_steps``).  ``validate_against_hlo=True`` asks for
-        the JAX package's static cost audit, which is not ported: it
-        raises ``NotImplementedError``."""
+        config's ``total_steps``); with ``validate_against_hlo`` also run
+        the static cost audit of this ledger's table on ``device`` (the
+        card unless ``"cpu"``; cached per configuration and table) and
+        stamp its verdict into ``EnergyReport.validated_against_hlo``."""
+        verdict: Optional[bool] = None
         if validate_against_hlo:
-            raise NotImplementedError(
-                "validate_against_hlo: the static cost audit (the JAX "
-                "package's analysis/audit.py) is not ported; it waits for "
-                "the analysis port (ROADMAP queue 1, item 8)")
+            # deferred: analysis imports tasks imports core
+            from repro_torch.analysis.audit import validated_verdict
+            verdict = validated_verdict(self.exp, cost=self.cost,
+                                        device=device)
         exp, cost = self.exp, self.cost
         e2, tc = exp.e2, exp.train
         steps = steps if steps is not None else tc.total_steps
@@ -305,4 +307,5 @@ class EnergyLedger:
             energy_savings_assumed=1.0 - e_assumed / baseline,
             energy_savings_measured=(
                 None if e_measured is None else 1.0 - e_measured / baseline),
-            straggler_dropped=int(self.straggler_dropped))
+            straggler_dropped=int(self.straggler_dropped),
+            validated_against_hlo=verdict)

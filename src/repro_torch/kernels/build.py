@@ -7,6 +7,10 @@ shared headers ``csrc/*.cuh`` so that an edited source or header is
 rebuilt, and is loaded with ``ctypes``.  The sources
 include no PyTorch header, so a build takes seconds.  Nothing is built or
 loaded at import time.
+
+Each library also exports the kernel lint's launch notes (``csrc/lint.cuh``):
+:func:`record_launches` turns them on and :func:`launch_notes` reads each
+noted launch back with the kernel's attributes on the card.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Union
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("conv", "psg_matmul", "flash_attn", "quant",    # csrc/<name>.cu
@@ -76,3 +80,48 @@ def build(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+# the prefix of each library's LINT_EXPORTS (csrc/lint.cuh)
+LINT_PREFIX = {"conv": "conv", "psg_matmul": "psg", "flash_attn": "flash",
+               "quant": "quant", "graph_cond": "graph_cond"}
+# lint::attrs's outputs, in order
+NOTE_FIELDS = ("regs", "static_smem", "dynamic_smem", "max_dynamic_smem",
+               "local_bytes", "max_threads", "blocks_per_sm", "threads",
+               "variant")
+
+
+def _lint_fn(name: str, fn: str):
+    f = getattr(load(name), f"{LINT_PREFIX[name]}_lint_{fn}")
+    f.restype = ctypes.c_char_p if fn == "name" else ctypes.c_int
+    f.argtypes = {"record": [ctypes.c_int], "count": [],
+                  "name": [ctypes.c_int],
+                  "attrs": [ctypes.c_int, ctypes.c_void_p]}[fn]
+    return f
+
+
+def record_launches(name: str, on: bool) -> None:
+    """Start (clearing the old notes) or stop noting the launches of
+    library ``name``."""
+    _lint_fn(name, "record")(int(on))
+
+
+def launch_notes(name: str) -> List[Dict[str, Union[str, int]]]:
+    """Every launch library ``name`` noted since :func:`record_launches`:
+    the ``__global__`` function's name and :data:`NOTE_FIELDS`.  Raises
+    when the notes overflowed or an attribute query failed."""
+    n = _lint_fn(name, "count")()
+    if n > 1024:
+        raise RuntimeError(f"{name}: {n} launches noted, past the 1024 "
+                           "lint.cuh keeps")
+    attrs, get_name = _lint_fn(name, "attrs"), _lint_fn(name, "name")
+    out = []
+    for i in range(n):
+        buf = (ctypes.c_longlong * len(NOTE_FIELDS))()
+        err = attrs(i, ctypes.addressof(buf))
+        if err:
+            raise RuntimeError(f"{name}: attributes of launch {i}: CUDA "
+                               f"error {err}")
+        out.append({"global": get_name(i).decode(),
+                    **dict(zip(NOTE_FIELDS, (int(v) for v in buf)))})
+    return out

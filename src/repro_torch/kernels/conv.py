@@ -78,6 +78,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.cost import patch_extraction
+
 FALLBACK_BLOCK = 128   # dout block of one fallback flag (the TPU kernels' tile)
 PRED_BLOCK = 256       # positions of a weight-gradient pre-pass block
 # positions a split of the weight-gradient kernels sums at most: each byte
@@ -107,10 +109,11 @@ def conv_patches(xp: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     the kernels above gather their patches in-kernel instead."""
     B, Hp, Wp, C = xp.shape
     ho, wo = conv_out_hw(Hp, Wp, k, stride)
-    taps = [xp[:, ki:ki + (ho - 1) * stride + 1:stride,
-               kj:kj + (wo - 1) * stride + 1:stride, :]
-            for ki in range(k) for kj in range(k)]
-    return torch.stack(taps, dim=-1).reshape(B * ho * wo, C * k * k)
+    with patch_extraction():       # data movement for the static audit
+        taps = [xp[:, ki:ki + (ho - 1) * stride + 1:stride,
+                   kj:kj + (wo - 1) * stride + 1:stride, :]
+                for ki in range(k) for kj in range(k)]
+        return torch.stack(taps, dim=-1).reshape(B * ho * wo, C * k * k)
 
 
 def pred_grid(hp: int, wp: int, k: int, stride: int) -> Tuple[int, int, int]:

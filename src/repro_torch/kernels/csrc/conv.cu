@@ -369,6 +369,8 @@ int launch_fwd_mma(const int8_t* x, const int8_t* wt, const float* sx,
   if (err) return err;
   const int tiles = (P.B + P.NI - 1) / P.NI * P.tpi;
   dim3 grid(tiles, (P.dout + 8 * NT - 1) / (8 * NT));
+  lint::note(conv_fwd_mma_kernel<NT>, "conv_fwd_mma_kernel", NT, warps * 32,
+             smem);
   conv_fwd_mma_kernel<NT><<<grid, warps * 32, smem, st>>>(x, wt, sx, sw, y, P);
   return (int)cudaGetLastError();
 }
@@ -664,6 +666,8 @@ int launch_dx_mma(const int16_t* g, const int8_t* wt, const float* sg,
   if (err) return err;
   const int tiles = (P.B + P.NI - 1) / P.NI * P.tpi;
   dim3 grid(tiles, (P.C + 8 * NT - 1) / (8 * NT), P.s * P.s);
+  lint::note(conv_dx_mma_kernel<NT>, "conv_dx_mma_kernel", NT, warps * 32,
+             smem);
   conv_dx_mma_kernel<NT><<<grid, warps * 32, smem, st>>>(g, wt, sg, sw, dx, P,
                                                           rows);
   return (int)cudaGetLastError();
@@ -930,6 +934,8 @@ int launch_code_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const int threads = 32 * P.k * P.k * P.ksplit;
+  lint::note(kernel, kSign ? "conv_sign_mma_kernel" : "conv_pred_mma_kernel",
+             10 * MT + NP, threads, smem);
   kernel<<<dim3(tj, ti, splits), threads, smem, st>>>(xt, glo, ghi, out64, P);
   return (int)cudaGetLastError();
 }
@@ -1039,9 +1045,11 @@ int wgrad_prepass(const void* x, const void* g, int B, int Hp, int Wp, int C,
   // 16-byte loads of a position's channels where every row is 16-byte aligned
   const int vx = C % 16 == 0 && (uintptr_t)x % 16 == 0;
   const int vg = dout % 8 == 0 && (uintptr_t)g % 16 == 0;
+  lint::note(grid_kmajor_kernel<int8_t>, "grid_kmajor_kernel", 1, GT, 0);
   grid_kmajor_kernel<int8_t><<<dim3(P.NpX / GT, 1, s * s), GT, 0, st>>>(
       (const int8_t*)x, C, P.NpX, B, Hq, Wq, Hp, Wp, s, vx, (uint8_t*)S.xt,
       nullptr, (unsigned*)S.acc, S.acc_words);
+  lint::note(grid_kmajor_kernel<int16_t>, "grid_kmajor_kernel", 2, GT, 0);
   grid_kmajor_kernel<int16_t><<<dim3(P.Np / GT, 1, 1), GT, 0, st>>>(
       (const int16_t*)g, dout, P.Np, B, Hq, Wq, Ho, Wo, 1, vg, S.lo, S.hi, sp,
       zs);
@@ -1056,6 +1064,7 @@ int conv_fwd(const void* x, const void* w, void* y, int B, int Hp, int Wp,
              int C, int dout, int k, int s, int Ho, int Wo, void* stream) {
   long long total = (long long)B * Ho * Wo * dout;
   if (total == 0) return 0;
+  lint::note(conv_fwd_kernel, "conv_fwd_kernel", 0, kThreads, 0);
   conv_fwd_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (float*)y, B, Hp, Wp, C, dout, k, s,
       Ho, Wo);
@@ -1079,6 +1088,7 @@ int conv_fwd_codes(const void* xc, const void* wc, void* wt, const void* sx,
   P.copy16 = aligned && (Wp * C) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = (dout + bn - 1) / bn * bn;
+  lint::note(wt_tapmajor_kernel, "wt_tapmajor_kernel", 0, kThreads, 0);
   wt_tapmajor_kernel<<<blocks_for((long long)rows * Kp), kThreads, 0, st>>>(
       (const int8_t*)wc, (int8_t*)wt, C, k * k, dout, rows, Kp);
   int err = (int)cudaGetLastError();
@@ -1095,6 +1105,7 @@ int conv_grad_x(const void* g, const void* wt, void* dx, int B, int Ho, int Wo,
                 int dout, int C, int k, int s, int Hp, int Wp, void* stream) {
   long long total = (long long)B * Hp * Wp * C;
   if (total == 0) return 0;
+  lint::note(conv_grad_x_kernel, "conv_grad_x_kernel", 0, kThreads, 0);
   conv_grad_x_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)g, (const float*)wt, (float*)dx, B, Ho, Wo, dout, C, k, s,
       Hp, Wp);
@@ -1127,6 +1138,7 @@ int conv_grad_x_codes(const void* gc, const void* wc, void* wt,
   cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)s * s * rows * Kp;
   if (n > 0) {
+    lint::note(wt_dx_kernel, "wt_dx_kernel", 0, kThreads, 0);
     wt_dx_kernel<<<blocks_for(n), kThreads, 0, st>>>((const int8_t*)wc,
                                                     (int8_t*)wt, P, rows);
     int err = (int)cudaGetLastError();
@@ -1186,6 +1198,7 @@ int conv_grad_w_sign(const void* pred, const void* xq, const void* gq,
   // rows a select block: about kSelectUnroll elements a thread
   const int bw = bn < dout ? bn : dout;
   const int R = (kSelectUnroll * kSelectThreads + bw - 1) / bw;
+  lint::note(conv_select_kernel, "conv_select_kernel", 0, kSelectThreads, 0);
   conv_select_kernel<<<dim3(nj, (rows + R - 1) / R), kSelectThreads, 0, st>>>(
       (const float*)pred, S.acc, (const float*)tau, (int8_t*)sign,
       (int32_t*)stats, rows, dout, k * k, bn, R);
@@ -1224,6 +1237,7 @@ int conv_grad_w_select(const void* pred, const void* acc, const void* tau,
   if (err) return err;
   const int bw = bn < dout ? bn : dout;
   const int R = (kSelectUnroll * kSelectThreads + bw - 1) / bw;
+  lint::note(conv_select_kernel, "conv_select_kernel", 0, kSelectThreads, 0);
   conv_select_kernel<<<dim3(nj, (rows + R - 1) / R), kSelectThreads, 0, st>>>(
       (const float*)pred, (const long long*)acc, (const float*)tau,
       (int8_t*)sign, (int32_t*)stats, rows, dout, kk, bn, R);
@@ -1231,3 +1245,5 @@ int conv_grad_w_select(const void* pred, const void* acc, const void* tau,
 }
 
 }  // extern "C"
+
+LINT_EXPORTS(conv)

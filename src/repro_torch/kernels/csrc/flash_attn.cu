@@ -1573,6 +1573,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
     int err = prepare(flash_fwd_mma_kernel<HD>, smem);
     if (err) return err;
     dim3 grid((G.S + FQ - 1) / FQ, G.B * G.nh);
+    lint::note(flash_fwd_mma_kernel<HD>, "flash_fwd_mma_kernel", HD,
+               kFwdThreads, smem);
     flash_fwd_mma_kernel<HD><<<grid, kFwdThreads, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, G);
   } else {
@@ -1581,6 +1583,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
     int err = prepare(flash_fwd_kernel<T, HD>, smem);
     if (err) return err;
     dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
+    lint::note(flash_fwd_kernel<T, HD>, "flash_fwd_kernel", HD, kThreads,
+               smem);
     flash_fwd_kernel<T, HD><<<grid, kThreads, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, G);
   }
@@ -1597,6 +1601,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     int err = prepare(flash_bwd_dq_mma_kernel<HD>, smem);
     if (err) return err;
     dim3 grid((G.S + DQ8 - 1) / DQ8, G.B * G.nh);
+    lint::note(flash_bwd_dq_mma_kernel<HD>, "flash_bwd_dq_mma_kernel", HD,
+               kDqThreads, smem);
     flash_bwd_dq_mma_kernel<HD><<<grid, kDqThreads, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (float*)dq, G);
@@ -1606,6 +1612,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     int err = prepare(flash_bwd_dq_kernel<T, HD>, smem);
     if (err) return err;
     dim3 grid((G.S + BQ - 1) / BQ, G.B * G.nh);
+    lint::note(flash_bwd_dq_kernel<T, HD>, "flash_bwd_dq_kernel", HD,
+               kThreads, smem);
     flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (float*)dq, G);
@@ -1645,6 +1653,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     const size_t smem = DkvShape<HD>::kSmem;
     if ((err = prepare(flash_bwd_dkv_mma_kernel<HD>, smem))) return err;
     const int blocks = (G.T + DK - 1) / DK * G.B * G.nkv;
+    lint::note(flash_bwd_dkv_mma_kernel<HD>, "flash_bwd_dkv_mma_kernel", HD,
+               kDkvThreads, smem);
     flash_bwd_dkv_mma_kernel<HD><<<blocks, kDkvThreads, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (const float*)scales,
@@ -1657,6 +1667,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                               (BQ9 / 2) * (BK9 + HD);
     if ((err = prepare(flash_bwd_dkv_kernel<T, HD>, smem))) return err;
     dim3 grid((G.T + BK9 - 1) / BK9, G.B * G.nkv);
+    lint::note(flash_bwd_dkv_kernel<T, HD>, "flash_bwd_dkv_kernel", HD,
+               kThreads, smem);
     flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (const float*)scales,
@@ -1744,3 +1756,5 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 }  // extern "C"
+
+LINT_EXPORTS(flash)

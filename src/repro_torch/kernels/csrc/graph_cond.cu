@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lint.cuh"
+
 #if CUDART_VERSION < 12040
 #error "graph_cond.cu needs CUDA 12.4 or later (conditional graph nodes)"
 #endif
@@ -84,6 +86,7 @@ int slu_decide(const void* u, const void* p, int force, void* flag,
   if (n <= 0) return cudaSuccess;
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132 * 8) blocks = 132 * 8;
+  lint::note(slu_decide_kernel, "slu_decide_kernel", 0, kThreads, 0);
   slu_decide_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)u, (const float*)p, force, (float*)flag, n,
       (cudaGraphConditionalHandle)handle);
@@ -145,3 +148,5 @@ int graph_if_close(void* body_stream) {
 }
 
 }  // extern "C"
+
+LINT_EXPORTS(graph_cond)

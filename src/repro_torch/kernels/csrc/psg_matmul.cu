@@ -333,6 +333,8 @@ int launch_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     Sh::kSmem);
     if (err) return err;
+    lint::note(sign_mma_kernel<WM, WN, MT, NT>, "sign_mma_kernel",
+               1000 * WM + 100 * WN + 10 * MT + NT, Sh::kThreads, Sh::kSmem);
     sign_mma_kernel<WM, WN, MT, NT>
         <<<dim3(tj, ti, splits), Sh::kThreads, Sh::kSmem, st>>>(
             xt, glo, ghi, acc, sel, din, dout, Np, per);
@@ -341,6 +343,8 @@ int launch_mma(const int8_t* xt, const uint8_t* glo, const uint8_t* ghi,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     Sh::kSmem);
     if (err) return err;
+    lint::note(pred_mma_kernel<WM, WN, MT, NT>, "pred_mma_kernel",
+               1000 * WM + 100 * WN + 10 * MT + NT, Sh::kThreads, Sh::kSmem);
     pred_mma_kernel<WM, WN, MT, NT>
         <<<dim3(tj, ti, splits), Sh::kThreads, Sh::kSmem, st>>>(
             xt, glo, ghi, out, acc, din, dout, Np, per);
@@ -456,6 +460,7 @@ int psg_sign(const void* pred, const void* xq, const void* gq,
                               nullptr, (long long*)full, false, sel, din, dout,
                               Np, &used_acc, st);
   if (err || !used_acc) return err;
+  lint::note(select_kernel, "select_kernel", 0, kSelectThreads, 0);
   select_kernel<<<dim3(nj, ni), kSelectThreads, 0, st>>>(
       (const float*)pred, (const long long*)full, (const float*)tau,
       (int8_t*)sign, (int32_t*)stats, din, dout, bm, bn);
@@ -470,6 +475,7 @@ int psg_select(const void* pred, const void* full, const void* tau,
   if (bm < 1 || bn < 1) return (int)cudaErrorInvalidValue;
   if (din == 0 || dout == 0) return 0;
   const int ni = (din + bm - 1) / bm, nj = (dout + bn - 1) / bn;
+  lint::note(select_kernel, "select_kernel", 0, kSelectThreads, 0);
   select_kernel<<<dim3(nj, ni), kSelectThreads, 0, (cudaStream_t)stream>>>(
       (const float*)pred, (const long long*)full, (const float*)tau,
       (int8_t*)sign, (int32_t*)stats, din, dout, bm, bn);
@@ -495,3 +501,5 @@ int psg_full_product(const void* xq, const void* gq, void* xt, void* gt,
 }
 
 }  // extern "C"
+
+LINT_EXPORTS(psg)

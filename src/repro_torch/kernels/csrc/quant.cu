@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lint.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -182,6 +184,7 @@ int absmax(const void* x, void* partial, long long n, int aligned,
   const long long nvec = aligned ? n / VEC : 0;
   const int blocks = grid_for(work_items(n, nvec, VEC),
                               (long long)kThreads * kUnroll, kRedBlocks);
+  lint::note(absmax_kernel<S>, "absmax_kernel", (int)sizeof(S), kThreads, 0);
   absmax_kernel<S><<<blocks, kThreads, 0, st>>>(
       (const S*)x, (unsigned*)partial, n, nvec);
   *nparts = blocks;
@@ -195,6 +198,8 @@ int pass(const void* x, const void* scale, const void* partial, int nparts,
   constexpr int VEC = sizeof(uint4) / sizeof(S);
   const long long nvec = aligned ? n / VEC : 0;
   const int blocks = grid_for(work_items(n, nvec, VEC), kThreads, kMaxBlocks);
+  lint::note(quantize_kernel<S>, "quantize_kernel", (int)sizeof(S), kThreads,
+             0);
   quantize_kernel<S><<<blocks, kThreads, 0, st>>>(
       (const S*)x, (const float*)scale, (const unsigned*)partial, nparts,
       (float*)scale_out, (S*)out, n, nvec, lim);
@@ -267,3 +272,5 @@ int quantize_scaled_bf16(const void* x, const void* scale, void* out,
 }
 
 }  // extern "C"
+
+LINT_EXPORTS(quant)

@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lint.cuh"
+
 namespace {
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -99,6 +101,7 @@ __global__ void ll_to_f32_kernel(const long long* __restrict__ src,
 inline int ll_to_f32(const long long* src, float* dst, long long n,
                      cudaStream_t st) {
   if (n == 0) return 0;
+  lint::note(ll_to_f32_kernel, "ll_to_f32_kernel", 0, 256, 0);
   ll_to_f32_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(src, dst, n);
   return (int)cudaGetLastError();
 }
@@ -158,6 +161,8 @@ int kmajor(const CODE* src, int batch, int N, int C, int Np, uint8_t* lo,
   if (Np % kKTile) return (int)cudaErrorInvalidValue;
   if (Np == 0 || C == 0 || batch == 0) return 0;
   dim3 grid(Np / kKTile, (C + kKTile - 1) / kKTile, batch);
+  lint::note(kmajor_kernel<CODE, kPerm16>, "kmajor_kernel",
+             2 * (int)sizeof(CODE) + kPerm16, 256, 0);
   kmajor_kernel<CODE, kPerm16><<<grid, 256, 0, st>>>(src, N, C, Np, lo, hi);
   return (int)cudaGetLastError();
 }

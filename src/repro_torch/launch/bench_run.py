@@ -4,14 +4,16 @@ package's ``benchmarks/run.py``).
     python -m repro_torch.launch.bench_run [--full] [--only a,b] [--device cpu]
     python -m repro_torch.launch.bench_run --json PATH [--json-throughput PATH]
     python -m repro_torch.launch.bench_run --json-ft [PATH] [--device cpu]
+    python -m repro_torch.launch.bench_run --json-audit [PATH] [--device cpu]
 
 Prints ``name,us_per_call,derived`` CSV.  ``--full`` runs the longer
 budgets.  ``--only`` takes the benches with a port: ``smd`` (Fig. 3, Tab.
 1), ``slu`` (Fig. 4), ``psg`` (Tab. 2), ``e2train`` (Tab. 3), ``cnn`` (Tab.
-4), ``convergence`` (Fig. 5), ``kernels``, ``throughput`` and ``ft`` (the
-fault-injection record); the JAX package's ``conv``, ``attn``,
-``roofline`` and ``audit`` are not ported and are refused with exit code 2
-and what they wait for.
+4), ``convergence`` (Fig. 5), ``kernels``, ``throughput``, ``ft`` (the
+fault-injection record) and ``audit`` (the static cost audit and the
+linters, ``launch/bench_audit.py``); the JAX package's ``conv``, ``attn``
+and ``roofline`` are not ported and are refused with exit code 2 and what
+they wait for.
 
 A bench that raises prints ``name,0.0,ERROR:<type>:<message>`` (its
 traceback on stderr); the driver carries on with the others and exits 1 at
@@ -26,7 +28,10 @@ PATH`` writes the chunked loop's throughput record
 (``bench_throughput.throughput_json``).  ``--json-ft [PATH]`` (default
 ``BENCH_ft.json``) writes the fault-injection record
 (``bench_ft.ft_json``) and exits 1 when any scenario did not recover.
-Each writes only to the path it is given.
+``--json-audit [PATH]`` (default ``BENCH_audit.json``) writes the static
+cost-audit record (``bench_audit.audit_json``) and exits 1 when an audit
+or a linter failed, 2 when a linter crashed.  Each writes only to the
+path it is given.
 
 Runs on the card unless ``--device cpu`` is given; the kernels build at the
 first call that needs them, inside the first bench that runs them (build
@@ -49,9 +54,10 @@ from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
 from repro_torch.core.device import resolve_device
 from repro_torch.core.ledger import EnergyLedger
 from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
-from repro_torch.launch import (bench_cnn, bench_convergence, bench_e2train,
-                                bench_ft, bench_kernels, bench_psg,
-                                bench_slu, bench_smd, bench_throughput)
+from repro_torch.launch import (bench_audit, bench_cnn, bench_convergence,
+                                bench_e2train, bench_ft, bench_kernels,
+                                bench_psg, bench_slu, bench_smd,
+                                bench_throughput)
 from repro_torch.launch.train import _fp32_is_fp32
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
@@ -66,13 +72,13 @@ BENCHES = {
     "kernels": bench_kernels.run,
     "throughput": bench_throughput.run,     # the chunked loop
     "ft": bench_ft.run,                     # fault-injection recovery
+    "audit": bench_audit.run,               # the static cost audit, linters
 }
 # the JAX package's benches with no port yet, and what each waits for
 _BYTES = ("a decision on what the card's byte count counts (the CUDA "
           "kernels' own tiles or the TPU kernels' BlockSpec model)")
-_ANALYSIS = "the port of launch/dryrun and analysis/"
-NOT_PORTED = {"conv": _BYTES, "attn": _BYTES, "roofline": _ANALYSIS,
-              "audit": _ANALYSIS}
+NOT_PORTED = {"conv": _BYTES, "attn": _BYTES,
+              "roofline": "the port of launch/dryrun and launch/specs"}
 
 
 def table3_config_derived() -> list:
@@ -141,6 +147,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "retry and surfacing, kill and restart) to PATH "
                          "and exit 1 if any recovery failed (skips the CSV "
                          "benches)")
+    ap.add_argument("--json-audit", nargs="?", const="BENCH_audit.json",
+                    default=None, metavar="PATH",
+                    help="write the static cost-audit record (cost tables "
+                         "against the counted ops and the lowered program, "
+                         "and the linters) to PATH; exit 1 when it failed, "
+                         "2 when a linter crashed (skips the CSV benches)")
     args = ap.parse_args(argv)
     fast = not args.full
     only = args.only.split(",") if args.only else list(BENCHES)
@@ -155,7 +167,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return 2
     dev = resolve_device(args.device)
 
-    if args.json or args.json_throughput or args.json_ft:
+    if args.json or args.json_throughput or args.json_ft or args.json_audit:
         if args.json:
             _write(args.json, energy_json(fast, dev))
         if args.json_throughput:
@@ -166,6 +178,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             _write(args.json_ft, record)
             if not record["all_recovered"]:
                 print("fault-injection recovery FAILED", file=sys.stderr)
+                return 1
+        if args.json_audit:
+            record = bench_audit.audit_json(fast, dev)
+            _write(args.json_audit, record)
+            if record["lint_errors"]:
+                print("lint pass(es) crashed: "
+                      f"{', '.join(record['lint_errors'])}", file=sys.stderr)
+                return 2
+            if record["all_passed"] is False:
+                print("static cost audit FAILED", file=sys.stderr)
                 return 1
         return 0
 

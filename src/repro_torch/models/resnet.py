@@ -41,7 +41,8 @@ from torch import nn
 
 from repro_torch.core import psg, rng
 from repro_torch.core.config import E2TrainConfig
-from repro_torch.core.cost import MBV2_HEAD, MBV2_STEM, mbv2_layout
+from repro_torch.core.cost import MBV2_HEAD, MBV2_STEM, cost_scope, \
+    mbv2_layout
 from repro_torch.core.slu import Gate, GateState, gated_residual, \
     resnet_uniforms
 from repro_torch.distributed import sharding
@@ -162,36 +163,41 @@ class ResNet(nn.Module):
             slu_u = resnet_uniforms(rng.PRNGKey(0) if key is None else key,
                                     n_blocks)
         one = torch.ones((), device=x.device)
-        h = F.relu(self.stem_bn(self.stem(x)))
+        with cost_scope("stem"):
+            h = F.relu(self.stem_bn(self.stem(x)))
         gst: Optional[GateState] = self.slu_gate.init_state() if slu_on else None
         kps, exs = [], []
         for stage, blocks in enumerate(self.stages):
             for b, blk in enumerate(blocks):
                 glob = stage * self.n + b
-                if blk.down is not None:
-                    stride = 2 if stage > 0 else 1
-                    h = F.relu(blk.down(h, stride) + blk.branch(h, stride))
-                    kps.append(one)
-                    exs.append(one)
-                    continue
-                if not slu_on:
-                    h = F.relu(h + blk.branch(h, 1))
-                    kps.append(one)
-                    exs.append(one)
-                    continue
-                pkeep, gst = self.slu_gate(h, gst)
-                force = slu_cfg.never_skip_first_last and \
-                    glob in (0, n_blocks - 1)
-                h, ex = gated_residual(
-                    lambda t, blk=blk: blk.branch(t, 1), h, pkeep,
-                    None if slu_u is None else slu_u[glob], force,
-                    modules=(blk,),
-                    keep=None if keep is None else bool(keep[glob]))
-                h = F.relu(h)
+                # the audit's groups: block 0 of a stage, then the others
+                scope = f"s{stage}.trans" if b == 0 else f"s{stage}.rest"
+                with cost_scope(scope):
+                    if blk.down is not None:
+                        stride = 2 if stage > 0 else 1
+                        h = F.relu(blk.down(h, stride) + blk.branch(h, stride))
+                        kps.append(one)
+                        exs.append(one)
+                        continue
+                    if not slu_on:
+                        h = F.relu(h + blk.branch(h, 1))
+                        kps.append(one)
+                        exs.append(one)
+                        continue
+                    pkeep, gst = self.slu_gate(h, gst)
+                    force = slu_cfg.never_skip_first_last and \
+                        glob in (0, n_blocks - 1)
+                    h, ex = gated_residual(
+                        lambda t, blk=blk: blk.branch(t, 1), h, pkeep,
+                        None if slu_u is None else slu_u[glob], force,
+                        modules=(blk,),
+                        keep=None if keep is None else bool(keep[glob]))
+                    h = F.relu(h)
                 kps.append(pkeep)
                 exs.append(ex)
-        pooled = h.mean(dim=(1, 2))
-        logits = pooled @ self.fc_w + self.fc_b
+        with cost_scope("fc"):
+            pooled = h.mean(dim=(1, 2))
+            logits = pooled @ self.fc_w + self.fc_b
         kps_t = torch.stack(kps)
         aux = {"slu_cost": kps_t.mean() if slu_on else one,
                "slu_executed": torch.stack(exs),
@@ -284,8 +290,9 @@ class InvertedResidual(nn.Module):
     BN, with the identity added where ``residual``."""
 
     def __init__(self, cin: int, hidden: int, cout: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, name: str = ""):
         super().__init__()
+        self.name = name                 # the audit's group, b{i}
         self.expand = Conv(cin, hidden, 1, generator)
         self.bn1 = BatchNorm(hidden)
         self.dw = nn.Parameter(dense_init((9, hidden), generator))
@@ -296,7 +303,9 @@ class InvertedResidual(nn.Module):
     def forward(self, h: torch.Tensor, stride: int,
                 residual: bool) -> torch.Tensor:
         y = F.relu6(self.bn1(self.expand(h)))
-        y = F.relu6(self.bn2(depthwise(y, self.dw, stride)))
+        with cost_scope(f"{self.name}.dw"):
+            y = depthwise(y, self.dw, stride)
+        y = F.relu6(self.bn2(y))
         y = self.bn3(self.project(y))
         return h + y if residual else y
 
@@ -314,8 +323,8 @@ class MobileNetV2(nn.Module):
         self.stem = Conv(3, MBV2_STEM, 3, g)
         self.stem_bn = BatchNorm(MBV2_STEM)
         self.blocks = nn.ModuleList(
-            [InvertedResidual(cin, hidden, cout, g)
-             for cin, hidden, cout, _, _ in self.layout])
+            [InvertedResidual(cin, hidden, cout, g, name=f"b{i}")
+             for i, (cin, hidden, cout, _, _) in enumerate(self.layout)])
         self.head = Conv(self.layout[-1][2], MBV2_HEAD, 1, g)
         self.head_bn = BatchNorm(MBV2_HEAD)
         self.fc_w = nn.Parameter(dense_init((MBV2_HEAD, num_classes), g))
@@ -332,11 +341,15 @@ class MobileNetV2(nn.Module):
         if keep is not None:
             raise ValueError("MobileNetV2 has no SLU gate; it takes no "
                              "injected keep mask")
-        h = F.relu6(self.stem_bn(self.stem(x)))
+        with cost_scope("stem"):
+            h = F.relu6(self.stem_bn(self.stem(x)))
         for blk, (_, _, _, stride, residual) in zip(self.blocks, self.layout):
-            h = blk(h, stride, residual)
-        h = F.relu6(self.head_bn(self.head(h)))
-        logits = h.mean(dim=(1, 2)) @ self.fc_w + self.fc_b
+            with cost_scope(blk.name):
+                h = blk(h, stride, residual)
+        with cost_scope("head"):
+            h = F.relu6(self.head_bn(self.head(h)))
+        with cost_scope("fc"):
+            logits = h.mean(dim=(1, 2)) @ self.fc_w + self.fc_b
         aux = {"slu_cost": x.new_ones(()), "slu_executed": x.new_ones((0,))}
         return logits, aux
 

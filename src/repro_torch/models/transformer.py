@@ -75,6 +75,7 @@ from repro_torch.core import psg, rng
 from repro_torch.core.config import (BLOCK_ATTN, BLOCK_KINDS, BLOCK_MOE,
                                      BLOCK_SHARED_ATTN, E2TrainConfig,
                                      ModelConfig, sub_blocks, unit_kinds)
+from repro_torch.core.cost import cost_scope
 from repro_torch.core.energy import block_fwd_flops
 from repro_torch.core.slu import Gate, flops_regularizer, gated_residual, \
     lm_uniforms
@@ -200,7 +201,9 @@ class TransformerLM(nn.Module):
         cfg, slu_cfg = self.cfg, self.e2.slu
         key = rng.PRNGKey(0) if key is None else key
         dt = getattr(torch, cfg.dtype)
-        x = self.embed[tokens].to(dt)
+        # the audit's groups (core/cost.cost_scope): embed, unit, head
+        with cost_scope("embed"):
+            x = self.embed[tokens].to(dt)
         memory = None
         if cfg.encoder_layers:
             if frontend is None:
@@ -223,36 +226,38 @@ class TransformerLM(nn.Module):
         kps, exs = [], []
         drawn = 0                                  # uniforms used so far
         aux_loss = torch.zeros((), device=x.device)
-        for i, blk in enumerate(self.layers):
-            force = slu_cfg.never_skip_first_last and i in (0, n - 1)
-            subs = _sub_block_fns(self, blk, prefer_chunked)
-            for j, (fn, mods) in enumerate(subs):
-                has_aux = blk.kind == BLOCK_MOE and j == 1
-                if remat == "block":
-                    fn = _checkpointed(fn)
-                if gate is None or blk.kind == BLOCK_SHARED_ATTN:
-                    y = fn(x)
+        with cost_scope("unit"):
+            for i, blk in enumerate(self.layers):
+                force = slu_cfg.never_skip_first_last and i in (0, n - 1)
+                subs = _sub_block_fns(self, blk, prefer_chunked)
+                for j, (fn, mods) in enumerate(subs):
+                    has_aux = blk.kind == BLOCK_MOE and j == 1
+                    if remat == "block":
+                        fn = _checkpointed(fn)
+                    if gate is None or blk.kind == BLOCK_SHARED_ATTN:
+                        y = fn(x)
+                        if has_aux:
+                            y, a = y
+                            aux_loss = aux_loss + a
+                        x = x + y
+                        kps.append(torch.ones((), device=x.device))
+                        exs.append(torch.ones((), device=x.device))
+                        continue
+                    p, gst = gate(x, gst)
+                    out = gated_residual(fn, x, p, slu_u[drawn], force,
+                                         modules=mods, has_aux=has_aux)
+                    drawn += 1
+                    x, ex = out[0], out[1]
                     if has_aux:
-                        y, a = y
-                        aux_loss = aux_loss + a
-                    x = x + y
-                    kps.append(torch.ones((), device=x.device))
-                    exs.append(torch.ones((), device=x.device))
-                    continue
-                p, gst = gate(x, gst)
-                out = gated_residual(fn, x, p, slu_u[drawn], force,
-                                     modules=mods, has_aux=has_aux)
-                drawn += 1
-                x, ex = out[0], out[1]
-                if has_aux:
-                    aux_loss = aux_loss + out[2]
-                kps.append(p)
-                exs.append(ex)
-            if memory is not None and blk.kind == BLOCK_ATTN:
-                cross = _cross(self.cross[i], memory, cfg)
-                x = x + (_checkpointed(cross) if remat == "block"
-                         else cross)(x)
-        logits = self.logits(x)
+                        aux_loss = aux_loss + out[2]
+                    kps.append(p)
+                    exs.append(ex)
+                if memory is not None and blk.kind == BLOCK_ATTN:
+                    cross = _cross(self.cross[i], memory, cfg)
+                    x = x + (_checkpointed(cross) if remat == "block"
+                             else cross)(x)
+        with cost_scope("head"):
+            logits = self.logits(x)
         kps_t = torch.stack(kps)
         n_units = n // len(self.unit)
         if gate is not None:

@@ -388,7 +388,13 @@ class Trainer:
                 if "psg_fallback_ratio" in h]
         return float(np.mean(vals)) if vals else None
 
-    def energy_report(self, steps: Optional[int] = None):
-        """The run's :class:`~repro_torch.core.ledger.EnergyReport`."""
+    def energy_report(self, steps: Optional[int] = None,
+                      validate_against_hlo: bool = False):
+        """The run's :class:`~repro_torch.core.ledger.EnergyReport`;
+        ``validate_against_hlo`` also runs the static cost audit
+        (``analysis/audit.py``, cached per configuration) on the trainer's
+        device and stamps its verdict into ``validated_against_hlo``."""
         from repro_torch.core.ledger import EnergyLedger
-        return EnergyLedger.from_trainer(self).report(steps=steps)
+        return EnergyLedger.from_trainer(self).report(
+            steps=steps, validate_against_hlo=validate_against_hlo,
+            device=self.device)

@@ -3,7 +3,8 @@
 
 * The two repairs: ``E2TrainConfig.full()``/``.off()`` field for field, and
   ``EnergyReport.to_dict()`` with the reference's keys in its order;
-  ``validate_against_hlo=True`` raises (the cost audit is not ported).
+  ``validate_against_hlo=True`` stamps the static cost audit's verdict
+  (``analysis/audit.py``), ``None`` without it.
 * ``run_lm`` against the reference's from the reference's initial
   parameters (``repro_torch.convert``) on the same batches (JAX's threefry
   draws in both): every loss within ``LOSS_REL`` relative (fp32, no
@@ -16,7 +17,8 @@
   its training stubbed (no PSG run of the JAX package, whose Pallas
   interpreter is slow).
 * The driver: unported benches exit 2, a bench that raises gives an
-  ``ERROR`` row and exit 1, the records go only where they are told.
+  ``ERROR`` row and exit 1, the records go only where they are told;
+  ``--only audit`` runs the static cost audit and the linters.
 """
 import dataclasses
 import os
@@ -125,11 +127,27 @@ def test_energy_report_has_the_references_keys_in_order(which):
             assert got[key] == value, key
 
 
-def test_validate_against_hlo_raises_not_implemented():
-    led = EnergyLedger(resnet74(e2=tc.E2TrainConfig.full()))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        led.report(validate_against_hlo=True)
-    # absent, not false: the reference's line for no audit
+def test_validate_against_hlo_stamps_the_audit_verdict():
+    """``report(validate_against_hlo=True)`` stamps the static cost
+    audit's verdict on the ledger's own table: True for ResNet-14, False
+    for a table that prices a layer the program never runs; without the
+    flag the field stays ``None`` (absent, not false)."""
+    from repro_torch.configs.paper_cnns import cnn_model
+    from repro_torch.core.cost import LayerCost, TableCostModel
+
+    exp = tc.Experiment(model=cnn_model("resnet14", 14),
+                        e2=tc.E2TrainConfig.full(), task="cifar_cnn")
+    led = EnergyLedger(exp)
+    rep = led.report(validate_against_hlo=True, device="cpu")
+    assert rep.validated_against_hlo is True
+    assert rep.summary().endswith("cost table validated vs jaxpr/HLO: yes")
+    divergent = TableCostModel(led.cost.name, led.cost.layers + (
+        LayerCost("ghost", "conv", 1e6, 0, 0.0),))
+    bad = EnergyLedger(exp, cost=divergent).report(
+        validate_against_hlo=True, device="cpu")
+    assert bad.validated_against_hlo is False
+    assert bad.summary().endswith("cost table validated vs jaxpr/HLO: NO")
+    assert led.report().validated_against_hlo is None
     assert led.report().summary().endswith(
         "cost table validated vs jaxpr/HLO: —")
 
@@ -341,6 +359,25 @@ def test_driver_refuses_unported_benches(name, capsys):
     assert bench_run.main(["--only", f"psg,{name}", "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert f"{name!r} is not ported: it waits for" in err
+
+
+def test_driver_runs_the_audit_bench_on_the_cpu(monkeypatch, capsys):
+    """``--only audit --device cpu`` exits 0 with one row an experiment,
+    one a linter and ``audit_all`` (``None``: the kernel lint and the
+    hot-loop lint's ``no-host-callback`` run on the card only).  The
+    export witness runs for the smoke LM alone here:
+    ``tests/test_torch_audit.py`` holds it on a ResNet."""
+    from repro_torch.launch import bench_audit
+    monkeypatch.setattr(bench_audit, "EXPORT_WITNESS", ("llama3-8b",))
+    assert bench_run.main(["--only", "audit", "--device", "cpu"]) == 0
+    rows = capsys.readouterr().out.strip().splitlines()
+    assert rows[0] == "name,us_per_call,derived"
+    assert [r.split(",")[0] for r in rows[1:]] == [
+        "audit_resnet74", "audit_resnet110", "audit_mobilenetv2",
+        "audit_llama3-8b", "kernel_lint", "repo_lint", "precision",
+        "hotloop", "audit_all"]
+    assert all(r.split(",")[2].startswith("pass:") for r in rows[1:5])
+    assert rows[-1] == "audit_all,0.0,all_passed=None"
 
 
 def test_driver_reports_a_failing_bench_and_exits_1(monkeypatch, capsys):

@@ -137,3 +137,34 @@ def test_distribution_modules_stand_alone():
     from repro_torch.launch import mesh  # noqa: F401
     assert not dist.is_initialized()
     assert distributed.process_shard() == (0, 1)
+
+
+def test_analysis_imports_without_jax_and_needs_a_card_or_the_cpu(no_card):
+    """The audit, the linters and their bench import with JAX unimportable,
+    and each raises without a card unless asked for the CPU."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.analysis, repro_torch.launch.bench_audit, "
+            "repro_torch.launch.export_cost")
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+    from repro_torch.analysis import audit, hotloop_lint, kernel_lint, \
+        precision_lint
+    from repro_torch.configs.paper_cnns import resnet74
+    from repro_torch.core.ledger import EnergyLedger
+    from repro_torch.launch import bench_run
+    exp = resnet74()
+    for call in (lambda: audit.audit_experiment(exp, batch=2),
+                 lambda: EnergyLedger(exp).report(validate_against_hlo=True),
+                 lambda: kernel_lint.lint_shipped(),
+                 lambda: precision_lint.lint_kernels(),
+                 lambda: hotloop_lint.lint_chunk(exp),
+                 lambda: bench_run.main(["--only", "audit"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
