@@ -148,11 +148,14 @@ Phases, each fatal on failure:
    the operands of one ``tab2/fixed8`` step (tau 0) and one ``tab2/psg``
    step at the bench LM's 28 weight-matmul sites and 4 attention
    backwards (``bench_lm_kernels_check``, its tolerances stated there);
-   then ``--full --json`` (ResNet-26, kernels 1-4 launched; the Table 3
-   sweep within ``TABLE3_REL`` of ``TABLE3_*``, the JAX package's values)
-   and ``--json-throughput`` into a temporary directory; then the CPU: a
-   CPU ``run_lm`` of every configuration that draws SMD drops and of the
-   energy record's run (worker processes) must execute the card's steps,
+   then ``--json`` (ResNet-14 over 12 steps, the record's fast run;
+   kernels 1-4 launched; the Table 3 sweep
+   within ``TABLE3_REL`` of ``TABLE3_*``, the JAX package's values) and
+   ``--json-throughput`` into a temporary directory; then the CPU: a CPU
+   ``run_lm`` of every configuration that draws SMD drops without PSG (a
+   PSG one's drops are the same draws, and its CPU re-run the longest)
+   and of the energy record's run (worker processes) must execute the
+   card's steps,
    the SMD rows' ``energy_ratio`` follows, and ``tab2/sgd32``'s first 8
    losses from the card's initial weights on the CPU are within
    ``SGD32_REL`` of the card's; recorded: the device's idle share of a
@@ -169,8 +172,8 @@ Phases, each fatal on failure:
    windowed model also query-chunked at 8,492 tokens); each main path as
    in 7, its launches checked against its executed sub-blocks; then the
    fault-injection record (``launch/bench_ft``) on the card, every fault
-   recovered and the llama3-8b kill-and-restart bit for bit across
-   processes;
+   recovered, without its kill-and-restart (phase 18 kills and restarts
+   the launcher on the card, bit for bit);
 15. encdec_vlm_moe: whisper-small (encoder-decoder, 12 + 12 layers, 8 x
    4096 tokens + 8 x 1500 frames), phi-3-vision-4.2b (VLM, 4 layers, 2 x
    4096 tokens + 576 patches, head dim 96) and deepseek-moe-16b (4 layers,
@@ -271,7 +274,26 @@ Phases, each fatal on failure:
    figures and the launch table in ``chiprun_out/kernel_lint_h100.json``;
    the hot-loop lint of ResNet-14's and the smoke LM's chunk, every rule of
    ``CHUNK_CONTRACT`` true (``no-host-callback`` under
-   ``set_sync_debug_mode("error")``); and the repo lint with no finding.
+   ``set_sync_debug_mode("error")``); and the repo lint with no finding;
+20. the dry run and the roofline (``dryrun_check``): (a) the dry-run CLI
+   (``python -m repro_torch.launch.dryrun``) for qwen2.5-3b at full depth
+   on the ``16x16`` production mesh, cells ``train_4k`` and
+   ``decode_32k``, one subprocess a cell on the host, started before phase
+   19 (they need no card), its ``--out`` under ``chiprun_out/``, both
+   ``ok``; (b) in a subprocess on the card (``MEASURE_FLAG``), with
+   nothing left allocated by this process, rank 0's local program of both
+   cells run for
+   real (``launch/dryrun.card_program``: the same world of fake ranks and
+   placements, real CUDA shards; the fake group's collectives move
+   nothing; the train cell on the plain PSG program the dry run traced,
+   decode outside PSG), one warm-up call, then one whose
+   ``torch.cuda.max_memory_allocated()`` must be within ``DRYRUN_PEAK_REL``
+   of the record's ``bytes_per_device.peak`` (its span between two CUDA
+   events printed), then one under ``torch.profiler`` whose device-busy
+   time (the union of its kernels' intervals) must be at least
+   ``max(compute_s, memory_s)`` of its roofline; (c) the
+   ``roofline`` bench's analytic ResNet-74 row (``launch/bench_roofline``)
+   under phase 11's chunked ResNet-74 replay, the ratio printed.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -327,6 +349,10 @@ INT8_OPS_PER_S = 1979e12        # the fastest integer rate of the card
 FP32_REL = 1e-5
 DEPTH, WIDTH, BATCH = 74, 16, 128
 LM_ARCH, LM_LAYERS, LM_BATCH, LM_SEQ = "qwen2_5_3b", 8, 2, 4096
+# phase 20: the dry run's cells, checked on the card
+DRYRUN_ARCH, DRYRUN_SHAPES = "qwen2_5_3b", ("train_4k", "decode_32k")
+DRYRUN_PEAK_REL = 0.10
+MEASURE_FLAG = "--measure-cells"
 
 
 def fail(msg: str) -> None:
@@ -2784,9 +2810,11 @@ def paper_benches_check(torch, mods, dev="cuda", steps=None):
     with tempfile.TemporaryDirectory() as tmp:
         reset_all(mods)
         t0 = time.perf_counter()
-        if bench_run.main(["--full", "--json", f"{tmp}/energy.json",
+        # the record's fast run (ResNet-14, 12 steps), for the script's
+        # time
+        if bench_run.main(["--json", f"{tmp}/energy.json",
                            "--device", dev]) != 0:
-            fail("bench_run --full --json did not exit 0")
+            fail("bench_run --json did not exit 0")
         energy_wall = time.perf_counter() - t0
         energy_launches = {n: c for mod in mods
                            for n, c in mod.LAUNCHES.items()}
@@ -2805,7 +2833,7 @@ def paper_benches_check(torch, mods, dev="cuda", steps=None):
         same_record(got, want, TABLE3_REL, f"table3_config_derived[{i}]")
     measured = energy["measured_run"]
     if (measured["model"], measured["steps"], measured["batch"],
-            measured["validated_against_hlo"]) != ("resnet26", 40, 8, None):
+            measured["validated_against_hlo"]) != ("resnet14", 12, 8, None):
         fail(f"measured_run {measured}")
     for name, rec_t in throughput.items():
         if not all(rec_t[k] > 0 for k in ("per_step_steps_per_s",
@@ -2827,13 +2855,14 @@ def paper_benches_check(torch, mods, dev="cuda", steps=None):
                 != (run["steps"], 0):
             fail(f"{run['bench']}: SMD off but {run['executed']} of "
                  f"{run['steps']} steps executed")
-    # the PSG runs, the longest on the CPU, first
-    smd_runs = sorted((r for r in rec.runs if r["e2"].smd.enabled),
-                      key=lambda r: not r["e2"].psg.enabled)
+    # the SMD runs without PSG (a PSG run's drops are the same draws; its
+    # CPU re-run, the longest, is left out)
+    smd_runs = [r for r in rec.runs
+                if r["e2"].smd.enabled and not r["e2"].psg.enabled]
     with ProcessPoolExecutor(
             CPU_WORKERS,
             mp_context=multiprocessing.get_context("spawn")) as pool:
-        energy_cpu = pool.submit(cpu_energy_record, False)
+        energy_cpu = pool.submit(cpu_energy_record, True)
         jobs = [pool.submit(cpu_executed, r["e2"], r["steps"], r["kw"])
                 for r in smd_runs]
         tab2 = [r for r in rec.runs if r["bench"] == "bench_psg"]
@@ -2911,8 +2940,8 @@ def dense_archs_check(torch, mods):
     ``build_lm_trainer`` with its launches checked against its executed
     sub-blocks (kernels 7-9 absent from the windowed model), profiled.
     Last, the fault-injection record on the card
-    (``launch/bench_ft.ft_json``), which must recover every fault, its
-    kill-and-restart bit for bit."""
+    (``launch/bench_ft.ft_json``) without its kill-and-restart (phase
+    18's), which must recover every fault."""
     from repro_torch.configs import get_experiment
     from repro_torch.core.config import PSGConfig
     from repro_torch.kernels import flash_attn as FA
@@ -2977,12 +3006,13 @@ def dense_archs_check(torch, mods):
               flush=True)
         r.update(main_path=main, profile=prof, sub_block_launches=subs)
         out[arch] = r
+    # the record's kill-and-restart is left to phase 18, whose launcher
+    # run on the card is killed, restarted and checked bit for bit
     t0 = time.perf_counter()
-    ft = bench_ft.ft_json(fast=True, device="cuda")
+    ft = bench_ft.ft_json(fast=True, device="cuda", kill_restart=False)
     ft["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"phase": "dense_ft", **ft}), flush=True)
-    kill = ft["scenarios"][-1]
-    if not (ft["all_recovered"] and kill["bitwise_match_vs_uninterrupted"]):
+    if not ft["all_recovered"]:
         fail(f"fault-injection record on the card: {ft}")
     out["ft"] = ft
     out["seconds"] = time.perf_counter() - t_start
@@ -4431,6 +4461,151 @@ def analysis_check(torch, mods, main_ledger, main_steps: int) -> dict:
     return out
 
 
+def measure_cells_main(argv) -> None:
+    """Phase 20b's child (``MEASURE_FLAG OUT``): each of ``DRYRUN_SHAPES``
+    of ``DRYRUN_ARCH`` run for real on the card, the results to ``OUT``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import dryrun
+    out = {}
+    for shape in DRYRUN_SHAPES:
+        with dryrun.card_program(DRYRUN_ARCH, shape) as fn:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile_fn(torch, fn, cpu_ops=False)
+        out[shape] = {"arch": DRYRUN_ARCH, "shape": shape,
+                      "peak_bytes": peak,
+                      "span_s": start.elapsed_time(end) / 1e3,
+                      "busy_s": prof["device_busy_ms"] / 1e3,
+                      "device_events": prof["device_events"],
+                      "top": prof["top"][:5], "wall_s": wall_s,
+                      "warmup_s": warm_s}
+        Path(argv[0]).write_text(json.dumps(out))
+        print(json.dumps({"phase": "dryrun_measured", **out[shape]}),
+              flush=True)
+
+
+def dryrun_start() -> tuple:
+    """Phase 20a's dry-run CLI, one subprocess a cell, on the host:
+    ``(procs, logs, started)``, waited for by :func:`dryrun_check`."""
+    import atexit
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs, procs = {}, {}
+    atexit.register(lambda: [p.kill() for p in procs.values()
+                             if p.poll() is None])
+    for shape in DRYRUN_SHAPES:
+        logs[shape] = out_dir / f"dryrun_{shape}.log"
+        procs[shape] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", shape, "--out",
+             str(out_dir / f"dryrun_{shape}.json")], env=env,
+            stdout=open(logs[shape], "w"), stderr=subprocess.STDOUT)
+    return procs, logs, time.perf_counter()
+
+
+def dryrun_check(torch, chunked, started) -> dict:
+    """Phase 20 (module doc): rank 0's local program of each dry-run cell
+    on the card, the dry runs :func:`dryrun_start` started, then the
+    checks."""
+    import gc
+    from repro_torch.launch import bench_roofline
+
+    procs, logs, t_dry = started
+    gc.collect()
+    torch.cuda.empty_cache()        # the child's program needs the card
+    held = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    print(json.dumps({"phase": "dryrun_parent_held", **held}), flush=True)
+    t_start = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    # the measured program's peak can come within a few GiB of the card's
+    # memory: its free memory must not sit split across cached segments
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    measured = out_dir / "dryrun_measured.json"
+    logs["measured"] = out_dir / "dryrun_measured.log"
+    procs["measured"] = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), MEASURE_FLAG,
+         str(measured)], env=env, stdout=open(logs["measured"], "w"),
+        stderr=subprocess.STDOUT)
+    try:
+        codes = {n: p.wait(timeout=600) for n, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t_start
+    dry_s = time.perf_counter() - t_dry
+    for n, code in codes.items():
+        if code != 0:
+            fail(f"phase 20 {n} exited {code}: "
+                 + logs[n].read_text()[-3000:])
+    got = json.loads(measured.read_text())
+    card = card_line()
+    cells = {}
+    for shape in DRYRUN_SHAPES:
+        lines = logs[shape].read_text().splitlines()
+        rec = json.loads((out_dir / f"dryrun_{shape}.json").read_text())[0]
+        if rec["status"] != "ok" or not lines[-1].startswith("done: 1 "
+                                                             "cells, 0 "):
+            fail(f"dry run {DRYRUN_ARCH} {shape}: {lines[-3:]}")
+        m, r = got[shape], rec["roofline"]
+        peak = rec["bytes_per_device"]["peak"]
+        bound_s = max(r["compute_s"], r["memory_s"])
+        cell = {"status": rec["status"], "dryrun_s": rec["compile_s"],
+                "peak_gib": peak / 2**30, "bottleneck": r["bottleneck"],
+                "measured_peak_gib": m["peak_bytes"] / 2**30,
+                "peak_ratio": m["peak_bytes"] / peak,
+                "busy_s": m["busy_s"], "span_s": m["span_s"],
+                "bound_s": bound_s, "time_ratio": m["busy_s"] / bound_s,
+                "span_ratio": m["span_s"] / bound_s,
+                "device_events": m["device_events"], "top": m["top"],
+                "measured_wall_s": m["wall_s"], "warmup_s": m["warmup_s"],
+                "roofline": r, "card": card}
+        print(json.dumps({"phase": f"dryrun_{shape}", **cell}), flush=True)
+        if abs(cell["peak_ratio"] - 1) > DRYRUN_PEAK_REL:
+            fail(f"{shape}: {m['peak_bytes']} bytes at peak on the card, "
+                 f"the dry run reckoned {peak}")
+        # the device's busy time (its kernels, from the profile), not the
+        # span between two events, which holds the host's gaps too
+        if m["busy_s"] < bound_s:
+            fail(f"{shape}: the card busy {m['busy_s']} s, under the "
+                 f"roofline's {bound_s} s: a count is too large")
+        cells[shape] = cell
+    row = bench_roofline.render_cnn_analytic()[0]
+    if not row.startswith("roofline/resnet74/"):
+        fail(f"the roofline bench's first CNN row is {row}")
+    row_s = float(row.split(",")[1]) / 1e6
+    replay_s = chunked["fused"]["chunked_device_ms_per_replayed_step"] / 1e3
+    resnet = {"row": row, "row_s": row_s, "replay_s": replay_s,
+              "ratio": row_s / replay_s}
+    print(json.dumps({"phase": "dryrun_resnet74_roofline", **resnet}),
+          flush=True)
+    if row_s >= replay_s:
+        fail(f"the ResNet-74 roofline row's {row_s} s is not under the "
+             f"measured replay's {replay_s} s")
+    return {"cells": cells, "resnet74": resnet, "card": card,
+            "seconds": time.perf_counter() - t_start,
+            "subprocess_s": seconds, "dry_runs_since_start_s": dry_s,
+            "parent_held": held}
+
+
 def main() -> None:
     try:
         import torch
@@ -4594,9 +4769,12 @@ def main() -> None:
     mark("serving")
     distributed = distributed_check(torch, mods)
     mark("distributed")
+    started = dryrun_start()        # phase 20a, on the host, beside 19
     analysis = analysis_check(torch, mods + (GC,), main_ledger,
                               main["nominal_steps"])
     mark("analysis")
+    dry = dryrun_check(torch, chunked, started)
+    mark("dryrun")
     phase_s = {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}
     print(json.dumps({"phase": "timing", "seconds": phase_s}), flush=True)
 
@@ -4648,7 +4826,7 @@ def main() -> None:
          "mobilenetv2": mbv2, "paper_benches": paper,
          "dense_archs": dense, "encdec_vlm_moe": encdec, "ssm": ssm,
          "serving": serving, "distributed": distributed,
-         "analysis": analysis,
+         "analysis": analysis, "dryrun": dry,
          "phase_seconds": phase_s,
          "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},
@@ -4701,5 +4879,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == [DIST_RANK_FLAG]:
         dist_rank_main(sys.argv[2:])
+    elif sys.argv[1:2] == [MEASURE_FLAG]:
+        measure_cells_main(sys.argv[2:])
     else:
         main()

@@ -154,6 +154,17 @@ class ModelConfig:
             n += self.num_layers * self._attn_params(d, hd)   # cross
         return n
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token: an MoE model counts its ``top_k``
+        routed experts (and its shared ones) of each MoE block, every other
+        model all of its parameters (the JAX package's count)."""
+        if self.family != "moe":
+            return self.param_count()
+        dff = self.moe_d_ff or self.d_ff
+        inactive = (self.num_experts - self.top_k) * \
+            self._mlp_params(self.d_model, dff)
+        return self.param_count() - inactive * self.blocks.count(BLOCK_MOE)
+
     def _attn_params(self, d: int, hd: int) -> int:
         q = d * self.num_heads * hd
         kv = 2 * d * self.num_kv_heads * hd

@@ -36,6 +36,8 @@ from typing import List, Tuple
 from repro_torch.core import energy
 from repro_torch.core.config import ModelConfig
 
+BYTES_FP32 = 4
+
 # MobileNetV2 inverted-residual schedule, CIFAR variant: (expansion, cout,
 # blocks, stride)
 MBV2_CFG = [

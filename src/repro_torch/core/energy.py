@@ -1,13 +1,20 @@
 """Energy primitives of the paper's accounting: per-op energies of a 45nm
 process (Horowitz, ISSCC'14, the paper's ref [59]), the composition law of
-Tables 3/4, and the analytic forward FLOPs of a transformer block.  A copy
-of the parts of the JAX package's ``core/energy.py`` that the ledger and
-the LM cost table use; the numbers are the paper's model, not measurements
-of any device.
+Tables 3/4, the analytic FLOPs of the models (a transformer's blocks, the
+CNNs' per-layer tables), the 45nm training-energy primitive, and the
+roofline terms of a step priced for a device.  A copy of the JAX package's
+``core/energy.py``; the per-op energies are the paper's model, not
+measurements of any device.
+
+:class:`HW` holds a device's peak rates; :data:`H100_SXM` is the card the
+port runs on (dense bf16 tensor-core FLOP/s, HBM3 bytes/s, one direction
+of NVLink 4), the default of :func:`roofline_terms`.  The port carries no
+TPU constant.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from dataclasses import dataclass
+from typing import Dict, Mapping, Tuple
 
 from repro_torch.core.config import (BLOCK_ATTN, BLOCK_MAMBA, BLOCK_MLSTM,
                                      BLOCK_MOE, BLOCK_SHARED_ATTN,
@@ -43,6 +50,21 @@ def mac_energy_pj(bits_a: int, bits_b: int, acc_bits: int = 32) -> float:
 
 
 FP32_MAC_PJ = ENERGY_45NM["mul_fp32"] + ENERGY_45NM["add_fp32"]
+
+@dataclass(frozen=True)
+class HW:
+    name: str
+    peak_flops: float          # per chip, /s
+    hbm_bw: float              # bytes/s
+    ici_bw: float              # bytes/s/link
+    int8_speedup: float = 2.0  # int8 vs bf16 tensor-core throughput ratio
+
+
+# the H100 SXM's datasheet rates: 989 TFLOP/s dense bf16 (1,979 TOP/s int8),
+# 3.35 TB/s of HBM3, 450 GB/s one direction of NVLink 4
+H100_SXM = HW(name="h100_sxm", peak_flops=989e12, hbm_bw=3.35e12,
+              ici_bw=450e9, int8_speedup=2.0)
+
 
 # PSG mixed-precision compute factor implied by the paper's own table rows
 # (1 - 0.67*(1-s)*r matches 80.27/85.20/90.13% at s=0.2/0.4/0.6 for r=0.368).
@@ -149,7 +171,12 @@ def model_fwd_flops(cfg: ModelConfig, batch: int, S: int,
     """Forward FLOPs of the whole LM for ``batch`` sequences of ``S``
     tokens: the blocks, ``shared_attn_every``'s attention calls, the
     encoder over ``frontend_tokens`` frames and every decoder layer's
-    cross-attention (enc-dec), and the head."""
+    cross-attention (enc-dec), and the head.  A CNN config asks its
+    per-layer table (``core/cost.cnn_cost``; ``S`` has no CNN meaning, the
+    images are CIFAR's 32 x 32)."""
+    if cfg.family == "cnn":
+        from repro_torch.core.cost import cnn_cost
+        return float(batch) * 2.0 * cnn_cost(cfg).fwd_macs()
     per = sum(block_fwd_flops(cfg, k, S, kv_len) for k in cfg.blocks)
     if cfg.shared_attn_every:
         p, a = _attn_flops(cfg, S, kv_len or S)
@@ -162,3 +189,74 @@ def model_fwd_flops(cfg: ModelConfig, batch: int, S: int,
                                  + 2 * S * enc_S * cfg.num_heads * hd * 2)
     head = 2 * S * cfg.d_model * cfg.vocab_size
     return float(batch) * (per + head)
+
+
+def train_step_flops(cfg: ModelConfig, batch: int, S: int) -> float:
+    """fwd + bwd ~ 3x fwd (dL/dx + dL/dw each ~ fwd)."""
+    return 3.0 * model_fwd_flops(cfg, batch, S)
+
+
+def model_flops_6nd(cfg: ModelConfig, batch: int, S: int) -> float:
+    """MODEL_FLOPS: 6*N*D (dense) / 6*N_active*D (MoE)."""
+    return 6.0 * cfg.active_param_count() * batch * S
+
+
+# ---------------------------------------------------------------------------
+# training energy under the 45nm model
+# ---------------------------------------------------------------------------
+
+
+def training_energy_pj(cfg: ModelConfig, batch: int, S: int,
+                       e2: E2TrainConfig, steps: int,
+                       bits_default: int = 32,
+                       psg_fallback_rate: float = PSG_FALLBACK_ASSUMED
+                       ) -> float:
+    """End-to-end training energy under the 45nm model (compute +
+    movement) at the config's declared operating point (``smd``'s
+    ``epochs_multiplier x (1 - drop_prob)``, ``slu.target_skip``); for the
+    accounting of what executed use ``Trainer.energy_report()``
+    (``core/ledger.py``).  ``psg_fallback_rate``: the share of the
+    weight-gradient compute that ran the full-precision product."""
+    macs = train_step_flops(cfg, batch, S) / 2.0
+    if e2.psg.enabled:
+        mac_pj = psg_mac_pj(e2.psg, psg_fallback_rate)
+        move_bits = e2.psg.bits_x
+    else:
+        mac_pj = FP32_MAC_PJ if bits_default == 32 else mac_energy_pj(
+            bits_default, bits_default)
+        move_bits = bits_default
+    compute = macs * mac_pj
+    # data movement: every MAC's operands stream through SRAM once per tile
+    if cfg.family == "cnn":
+        from repro_torch.core.cost import cnn_cost
+        moved_words = cnn_cost(cfg).moved_words(batch)
+    else:
+        moved_words = 3.0 * (cfg.param_count()
+                             + batch * S * cfg.d_model * cfg.num_layers)
+    movement = moved_words * move_energy_pj(move_bits)
+    per_step = compute + movement
+    eff_steps = steps
+    if e2.smd.enabled:
+        eff_steps = steps * (1 - e2.smd.drop_prob) * e2.smd.epochs_multiplier
+    slu_keep = 1.0
+    if e2.slu.enabled and e2.slu.target_skip:
+        slu_keep = 1.0 - e2.slu.target_skip
+    return per_step * eff_steps * slu_keep
+
+
+# ---------------------------------------------------------------------------
+# roofline terms (launch/bench_roofline.py, launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+
+def roofline_terms(hlo_flops: float, hlo_bytes: float, coll_bytes: float,
+                   chips: int, hw: HW = H100_SXM) -> Dict[str, float]:
+    """Seconds of a step's compute, memory and collective terms on
+    ``chips`` devices of ``hw``, its bottleneck and its bound (the
+    largest term)."""
+    ct = hlo_flops / (chips * hw.peak_flops)
+    mt = hlo_bytes / (chips * hw.hbm_bw)
+    kt = coll_bytes / (chips * hw.ici_bw)
+    dom = max((ct, "compute"), (mt, "memory"), (kt, "collective"))
+    return {"compute_s": ct, "memory_s": mt, "collective_s": kt,
+            "bottleneck": dom[1], "step_s": max(ct, mt, kt)}

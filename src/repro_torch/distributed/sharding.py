@@ -19,8 +19,13 @@ Three layers:
   :func:`decode_state_shardings` is spec logic only.
 * **Activation hooks**: :func:`activation_sharding` is the context the
   trainer enters around a step; :func:`ctx_mesh_axis_size` reads it.
-  ``hint``, ``hint_batch``, ``replicate`` and ``constrain_like_params``
-  are XLA placement constraints in the JAX package and the identity here.
+  :func:`hint` and :func:`hint_batch` pin an activation to a logical spec
+  (:data:`ACT_AXES`) where the program runs on ``DTensor``s
+  (``activation_sharding(mesh, spmd=True)``, the dry run's
+  ``launch/dryrun.py``): they redistribute a ``DTensor`` to it, as the
+  JAX package's placement constraints place an array, and return a plain
+  tensor as it is.  ``replicate`` and ``constrain_like_params`` are the
+  identity.
 
 The **collectives** (:func:`global_max`, :func:`global_sum`,
 :func:`global_sum_int64`, :func:`global_amax`, :func:`global_mean`) turn a
@@ -30,8 +35,10 @@ holds only its rows, so every place where the model couples rows (a
 per-tensor quantization scale, a PSG weight-gradient sum, BatchNorm's
 statistics, the SLU gate's pooled feature, the MoE's aux loss, the loss)
 reduces across the data axis.  Outside :func:`activation_sharding`, under
-an abstract mesh, or where the data axis has one rank, each is the
-identity, so a path outside a mesh runs exactly the code it ran before.
+an abstract mesh, where the data axis has one rank, or in a program on
+``DTensor``s (whose every reduction is the global tensor's already), each
+is the identity, so a path outside a mesh runs exactly the code it ran
+before.
 """
 from __future__ import annotations
 
@@ -369,20 +376,35 @@ def decode_state_shardings(state_tree, mesh):
 
 # the active mesh: process-wide, not per thread, since autograd runs the
 # backward of CUDA ops on a thread of its own, where the PSG ops' backward
-# reduces across ranks too
+# reduces across ranks too; _SPMD: the program runs on DTensors
 _ACTIVE: Optional[Any] = None
+_SPMD = False
+
+# logical activation axes -> mesh axes (the JAX package's ACT_AXES)
+ACT_AXES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "vocab": ("model",),
+    "heads": ("model",),
+    "mlp": ("model",),
+    "seq": ("model",),        # SP: sequence over model axis (training path)
+    "tokens": ("pod", "data", "model"),   # flattened batch*seq (MoE groups)
+}
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh):
-    """Make ``mesh`` the active one: the collectives below reduce over its
-    data axis inside this context."""
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, mesh
+def activation_sharding(mesh, spmd: bool = False):
+    """Make ``mesh`` the active one.  By default each rank runs its rows of
+    the batch and the collectives below reduce over its data axis inside
+    this context; ``spmd=True`` runs one global program on ``DTensor``s
+    over ``mesh`` (``launch/dryrun.py``): the collectives are identities
+    and :func:`hint`/:func:`hint_batch` place the activations."""
+    global _ACTIVE, _SPMD
+    prev, _ACTIVE = (_ACTIVE, _SPMD), mesh
+    _SPMD = spmd
     try:
         yield
     finally:
-        _ACTIVE = prev
+        _ACTIVE, _SPMD = prev
 
 
 def ctx_mesh_axis_size(name: str) -> int:
@@ -393,14 +415,241 @@ def ctx_mesh_axis_size(name: str) -> int:
     return mesh_shape(_ACTIVE).get(name, 1)
 
 
+def _act_spec(shape, logical_axes, sz: Dict[str, int]) -> list:
+    """The JAX package's ``hint`` spec: each named dimension its mesh axes
+    (not taken by an earlier dimension) where their size divides it, an
+    unnamed one ``None``."""
+    spec: list = []
+    used: set = set()
+    for i, name in enumerate(logical_axes):
+        axes = tuple(a for a in ACT_AXES.get(name, ())
+                     if a in sz and a not in used) if name else ()
+        size = int(np.prod([sz[a] for a in axes])) if axes else 1
+        if axes and size > 1 and shape[i] % size == 0:
+            spec.append(axes)
+            used.update(axes)
+        else:
+            spec.append(None)
+    return spec
+
+
+def act_placements(shape, logical_axes, mesh) -> Tuple[Any, ...]:
+    """The placements of the logical spec ``logical_axes`` for an
+    activation of ``shape`` on ``mesh`` (unnamed dimensions replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    spec = _act_spec(tuple(shape), logical_axes, mesh_shape(mesh))
+    named = {a: d for d, axes in enumerate(spec) if axes for a in axes}
+    return tuple(Shard(named[a]) if a in named else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def run_local(fn: Callable, args, specs, out_spec, n_out: int = 1,
+              partial: Optional[Tuple[Any, ...]] = None,
+              out_shape=None, inplace: Tuple[int, ...] = ()):
+    """``fn(*args)`` on each rank's shards: ``args`` (``DTensor``s) are
+    placed by their logical specs, ``fn`` runs on the local tensors (the
+    plain code of the port, communication-free), and its output (``n_out``
+    of them, a tuple above 1) is placed by ``out_spec`` as a tensor of
+    ``out_shape`` (default: the first argument's) would be (``local_map``;
+    the backward keeps the placements).  ``partial = (axis, size[, op])``:
+    ``fn`` reduces a dimension of ``size`` sharded over the logical
+    ``axis`` where its mesh axes divide it, so the output is a partial
+    result over them (a sum, or ``op``).  The arguments at ``inplace``,
+    which ``fn`` writes, must be in their spec's placements already (a
+    redistributed copy would take the writes).  On plain tensors,
+    ``fn(*args)``."""
+    if not spmd(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+    # one list of placements a tensor (a tuple is local_map's per-output)
+    in_pl = tuple(list(act_placements(a.shape, sp, mesh))
+                  for a, sp in zip(args, specs))
+    for i in inplace:          # (a mesh axis of one rank places nothing)
+        if any(a != b and mesh.size(d) > 1 for d, (a, b) in
+               enumerate(zip(in_pl[i], args[i].placements))):
+            raise ValueError(f"argument {i} is written in place but placed "
+                             f"{args[i].placements}, not {in_pl[i]}")
+    out_pl = list(act_placements(args[0].shape if out_shape is None
+                                 else out_shape, out_spec, mesh))
+    if partial is not None:
+        summed = _act_spec((partial[1],), (partial[0],), mesh_shape(mesh))[0]
+        op = partial[2] if len(partial) > 2 else "sum"
+        out_pl = [Partial(op) if a in (summed or ()) else p
+                  for a, p in zip(mesh.mesh_dim_names, out_pl)]
+    if n_out > 1:
+        out_pl = tuple(list(out_pl) for _ in range(n_out))
+    # an argument replicated over a mesh axis that shards another one gets
+    # from each rank of the axis the part of its gradient that the rank's
+    # shard adds: a partial sum over the axis, not the whole
+    split = {d for pl in in_pl for d, p in enumerate(pl)
+             if isinstance(p, Shard)}
+    grad_pl = tuple([Partial("sum") if d in split and
+                     isinstance(p, Replicate) else p
+                     for d, p in enumerate(pl)] for pl in in_pl)
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def hint(x, *logical_axes: Optional[str], free: bool = False):
-    # each rank already holds its rows of x: nothing to place
-    return x
+    """Pin the ``DTensor`` ``x`` to the logical spec (one name of
+    :data:`ACT_AXES` or ``None`` a dimension) inside
+    ``activation_sharding(mesh, spmd=True)``; ``free=True`` leaves the
+    placements over the mesh axes no named dimension takes as they are,
+    where the default replicates them.  A plain tensor, or no such
+    context, returns ``x``: each rank of a data-parallel mesh holds its
+    rows already."""
+    if not _SPMD or not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    spec = _act_spec(tuple(x.shape), logical_axes, mesh_shape(mesh))
+    named = {a: d for d, axes in enumerate(spec) if axes for a in axes}
+    out = []
+    for axis, cur in zip(names, x.placements):
+        if axis in named:
+            out.append(Shard(named[axis]))
+        elif free and not (isinstance(cur, Shard) and spec[cur.dim]):
+            out.append(cur)
+        else:
+            out.append(Replicate())
+    out = tuple(out)
+    return x if out == tuple(x.placements) else x.redistribute(mesh, out)
 
 
 def hint_batch(x, axis: int = 0):
-    # each rank already holds its rows of x: nothing to place
-    return x
+    """Pin only the batch axis of the ``DTensor`` ``x``; its other
+    placements stay (a plain tensor returns as it is)."""
+    if not _SPMD or not _is_dtensor(x):
+        return x
+    spec: list = [None] * x.ndim
+    spec[axis] = "batch"
+    return hint(x, *spec, free=True)
+
+
+def sharded_by(x, axis: str) -> Optional[int]:
+    """The dimension of the ``DTensor`` ``x`` that the mesh axis ``axis``
+    shards, or ``None``."""
+    from torch.distributed.tensor import Shard
+    names = x.device_mesh.mesh_dim_names
+    p = x.placements[names.index(axis)] if axis in names else None
+    return p.dim if isinstance(p, Shard) else None
+
+
+def shard_start(x, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` of the
+    ``DTensor`` ``x``, whose shards along it are even."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    first, n = 0, 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            first = first * mesh.size(i) + coord[i]
+            n *= mesh.size(i)
+    return first * (x.shape[dim] // n)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def spmd(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` of a program run under
+    ``activation_sharding(mesh, spmd=True)``: where the models take the
+    partitionable form of an op whose plain form ``DTensor`` would gather
+    whole (the forms below; on plain tensors the plain ops run)."""
+    return _SPMD and _is_dtensor(x)
+
+
+def logsumexp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``torch.logsumexp``; on ``DTensor``s the max, the sum and the log
+    as three ops, so that a sharded ``dim`` reduces as partial results
+    (``DTensor`` gathers the whole axis for the fused op)."""
+    if not spmd(x):
+        return torch.logsumexp(x, dim=dim)
+    return _ShardedLogSumExp.apply(x, dim % x.ndim)
+
+
+class _ShardedLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last, vocabulary-sharded axis of a
+    ``DTensor``, each step on the local shards (``run_local``): the max and
+    the sum partial results, pinned whole; the backward ``g * exp(x -
+    lse)`` keeps the axis sharded."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        if dim != x.ndim - 1:
+            raise ValueError("the sharded logsumexp reduces the last axis")
+        rows = ("batch",) + (None,) * (x.ndim - 2)
+        whole, vocab = rows + (None,), rows + ("vocab",)
+        V = x.shape[-1]
+        m = hint(run_local(lambda x: x.amax(dim=-1, keepdim=True), (x,),
+                           (vocab,), whole, partial=("vocab", V, "max")),
+                 *whole)
+        s = hint(run_local(lambda x, m: (x - m).exp().sum(dim=-1,
+                                                           keepdim=True),
+                           (x, m), (vocab, whole), whole,
+                           partial=("vocab", V)), *whole)
+        lse = s.log() + m
+        ctx.save_for_backward(x, lse)
+        ctx.specs = (vocab, whole)
+        return lse.squeeze(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        vocab, whole = ctx.specs
+        return run_local(lambda x, lse, g: g[..., None] * (x - lse).exp(),
+                         (x, lse, g), (vocab, whole, whole[:-1]),
+                         vocab), None
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """``table[ids].to(dtype)``; on ``DTensor``s the table is cast, then
+    gathered whole (an FSDP gather) and looked up with ``F.embedding``:
+    ``DTensor`` has no rule for the indexing op's backward (an
+    accumulating ``index_put``) in every release, nor for summing a
+    vocabulary-sharded lookup's gradient (a masked partial) with the tied
+    head's (a partial sum)."""
+    if not spmd(table):
+        return table[ids].to(dtype)
+    from torch.distributed.tensor import Replicate
+    whole = table.to(dtype).redistribute(
+        table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+    return torch.nn.functional.embedding(ids, whole)
+
+
+def take_last(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``logits[..., idx]`` per row (``idx`` one id a row, >= 0): a
+    ``gather``; on ``DTensor``s a select against the ids of each shard of
+    the last axis, summed, which keeps that axis sharded in the forward and
+    the backward (``DTensor``'s ``gather`` backward scatters into the whole
+    global shape)."""
+    if not spmd(logits):
+        return logits.gather(-1, idx[..., None].long())[..., 0]
+    mesh = logits.device_mesh
+    V = logits.shape[-1]
+    axes = _act_spec((V,), ("vocab",), mesh_shape(mesh))[0] or ()
+    coord = mesh.get_coordinate()
+    first = 0               # this rank's first id of the last axis
+    for a in axes:
+        i = mesh.mesh_dim_names.index(a)
+        first = first * mesh.size(i) + coord[i]
+    rows = ("batch",) + (None,) * (logits.ndim - 2)
+
+    def local(logits, idx):
+        n = logits.shape[-1]
+        ids = torch.arange(first * n, (first + 1) * n, device=idx.device)
+        return torch.where(ids == idx[..., None], logits,
+                           logits.new_zeros(())).sum(-1)
+    return run_local(local, (logits, idx), (rows + ("vocab",), rows), rows,
+                     partial=("vocab", V))
 
 
 def replicate(x):
@@ -420,10 +669,10 @@ def constrain_like_params(tree, fsdp: bool = True):
 
 def data_group():
     """The active mesh's data-axis process group, or ``None`` where the
-    computation is one rank's: no active mesh, an abstract one, or a data
-    axis of one rank."""
+    computation is one rank's (no active mesh, an abstract one, or a data
+    axis of one rank) or one global program on ``DTensor``s."""
     mesh = _ACTIVE
-    if mesh is None or isinstance(mesh, AbstractMesh):
+    if mesh is None or _SPMD or isinstance(mesh, AbstractMesh):
         return None
     sz = mesh_shape(mesh)
     if sz.get("pod", 1) > 1:

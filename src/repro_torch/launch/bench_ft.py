@@ -188,15 +188,19 @@ def _kill_restart_scenario(fast: bool, device: str):
         return row
 
 
-def ft_json(fast: bool = True, device=None) -> dict:
+def ft_json(fast: bool = True, device=None,
+            kill_restart: bool = True) -> dict:
     """The fault-injection recovery record (see the module docstring);
-    ``device`` is where the launcher workers train (default: the card)."""
+    ``device`` is where the launcher workers train (default: the card);
+    ``kill_restart=False`` leaves out the kill-and-restart scenario (its
+    supervised launcher workers)."""
     dev = resolve_device(device)
     scenarios = []
     scenarios += _corrupt_recovery_scenarios()
     scenarios.append(_producer_raise_scenario())
     scenarios += _failing_writer_scenarios()
-    scenarios.append(_kill_restart_scenario(fast, dev.type))
+    if kill_restart:
+        scenarios.append(_kill_restart_scenario(fast, dev.type))
     return {"device": torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else "cpu",
             "scenarios": scenarios,

@@ -10,10 +10,11 @@ Prints ``name,us_per_call,derived`` CSV.  ``--full`` runs the longer
 budgets.  ``--only`` takes the benches with a port: ``smd`` (Fig. 3, Tab.
 1), ``slu`` (Fig. 4), ``psg`` (Tab. 2), ``e2train`` (Tab. 3), ``cnn`` (Tab.
 4), ``convergence`` (Fig. 5), ``kernels``, ``throughput``, ``ft`` (the
-fault-injection record) and ``audit`` (the static cost audit and the
-linters, ``launch/bench_audit.py``); the JAX package's ``conv``, ``attn``
-and ``roofline`` are not ported and are refused with exit code 2 and what
-they wait for.
+fault-injection record), ``audit`` (the static cost audit and the linters,
+``launch/bench_audit.py``) and ``roofline`` (the dry run's roofline table
+and the CNNs' analytic one, ``launch/bench_roofline.py``; it runs nothing
+on a device, so it needs no card); the JAX package's ``conv`` and ``attn``
+are not ported and are refused with exit code 2 and what they wait for.
 
 A bench that raises prints ``name,0.0,ERROR:<type>:<message>`` (its
 traceback on stderr); the driver carries on with the others and exits 1 at
@@ -56,8 +57,8 @@ from repro_torch.core.ledger import EnergyLedger
 from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
 from repro_torch.launch import (bench_audit, bench_cnn, bench_convergence,
                                 bench_e2train, bench_ft, bench_kernels,
-                                bench_psg, bench_slu, bench_smd,
-                                bench_throughput)
+                                bench_psg, bench_roofline, bench_slu,
+                                bench_smd, bench_throughput)
 from repro_torch.launch.train import _fp32_is_fp32
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
@@ -73,12 +74,14 @@ BENCHES = {
     "throughput": bench_throughput.run,     # the chunked loop
     "ft": bench_ft.run,                     # fault-injection recovery
     "audit": bench_audit.run,               # the static cost audit, linters
+    "roofline": bench_roofline.run,         # dry-run records, priced
 }
+# benches that run nothing on a device
+DEVICELESS = frozenset({"roofline"})
 # the JAX package's benches with no port yet, and what each waits for
 _BYTES = ("a decision on what the card's byte count counts (the CUDA "
           "kernels' own tiles or the TPU kernels' BlockSpec model)")
-NOT_PORTED = {"conv": _BYTES, "attn": _BYTES,
-              "roofline": "the port of launch/dryrun and launch/specs"}
+NOT_PORTED = {"conv": _BYTES, "attn": _BYTES}
 
 
 def table3_config_derived() -> list:
@@ -165,7 +168,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"unknown bench {name!r}; expected one of "
                   f"{', '.join(BENCHES)}", file=sys.stderr)
             return 2
-    dev = resolve_device(args.device)
+    records = args.json or args.json_throughput or args.json_ft or \
+        args.json_audit
+    dev = None if not records and set(only) <= DEVICELESS and \
+        args.device is None else resolve_device(args.device)
 
     if args.json or args.json_throughput or args.json_ft or args.json_audit:
         if args.json:
@@ -191,7 +197,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 return 1
         return 0
 
-    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    where = "no device" if dev is None else \
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"# benchmarks on {where}", file=sys.stderr)
     print("name,us_per_call,derived", flush=True)
     failed = []

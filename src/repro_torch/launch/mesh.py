@@ -8,11 +8,11 @@ axes; the launcher's is ``(W, 1)`` over ``("data", "model")``.
 from __future__ import annotations
 
 
-def make_mesh(shape, axes):
+def make_mesh(shape, axes, device_type=None):
     """A ``DeviceMesh`` of ``shape`` over the default process group, whose
     world must be ``prod(shape)``: of ``"cuda"`` devices under NCCL, else
     of ``"cpu"`` ones (a gloo group reduces CUDA tensors too: the mesh only
-    names its groups)."""
+    names its groups), unless ``device_type`` says."""
     import math
 
     import torch.distributed as dist
@@ -22,14 +22,16 @@ def make_mesh(shape, axes):
     if math.prod(shape) != world:
         raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
                          f"{math.prod(shape)} ranks; the world has {world}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = device_type or (
+        "cuda" if dist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """The JAX package's production mesh, ``(16, 16)`` over ``("data",
     "model")`` or ``(2, 16, 16)`` with a ``pod`` axis: it builds only in a
-    world of 256 (512) ranks."""
+    world of 256 (512) ranks, such as the dry run's world of fake ranks
+    (``launch/dryrun.fake_world``)."""
     import torch.distributed as dist
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
@@ -39,7 +41,7 @@ def make_production_mesh(*, multi_pod: bool = False):
         raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
                          f"needs a world of {need} ranks; this one has "
                          f"{world}")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
 def data_axes(mesh) -> tuple:

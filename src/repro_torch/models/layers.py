@@ -37,16 +37,45 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import psg
 from repro_torch.core.config import ModelConfig, fused_attention_active
+from repro_torch.distributed import sharding
 
 ATTN_Q_CHUNK = 512               # queries per chunk of the chunked path
 ATTN_CHUNK_THRESHOLD = 8192     # chunk the queries above this many tokens
+# the materialized softmax's probabilities (the JAX package's
+# ``_softmax_lowp``); a test that holds two summation orders of one program
+# to fp32 rounding keeps them in fp32, where bf16 would round a probability
+# within an fp32 rounding of a bf16 boundary one way in one order and the
+# other way in the other
+PROBS_DTYPE = torch.bfloat16
+
+
+class MetaGenerator:
+    """The generator of a model built on the ``meta`` device: its inits
+    draw nothing and allocate nothing (the counterpart of the JAX
+    package's ``jax.eval_shape`` of an init)."""
+
+    device = torch.device("meta")
+
+
+def init_generator(seed: int, device=None):
+    """``torch.Generator(device)`` seeded with ``seed`` (default: the
+    CPU's), or a :class:`MetaGenerator` on the ``meta`` device (``device``
+    or, without one, the default device: inside ``torch.device("meta")``)."""
+    dev = torch.device(device or "cpu")
+    if dev.type == "meta" or (device is None and
+                              torch.get_default_device().type == "meta"):
+        return MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def dense_init(shape, generator: torch.Generator, scale: float = 1.0,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Fan-in truncated-normal init at +-2 sigma, drawn in fp32 and cast to
     ``dtype``, on the generator's device (the JAX package's
-    ``dense_init``; same law, other draws)."""
+    ``dense_init``; same law, other draws); an empty ``meta`` tensor for a
+    :class:`MetaGenerator`."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     std = scale / max(shape[0], 1) ** 0.5
     t = torch.empty(shape, device=generator.device)
     nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
@@ -56,6 +85,8 @@ def dense_init(shape, generator: torch.Generator, scale: float = 1.0,
 
 def embed_init(shape, generator: torch.Generator,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=generator,
                         device=generator.device) * 0.02).to(dtype)
 
@@ -163,7 +194,7 @@ class SoftmaxLowp(torch.autograd.Function):
         e = scores - scores.amax(dim=-1, keepdim=True)
         e.exp_()
         e.div_(e.sum(dim=-1, keepdim=True))
-        w = e.to(torch.bfloat16)
+        w = e.to(PROBS_DTYPE)
         ctx.save_for_backward(w)
         return w
 
@@ -193,6 +224,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,S,nh,hd), k/v (B,T,nkv,hd), mask (S,T) bool, or a per-row
     (B,1,S,1,T) one (the decode ring's) -> (B,S,nh,hd).  GQA groups the
     query heads over the kv heads by reshape."""
+    w = SoftmaxLowp.apply(_scores(q, k, mask))
+    return _weigh(w, v, q.shape)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`_sdpa`'s fp32 scores (B, nkv, S, group, T), masked to
+    -1e30."""
     B, S, nh, hd = q.shape
     nkv = k.shape[2]
     qf = q.reshape(B, S, nkv, nh // nkv, hd)
@@ -202,9 +241,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         m = mask[:, None, :] if mask.dim() == 2 else mask
         scores = scores.masked_fill(~m, -1e30)
-    w = SoftmaxLowp.apply(scores)
+    return scores
+
+
+def _weigh(w: torch.Tensor, v: torch.Tensor, shape) -> torch.Tensor:
+    """:func:`_sdpa`'s output: the probabilities ``w`` over ``v``'s keys,
+    in ``v``'s dtype, shaped as the queries ``shape``."""
     out = torch.einsum("bnsgt,btnh->bsngh", w.to(v.dtype), v)
-    return out.reshape(B, S, nh, hd)
+    return out.reshape(shape)
 
 
 def _sdpa_qchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -259,6 +303,10 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     mask, never flash nor chunked, as in the JAX package.  ``return_kv``
     also returns the RoPE'd ``(k, v)`` (B, S, nkv, hd), what
     :func:`fill_kv_cache` hands to decode."""
+    if sharding.spmd(x):
+        if return_kv:       # serving's prefill is not partitioned
+            raise NotImplementedError("return_kv on DTensors")
+        return _attention_tp(p, x, cfg, prefer_chunked, causal)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, x)
@@ -277,6 +325,50 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                                          x.device))
     y = psg.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype))
     return (y, (k, v)) if return_kv else y
+
+
+def _attention_tp(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                  prefer_chunked: bool = False, causal: bool = True,
+                  memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`attention_fwd` (with ``memory``, :func:`cross_attention_fwd`)
+    on ``DTensor``s, tensor-parallel: the weights cast to the activation
+    dtype, each kv head's repeated over its query heads, gathered whole but
+    for the heads, sharded over the model axis where they divide it; each
+    rank runs the plain function on its batch rows and heads
+    (``sharding.run_local``); the output projection's sum over heads, a
+    partial result over the model axis, is all-reduced at once."""
+    dt, g = x.dtype, cfg.num_heads // cfg.num_kv_heads
+    names = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv")
+                                        if p.bq is not None else ())
+    ws = [getattr(p, n).to(dt) for n in names]
+    if g > 1:           # wk, wv (d, nkv, hd) and bk, bv (nkv, hd)
+        ws = [w.repeat_interleave(g, dim=-2) if n[1] in "kv" else w
+              for n, w in zip(names, ws)]
+    rows = ("batch", None, None)
+    specs = [rows] + [
+        ("heads", None, None) if n == "wo" else
+        (None, "heads", None) if n[0] == "w" else ("heads", None)
+        for n in names]
+
+    def local(x, *w):
+        lp = dict(bq=None, bk=None, bv=None)
+        lp.update(zip(names, w))
+        if memory is None:
+            return attention_fwd(LocalWeights(**lp), x, cfg, prefer_chunked,
+                                 causal)
+        return cross_attention_fwd(LocalWeights(**lp), x, w[len(names)], cfg)
+    args = [x] + ws + ([] if memory is None else [memory])
+    specs += [] if memory is None else [rows]
+    # the sum over heads reduced at once: the stream stays batch-sharded
+    return sharding.hint(sharding.run_local(
+        local, args, specs, rows, partial=("heads", cfg.num_heads)), *rows)
+
+
+class LocalWeights:
+    """Named local weights standing in for a module's parameters."""
+
+    def __init__(self, **w):
+        self.__dict__.update(w)
 
 
 # ---------------------------------------------------------------------------
@@ -330,30 +422,106 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     position is within the window.  Returns ``(y, (kc, vc))``, the caches
     the same tensors."""
     kc, vc = kv_cache
-    B, T = kc.shape[:2]
     pos = cache_len[:, None]                              # (B, 1)
     q, k, v = _qkv(p, x)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    if sharding.spmd(kc):
+        out = _decode_sharded(q, k, v, kc, vc, cache_len, cfg)
+    else:
+        valid = _write_kv(kc, vc, k, v, cache_len, cfg.sliding_window)
+        out = _sdpa(q, kc, vc, valid[:, None, None, None, :])
+    out = out.to(x.dtype)
+    return torch.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype)), (kc, vc)
+
+
+def _write_kv(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, cache_len: torch.Tensor, window: int,
+              T: int = 0, t0: int = 0) -> torch.Tensor:
+    """Write ``k``, ``v`` (B, 1, nkv, hd) in place at ring slot
+    ``cache_len % T`` of the caches; returns the (B, n) validity of their
+    slots (written, and within the window).  The caches may be a shard:
+    the ``n`` slots from ``t0`` of a ring of ``T``, where a row whose slot
+    lies in another shard keeps its keys."""
+    B, n = kc.shape[:2]
+    T = T or n
+    pos = cache_len[:, None]
     slot = (cache_len % T)[:, None]
-    at = slot[:, :, None, None].expand(B, 1, *kc.shape[2:])
-    kc.scatter_(1, at, k.to(kc.dtype))
-    vc.scatter_(1, at, v.to(vc.dtype))
-    idx = torch.arange(T, device=kc.device)[None, :]      # ring slots
+    at = (slot - t0).clamp(0, n - 1)[:, :, None, None] \
+        .expand(B, 1, *kc.shape[2:])
+    for c, new in ((kc, k), (vc, v)):
+        new = new.to(c.dtype)
+        if n != T:
+            inside = (slot >= t0) & (slot < t0 + n)
+            new = torch.where(inside[:, :, None, None], new, c.gather(1, at))
+        c.scatter_(1, at, new)
+    idx = torch.arange(t0, t0 + n, device=kc.device)[None, :]   # ring slots
     wraps = pos + 1 > T
     abs_pos = torch.where(wraps, pos - (slot - idx) % T, idx)
     valid = idx < (pos + 1).clamp(max=T)
-    if cfg.sliding_window > 0:
-        valid &= abs_pos > pos - cfg.sliding_window
-    out = _sdpa(q, kc, vc, valid[:, None, None, None, :]).to(x.dtype)
-    return torch.einsum("bsnh,nhd->bsd", out, p.wo.to(x.dtype)), (kc, vc)
+    if window > 0:
+        valid &= abs_pos > pos - window
+    return valid
+
+
+def _decode_sharded(q, k, v, kc, vc, cache_len, cfg):
+    """:func:`attention_decode`'s cache write and attention on
+    ``DTensor``s, on each rank's shards (``sharding.run_local``), the
+    caches kept in their placements and written in place.  A cache whose
+    kv heads are sharded runs the plain write and :func:`_sdpa` on its
+    heads; one whose slots are sharded over the model axis writes the slot
+    where it lies and attends as a split softmax: each rank's scores over
+    its slots, their max and sum partial results over the slots, the
+    output a partial sum (the few bytes a row of the reductions move, not
+    the cache)."""
+    T = kc.shape[1]
+    axis = sharding.sharded_by(kc, "model")
+    rows = ("batch", None, None, None)
+    if axis != 1:
+        heads = ("batch", None, "heads" if axis == 2 else None, None)
+
+        def local(q, k, v, kc, vc, cl):
+            valid = _write_kv(kc, vc, k, v, cl, cfg.sliding_window)
+            return _sdpa(q, kc, vc, valid[:, None, None, None, :])
+        return sharding.run_local(local, (q, k, v, kc, vc, cache_len),
+                                  (heads,) * 5 + (("batch",),), heads,
+                                  inplace=(3, 4))
+    t0 = sharding.shard_start(kc, 1)
+    slots = ("batch", "seq", None, None)
+    s_spec = ("batch", None, None, None, "seq")
+    r5 = ("batch", None, None, None, None)
+    B, S, nh, hd = q.shape
+    nkv = kc.shape[2]
+
+    def scores(q, k, v, kc, vc, cl):
+        valid = _write_kv(kc, vc, k, v, cl, cfg.sliding_window, T, t0)
+        return _scores(q, kc, valid[:, None, None, None, :])
+    s = sharding.run_local(scores, (q, k, v, kc, vc, cache_len),
+                           (rows,) * 3 + (slots,) * 2 + (("batch",),),
+                           s_spec, out_shape=(B, nkv, S, nh // nkv, T),
+                           inplace=(3, 4))
+    # SoftmaxLowp's forward, its max and sum over the shards
+    m = sharding.hint(sharding.run_local(
+        lambda s: s.amax(dim=-1, keepdim=True), (s,), (s_spec,), r5,
+        partial=("seq", T, "max")), *r5)
+    z = sharding.hint(sharding.run_local(
+        lambda s, m: (s - m).exp().sum(dim=-1, keepdim=True), (s, m),
+        (s_spec, r5), r5, partial=("seq", T)), *r5)
+    return sharding.hint(sharding.run_local(
+        lambda s, m, z, vc: _weigh(((s - m).exp() / z).to(PROBS_DTYPE),
+                                   vc, (s.shape[0], S, nh, hd)),
+        (s, m, z, vc), (s_spec, r5, r5, slots), rows, partial=("seq", T)),
+        *rows)
 
 
 def cross_attention_fwd(p: Attention, x: torch.Tensor, memory: torch.Tensor,
                         cfg: ModelConfig) -> torch.Tensor:
     """The decoder's attention over the encoder's output ``memory`` (B, T,
     d): no mask, no RoPE, plain ``torch.einsum`` projections (no PSG, as
-    the JAX package's ``cross_attention_fwd``)."""
+    the JAX package's ``cross_attention_fwd``); tensor-parallel on
+    ``DTensor``s, as :func:`attention_fwd`."""
+    if sharding.spmd(x):
+        return _attention_tp(p, x, cfg, memory=memory)
     dt = x.dtype
     q = torch.einsum("bsd,dnh->bsnh", x, p.wq.to(dt))
     k = torch.einsum("btd,dnh->btnh", memory, p.wk.to(dt))
@@ -390,6 +558,8 @@ class MLP(nn.Module):
 
 def mlp_fwd(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
+    if sharding.spmd(x):
+        return _mlp_tp(p, x, cfg)
     act = _ACTS[cfg.act]
     up = psg.matmul(x, p.w_up.to(dt))
     if p.b_up is not None:
@@ -397,6 +567,34 @@ def mlp_fwd(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = act(up) * psg.matmul(x, p.w_gate.to(dt)) if p.w_gate is not None \
         else act(up)
     y = psg.matmul(h, p.w_down.to(dt))
+    if p.b_down is not None:
+        y = y + p.b_down.to(dt)
+    return y
+
+
+def _mlp_tp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`mlp_fwd` on ``DTensor``s, tensor-parallel: the weights cast
+    to the activation dtype and gathered whole but for ``d_ff``, sharded
+    over the model axis where it divides it; each rank runs the plain
+    :func:`mlp_fwd` on its rows (``sharding.run_local``), the down
+    projection's sum over ``d_ff`` a partial result, all-reduced at once;
+    its bias is added after the sum."""
+    dt = x.dtype
+    names = ("w_up", "w_down") + (("w_gate",) if p.w_gate is not None
+                                  else ()) + (("b_up",) if p.b_up is not None
+                                              else ())
+    spec = {"w_up": (None, "mlp"), "w_down": ("mlp", None),
+            "w_gate": (None, "mlp"), "b_up": ("mlp",)}
+    rows = ("batch",) + (None,) * (x.ndim - 1)
+
+    def local(x, *w):
+        lp = dict(w_gate=None, b_up=None, b_down=None)
+        lp.update(zip(names, w))
+        return mlp_fwd(LocalWeights(**lp), x, cfg)
+    y = sharding.hint(sharding.run_local(
+        local, [x] + [getattr(p, n).to(dt) for n in names],
+        [rows] + [spec[n] for n in names], rows,
+        partial=("mlp", p.w_up.shape[1])), *rows)
     if p.b_down is not None:
         y = y + p.b_down.to(dt)
     return y

@@ -85,12 +85,55 @@ def route(probs: torch.Tensor, k: int, cap: int
     return topv, topi, pos, pos < cap
 
 
+def _dispatch(xg: torch.Tensor, router: torch.Tensor, k: int, cap: int,
+              E: int):
+    """Routing and dispatch of ``G`` groups of tokens ``xg`` (G, n, d):
+    ``(ex_in (G, E, C, d), probs, topv, topi, slot, keep)``.  Slot ``(e,
+    g, c)`` holds its token, empty slots zero; dropped choices go to a
+    spare slot ``C`` that is cut off (no mask, no host sync: the step can
+    be captured in a CUDA graph)."""
+    G, n_g, d = xg.shape
+    dev = xg.device
+    probs = torch.softmax(xg.float() @ router.float(), dim=-1)
+    topv, topi, pos, keep = route(probs, k, cap)
+    gi = torch.arange(G, device=dev)[:, None, None].expand(G, n_g, k)
+    slot = torch.where(keep, pos, torch.full((), cap, device=dev))
+    ex_in = xg.new_zeros(E, G, cap + 1, d).index_put(
+        (topi, gi, slot), xg[:, :, None, :].expand(G, n_g, k, d))
+    ex_in = ex_in[:, :, :cap].contiguous().transpose(0, 1)   # (G, E, C, d)
+    return ex_in, probs, topv, topi, slot, keep
+
+
+def _experts(ex_in: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor,
+             w_down: torch.Tensor, act) -> torch.Tensor:
+    """The experts' gated MLPs over their slots: (G, E, C, d) -> (G, E,
+    C, d)."""
+    h = act(psg.einsum("gecd,edf->gecf", ex_in, w_up))
+    h = h * psg.einsum("gecd,edf->gecf", ex_in, w_gate)
+    return psg.einsum("gecf,efd->gecd", h, w_down)
+
+
+def _combine(ex_out: torch.Tensor, topv: torch.Tensor, topi: torch.Tensor,
+             slot: torch.Tensor, keep: torch.Tensor, cap: int
+             ) -> torch.Tensor:
+    """Each token's kept choices, weighted by weights rounded to the
+    activation dtype, summed over its k in fp32 and rounded once (the
+    reference's one einsum of bf16 operands: their products are exact in
+    its fp32 accumulator): (G, n, d)."""
+    G, n_g, k = topi.shape
+    dt, dev = ex_out.dtype, ex_out.device
+    gi = torch.arange(G, device=dev)[:, None, None].expand(G, n_g, k)
+    picked = ex_out[gi, topi, slot.clamp(max=cap - 1)]    # (G, n, k, d)
+    w = torch.where(keep, topv, torch.zeros((), device=dev)).to(dt)
+    return (picked.float() * w.float()[..., None]).sum(dim=2).to(dt)
+
+
 def moe_fwd(m: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), fp32 load-balance loss)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
-    dt, dev = x.dtype, x.device
+    dt = x.dtype
     N = B * S
     W = sharding.data_world()
     n_g = min(GROUP_SIZE, N * W)     # the global batch's routing group
@@ -103,32 +146,34 @@ def moe_fwd(m: MoE, x: torch.Tensor, cfg: ModelConfig
         raise ValueError(f"tokens {N} not divisible by group {n_g}")
     cap = max(int(cfg.capacity_factor * k * n_g / E), 1)
 
-    xg = x.reshape(G, n_g, d)
-    probs = torch.softmax(xg.float() @ m.router.float(), dim=-1)
-    topv, topi, pos, keep = route(probs, k, cap)
-
-    # dispatch: slot (e, g, c) holds its token, empty slots zero; dropped
-    # choices go to a spare slot C that is cut off (no mask, no host sync:
-    # the step can be captured in a CUDA graph)
-    gi = torch.arange(G, device=dev)[:, None, None].expand(G, n_g, k)
-    slot = torch.where(keep, pos, torch.full((), cap, device=dev))
-    ex_in = x.new_zeros(E, G, cap + 1, d).index_put(
-        (topi, gi, slot), xg[:, :, None, :].expand(G, n_g, k, d))
-    ex_in = ex_in[:, :, :cap].contiguous().transpose(0, 1)   # (G, E, C, d)
+    # groups over the batch axes; on DTensors the routing and the indexed
+    # dispatch and combine run on each rank's groups (sharding.run_local),
+    # the experts over the model axis (expert-parallel where the experts
+    # divide it, else their d_ff tensor-parallel, as the JAX package)
+    xg = sharding.hint(x.reshape(G, n_g, d), "batch", None, None)
+    ep = E % max(sharding.ctx_mesh_axis_size("model"), 1) == 0
+    e_ax = "mlp" if ep else None
+    rows = ("batch", None, None)
+    ex_in, probs, topv, topi, slot, keep = sharding.run_local(
+        lambda xg, r: _dispatch(xg, r, k, cap, E), (xg, m.router),
+        (rows, (None, None)), ("batch",), n_out=6)
+    ex_in = sharding.hint(ex_in, "batch", e_ax, None, None)
 
     act = F.silu if cfg.act == "silu" else L._ACTS["gelu"]
-    h = act(psg.einsum("gecd,edf->gecf", ex_in, m.w_up.to(dt)))
-    h = h * psg.einsum("gecd,edf->gecf", ex_in, m.w_gate.to(dt))
-    ex_out = psg.einsum("gecf,efd->gecd", h, m.w_down.to(dt))
-
-    # combine: each token's kept choices, weighted by weights rounded to
-    # the activation dtype, summed over its k in fp32 and rounded once (the
-    # reference's one einsum of bf16 operands: their products are exact in
-    # its fp32 accumulator)
-    picked = ex_out[gi, topi, slot.clamp(max=cap - 1)]    # (G, n, k, d)
-    w = torch.where(keep, topv, torch.zeros((), device=dev)).to(dt)
-    y = (picked.float() * w.float()[..., None]).sum(dim=2).to(dt) \
-        .reshape(N, d)
+    f_ax = None if ep else "mlp"
+    ex_out = sharding.run_local(
+        lambda e, u, g, w: _experts(e, u, g, w, act),
+        (ex_in, m.w_up.to(dt), m.w_gate.to(dt), m.w_down.to(dt)),
+        (("batch", e_ax, None, None), (e_ax, None, f_ax),
+         (e_ax, None, f_ax), (e_ax, f_ax, None)),
+        ("batch", e_ax, None, None),
+        partial=None if ep else ("mlp", m.w_up.shape[-1]))
+    ex_out = sharding.hint(ex_out, "batch", e_ax, None, None)
+    y = sharding.run_local(
+        lambda eo, tv, ti, sl, kp: _combine(eo, tv, ti, sl, kp, cap),
+        (ex_out, topv, topi, slot, keep),
+        (("batch", None, None, None), rows, rows, rows, rows),
+        rows).reshape(N, d)
 
     if m.shared:
         xt = x.reshape(N, d)

@@ -46,7 +46,7 @@ from repro_torch.core.cost import MBV2_HEAD, MBV2_STEM, cost_scope, \
 from repro_torch.core.slu import Gate, GateState, gated_residual, \
     resnet_uniforms
 from repro_torch.distributed import sharding
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, init_generator
 
 Uniforms = Union[np.ndarray, torch.Tensor]
 
@@ -122,10 +122,12 @@ class ResNet(nn.Module):
     def __init__(self, depth: int, num_classes: int = 10,
                  e2: Optional[E2TrainConfig] = None, width: int = 16,
                  seed: int = 0):
+        """Drawn on the CPU; inside ``torch.device("meta")`` nothing is
+        drawn (``tasks/cifar_cnn``)."""
         super().__init__()
         self.n = resnet_depth_to_n(depth)
         self.e2 = e2 or E2TrainConfig()
-        g = torch.Generator().manual_seed(seed)
+        g = init_generator(seed)
         self.stem = Conv(3, width, 3, g)
         self.stem_bn = BatchNorm(width)
         self.stages = nn.ModuleList()
@@ -319,7 +321,7 @@ class MobileNetV2(nn.Module):
     def __init__(self, num_classes: int = 10, seed: int = 0):
         super().__init__()
         self.layout = mbv2_layout()
-        g = torch.Generator().manual_seed(seed)
+        g = init_generator(seed)
         self.stem = Conv(3, MBV2_STEM, 3, g)
         self.stem_bn = BatchNorm(MBV2_STEM)
         self.blocks = nn.ModuleList(

@@ -41,7 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.layers import dense_init, param_dtype
+from repro_torch.distributed import sharding
+from repro_torch.models.layers import LocalWeights, dense_init, param_dtype
 
 State = Dict[str, torch.Tensor]
 
@@ -156,7 +157,7 @@ def mamba_fwd(p: Mamba, u: torch.Tensor, cfg: ModelConfig,
     H = torch.zeros(Bsz, nh, cfg.ssm_state, hd, device=u.device)
     ys = []
     for chunk in zip(*(t.split(L, dim=1) for t in (xh, Bf, Cf, dt, loga))):
-        H, y = _run_chunk(_mamba_chunk, H, *chunk, tri)
+        H, y = _run_chunk(_mamba_chunk, sharding.hint_batch(H), *chunk, tri)
         ys.append(y)
     y = torch.cat(ys, dim=1) + xh * p.D.to(xh.dtype)[:, None]
     y = y.reshape(Bsz, S, di) * F.silu(z)
@@ -283,8 +284,11 @@ def mlstm_fwd(p: MLSTM, u: torch.Tensor, cfg: ModelConfig,
     n = torch.zeros(Bsz, nh, hd, device=u.device)
     m = torch.full((Bsz, nh), M0, device=u.device)
     ys = []
-    for chunk in zip(*(t.split(L, dim=1) for t in (q, k, v, i_t, logf))):
-        C, n, m, y = _run_chunk(_mlstm_chunk, C, n, m, *chunk, tri)
+    for qi, ki, vi, ii, fi in zip(*(t.split(L, dim=1)
+                                    for t in (q, k, v, i_t, logf))):
+        qi, ki, vi = (sharding.hint_batch(t) for t in (qi, ki, vi))
+        C, n, m, y = _run_chunk(_mlstm_chunk, sharding.hint_batch(C), n, m,
+                                qi, ki, vi, ii, fi, tri)
         ys.append(y)
     y = torch.cat(ys, dim=1).reshape(Bsz, S, di) * F.silu(z)
     out = y @ p.w_out.to(u.dtype)
@@ -374,7 +378,8 @@ def slstm_fwd(p: SLSTM, u: torch.Tensor, cfg: ModelConfig,
     carry = (zeros, zeros, zeros.to(dt_), torch.full_like(zeros, M0))
     hs = []
     for x_t in x_g.unbind(dim=1):
-        carry = _slstm_cell(r_g, x_t, carry, one)
+        carry = _slstm_cell(r_g, x_t, tuple(sharding.hint_batch(c)
+                                            for c in carry), one)
         hs.append(carry[2])
     out = torch.stack(hs, dim=1).reshape(Bsz, S, d) @ p.w_out.to(dt_)
     if return_state:
@@ -404,3 +409,23 @@ def slstm_step(p: SLSTM, u: torch.Tensor, state: State, cfg: ModelConfig):
 
 MIXERS = {"mamba": (Mamba, mamba_fwd), "mlstm": (MLSTM, mlstm_fwd),
           "slstm": (SLSTM, slstm_fwd)}
+
+
+def mixer_fwd(kind: str, p: nn.Module, u: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """The ``kind`` mixer's forward; on ``DTensor``s each rank runs the
+    plain forward on its batch rows with the mixer's weights gathered
+    whole (``sharding.run_local``: the mixers are data-parallel over the
+    model axis, whose sequential chunk and token loops ``DTensor`` would
+    dispatch op by op)."""
+    fwd = MIXERS[kind][1]
+    if not sharding.spmd(u):
+        return fwd(p, u, cfg)
+    names, ws = zip(*p.named_parameters())
+    rows = ("batch", None, None)
+
+    def local(u, *w):
+        return fwd(LocalWeights(**dict(zip(names, w))), u, cfg)
+    return sharding.run_local(local, (u,) + ws,
+                              (rows,) + tuple((None,) * w.ndim for w in ws),
+                              rows)

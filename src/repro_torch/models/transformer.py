@@ -137,13 +137,14 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, e2: Optional[E2TrainConfig] = None,
                  seed: int = 0, device=None):
         """Parameters from ``seed`` (``torch.Generator`` draws, not the JAX
-        init's), made on ``device`` (default: the CPU)."""
+        init's), made on ``device`` (default: the CPU; on ``meta`` nothing
+        is drawn or allocated)."""
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.unit = unit_kinds(cfg)
         self.e2 = e2 or E2TrainConfig()
-        g = torch.Generator(device=device or "cpu").manual_seed(seed)
+        g = L.init_generator(seed, device)
         pd = L.param_dtype(cfg)
         self.embed = nn.Parameter(L.embed_init((cfg.padded_vocab, cfg.d_model),
                                                g, dtype=pd))
@@ -203,7 +204,7 @@ class TransformerLM(nn.Module):
         dt = getattr(torch, cfg.dtype)
         # the audit's groups (core/cost.cost_scope): embed, unit, head
         with cost_scope("embed"):
-            x = self.embed[tokens].to(dt)
+            x = sharding.embed(self.embed, tokens, dt)
         memory = None
         if cfg.encoder_layers:
             if frontend is None:
@@ -217,9 +218,16 @@ class TransformerLM(nn.Module):
         gate = self.slu_gate if self.training else None
         remat = remat if self.training else "none"
         # the reference's sequence parallelism (sp) keeps training off the
-        # query-chunked softmax, and holds only for attn/moe units
+        # query-chunked softmax, and holds only for attn/moe units.  On
+        # DTensors the stream is pinned batch-sharded between units (its
+        # sequence axis is not sharded: DTensor's placement of a flattened
+        # (batch, seq) pair sharded on both is a strided shard, whose index
+        # arithmetic costs seconds an op and which it views to wrong local
+        # shapes)
         prefer_chunked = not (self.training and all(
             k in (BLOCK_ATTN, BLOCK_MOE) for k in self.unit))
+        stream_axes = ("batch", None, None)
+        x = sharding.hint(x, *stream_axes)
         gst = gate.init_state() if gate is not None else None
         if gate is not None and slu_u is None:
             slu_u = lm_uniforms(key, cfg)
@@ -228,6 +236,8 @@ class TransformerLM(nn.Module):
         aux_loss = torch.zeros((), device=x.device)
         with cost_scope("unit"):
             for i, blk in enumerate(self.layers):
+                if i % len(self.unit) == 0:      # re-pin at each unit
+                    x = sharding.hint(x, *stream_axes)
                 force = slu_cfg.never_skip_first_last and i in (0, n - 1)
                 subs = _sub_block_fns(self, blk, prefer_chunked)
                 for j, (fn, mods) in enumerate(subs):
@@ -276,9 +286,12 @@ class TransformerLM(nn.Module):
         unless the model has its own): fp32 logits, the padded vocabulary's
         ids masked to -1e30 (never predicted)."""
         cfg = self.cfg
-        x = self.final_norm(x)
+        # the stream batch-sharded and the logits vocab-sharded (on
+        # DTensors): the head's gradient stays a (d, V / model) shard
+        x = sharding.hint(self.final_norm(x), "batch", None, None)
         head = self.embed.T if self.head is None else self.head
-        logits = (x @ head.to(x.dtype)).float()
+        logits = sharding.hint((x @ head.to(x.dtype)).float(),
+                               "batch", None, "vocab")
         if cfg.padded_vocab != cfg.vocab_size:
             pad = torch.arange(cfg.padded_vocab, device=x.device) \
                 >= cfg.vocab_size
@@ -302,6 +315,7 @@ def _in_context(body):
 
 def _encoder_layer(blk: Block, x: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
+    x = sharding.hint_batch(x)
     x = x + L.attention_fwd(blk.attn, blk.ln1(x), cfg, causal=False)
     return x + L.mlp_fwd(blk.mlp, blk.ln2(x), cfg)
 
@@ -327,8 +341,9 @@ def _sub_block_fns(model: TransformerLM, blk: Block, prefer_chunked: bool):
         return ((_in_context(lambda h: L.attention_fwd(
             sh.attn, sh.ln(h), cfg, prefer_chunked)), (sh.ln, sh.attn)),)
     if blk.kind in ssm.MIXERS:
-        mixer, fwd = getattr(blk, blk.kind), ssm.MIXERS[blk.kind][1]
-        return ((lambda h: fwd(mixer, blk.ln1(h), cfg), (blk.ln1, mixer)),)
+        mixer = getattr(blk, blk.kind)
+        return ((lambda h: ssm.mixer_fwd(blk.kind, mixer, blk.ln1(h), cfg),
+                 (blk.ln1, mixer)),)
     mixer = _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg,
                                                   prefer_chunked))
     if blk.kind == BLOCK_MOE:
@@ -364,8 +379,8 @@ def lm_loss(model: TransformerLM, batch: Dict[str, torch.Tensor],
     if logits.shape[1] != labels.shape[1]:          # VLM prepended patches
         logits = logits[:, -labels.shape[1]:]
     mask = (labels >= 0).float()
-    ll = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
-    nll = torch.logsumexp(logits, dim=-1) - ll
+    ll = sharding.take_last(logits, labels.clamp_min(0))
+    nll = sharding.logsumexp(logits, dim=-1) - ll
     loss = sharding.global_sum(torch.sum(nll * mask)) / torch.clamp_min(
         sharding.global_sum(torch.sum(mask)), 1.0)
     total = loss + cfg.router_aux_coef * aux["aux_loss"]
@@ -490,9 +505,12 @@ def decode_step(model: TransformerLM, token: torch.Tensor,
     the device, with nothing read to the host."""
     cfg = model.cfg
     memory = _memory(model, memory)
-    x = model.embed[token].to(getattr(torch, cfg.dtype))
+    x = sharding.embed(model.embed, token, getattr(torch, cfg.dtype))
     pos = state["pos"]
+    unit = len(model.unit)
     for i, (blk, st) in enumerate(zip(model.layers, state["layers"])):
+        if i % unit == 0:
+            x = sharding.hint_batch(x)
         if blk.kind in ssm.MIXERS:
             y, new = getattr(ssm, f"{blk.kind}_step")(
                 getattr(blk, blk.kind), blk.ln1(x), st, cfg)

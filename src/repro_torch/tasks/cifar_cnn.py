@@ -9,6 +9,7 @@ in the JAX package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 from torch import nn
 
 from repro_torch.core.config import Experiment
@@ -24,6 +25,12 @@ def _is_mobilenet(exp: Experiment) -> bool:
 
 def _init(exp: Experiment, seed: int = 0, device=None) -> nn.Module:
     m = exp.model
+    if device is not None and torch.device(device).type == "meta":
+        with torch.device("meta"):          # no draw, no allocation
+            if _is_mobilenet(exp):
+                return R.MobileNetV2(num_classes=m.vocab_size, seed=seed)
+            return R.ResNet(m.num_layers, num_classes=m.vocab_size,
+                            e2=exp.e2, width=m.d_model, seed=seed)
     if _is_mobilenet(exp):
         return R.MobileNetV2(num_classes=m.vocab_size, seed=seed).to(device)
     return R.ResNet(m.num_layers, num_classes=m.vocab_size, e2=exp.e2,

@@ -607,5 +607,5 @@ def test_bench_run_ft_rows_and_refusals(ft_record, monkeypatch, capsys):
     assert rows[0] == "name,us_per_call,derived"
     assert rows[-1] == "ft_all,0.0,all_recovered=True"
     assert "ft_kill_restart,0.0,recovered=True" in rows
-    for name in ("conv", "attn", "roofline"):
+    for name in ("conv", "attn"):
         assert bench_run.main(["--only", name, "--device", "cpu"]) == 2

@@ -168,3 +168,26 @@ def test_analysis_imports_without_jax_and_needs_a_card_or_the_cpu(no_card):
                  lambda: bench_run.main(["--only", "audit"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_dry_run_modules_stand_alone():
+    """The dry run's modules are among the files checked above, and the
+    dry run imports neither JAX nor the JAX package when it runs."""
+    import subprocess
+    import sys
+    for rel in ("launch/specs.py", "launch/dryrun.py",
+                "launch/bench_roofline.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+    code = ("import sys; from repro_torch.launch import dryrun, "
+            "bench_roofline, specs; "
+            "r = dryrun.analyze_cell('qwen2_5_3b', 'long_500k', False); "
+            "bench_roofline.render_cnn_analytic(); "
+            "assert r['status'] == 'skipped', r; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]; "
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PATH": "/usr/bin:/bin",
+                               "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-2000:]
