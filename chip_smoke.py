@@ -163,8 +163,9 @@ Phases, each fatal on failure:
 14. dense_archs: llama3-8b (2 x 4096, flash), starcoder2-15b (4 x 4096 in
    its config's 4 microbatches, 48 heads on 4 kv heads, flash) and
    h2o-danube-3-4b (1 x 16384, a 4096-token sliding window, query-chunked
-   softmax, kernels 7-9 absent) at their published widths, 4 layers,
-   ``--e2train full``, ``remat="block"`` (``dense_archs_check``): kernels
+   softmax, kernels 7-9 absent) at their published widths, 2 layers (cut
+   from 4 for the script's time), ``--e2train full``, ``remat="block"``
+   (``dense_archs_check``): kernels
    5-6 at each one's weight-matmul geometries (dout 960 among them) and
    7-9 at its attention geometry against their plain versions, timed, not
    counted in the ``kernels`` line (kernel 9 also bit for bit on integer
@@ -175,8 +176,9 @@ Phases, each fatal on failure:
    recovered, without its kill-and-restart (phase 18 kills and restarts
    the launcher on the card, bit for bit);
 15. encdec_vlm_moe: whisper-small (encoder-decoder, 12 + 12 layers, 8 x
-   4096 tokens + 8 x 1500 frames), phi-3-vision-4.2b (VLM, 4 layers, 2 x
-   4096 tokens + 576 patches, head dim 96) and deepseek-moe-16b (4 layers,
+   4096 tokens + 8 x 1500 frames), phi-3-vision-4.2b (VLM, 2 layers (cut
+   from 4), 2 x 4096 tokens + 576 patches, head dim 96) and
+   deepseek-moe-16b (2 layers (cut from 4),
    2 x 4096, 64 experts top-6 + 2 shared) at their published widths,
    ``--e2train full``, ``remat="block"`` (``encdec_vlm_moe_check``):
    kernels 5-6 bit for bit at the MoE models' expert geometries (960 rows
@@ -293,7 +295,23 @@ Phases, each fatal on failure:
    time (the union of its kernels' intervals) must be at least
    ``max(compute_s, memory_s)`` of its roofline; (c) the
    ``roofline`` bench's analytic ResNet-74 row (``launch/bench_roofline``)
-   under phase 11's chunked ResNet-74 replay, the ratio printed.
+   under phase 11's chunked ResNet-74 replay, the ratio printed;
+21. the conv and attention benches and the two examples
+   (``bench_conv_attn_examples_check``): ``bench_run --json-conv
+   --json-attn`` in fast mode, in a process of its own, into a temporary
+   directory (exit 0; every path's byte accounting of both records passes
+   ``assert_complete``; both paths' device ms and device-busy ms at the
+   paper totals positive, from profiles that lost no launch; the byte
+   models' launch grids of kernels 1-9 held against the card's at the 8
+   ResNet-74 geometries and ``PAPER_LM``); ``bench_run --only
+   conv,attn``'s rows made from those records, their names the
+   reference's;
+   ``launch/finetune_split`` (80 / 60 / 240 steps) and
+   ``launch/quickstart`` (60 / 120 steps) on the card, their losses,
+   energy units and the Sec. 4.5 verdict printed, kernels 5-9 launched by
+   their PSG runs, and the first ``EXAMPLE_STEPS`` pre-training losses
+   (sgdm, fp32, no PSG) from the card's initial weights on the CPU within
+   ``EXAMPLE_REL`` of the card's; the phase's seconds.
 
 The second line from the end is a JSON object ``{"kernels": [...]}``, the
 line before it the card's name and power limit; the last line is
@@ -2916,8 +2934,8 @@ def paper_benches_check(torch, mods, dev="cuda", steps=None):
     return out
 
 
-# phase 14: the dense decoder family at its published widths, 4 layers deep
-DENSE_LAYERS = 4
+# phase 14: the dense decoder family at its published widths, DENSE_LAYERS deep
+DENSE_LAYERS = 2     # of 32 / 40 / 24: cut from 4 for the script's time
 DENSE_PATHS = {     # arch: (batch, seq) of one step, as its main path trains
     "llama3_8b": (2, 4096),         # train_4k's length, its batch cut
     "starcoder2_15b": (4, 4096),    # in its config's 4 microbatches
@@ -3021,8 +3039,8 @@ def dense_archs_check(torch, mods):
 
 ENCDEC_PATHS = {    # arch: (layers, batch, seq) of its main path (None: all)
     "whisper_small": (None, 8, 4096),
-    "phi_3_vision_4_2b": (4, 2, 4096),
-    "deepseek_moe_16b": (4, 2, 4096),
+    "phi_3_vision_4_2b": (2, 2, 4096),     # cut from 4 for the script's time
+    "deepseek_moe_16b": (2, 2, 4096),      # the same
     "grok_1_314b": (1, 8, 4096),
 }
 CARD_BYTES = 80e9
@@ -4606,6 +4624,158 @@ def dryrun_check(torch, chunked, started) -> dict:
             "parent_held": held}
 
 
+# phase 21: the conv and attention benches, and the examples
+EXAMPLE_STEPS = 8    # finetune_split's first pre-training steps, card and CPU
+EXAMPLE_REL = 1e-4
+BENCH_TIMEOUT_S = 300   # bench_run --json-conv --json-attn, in its process
+HELD_CONV = ("conv_fwd_mma_kernel", "conv_dx_mma_kernel",
+             "conv_pred_mma_kernel", "conv_sign_mma_kernel",
+             "pred_mma_kernel", "sign_mma_kernel")
+HELD_FLASH = ("flash_bwd_dkv_mma_kernel", "flash_bwd_dq_mma_kernel",
+              "flash_fwd_mma_kernel")
+BENCH_ROWS = ["conv/paper_resnet74_batch128", "conv/body/2x32x3-16k3s1",
+              "conv/strided/2x32x16-32k3s2", "conv/down/2x32x16-32k1s2",
+              "attn/paper_lm_s4096", "attn/gqa_small/1x128x4-2h32"]
+
+
+def bench_conv_attn_examples_check(torch, mods):
+    """Phase 21: ``bench_conv`` and ``bench_attn`` through ``bench_run``, then
+    ``finetune_split`` and ``quickstart`` on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import psg_matmul as PM
+    from repro_torch.launch import (bench_attn, bench_conv, finetune_split,
+                                    quickstart)
+    from repro_torch.tasks import get_task
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    # the records by the CLI in a process of their own: this one's long
+    # profiles would cost its later profiles device records
+    # (bench_common.device_profile), which the records' busy times need;
+    # a process whose profiler lost records in every session it took is
+    # run once more
+    with tempfile.TemporaryDirectory() as d:
+        paths = (os.path.join(d, "conv.json"), os.path.join(d, "attn.json"))
+        t0 = time.perf_counter()
+        for attempt in range(2):
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.bench_run",
+                 "--json-conv", paths[0], "--json-attn", paths[1]],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+            if "no whole profile" not in proc.stderr:
+                break
+            print(f"bench_run --json-conv --json-attn: attempt {attempt} "
+                  f"found no whole profile", flush=True)
+        records_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"bench_run --json-conv --json-attn exited "
+                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        conv, attn = (json.loads(Path(p).read_text()) for p in paths)
+    totals = conv["paper_resnet74_batch128"]
+    for path in ("im2col", "fused"):
+        bench_conv.assert_complete(totals[f"{path}_bytes_per_step"], path)
+        for row in conv["shapes"]:
+            bench_conv.assert_complete(row[f"{path}_bytes"], row["kind"])
+    lm = attn["paper_lm_s4096"]
+    for path in ("materialized", "flash"):
+        bench_attn.assert_complete(lm[f"{path}_bytes_per_step"], path)
+        for row in attn["shapes"]:
+            bench_attn.assert_complete(row[f"{path}_bytes"], row["kind"])
+    for what, ms in (("conv", totals["device_ms_per_step"]),
+                     ("attn", lm["device_ms"])):
+        if not all(v is not None and v > 0 for v in ms.values()):
+            fail(f"{what} paper totals device ms {ms}")
+    # the profiler's busy time, from profiles that lost no launch
+    for what, ms in (("conv", totals["device_busy_ms_per_step"]),
+                     ("attn", lm["device_busy_ms"])):
+        if not all(v is not None and v > 0 for v in ms.values()):
+            fail(f"{what} paper totals device-busy ms {ms}")
+    # the byte models' launches held against the card's at every geometry
+    geometries = totals["unique_geometries"]
+    for what, held, want in (
+            ("conv", totals["launches_held"],
+             {n: geometries for n in HELD_CONV}),
+            ("attn", lm["launches_held"], {n: 1 for n in HELD_FLASH})):
+        if held != want:
+            fail(f"{what} launches held against the card's {held}, "
+                 f"expected {want}")
+    if lm["bytes_ratio"] < 3:
+        fail(f"paper_lm_s4096 bytes_ratio {lm['bytes_ratio']} < 3")
+    papers = {
+        "conv": {k: totals[k] for k in (
+            "bytes_ratio", "backward_bytes_ratio", "dx_bytes_ratio",
+            "device_ms_per_step", "time_ratio", "device_busy_ms_per_step",
+            "busy_ratio", "implied_tb_s", "implied_tb_s_busy",
+            "launches_held", "profiles_discarded")},
+        "attn": {k: lm[k] for k in (
+            "bytes_ratio", "fwd_bytes_ratio", "bwd_bytes_ratio",
+            "device_ms_batch", "device_ms", "time_ratio", "device_busy_ms",
+            "busy_ratio", "implied_tb_s", "implied_tb_s_busy",
+            "launches_held", "profiles_discarded")},
+        "device": conv["device"], "records_s": records_s}
+    print(json.dumps({"phase": "bench_conv_attn_records", **papers}),
+          flush=True)
+
+    # bench_run --only conv,attn's rows, from the records just made
+    rows = [*bench_conv.rows(totals, conv["shapes"]),
+            *bench_attn.rows(lm, attn["shapes"])]
+    for row in rows:
+        print(row, flush=True)
+    if [r.split(",", 1)[0] for r in rows] != BENCH_ROWS:
+        fail(f"the records' rows {rows}")
+
+    examples = {}
+    for name, mod in (("finetune_split", finetune_split),
+                      ("quickstart", quickstart)):
+        reset_all(mods)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf := io.StringIO()):
+            rec = mod.run("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            print(line, flush=True)
+        used = {n: c for m in mods for n, c in m.LAUNCHES.items() if c}
+        for kernel in list(PM.LAUNCHES) + list(FA.LAUNCHES):
+            if used.get(kernel, 0) <= 0:
+                fail(f"{name}'s PSG run launched no {kernel}")
+        examples[name] = {**rec, "wall_s": wall, "launches": used}
+    if not lines[-1].startswith("  SLU skip 60%: computational savings"):
+        fail(f"quickstart's last line {lines[-1]!r}")
+    ft = examples["finetune_split"]
+    exp = finetune_split.pretrain_experiment()
+    cpu_init = get_task("lm").init(exp, 0, "cuda").cpu()
+    _, cpu_hist = finetune_split.pretrain(EXAMPLE_STEPS, "cpu", cpu_init)
+    card = ft["pretrain_losses"][:EXAMPLE_STEPS]
+    cpu = [h["loss"] for h in cpu_hist]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if len(card) != EXAMPLE_STEPS or rel > EXAMPLE_REL:
+        fail(f"finetune_split pre-training losses {card} on the card "
+             f"against the CPU's {cpu}: {rel} relative > {EXAMPLE_REL}")
+    out = {"records": papers, "rows": rows,
+           "examples": examples,
+           "pretrain_card_vs_cpu": {"card": card, "cpu": cpu,
+                                    "max_rel": rel, "limit": EXAMPLE_REL},
+           "seconds": time.perf_counter() - t_start}
+    print(json.dumps({"phase": "bench_conv_attn_examples",
+                      "verdict": {k: ft[k] for k in (
+                          "option1_loss", "option2_loss",
+                          "option1_energy_units", "option2_energy_units",
+                          "reproduced")},
+                      "pretrain_max_rel": rel,
+                      "wall_s": {"records": records_s,
+                                 **{n: e["wall_s"]
+                                    for n, e in examples.items()}},
+                      "seconds": out["seconds"]}), flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4775,6 +4945,8 @@ def main() -> None:
     mark("analysis")
     dry = dryrun_check(torch, chunked, started)
     mark("dryrun")
+    benches = bench_conv_attn_examples_check(torch, mods + (GC,))
+    mark("bench_conv_attn_examples")
     phase_s = {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}
     print(json.dumps({"phase": "timing", "seconds": phase_s}), flush=True)
 
@@ -4827,6 +4999,7 @@ def main() -> None:
          "dense_archs": dense, "encdec_vlm_moe": encdec, "ssm": ssm,
          "serving": serving, "distributed": distributed,
          "analysis": analysis, "dryrun": dry,
+         "bench_conv_attn_examples": benches,
          "phase_seconds": phase_s,
          "kernels": kernels,
          "device_ms": {n: tot[n]["device_ms"] for n in REPLACES},

@@ -12,8 +12,9 @@ and the energy numbers come from the paper's 45nm per-op model
 """
 from __future__ import annotations
 
+import json
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +99,36 @@ def eval_accuracy(trainer: Trainer, n_batches: int = 4) -> float:
                              trainer.device, n_batches)
 
 
+class Term(NamedTuple):
+    """One pass of a path over device memory in a byte model
+    (``bench_conv``, ``bench_attn``): its component, what it is, its bytes,
+    and ``"op"`` (a PyTorch op of the path) or the kernel wrapper whose
+    launches (or whose own PyTorch ops on the card) move it."""
+    comp: str
+    what: str
+    nbytes: int
+    source: str = "op"
+
+
+def device_label(dev: torch.device) -> str:
+    """``"cpu"``, or the card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    name alone where ``nvidia-smi`` cannot be run)."""
+    if dev.type != "cuda":
+        return "cpu"
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", str(dev.index or 0)],
+            capture_output=True, text=True, timeout=30)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return torch.cuda.get_device_name(dev)
+
+
 def csv_row(name: str, us_per_call: float, derived: str) -> str:
     return f"{name},{us_per_call:.1f},{derived}"
 
@@ -122,6 +153,151 @@ def time_us(fn: Callable, *args, reps: int = 3):
     for _ in range(reps):
         out = fn(*args)
     return (time.perf_counter() - t0) * 1e6 / reps, out
+
+
+class Launch(NamedTuple):
+    """A kernel launch: the kernel's name (namespace, template arguments
+    and parameters stripped), its grid, and its block (``None`` where a
+    launch model leaves it open)."""
+    name: str
+    grid: Tuple[int, int, int]
+    block: Optional[Tuple[int, int, int]] = None
+
+
+#: host calls that put work on the card; each must have a device event
+_LAUNCH_CALLS = ("LaunchKernel", "Memcpy", "Memset")
+#: the Chrome trace's categories of work on the card
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the range that marks the profiled call in a session
+_MEASURED = "device_profile.measured"
+#: sessions :func:`device_profile` takes before it gives up on a whole one
+_PROFILE_SESSIONS = 8
+
+
+def kernel_name(raw: str) -> str:
+    """``void (anonymous namespace)::conv_fwd_mma_kernel<2>(signed char
+    const*, ...)`` -> ``conv_fwd_mma_kernel``."""
+    s, depth, out = raw.replace("(anonymous namespace)::", ""), 0, []
+    for ch in s:                    # template arguments dropped
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth = max(0, depth - 1)
+        elif not depth:
+            out.append(ch)
+    words = "".join(out).split("(")[0].split()
+    return words[-1].split("::")[-1] if words else raw
+
+
+class Profile(NamedTuple):
+    """One profiled call: the card's busy ms, the kernels it launched, and
+    the sessions thrown away first because their call had lost device
+    records."""
+    busy_ms: float
+    launches: List[Launch]
+    discarded: int
+
+
+def measured_call(events: List[dict]
+                  ) -> Tuple[float, List[Launch], List[str]]:
+    """The call inside the ``_MEASURED`` range of a session's Chrome trace
+    events: its busy ms (the union of the intervals of the device events
+    of the host calls in the range: kernels, memsets, copies), its kernel
+    launches, and the names of its launching host calls that have no
+    device event (matched by correlation id).  The range is taken by
+    time over every thread, since autograd's backward launches from a
+    thread of its own while the marked thread waits."""
+    (mark,) = [e for e in events if e.get("cat") == "user_annotation"
+               and e["name"] == _MEASURED]
+    lo, hi = mark["ts"], mark["ts"] + mark["dur"]
+    calls = {e["args"]["correlation"]: e["name"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and any(c in e["name"] for c in _LAUNCH_CALLS)
+             and lo <= e["ts"] <= hi}
+    dev = [e for e in events if e.get("cat") in _DEVICE_CATS
+           and e["args"].get("correlation") in calls]
+    lost = sorted(calls[c] for c in
+                  set(calls) - {e["args"]["correlation"] for e in dev})
+    if not calls:
+        lost = ["(no launching host call in the measured range)"]
+    busy_us, end, launches = 0.0, float("-inf"), []
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+        if e["cat"] == "kernel":
+            launches.append(Launch(kernel_name(e["name"]),
+                                   tuple(e["args"]["grid"]),
+                                   tuple(e["args"]["block"])))
+    return busy_us / 1e3, launches, lost
+
+
+def device_profile(fn: Callable, *args) -> Profile:
+    """``fn(*args)`` on the card under ``torch.profiler``: the card's busy
+    time in ms (unlike :func:`time_us`'s CUDA events it leaves out the
+    time the card waits for the host) and the kernels the call launched,
+    with their grids and blocks, as the session's Chrome trace gives them.
+
+    The profiler (torch 2.11, CUDA 12.8, H100) drops runs of device
+    records at the start of a session at random, in a fresh process too:
+    a session's first few launches (up to 39 of them), or every launch of
+    one to three sessions in a row.  So session ``i`` makes ``i + 1`` lead
+    calls, which take such a loss and build what the call builds, and then
+    the measured call inside the ``_MEASURED`` range; a session whose
+    measured call lost any device record is thrown away and taken again,
+    up to ``_PROFILE_SESSIONS`` sessions, and ``Profile.discarded`` counts
+    the ones thrown away.  Raises ``RuntimeError`` when no session is
+    whole: it never returns a short busy time."""
+    import os
+    import sys
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    lost: List[str] = []
+    for session in range(_PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(session + 1):
+                fn(*args)
+            torch.cuda.synchronize()
+            with record_function(_MEASURED):
+                fn(*args)
+                torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        busy_ms, launches, lost = measured_call(events)
+        if not lost:
+            return Profile(busy_ms, launches, session)
+        print(f"device_profile: session {session} thrown away, "
+              f"{len(lost)} launching host calls without a device event "
+              f"({sorted(set(lost))})", file=sys.stderr, flush=True)
+    raise RuntimeError(
+        f"no whole profile in {_PROFILE_SESSIONS} sessions: the last lost "
+        f"the device events of {len(lost)} launching host calls "
+        f"({sorted(set(lost))})")
+
+
+def check_launches(model: List[Launch], launched: List[Launch],
+                   where: str) -> Dict[str, int]:
+    """Hold a byte model's launches against the card's: for every kernel
+    the model names, the same grids (and blocks, where it gives them), as
+    many times.  Returns the launches held, by kernel; raises
+    ``RuntimeError`` on any difference."""
+    held: Dict[str, int] = {}
+    for name in sorted({m.name for m in model}):
+        want = sorted(m for m in model if m.name == name)
+        got = sorted(x if want[0].block is not None else x._replace(block=None)
+                     for x in launched if x.name == name)
+        if got != want:
+            raise RuntimeError(f"{where}: the model's {name} launches "
+                               f"{want}, the card's {got}")
+        held[name] = len(got)
+    return held
 
 
 def one_per_kind(shapes):

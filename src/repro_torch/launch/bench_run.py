@@ -5,16 +5,19 @@ package's ``benchmarks/run.py``).
     python -m repro_torch.launch.bench_run --json PATH [--json-throughput PATH]
     python -m repro_torch.launch.bench_run --json-ft [PATH] [--device cpu]
     python -m repro_torch.launch.bench_run --json-audit [PATH] [--device cpu]
+    python -m repro_torch.launch.bench_run --json-conv PATH [--json-attn PATH]
 
 Prints ``name,us_per_call,derived`` CSV.  ``--full`` runs the longer
 budgets.  ``--only`` takes the benches with a port: ``smd`` (Fig. 3, Tab.
 1), ``slu`` (Fig. 4), ``psg`` (Tab. 2), ``e2train`` (Tab. 3), ``cnn`` (Tab.
-4), ``convergence`` (Fig. 5), ``kernels``, ``throughput``, ``ft`` (the
-fault-injection record), ``audit`` (the static cost audit and the linters,
-``launch/bench_audit.py``) and ``roofline`` (the dry run's roofline table
-and the CNNs' analytic one, ``launch/bench_roofline.py``; it runs nothing
-on a device, so it needs no card); the JAX package's ``conv`` and ``attn``
-are not ported and are refused with exit code 2 and what they wait for.
+4), ``convergence`` (Fig. 5), ``kernels``, ``conv`` (the fused conv path
+against im2col: bytes and device time, ``launch/bench_conv.py``), ``attn``
+(the flash path against the materialized softmax, ``launch/bench_attn.py``),
+``throughput``, ``ft`` (the fault-injection record), ``audit`` (the static
+cost audit and the linters, ``launch/bench_audit.py``) and ``roofline``
+(the dry run's roofline table and the CNNs' analytic one,
+``launch/bench_roofline.py``; it runs nothing on a device, so it needs no
+card).  Every bench of the JAX package's ``benchmarks/run.py`` has a port.
 
 A bench that raises prints ``name,0.0,ERROR:<type>:<message>`` (its
 traceback on stderr); the driver carries on with the others and exits 1 at
@@ -31,8 +34,12 @@ PATH`` writes the chunked loop's throughput record
 (``bench_ft.ft_json``) and exits 1 when any scenario did not recover.
 ``--json-audit [PATH]`` (default ``BENCH_audit.json``) writes the static
 cost-audit record (``bench_audit.audit_json``) and exits 1 when an audit
-or a linter failed, 2 when a linter crashed.  Each writes only to the
-path it is given.
+or a linter failed, 2 when a linter crashed.  ``--json-conv PATH`` and
+``--json-attn PATH`` write the conv and attention records
+(``bench_conv.conv_json``, ``bench_attn.attn_json``) and exit 1 when a
+path's byte accounting is incomplete; they have no default path (the JAX
+package's ``BENCH_conv.json`` and ``BENCH_attn.json`` at the repo root are
+never written).  Each writes only to the path it is given.
 
 Runs on the card unless ``--device cpu`` is given; the kernels build at the
 first call that needs them, inside the first bench that runs them (build
@@ -55,10 +62,11 @@ from repro_torch.core.config import (E2TrainConfig, Experiment, PSGConfig,
 from repro_torch.core.device import resolve_device
 from repro_torch.core.ledger import EnergyLedger
 from repro_torch.data.synthetic import GaussianImageTask, make_image_batch
-from repro_torch.launch import (bench_audit, bench_cnn, bench_convergence,
-                                bench_e2train, bench_ft, bench_kernels,
-                                bench_psg, bench_roofline, bench_slu,
-                                bench_smd, bench_throughput)
+from repro_torch.launch import (bench_attn, bench_audit, bench_cnn,
+                                bench_conv, bench_convergence, bench_e2train,
+                                bench_ft, bench_kernels, bench_psg,
+                                bench_roofline, bench_slu, bench_smd,
+                                bench_throughput)
 from repro_torch.launch.train import _fp32_is_fp32
 from repro_torch.training.train_step import init_train_state
 from repro_torch.training.trainer import Trainer
@@ -71,6 +79,8 @@ BENCHES = {
     "cnn": bench_cnn.run,                   # Tab. 4
     "convergence": bench_convergence.run,   # Fig. 5
     "kernels": bench_kernels.run,
+    "conv": bench_conv.run,                 # implicit GEMM against im2col
+    "attn": bench_attn.run,                 # flash against the (S, T) path
     "throughput": bench_throughput.run,     # the chunked loop
     "ft": bench_ft.run,                     # fault-injection recovery
     "audit": bench_audit.run,               # the static cost audit, linters
@@ -78,10 +88,6 @@ BENCHES = {
 }
 # benches that run nothing on a device
 DEVICELESS = frozenset({"roofline"})
-# the JAX package's benches with no port yet, and what each waits for
-_BYTES = ("a decision on what the card's byte count counts (the CUDA "
-          "kernels' own tiles or the TPU kernels' BlockSpec model)")
-NOT_PORTED = {"conv": _BYTES, "attn": _BYTES}
 
 
 def table3_config_derived() -> list:
@@ -156,24 +162,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "against the counted ops and the lowered program, "
                          "and the linters) to PATH; exit 1 when it failed, "
                          "2 when a linter crashed (skips the CSV benches)")
+    ap.add_argument("--json-conv", default=None, metavar="PATH",
+                    help="write the fused-conv record (implicit GEMM against "
+                         "im2col: bytes per path and device time) to PATH; "
+                         "exit 1 when a path's accounting is incomplete "
+                         "(skips the CSV benches)")
+    ap.add_argument("--json-attn", default=None, metavar="PATH",
+                    help="write the flash-attention record (the PSG flash "
+                         "path against the materialized softmax: bytes per "
+                         "path and device time) to PATH; exit 1 when a "
+                         "path's accounting is incomplete (skips the CSV "
+                         "benches)")
     args = ap.parse_args(argv)
     fast = not args.full
     only = args.only.split(",") if args.only else list(BENCHES)
     for name in only:
-        if name in NOT_PORTED:
-            print(f"bench {name!r} is not ported: it waits for "
-                  f"{NOT_PORTED[name]}", file=sys.stderr)
-            return 2
         if name not in BENCHES:
             print(f"unknown bench {name!r}; expected one of "
                   f"{', '.join(BENCHES)}", file=sys.stderr)
             return 2
     records = args.json or args.json_throughput or args.json_ft or \
-        args.json_audit
+        args.json_audit or args.json_conv or args.json_attn
     dev = None if not records and set(only) <= DEVICELESS and \
         args.device is None else resolve_device(args.device)
 
-    if args.json or args.json_throughput or args.json_ft or args.json_audit:
+    if records:
         if args.json:
             _write(args.json, energy_json(fast, dev))
         if args.json_throughput:
@@ -195,6 +208,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             if record["all_passed"] is False:
                 print("static cost audit FAILED", file=sys.stderr)
                 return 1
+        for path, bench, make in (
+                (args.json_conv, bench_conv, bench_conv.conv_json),
+                (args.json_attn, bench_attn, bench_attn.attn_json)):
+            if not path:
+                continue
+            try:
+                record = make(fast, dev)
+            except bench.IncompleteAccountingError as e:
+                print(f"byte accounting incomplete: {e}", file=sys.stderr)
+                return 1
+            _write(path, record)
         return 0
 
     where = "no device" if dev is None else \

@@ -16,9 +16,10 @@
   keys, in order; the reference's rows come from its own bench code with
   its training stubbed (no PSG run of the JAX package, whose Pallas
   interpreter is slow).
-* The driver: unported benches exit 2, a bench that raises gives an
-  ``ERROR`` row and exit 1, the records go only where they are told;
-  ``--only audit`` runs the static cost audit and the linters.
+* ``bench_run``: a bench that raises gives an ``ERROR`` row and exit 1, the
+  records go only where they are told; ``--only audit`` runs the static
+  cost audit and the linters (``conv`` and ``attn``:
+  ``tests/test_torch_bench_bytes.py``).
 """
 import dataclasses
 import os
@@ -352,13 +353,6 @@ def test_throughput_rows_and_record_have_the_references_keys(monkeypatch):
 # ---------------------------------------------------------------------------
 # the driver
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("name", sorted(bench_run.NOT_PORTED))
-def test_driver_refuses_unported_benches(name, capsys):
-    assert bench_run.main(["--only", f"psg,{name}", "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert f"{name!r} is not ported: it waits for" in err
 
 
 def test_driver_runs_the_audit_bench_on_the_cpu(monkeypatch, capsys):

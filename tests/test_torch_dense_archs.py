@@ -600,12 +600,10 @@ def test_ft_record_recovers_every_fault_on_the_cpu(ft_record):
 
 def test_bench_run_ft_rows_and_refusals(ft_record, monkeypatch, capsys):
     """``--only ft`` prints the record's rows and exits 0 (the record of the
-    fixture's run, not a second one); ``conv`` is still refused."""
+    fixture's run, not a second one)."""
     monkeypatch.setattr(bench_ft, "ft_json", lambda *a, **kw: ft_record[1])
     assert bench_run.main(["--only", "ft", "--device", "cpu"]) == 0
     rows = capsys.readouterr().out.strip().splitlines()
     assert rows[0] == "name,us_per_call,derived"
     assert rows[-1] == "ft_all,0.0,all_recovered=True"
     assert "ft_kill_restart,0.0,recovered=True" in rows
-    for name in ("conv", "attn"):
-        assert bench_run.main(["--only", name, "--device", "cpu"]) == 2

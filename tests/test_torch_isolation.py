@@ -191,3 +191,34 @@ def test_dry_run_modules_stand_alone():
                           env={"PATH": "/usr/bin:/bin",
                                "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_bench_and_example_launchers_stand_alone():
+    """The conv and attention benches and the two example launchers are
+    among the files checked above, and running their byte models and
+    importing them pulls in neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+    for rel in ("launch/bench_conv.py", "launch/bench_attn.py",
+                "launch/finetune_split.py", "launch/quickstart.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+    code = ("import sys; from repro_torch.launch import bench_conv, "
+            "bench_attn, finetune_split, quickstart; "
+            "bench_conv._paper_totals(depth=8, batch=2); "
+            "bench_attn._paper_totals(); quickstart.table3(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]; "
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PATH": "/usr/bin:/bin",
+                               "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("mod", ["finetune_split", "quickstart"])
+def test_example_launchers_default_to_the_card(mod, no_card):
+    import importlib
+    launcher = importlib.import_module(f"repro_torch.launch.{mod}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launcher.main([])

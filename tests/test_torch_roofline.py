@@ -151,7 +151,7 @@ def test_cnn_rows_price_the_reference_flops_and_bytes(monkeypatch):
 
 def test_bench_run_roofline_rows(tmp_path, monkeypatch, capsys):
     """``--only roofline`` needs no card: one row a dry-run record, then
-    the three CNN rows; ``conv`` and ``attn`` are still refused."""
+    the three CNN rows."""
     (tmp_path / "dryrun_results.json").write_text(json.dumps(_records()))
     monkeypatch.setattr(bench_roofline, "ROOT", str(tmp_path))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -160,5 +160,3 @@ def test_bench_run_roofline_rows(tmp_path, monkeypatch, capsys):
     assert rows[0] == "name,us_per_call,derived"
     assert len(rows) == 1 + len(_records()) + 3
     assert [r.split(",")[0].split("/")[1] for r in rows[-3:]] == list(CNNS)
-    for name in ("conv", "attn"):
-        assert bench_run.main(["--only", name, "--device", "cpu"]) == 2
