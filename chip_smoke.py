@@ -257,7 +257,15 @@ Phases, each fatal on failure:
    activation codes turn BatchNorm's other summation order into code flips,
    and the PSG-off losses diverge at lr 0.1); the model-level first-step
    signs that differ (beside the reordered runs'), the later SLU decisions
-   and the collectives' share of one profiled step recorded; last, the
+   and the collectives' share of one profiled step recorded; the same
+   ranks then train qwen2.5-3b on sharded parameters (``lm_dist_run``:
+   full width, ``DIST_LM_LAYERS`` layers, flash, ``--e2train full`` with
+   ``int8_gather``, 2 x 4096, one row a rank, ``DIST_LM_EXECUTED``
+   executed steps) and once more with every parameter replicated, beside
+   one rank's run (``compare_lm_worlds``): per rank the bytes allocated
+   between steps against the shard reckoning (and the old whole-copy
+   placement's), a step's peak, the gathers' peak of whole bytes, their
+   wire bytes by dtype and kernels 5-9's launches; last, the
    launcher's ``--devices 2 --mesh-data 2`` (ResNet-20, batch 128) on the
    card killed at a step and resumed on one rank (``reshard_state``) to its
    last step, and on two ranks to the uninterrupted two-rank run's last
@@ -3783,6 +3791,16 @@ DIST_KILL_STEPS, DIST_KILL_AT = 12, 10
 DIST_KILL_DEPTH = 20    # the launcher's ResNet of the kill and restart
 COLLECTIVE_MARKS = ("gloo", "nccl", "all_reduce", "allreduce", "all_gather",
                     "allgather")
+# the two-rank LM on sharded parameters: qwen2.5-3b at full width, its
+# depth cut for the script's time, one row of 4096 tokens a rank
+DIST_LM_LAYERS, DIST_LM_EXECUTED = 2, 3
+# the caching allocator rounds a block up to 512 bytes, and leaves a block
+# of the large pool (above 1 MiB) unsplit where less than 1 MiB would
+# remain: a rank's bytes between steps may exceed the reckoning by that
+# much a state tensor
+ALLOC_ROUND, ALLOC_LARGE = 512, 1 << 20
+LM_KERNELS = ("predictor_matmul", "psg_grad_w", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkv")
 
 
 def reduce_path_check(torch) -> dict:
@@ -4030,6 +4048,125 @@ def _resnet_runs(torch, mods, mesh, rec, order=None) -> dict:
     return out
 
 
+def lm_dist_experiment():
+    """qwen2.5-3b at full width, ``DIST_LM_LAYERS`` deep, flash,
+    ``--e2train full`` with ``int8_gather``, ``remat="block"`` (the
+    experiment's), a global batch of 2 x 4096."""
+    import dataclasses
+
+    from repro_torch.launch.train import E2TRAIN, lm_experiment
+    e2 = E2TRAIN["full"]
+    e2 = dataclasses.replace(e2, psg=dataclasses.replace(e2.psg,
+                                                         int8_gather=True))
+    exp = lm_experiment(LM_ARCH, num_layers=DIST_LM_LAYERS, batch=LM_BATCH,
+                        seq=LM_SEQ, steps=nominal_steps(DIST_LM_EXECUTED),
+                        fused_attention=True, e2=e2)
+    if exp.train.remat != "block":
+        fail(f"the LM trains with remat {exp.train.remat!r}, not 'block'")
+    return exp
+
+
+def lm_state_reckoning(exp, world: int) -> dict:
+    """The bytes of one rank's state between steps, from the config alone
+    (a model on the ``meta`` device): its shards of the FSDP leaves and
+    its replicated leaves, of the parameters, moments and SWA average
+    (``sharded``); the old placement, every parameter whole and the rest
+    sharded (``whole_copy``); and the state's tensor count."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.training.train_step import train_state_for
+    model = TransformerLM(exp.model, exp.e2, device="meta")
+    st = train_state_for(exp, model)
+    named = dict(model.named_parameters())
+    mesh = sharding.AbstractMesh((world, 1), ("data", "model"))
+    dims = {k: sharding.shard_dim(sp) for k, sp in sharding.param_specs(
+        named, mesh, True, model.unit).items()}
+    size = lambda t: t.numel() * t.element_size()
+    part = lambda k, t: size(t) // (1 if dims[k] is None else world)
+    rest = [(n, t) for d in (st.opt, st.swa or {}) for v in d.values()
+            if isinstance(v, dict) for n, t in v.items()]
+    rest_b = sum(part(n, t) for n, t in rest)
+    parts = [part(k, t) for k, t in list(named.items()) + rest]
+    return {"sharded": sum(part(k, p) for k, p in named.items()) + rest_b,
+            "whole_copy": sum(size(p) for p in named.values()) + rest_b,
+            "tensors": len(parts),
+            "slack": sum(ALLOC_LARGE if b > ALLOC_LARGE else ALLOC_ROUND
+                         for b in parts),
+            "sharded_leaves": sum(d is not None for d in dims.values())}
+
+
+def allocated(torch) -> int:
+    """``memory_allocated()`` with cuBLAS's workspaces (which the caching
+    allocator holds from a stream's first matmul on, 64 MiB on the card)
+    given back first."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def lm_dist_run(torch, mods, mesh, fsdp=True) -> dict:
+    """The two-rank LM (:func:`lm_dist_experiment`) on ``mesh``, or the
+    same without one; with ``fsdp`` off, every parameter replicated (the
+    reference's ``fsdp=False``: nothing gathered, every gradient summed
+    after the backward): ``DIST_LM_EXECUTED`` executed steps, one at a
+    time; the bytes allocated between steps (above those before the
+    trainer was built, :func:`allocated`), each step's peak, the losses,
+    the launches of kernels 5-9 over the steps, and the gathers' record
+    (``distributed/fsdp.STATS``)."""
+    import gc
+
+    from repro_torch.distributed.fsdp import STATS, DataParallel
+    from repro_torch.ft.elastic import reshard_state
+    from repro_torch.launch.train import build_lm_trainer
+    exp = lm_dist_experiment()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = allocated(torch)
+    t0 = time.perf_counter()
+    tr = build_lm_trainer(LM_ARCH, num_layers=DIST_LM_LAYERS,
+                          batch=LM_BATCH, seq=LM_SEQ,
+                          steps=exp.train.total_steps, device="cuda",
+                          fused_attention=True, e2=exp.e2,
+                          mesh=mesh if fsdp else None)
+    if tr.exp != exp:
+        fail("the two-rank LM's trainer runs another experiment")
+    if mesh is not None and not fsdp:       # Trainer(mesh=)'s placement
+        tr.mesh = mesh
+        tr.state = reshard_state(tr.state, mesh, fsdp=False)
+        tr.dp = DataParallel(mesh, tr.state.model, fsdp=False)
+        tr.rank, tr.world = tr.dp.rank, tr.dp.world
+    between = [allocated(torch) - base]
+    peaks = []
+    reset_all(mods)
+    STATS.reset()
+    for _ in range(DIST_LM_EXECUTED):
+        torch.cuda.reset_peak_memory_stats()
+        tr.run(_to_next_kept(tr))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        between.append(allocated(torch) - base)
+    launches = {k: v for k, v in _launch_counts(mods).items()
+                if k in LM_KERNELS}
+    out = {"loss": [h["loss"] for h in tr.history],
+           "slu_executed": [h["slu_executed"] for h in tr.history],
+           "between_steps_bytes": between, "step_peak_bytes": peaks,
+           "launches": launches,
+           "gathers": STATS.gathers,
+           "whole_peak_bytes": STATS.peak,
+           "wire_bytes_received": dict(STATS.wire),
+           "wire_bytes_per_gather": {
+               k: v / max(STATS.gathers, 1) for k, v in STATS.wire.items()},
+           "reduced_fp32_bytes": STATS.reduced,
+           "ms_per_executed_step": 1e3 * sum(
+               h["wall_s"] for h in tr.history[1:])
+           / max(len(tr.history) - 1, 1),
+           "seconds": time.perf_counter() - t0}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_rank_main(argv) -> None:
     """One rank of the phase's two-rank world (this script run with
     ``DIST_RANK_FLAG RANK WORLD PORT OUT``): gloo on CUDA tensors on the
@@ -4054,6 +4191,9 @@ def dist_rank_main(argv) -> None:
     mesh = make_mesh((world, 1), ("data", "model"))
     from repro_torch.kernels import ops
     res = _resnet_runs(torch, (K, PM, FA, Q), mesh, _wgrad_recorder(ops, K))
+    res["lm"] = lm_dist_run(torch, (K, PM, FA, Q), mesh)
+    res["lm_replicated"] = lm_dist_run(torch, (K, PM, FA, Q), mesh,
+                                       fsdp=False)
     res["backend"] = dist.get_backend()
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -4184,6 +4324,69 @@ def _compare_worlds(torch, one, two, replay, reordered) -> dict:
     if len(wa) != len(wb):
         fail(f"two ranks: {len(wb)} convs in the first step, one rank "
              f"{len(wa)}")
+    return out
+
+
+def compare_lm_worlds(torch, one, two, replicated) -> dict:
+    """The two-rank LM on sharded parameters against the same steps on
+    one rank, and on two ranks with every parameter replicated.  Fail
+    unless the ranks' losses are equal, each rank's bytes between steps
+    are within the allocator's rounding of the shard reckoning
+    (``ALLOC_ROUND`` or ``ALLOC_LARGE`` a state tensor), each rank's
+    launches of kernels 5-9 are the one-rank run's (two layers, every
+    sub-block forced to run: the same units), the losses within
+    ``DIST_LOSS_REL`` of the replicated run's (sharding changes where the
+    weights live, not what is computed), and, step by step, within
+    ``DIST_LOSS_REL`` plus ``DIST_SPREAD_FACTOR`` times the spread of two
+    ranks from one, the replicated run's distance from the one-rank run's,
+    as phase 18's ResNet is held.  Two ranks round each rank's share of a
+    weight gradient that is not PSG's (the tied head's ``x^T g``, the
+    norms') to bf16 before the sum, where one rank rounds the whole sum
+    once; under ``psg`` at lr 0.03 a sign flipped by that moves a weight
+    by 0.06, and the LM's loss rises."""
+    exp = lm_dist_experiment()
+    rk = lm_state_reckoning(exp, 2)
+    slack = rk["slack"]
+    spread = _rels(replicated[0]["loss"], one["loss"])
+    out = {"reckoned_bytes": rk, "slack_bytes": slack,
+           "one_rank": {k: one[k] for k in (
+               "loss", "launches", "between_steps_bytes", "step_peak_bytes",
+               "ms_per_executed_step", "seconds")},
+           "replicated": {k: replicated[0][k] for k in (
+               "loss", "between_steps_bytes", "step_peak_bytes",
+               "reduced_fp32_bytes", "ms_per_executed_step", "seconds")},
+           "spread": spread,
+           "limit": [DIST_LOSS_REL + DIST_SPREAD_FACTOR * x for x in spread],
+           "loss_rel": _rels(two[0]["loss"], one["loss"]),
+           "loss_rel_replicated": _rels(two[0]["loss"],
+                                        replicated[0]["loss"])}
+    for r, res in enumerate(two):
+        out[f"rank{r}"] = {k: v for k, v in res.items()
+                           if k != "slu_executed"}
+    for runs, what in ((two, "sharded"), (replicated, "replicated")):
+        if runs[0]["loss"] != runs[1]["loss"]:
+            fail(f"two-rank LM ({what}): the ranks' losses differ: "
+                 f"{runs[0]['loss']} against {runs[1]['loss']}")
+    if max(out["loss_rel_replicated"]) > DIST_LOSS_REL:
+        fail(f"two-rank LM: sharded losses {two[0]['loss']} against the "
+             f"replicated run's {replicated[0]['loss']}")
+    for r, res in enumerate(two):
+        over = [b - rk["sharded"] for b in res["between_steps_bytes"]]
+        if max(over) > slack:
+            fail(f"two-rank LM, rank {r}: {res['between_steps_bytes']} "
+                 f"bytes between steps against {rk['sharded']} reckoned "
+                 f"(slack {slack})")
+        if res["launches"] != one["launches"]:
+            fail(f"two-rank LM, rank {r}: launches {res['launches']} "
+                 f"against one rank's {one['launches']}")
+        if not all(res["launches"][k] > 0 for k in LM_KERNELS):
+            fail(f"two-rank LM, rank {r}: a kernel of 5-9 was not "
+                 f"launched: {res['launches']}")
+    if len(two[0]["loss"]) != len(one["loss"]) or not all(
+            g <= x for g, x in zip(out["loss_rel"], out["limit"])):
+        fail(f"two-rank LM: losses {two[0]['loss']} against one rank's "
+             f"{one['loss']}: relative {out['loss_rel']} above "
+             f"{out['limit']}")
     return out
 
 
@@ -4353,6 +4556,13 @@ def distributed_check(torch, mods) -> dict:
     replay = _replay_ops(torch, [t["full"]["wgrad"] for t in two], rec)
     out["world2"] = {**_compare_worlds(torch, one, two[0], replay,
                                        reordered), **prof}
+    t0 = time.perf_counter()
+    out["lm_world2"] = compare_lm_worlds(
+        torch, lm_dist_run(torch, mods, None), [t["lm"] for t in two],
+        [t["lm_replicated"] for t in two])
+    out["lm_world2"]["one_rank_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "distributed_lm_world2",
+                      **out["lm_world2"]}), flush=True)
     t0 = time.perf_counter()
     out["kill_restart"] = kill_restart_check(torch)
     out["kill_restart"]["seconds"] = time.perf_counter() - t0

@@ -16,7 +16,10 @@ under ``fused_attention=True``) runs the flash kernels of
 between the predictor and the full code products, as values.  Each op goes
 through ``kernels/dispatch.py``, which may instead run the plain versions
 or the element-level oracles (``PSGConfig.backend``); the backend is
-resolved in the forward and kept for the backward.
+resolved in the forward and kept for the backward.  On a mesh that shards
+the parameters, with ``int8_gather``, a weight arrives as this rank's
+shard (``distributed/fsdp.gathered`` marks it): the op gathers the whole
+weight's int8 codes and returns the gradient of the shard.
 
 The backward also reports how often the full product was needed, through
 the gradient of a *probe*: a ``zeros(2)`` tensor that requires grad and is
@@ -36,8 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import PSGConfig
 from repro_torch.core.quant import codes, quantize
-from repro_torch.distributed import sharding
-from repro_torch.distributed.fsdp import int8_gather
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.conv import conv_out_hw, conv_patches
 
@@ -54,14 +56,27 @@ def probe_fallback_ratio(probe_grad: torch.Tensor) -> torch.Tensor:
     return probe_grad[0] / torch.clamp_min(probe_grad[1], 1.0)
 
 
-def _weight_codes(w: torch.Tensor, cfg: PSGConfig
+def _weight_codes(w: torch.Tensor, cfg: PSGConfig, shard
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The weight's 8-bit codes and scale; under a mesh with
-    ``int8_gather``, gathered as codes (``distributed/fsdp.int8_gather``),
+    """The whole weight's 8-bit codes and scale: of ``w``, or, where ``w``
+    is this rank's ``shard = (dim, placement)`` of it (``int8_gather`` on
+    a sharded mesh), gathered as codes (``distributed/fsdp.int8_gather``),
     the same codes."""
-    if cfg.int8_gather and sharding.data_group() is not None:
-        return int8_gather(w, cfg.bits_x)
+    if shard is not None:
+        return fsdp.int8_gather(w, *shard, cfg.bits_x)
     return codes(w, cfg.bits_x)
+
+
+def _shard_grad(sign: torch.Tensor, shard, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """The weight gradient of ``w`` from the whole weight's sign: the sign
+    itself, or, for a shard (:func:`_weight_codes`), the data axis's sum
+    of the sign, which every rank computed alike (its sums are global), on
+    this rank's shard: ``world`` times the shard of the sign."""
+    if shard is None:
+        return sign.to(dtype)
+    dim, plc = shard
+    return (plc.narrow(sign, dim) * plc.world).to(dtype)
 
 
 class PSGConv2d(torch.autograd.Function):
@@ -71,23 +86,25 @@ class PSGConv2d(torch.autograd.Function):
     are those of the JAX package)."""
 
     @staticmethod
-    def forward(ctx, xp, w, probe, k: int, stride: int, cfg: PSGConfig):
+    def forward(ctx, xp, w, probe, k: int, stride: int, cfg: PSGConfig,
+                shard=None):
         cfg = dispatch.pinned(cfg)
         ctx.k, ctx.stride, ctx.cfg = k, stride, cfg
+        ctx.shard, ctx.w_dtype = shard, w.dtype
         # codes and scales of the 8-bit grid: the same grid as quantize, bit
         # for bit, handed to the kernel as int8 codes; the weight's serve
         # the input gradient too
         xc, sx = codes(xp, cfg.bits_x, sharding.global_amax(xp))
-        wc, sw = _weight_codes(w, cfg)
-        ctx.save_for_backward(xp, w, wc, sw)
+        wc, sw = _weight_codes(w, cfg, shard)
+        ctx.save_for_backward(xp, wc, sw)
         return dispatch.conv_fwd(xc, sx, wc, sw, cfg, k=k, stride=stride)
 
     @staticmethod
     def backward(ctx, gy):
-        xp, w, wc, sw = ctx.saved_tensors
+        xp, wc, sw = ctx.saved_tensors
         k, stride, cfg = ctx.k, ctx.stride, ctx.cfg
         B, Hp, Wp, C = xp.shape
-        dout = w.shape[-1]
+        dout = wc.shape[-1]
         ho, wo = gy.shape[1], gy.shape[2]
         dxp = None
         if ctx.needs_input_grad[0]:
@@ -105,33 +122,42 @@ class PSGConv2d(torch.autograd.Function):
                           dtype=torch.float32,
                           device=gy.device) * (k * k * C) * dout
         dprobe = torch.stack([fallback * macs, macs])
-        return dxp, sign.to(w.dtype), dprobe, None, None, None
+        return (dxp, _shard_grad(sign, ctx.shard, ctx.w_dtype), dprobe, None,
+                None, None, None)
 
 
 class PSGMatmul(torch.autograd.Function):
     """``(N, din) @ (din, dout)`` with PSG semantics (the JAX package's
     ``_psg_matmul``): forward ``quantize(x) @ quantize(w)`` on the 8-bit
     grid in ``x.dtype``; backward ``dx = quantize(gy, 16) @ wq^T``, ``dw``
-    the kernels' sign, and the probe's ``[fallback * macs, macs]``."""
+    the kernels' sign, and the probe's ``[fallback * macs, macs]``.  Where
+    ``w`` is this rank's ``shard`` of the weight (``int8_gather`` on a
+    sharded mesh), ``wq`` is the whole weight's gathered codes times their
+    scale, the same values; the codes are saved, so a checkpointed
+    sub-block's recompute gathers them again for the backward."""
 
     @staticmethod
-    def forward(ctx, x2, w, probe, cfg: PSGConfig):
-        ctx.save_for_backward(x2, w)
+    def forward(ctx, x2, w, probe, cfg: PSGConfig, shard=None):
         ctx.cfg = dispatch.pinned(cfg)
+        ctx.shard, ctx.w_dtype = shard, w.dtype
         xq = quantize(x2, cfg.bits_x, sharding.global_amax(x2))
-        if cfg.int8_gather and sharding.data_group() is not None:
-            wc, sw = int8_gather(w, cfg.bits_x)
-            return xq @ (wc.float() * sw).to(w.dtype).to(xq.dtype)
-        return xq @ quantize(w, cfg.bits_x).to(xq.dtype)
+        if shard is None:
+            ctx.save_for_backward(x2, w)
+            return xq @ quantize(w, cfg.bits_x).to(xq.dtype)
+        wc, sw = _weight_codes(w, cfg, shard)
+        ctx.save_for_backward(x2, wc, sw)
+        return xq @ (wc.float() * sw).to(w.dtype).to(xq.dtype)
 
     @staticmethod
     def backward(ctx, gy):
-        x2, w = ctx.saved_tensors
         cfg = ctx.cfg
+        x2, *w = ctx.saved_tensors
         dx = None
         if ctx.needs_input_grad[0]:
+            wq = quantize(w[0], cfg.bits_x) if ctx.shard is None else \
+                (w[0].float() * w[1]).to(ctx.w_dtype)
             gq = quantize(gy, cfg.bits_g, sharding.global_amax(gy))
-            dx = (gq @ quantize(w, cfg.bits_x).T.to(gq.dtype)).to(x2.dtype)
+            dx = (gq @ wq.T.to(gq.dtype)).to(x2.dtype)
         sign, fallback = dispatch.psg_grad_w(x2, gy, cfg)
         # fp32 like the JAX package: float32(N) * din * dout, N the global
         # batch's tokens
@@ -139,7 +165,8 @@ class PSGMatmul(torch.autograd.Function):
                           dtype=torch.float32,
                           device=gy.device) * x2.shape[1] * gy.shape[1]
         dprobe = torch.stack([fallback * macs, macs])
-        return dx, sign.to(w.dtype), dprobe, None
+        return dx, _shard_grad(sign, ctx.shard, ctx.w_dtype), dprobe, None, \
+            None
 
 
 class PSGAttention(torch.autograd.Function):
@@ -186,20 +213,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return PSGAttention.apply(q, k, v, _current_probe(q.device), causal, cfg)
 
 
-def psg_matmul(x2: torch.Tensor, w: torch.Tensor, cfg: PSGConfig
-               ) -> torch.Tensor:
-    """:class:`PSGMatmul` with the active probe threaded in."""
-    return PSGMatmul.apply(x2, w, _current_probe(x2.device), cfg)
+def psg_matmul(x2: torch.Tensor, w: torch.Tensor, cfg: PSGConfig,
+               shard=None) -> torch.Tensor:
+    """:class:`PSGMatmul` with the active probe threaded in; ``shard``
+    ``(dim, placement)`` where ``w`` is this rank's shard of the weight
+    (``distributed/fsdp.shard_of``)."""
+    return PSGMatmul.apply(x2, w, _current_probe(x2.device), cfg, shard)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (..., din) @ w (din, dout)``, through PSG when a config is
-    active."""
+    active (``w`` may be a marked shard, ``distributed/fsdp.gathered``)."""
     cfg = active_config()
     if cfg is None:
         return x @ w.to(x.dtype)
-    y2 = psg_matmul(x.reshape(-1, x.shape[-1]), w, cfg)
-    return y2.reshape(*x.shape[:-1], w.shape[-1])
+    y2 = psg_matmul(x.reshape(-1, x.shape[-1]), w, cfg, fsdp.shard_of(w))
+    return y2.reshape(*x.shape[:-1], y2.shape[-1])
+
+
+# where a shard's dimension lands in the 2-D weight each pattern multiplies
+# by: the leading axis of a merged pair is whole blocks of its rows or
+# columns, a trailing one is not (an expert pattern's per-expert weight)
+_SHARD_DIM_2D = {"bsd,dnh->bsnh": {0: 0, 1: 1}, "btd,dnh->btnh": {0: 0, 1: 1},
+                 "bsnh,nhd->bsd": {0: 0, 2: 1},
+                 "ecd,edf->ecf": {1: 0, 2: 1}, "ecf,efd->ecd": {1: 0, 2: 1},
+                 "gecd,edf->gecf": {1: 0, 2: 1},
+                 "gecf,efd->gecd": {1: 0, 2: 1}}
+
+
+def _shard_2d(pattern: str, shard):
+    if shard is None:
+        return None
+    dim, plc = shard
+    if dim not in _SHARD_DIM_2D[pattern]:
+        raise NotImplementedError(f"psg.einsum {pattern!r} on a shard of "
+                                  f"dimension {dim}")
+    return _SHARD_DIM_2D[pattern][dim], plc
 
 
 EINSUM_PATTERNS = ("bsd,dnh->bsnh", "btd,dnh->btnh", "bsnh,nhd->bsd",
@@ -223,24 +272,27 @@ def einsum(pattern: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     cfg = active_config()
     if cfg is None:
         return torch.einsum(pattern, x, w.to(x.dtype))
+    # a marked shard (distributed/fsdp.gathered): the whole weight's
+    # dimensions come from x, the sharded one from the product
+    shard = _shard_2d(pattern, fsdp.shard_of(w))
     if pattern in ("bsd,dnh->bsnh", "btd,dnh->btnh"):
         B, S, d = x.shape
-        _, n, h = w.shape
-        return psg_matmul(x.reshape(B * S, d), w.reshape(d, n * h),
-                          cfg).reshape(B, S, n, h)
+        h = w.shape[-1]
+        return psg_matmul(x.reshape(B * S, d), w.reshape(w.shape[0], -1),
+                          cfg, shard).reshape(B, S, -1, h)
     if pattern == "bsnh,nhd->bsd":
         B, S, n, h = x.shape
-        d = w.shape[-1]
-        return psg_matmul(x.reshape(B * S, n * h), w.reshape(n * h, d),
-                          cfg).reshape(B, S, d)
+        return psg_matmul(x.reshape(B * S, n * h), w.reshape(n * h, -1),
+                          cfg, shard).reshape(B, S, -1)
     # unbind, not indexing: its backward stacks the experts' gradients once,
     # where each index's would fill and add a whole-stack gradient
     ws = w.to(x.dtype).unbind(0)
     if pattern in ("ecd,edf->ecf", "ecf,efd->ecd"):
-        return torch.stack([psg_matmul(xe, we, cfg)
+        return torch.stack([psg_matmul(xe, we, cfg, shard)
                             for xe, we in zip(x.unbind(0), ws)])
     G, E, C, din = x.shape      # each expert's rows in (g, c) order
-    ys = [psg_matmul(xe.reshape(G * C, din), we, cfg).reshape(G, C, -1)
+    ys = [psg_matmul(xe.reshape(G * C, din), we, cfg,
+                     shard).reshape(G, C, -1)
           for xe, we in zip(x.unbind(1), ws)]
     return torch.stack(ys).transpose(0, 1)
 
@@ -282,7 +334,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, k: int = 3,
         ho, wo = conv_out_hw(xp.shape[1], xp.shape[2], k, stride)
         y = matmul(conv_patches(xp, k, stride), w)
         return y.reshape(xp.shape[0], ho, wo, -1)
-    return PSGConv2d.apply(xp, w, _current_probe(xp.device), k, stride, cfg)
+    return PSGConv2d.apply(xp, w, _current_probe(xp.device), k, stride, cfg,
+                           fsdp.shard_of(w))
 
 
 # ---------------------------------------------------------------------------

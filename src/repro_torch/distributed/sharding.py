@@ -231,10 +231,14 @@ def shard_dim(spec: Spec, axis: str = "data") -> Optional[int]:
 
 def param_shardings(model, mesh, fsdp: bool = True, unit=None
                     ) -> Dict[str, Tuple[Any, ...]]:
-    """``{name: placements}`` of a module's parameters (or of a dict of
-    named tensors)."""
-    named = dict(model.named_parameters()) if hasattr(
-        model, "named_parameters") else model
+    """``{name: placements}`` of a module's parameters, by their whole
+    shapes also where the module holds shards (``fsdp.whole_shapes``), or
+    of a dict of named tensors."""
+    if hasattr(model, "named_parameters"):
+        from repro_torch.distributed.fsdp import whole_shapes
+        named = whole_shapes(model)
+    else:
+        named = model
     unit = unit or getattr(model, "unit", None)
     return {k: placements(s, mesh)
             for k, s in param_specs(named, mesh, fsdp, unit).items()}

@@ -4,8 +4,9 @@ JAX package's ``ft/elastic.py``).
 Checkpoints hold full logical arrays (``ft/checkpoint.py``) and shardings
 are derived from the rule table (``distributed/sharding.py``), never
 stored, so resharding is placing a full state by the new mesh's
-``state_shardings``: this rank keeps its shard of each FSDP-sharded leaf
-of the optimizer and SWA state (``distributed/fsdp.DataParallel.place``).
+``state_shardings``: this rank keeps its shard of each FSDP-sharded
+parameter, of its moments and of its SWA average
+(``distributed/fsdp.DataParallel.place``).
 The divisibility fallback guarantees a placement for any mesh, and the
 counter-based data path keys on ``(seed, step, shard)``, so a restart on a
 different world replays the global batches of the uninterrupted run.

@@ -35,6 +35,16 @@ package checkpoints whole units; here the ffn's decision depends on the
 mixer's output, so the checkpoint is per sub-block.  ``remat="full"``
 checkpoints nothing, as in the JAX package's ``lm_fwd``.
 
+On a data-parallel mesh whose placement shards parameters
+(``distributed/fsdp.py``), each sub-block (and each encoder layer and
+cross-attention) makes its weights whole when it starts and drops them when
+it ends (``fsdp.gathered``), and the tied embedding and head are gathered
+at each use (``fsdp.whole``).  The gather sits inside the checkpointed
+region, and every gathering region is checkpointed whatever ``remat`` says
+(while grad is on), so no whole weight waits in autograd's saved tensors
+for the backward: the recompute gathers again.  A skipped sub-block
+gathers nothing, on every rank alike.
+
 Attention takes the JAX package's paths (``layers.attention_fwd``), with
 sliding-window masks; it prefers the query-chunked softmax from 1024
 tokens unless the model trains with every block ``attn`` or ``moe``, as
@@ -79,7 +89,7 @@ from repro_torch.core.cost import cost_scope
 from repro_torch.core.energy import block_fwd_flops
 from repro_torch.core.slu import Gate, flops_regularizer, gated_residual, \
     lm_uniforms
-from repro_torch.distributed import sharding
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm
@@ -171,8 +181,8 @@ class TransformerLM(nn.Module):
         ``enc_norm``."""
         x = embeds
         for blk in self.encoder:
-            fn = _in_context(lambda h, blk=blk: _encoder_layer(blk, h,
-                                                               self.cfg))
+            fn = _in_context(_gathered(
+                lambda h, blk=blk: _encoder_layer(blk, h, self.cfg), (blk,)))
             x = _checkpointed(fn)(x) if torch.is_grad_enabled() else fn(x)
         return self.enc_norm(x)
 
@@ -204,7 +214,7 @@ class TransformerLM(nn.Module):
         dt = getattr(torch, cfg.dtype)
         # the audit's groups (core/cost.cost_scope): embed, unit, head
         with cost_scope("embed"):
-            x = sharding.embed(self.embed, tokens, dt)
+            x = sharding.embed(fsdp.whole(self, "embed"), tokens, dt)
         memory = None
         if cfg.encoder_layers:
             if frontend is None:
@@ -217,6 +227,9 @@ class TransformerLM(nn.Module):
         n = cfg.num_layers
         gate = self.slu_gate if self.training else None
         remat = remat if self.training else "none"
+        # a sharded model checkpoints every gathering region (module doc)
+        ckpt = remat == "block" or (fsdp.is_sharded(self)
+                                    and torch.is_grad_enabled())
         # the reference's sequence parallelism (sp) keeps training off the
         # query-chunked softmax, and holds only for attn/moe units.  On
         # DTensors the stream is pinned batch-sharded between units (its
@@ -242,7 +255,7 @@ class TransformerLM(nn.Module):
                 subs = _sub_block_fns(self, blk, prefer_chunked)
                 for j, (fn, mods) in enumerate(subs):
                     has_aux = blk.kind == BLOCK_MOE and j == 1
-                    if remat == "block":
+                    if ckpt:
                         fn = _checkpointed(fn)
                     if gate is None or blk.kind == BLOCK_SHARED_ATTN:
                         y = fn(x)
@@ -264,8 +277,7 @@ class TransformerLM(nn.Module):
                     exs.append(ex)
                 if memory is not None and blk.kind == BLOCK_ATTN:
                     cross = _cross(self.cross[i], memory, cfg)
-                    x = x + (_checkpointed(cross) if remat == "block"
-                             else cross)(x)
+                    x = x + (_checkpointed(cross) if ckpt else cross)(x)
         with cost_scope("head"):
             logits = self.logits(x)
         kps_t = torch.stack(kps)
@@ -289,7 +301,8 @@ class TransformerLM(nn.Module):
         # the stream batch-sharded and the logits vocab-sharded (on
         # DTensors): the head's gradient stays a (d, V / model) shard
         x = sharding.hint(self.final_norm(x), "batch", None, None)
-        head = self.embed.T if self.head is None else self.head
+        head = fsdp.whole(self, "embed").T if self.head is None \
+            else fsdp.whole(self, "head")
         logits = sharding.hint((x @ head.to(x.dtype)).float(),
                                "batch", None, "vocab")
         if cfg.padded_vocab != cfg.vocab_size:
@@ -309,6 +322,21 @@ def _in_context(body):
         if not ctx:
             ctx.append(psg.snapshot())
         with psg.enable(*ctx[0]):
+            return body(h)
+    return fn
+
+
+def _gathered(body, modules, psg_weights: bool = True):
+    """``body`` with the sharded weights of ``modules`` whole
+    (``distributed/fsdp.gathered``); with ``psg_weights`` (every sharded
+    weight of the modules feeds a PSG matmul) and the active config's
+    ``int8_gather``, they stay shards in the activation dtype, whose int8
+    codes the PSG ops gather.  Wrap it in :func:`_in_context`, so that a
+    recompute sees the config of the first call."""
+    def fn(h):
+        cfg = psg.active_config()
+        int8 = psg_weights and cfg is not None and cfg.int8_gather
+        with fsdp.gathered(modules, h.dtype if int8 else None):
             return body(h)
     return fn
 
@@ -333,30 +361,38 @@ def unit_flops(cfg: ModelConfig, S: int, device=None) -> torch.Tensor:
 
 def _sub_block_fns(model: TransformerLM, blk: Block, prefer_chunked: bool):
     """``(fn, modules)`` of each residual sub-block of ``blk`` in order:
-    ``fn(h)`` the branch added to the stream (under the PSG context of its
-    first call), ``modules`` the ones holding the parameters it reads."""
+    ``fn(h)`` the branch added to the stream (its weights gathered where
+    they are sharded, under the PSG context of its first call), ``modules``
+    the ones holding the parameters it reads."""
     cfg = model.cfg
+
+    def sub(body, *mods, psg_weights=True):
+        return _in_context(_gathered(body, mods, psg_weights)), mods
+
     if blk.kind == BLOCK_SHARED_ATTN:
         sh = model.shared
-        return ((_in_context(lambda h: L.attention_fwd(
-            sh.attn, sh.ln(h), cfg, prefer_chunked)), (sh.ln, sh.attn)),)
-    if blk.kind in ssm.MIXERS:
+        return (sub(lambda h: L.attention_fwd(sh.attn, sh.ln(h), cfg,
+                                              prefer_chunked),
+                    sh.ln, sh.attn),)
+    if blk.kind in ssm.MIXERS:                  # plain products: no PSG
         mixer = getattr(blk, blk.kind)
-        return ((lambda h: ssm.mixer_fwd(blk.kind, mixer, blk.ln1(h), cfg),
-                 (blk.ln1, mixer)),)
-    mixer = _in_context(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg,
-                                                  prefer_chunked))
+        return (sub(lambda h: ssm.mixer_fwd(blk.kind, mixer, blk.ln1(h),
+                                            cfg),
+                    blk.ln1, mixer, psg_weights=False),)
+    mixer = sub(lambda h: L.attention_fwd(blk.attn, blk.ln1(h), cfg,
+                                          prefer_chunked), blk.ln1, blk.attn)
     if blk.kind == BLOCK_MOE:
-        return ((mixer, (blk.ln1, blk.attn)),
-                (_in_context(lambda h: M.moe_fwd(blk.moe, blk.ln2(h), cfg)),
-                 (blk.ln2, blk.moe)))
-    return ((mixer, (blk.ln1, blk.attn)),
-            (_in_context(lambda h: L.mlp_fwd(blk.mlp, blk.ln2(h), cfg)),
-             (blk.ln2, blk.mlp)))
+        return (mixer, sub(lambda h: M.moe_fwd(blk.moe, blk.ln2(h), cfg),
+                           blk.ln2, blk.moe))
+    return (mixer, sub(lambda h: L.mlp_fwd(blk.mlp, blk.ln2(h), cfg),
+                       blk.ln2, blk.mlp))
 
 
 def _cross(cb: NormAttention, memory: torch.Tensor, cfg: ModelConfig):
-    return lambda h: L.cross_attention_fwd(cb.attn, cb.ln(h), memory, cfg)
+    # the cross-attention's products are plain, also under PSG
+    return _gathered(lambda h: L.cross_attention_fwd(cb.attn, cb.ln(h),
+                                                     memory, cfg), (cb,),
+                     psg_weights=False)
 
 
 def _checkpointed(fn):

@@ -82,8 +82,10 @@ def evaluate(trainer, recalibrate_batches: Optional[
     """Held-out accuracy of ``trainer``'s evaluation weights with its
     BatchNorm statistics, or with statistics recalibrated over
     ``recalibrate_batches`` (training batches) on a copy of the model.
-    Under a mesh every rank calls it (it gathers the SWA average)."""
-    model = eval_params(trainer.full_state(), trainer.exp)
+    Under a mesh every rank calls it, on the whole held-out batches: a
+    sharded model gathers its weights as the training forward does
+    (``distributed/fsdp.py``), the SWA average's shards too."""
+    model = eval_params(trainer.state, trainer.exp)
     if recalibrate_batches is not None:
         if model is trainer.state.model:
             model = copy.deepcopy(model)

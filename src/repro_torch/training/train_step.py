@@ -24,10 +24,14 @@ chunked loop drives apart), the counterpart of the JAX package's
   of the global batch; the loss, the metrics and every coupling of rows
   are the global batch's (``distributed/sharding``'s collectives), each
   rank differentiates its share of the loss (the global loss over the
-  world size), the gradients are summed across ranks (a PSG weight's sign,
-  global and equal on every rank already, comes out of the sum and the
-  re-sign unchanged), and the optimizer and SWA update each rank's shard,
-  which one gather makes whole;
+  world size) with respect to its parameters, shards of the sharded ones:
+  their gradients come out of the backward summed over the data axis
+  (each sub-block's as its backward ends, ``distributed/fsdp.py``; a
+  microbatch's before the next), the replicated leaves' are summed after
+  it (a PSG weight's sign, global and equal on every rank already, comes
+  out of the sum and the re-sign unchanged), the clip's norm is the
+  global gradient's, and the optimizer and SWA update each rank's shards
+  in place, with no gather after;
 * the optimizer updates the parameters in place, then SWA averages them;
   the learning rate, AdamW's bias corrections and SWA's weight are
   float32 scalars computed on the host and handed to the device as a
@@ -64,8 +68,9 @@ class TrainState:
     opt: Dict[str, torch.Tensor]
     swa: Optional[Dict[str, Any]]
     step: int = 0
-    # the mesh the optimizer and SWA state are placed on (ft/elastic.py:
-    # this rank's shards of the FSDP leaves), None for the full state
+    # the mesh the state is placed on (ft/elastic.py: this rank's shards
+    # of the FSDP leaves' parameters, moments and SWA average), None for
+    # the full state
     mesh: Optional[Any] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
@@ -227,18 +232,15 @@ class TrainStep:
             grads = majority_vote_tree(grads)
         gn = torch.zeros((), device=device)
         if tc.grad_clip > 0 and self.psg_cfg is None:
-            gn = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                for g in grads.values()))
+            gn = self.dp.grad_norm(grads) if self.dp is not None else \
+                torch.sqrt(sum(torch.sum(g.float() ** 2)
+                               for g in grads.values()))
             scale = torch.clamp_max(tc.grad_clip / (gn + 1e-9), 1.0)
             grads = {k: g * scale for k, g in grads.items()}
         param_d = dict(zip(names, params))
-        if self.dp is not None:
-            self.dp.update(self.opt, param_d, grads, state.opt,
-                           list(scal[1:]), state.swa, scal[0])
-        else:
-            self.opt.update(param_d, grads, state.opt, list(scal[1:]))
-            if state.swa is not None:
-                swa_average(state.swa, param_d, scal[0])
+        self.opt.update(param_d, grads, state.opt, list(scal[1:]))
+        if state.swa is not None:
+            swa_average(state.swa, param_d, scal[0])
         metrics["total_loss"] = loss
         metrics["grad_norm"] = gn
         if probe_g is not None:

@@ -35,13 +35,18 @@ telemetry, in the JAX package's two modes (its ``training/trainer.py``):
 
 With ``mesh=`` (a ``DeviceMesh`` of ``launch/mesh.make_mesh``, one rank a
 process), as in the JAX package: the state is placed by
-``state_shardings`` (``ft/elastic.reshard_state``: each rank keeps its
-shard of the FSDP leaves' optimizer and SWA state), every rank draws the
-*global* batch, ``make_batch(step, 0)``, and keeps its rows of it
-(``sharding.rank_rows``, in the JAX package's microbatch order), and the
-run goes through the chunked loop inside ``activation_sharding``, where the
-step computes the global batch's loss and gradients
-(``training/train_step.py``).  Where the data axis has more than one rank
+``state_shardings`` (``ft/elastic.reshard_state``): between steps each rank
+holds only its shard of every FSDP leaf, parameters, moments and SWA
+average alike, and the LM makes each sub-block's weights whole while it
+runs (``distributed/fsdp.py``; a CNN's parameters are all replicated).
+Every rank draws the *global* batch, ``make_batch(step, 0)``, and keeps
+its rows of it (``sharding.rank_rows``, in the JAX package's microbatch
+order), and the run goes through the chunked loop inside
+``activation_sharding``, where the step computes the global batch's loss
+and each rank's shards of its gradients (``training/train_step.py``).
+Evaluation on the mesh (``training/evaluate.py``) runs every rank on the
+whole held-out batches, gathering as the forward does.  Where the data
+axis has more than one rank
 and its group is gloo's, a chunk's steps run eagerly (gloo's collectives
 cannot be captured in a CUDA graph); with one rank the step is the
 non-mesh one, bit for bit.  The straggler deadline reads the chunk-mean
